@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng, vecmath as vm
+from ..device import resolve
 
 
 class CameraParams(NamedTuple):
@@ -36,9 +37,11 @@ VFOV_DEG = 65.0
 
 def make_camera(lookfrom=LOOKFROM, lookat=LOOKAT, vup=VUP,
                 vfov_deg=VFOV_DEG, aspect: float = 1.0,
-                device="cpu") -> CameraParams:
+                device="cuda") -> CameraParams:
     """Camera constructor math in float32. It runs on the CPU whatever the
-    target device, so every device renders from the same camera floats."""
+    target device, so every device renders from the same camera floats.
+    The camera lands on ``device``, the card by default."""
+    device = resolve(device)
     f32 = torch.float32
     lookfrom = torch.tensor(lookfrom, dtype=f32)
     lookat = torch.tensor(lookat, dtype=f32)

@@ -1,8 +1,8 @@
-"""CLI: ``python -m small_pathtracer_tpu_torch.cli render|bench``.
+"""CLI: ``python -m small_pathtracer_tpu_torch.cli render|bench|fit``.
 
 ``--device`` defaults to ``cuda``, where the render runs through the CUDA
-kernel, and raises when CUDA is absent. ``--device cpu`` runs the eager
-wavefront.
+kernels, and raises when CUDA is absent. ``--device cpu`` runs the eager
+wavefront and, for ``fit``, torch.autograd through it.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -19,7 +20,10 @@ import torch
 from ..config import ESTIMATORS, RenderConfig
 from ..camera.pinhole import make_camera
 from ..core import film
+from ..device import resolve
 from ..integrator.wavefront import render
+from ..ops.megakernel import render_megakernel
+from ..ops.megakernel_grad import FIELDS, fit_megakernel
 from ..scene.presets import get_scene
 
 
@@ -34,18 +38,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    help="torch device: cuda (the kernel) or cpu (eager)")
 
 
-def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: CUDA is not available (use --device cpu for "
-            "the eager path)"
-        )
-    return device
-
-
 def _build(args):
-    device = _device(args.device)
+    device = resolve(args.device)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        estimator=args.estimator, seed=args.seed)
     scene = get_scene(args.scene, device=device)
@@ -116,6 +110,58 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _fit_result(loss: float, steps: int) -> dict:
+    """Strict-JSON fit summary (the JAX CLI's, which also reports a resumed
+    checkpoint as ``already_complete``): ``final_loss`` is None, with
+    ``diverged`` set, when the last step's loss is NaN."""
+    if loss != loss:
+        return {"steps": steps, "final_loss": None, "diverged": True}
+    return {"steps": steps, "final_loss": loss}
+
+
+def cmd_fit(args) -> int:
+    """Inverse rendering on the kernels: SGD on the albedo and emission
+    tables (the JAX CLI's ``fit --pallas``). Without ``--target`` the target
+    is the scene rendered with emission x1.5 at seed + 1."""
+    if args.steps < 1:
+        raise SystemExit("--steps must be >= 1")
+    fields = tuple(args.train.split(","))
+    bad = [f for f in fields if f not in FIELDS]
+    if bad or args.optimizer != "sgd":
+        raise SystemExit(
+            "fit supports --optimizer sgd on albedo/emission only (got "
+            f"optimizer={args.optimizer}, fields={fields})"
+        )
+    scene, cam, cfg = _build(args)
+    if args.target:
+        target = torch.as_tensor(
+            film.srgb_from_u8(film.read_ppm(args.target)),
+            dtype=torch.float32, device=scene.device,
+        )
+        if tuple(target.shape) != (cfg.height, cfg.width, 3):
+            raise SystemExit(
+                f"--target is {tuple(target.shape[:2])} pixels, the render "
+                f"{(cfg.height, cfg.width)}"
+            )
+    else:
+        bright = scene._replace(rects=scene.rects._replace(
+            emission=scene.rects.emission * 1.5))
+        img_sum, _ = render_megakernel(bright, cam, cfg, cfg.seed + 1)
+        target = img_sum / cfg.spp
+    fitted, losses = fit_megakernel(
+        scene, cam, cfg, target, steps=args.steps, lr=args.lr,
+        train_fields=fields, seed=cfg.seed, log=sys.stderr,
+    )
+    out = _fit_result(losses[-1], args.steps)
+    light = scene.light.light_obj_id
+    out["light_emission"] = [
+        v if math.isfinite(v) else None
+        for v in fitted.rects.emission[light].tolist()
+    ]
+    print(json.dumps(out, allow_nan=False))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="small_pathtracer_tpu_torch",
@@ -129,5 +175,17 @@ def main(argv=None) -> int:
     p_bench = sub.add_parser("bench", help="measure Mrays/s on the card")
     _add_render_args(p_bench)
     p_bench.set_defaults(fn=cmd_bench)
+    p_fit = sub.add_parser(
+        "fit", help="inverse rendering: SGD on albedo/emission")
+    _add_render_args(p_fit)
+    p_fit.add_argument("--target", default="", help="target PPM image")
+    p_fit.add_argument("--steps", type=int, default=20)
+    p_fit.add_argument("--lr", type=float, default=1.0)
+    p_fit.add_argument("--train", default="emission,albedo",
+                       help="comma-separated fields to train: "
+                            "albedo, emission")
+    p_fit.add_argument("--optimizer", default="sgd",
+                       help="sgd (the only one the kernel path takes)")
+    p_fit.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,4 +1,5 @@
-"""Convert the JAX package's scene and camera containers into the port's.
+"""Convert the JAX package's scene, camera and material tables into the
+port's.
 
 Reads the leaves by duck typing (``np.asarray(getattr(...))``) and imports
 no JAX, so the tests can feed both packages one scene.
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from .camera.pinhole import CameraParams
+from .device import resolve
 from .scene.types import LightSampler, Rects, Scene
 
 
@@ -22,9 +24,10 @@ def _count(block, name) -> int:
     return int(np.asarray(getattr(block, name)).shape[0])
 
 
-def scene_from_jax(scene, device="cpu") -> Scene:
+def scene_from_jax(scene, device="cuda") -> Scene:
     """The port's Scene from a JAX ``Scene``; raises for anything outside
     this slice (quads, spheres, a sphere light, a light list)."""
+    device = resolve(device)
     if _count(scene.quads, "corner") or _count(scene.spheres, "radius"):
         raise NotImplementedError(
             "quads and spheres are not ported yet (ROADMAP.md queue 1, "
@@ -60,9 +63,24 @@ def scene_from_jax(scene, device="cpu") -> Scene:
     return Scene(rects=rects, light=ls)
 
 
-def camera_from_jax(cam, device="cpu") -> CameraParams:
+def camera_from_jax(cam, device="cuda") -> CameraParams:
     """The port's CameraParams from a JAX ``CameraParams``."""
+    device = resolve(device)
     return CameraParams(*(
         _leaf(cam, name, torch.float32, device)
         for name in CameraParams._fields
     ))
+
+
+def materials_from_jax(albedo, emission, device="cuda"):
+    """The port's (K, 3) float32 albedo and emission tables from the JAX
+    package's ``pack_materials`` arrays (the same global object order)."""
+    device = resolve(device)
+    tables = tuple(
+        torch.as_tensor(np.array(t, dtype=np.float32), device=device)
+        for t in (albedo, emission)
+    )
+    for t in tables:
+        if t.ndim != 2 or t.shape[1] != 3:
+            raise ValueError(f"expected a (K, 3) table, got {tuple(t.shape)}")
+    return tables

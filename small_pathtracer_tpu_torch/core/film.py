@@ -1,4 +1,4 @@
-"""Film: clamp, tone mapping and ASCII P3 PPM I/O.
+"""Film: clamp, tone mapping, its approximate inverse and ASCII P3 PPM I/O.
 
 The reference's output contract: the per-pixel mean is clamped to [0, 1]
 before gamma; ``toInt(x) = int(pow(clamp(x), 1/2.2) * 255 + .5)``; the file
@@ -26,6 +26,12 @@ def tonemap_u8(linear: torch.Tensor) -> torch.Tensor:
     """Clamp, gamma 1/2.2 and round half up to uint8."""
     v = torch.pow(clamp01(linear), 1.0 / GAMMA) * 255.0 + 0.5
     return torch.floor(v).to(torch.uint8)
+
+
+def srgb_from_u8(img_u8) -> np.ndarray:
+    """Invert the tone map approximately: uint8 -> linear float64 (a target
+    image for ``fit --target``)."""
+    return np.power(np.asarray(img_u8, dtype=np.float64) / 255.0, GAMMA)
 
 
 def write_ppm(path: str, image_u8) -> None:

@@ -1,17 +1,31 @@
 // Fused regenerating path tracer, `nee` estimator, axis-aligned rects with
-// one parallelogram light, box filter, pinhole camera.
+// one parallelogram light, box filter, pinhole camera. Two kernels share one
+// loop body (`render_lane`, a template on where the materials come from):
 //
-// Replaces the Pallas TPU kernel of small_pathtracer_tpu/ops/megakernel.py:
-// `build_kernel`, as `_build_render` builds it for `render_pallas` /
-// `render_pallas_span` (baked scene, no material refs, NEE fold on).
+// - megakernel_nee replaces the Pallas TPU kernel of
+//   small_pathtracer_tpu/ops/megakernel.py: `build_kernel`, as
+//   `_build_render` builds it for `render_pallas` / `render_pallas_span`
+//   (baked scene, no material refs, NEE fold on). Materials sit in the
+//   kernel parameters beside the geometry.
+// - megakernel_nee_mat replaces `build_kernel(mat_refs=True)` as
+//   small_pathtracer_tpu/ops/megakernel_grad.py: `_build_fwd_mat` builds it
+//   for `render_pallas_mat`: the albedo and emission (K, 3) tables are
+//   runtime inputs in device memory, copied into shared memory once per
+//   block, so a training step changes them without a host copy. The NEE
+//   fold is decided in the kernel from the light's row of the table.
+//   Equal tables give a bit-identical image and trace counts.
 //
-// What bounds it: arithmetic and divergence, not bytes. A lane reads nothing
-// but its index and the scene (a few hundred bytes of kernel parameters,
-// read by every lane alike) and writes 12 bytes of radiance plus a share of
-// two counters: about 20 bytes of I/O against thousands of flops per sample
-// (17 rect tests per nearest-hit query, two queries per bounce, the hash per
-// draw). What costs time is the per-lane while loop: lanes of one warp die
-// and respawn at different bounces, and a diverged warp runs both paths.
+// What bounds them: arithmetic and divergence, not bytes. A lane reads
+// nothing but its index, the scene (a few hundred bytes of kernel
+// parameters, read by every lane alike) and, for the table kernel, 2·K·3
+// floats per block, and writes 12 bytes of radiance plus a share of two
+// counters: about 20 bytes of I/O against thousands of operations per
+// sample (17 rect tests per nearest-hit query, two queries per bounce, five
+// murmur3 hashes per bounce on the integer pipes). Counted that way, the
+// integer operations bound both kernels: 3.8 ms at 1024x768x512 on an H100
+// SXM (700 W) against ~69 ms measured (PERF.md). What costs time is the
+// per-lane while loop: lanes of one warp die and respawn at different
+// bounces, and a diverged warp runs both paths.
 //
 // Design: one thread per lane, blocks of 128, the ragged last block masked.
 // A lane derives its pixel and sample range [s_start, s_stop) from its index
@@ -19,233 +33,38 @@
 // bounce loop; a lane whose path dies respawns at once with its next sample,
 // so a warp stays busy until its slowest lane runs out of samples. Trace
 // counts are 32-bit per thread, summed per warp, and added to two 64-bit
-// totals with one atomic per warp.
+// totals with one atomic per warp. Left for later: sorting or compacting
+// lanes against divergence, and a scene test cheaper than the linear scan.
 //
-// Numerics: compiled with --fmad=false and IEEE division and sqrt, with
-// rsqrt written as 1/sqrtf, so each operation rounds as the eager torch ops
-// of integrator/wavefront.py do (the plain version, which the kernel matches
-// exactly on the card). The kernel folds the NEE continuation: a successful
-// probe proves the next extend ray hits the zero-albedo light, so that
-// bounce's pickup, its extend count and the path's certain RR death are
-// resolved one iteration early. Per-lane sums and counters stay exactly those
-// of the unfolded loop.
+// Numerics: see megakernel_common.cuh; the kernels match the eager plain
+// version exactly on the card. The NEE fold: a successful probe proves the
+// next extend ray hits the light, and when the light's max albedo is <= 0
+// that bounce's pickup, its extend count and the path's certain RR death are
+// resolved one iteration early. Per-lane sums and counters stay exactly
+// those of the unfolded loop.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "megakernel_common.cuh"
 
 namespace {
 
-constexpr int kMaxRects = 32;
-constexpr int kBlock = 128;
-constexpr float kMissT = 1e20f;
-constexpr float kSelfHitEps = 1e-3f;
-constexpr float kInvPi = 0.318309886183790671538f;
-constexpr float kInv2p24 = 1.0f / 16777216.0f;
-constexpr uint32_t kDrawsPerBounce = 8;
-constexpr uint32_t kRR = 0, kLightU = 1, kLightV = 2, kScatterU = 3,
-                   kScatterV = 4;
-
-struct Rect {
-  int axis;
-  float k, lo0, lo1, hi0, hi1;
-  float alb[3];
-  float emi[3];
-};
-
-struct Params {
-  Rect rects[kMaxRects];
-  int n_rects;
-  int light_id;
-  float lc[3], leu[3], lev[3];  // light corner and edges
-  float ln[3];                  // light unit normal
-  float area;                   // light area
-  float cam_o[3], cam_ll[3], cam_h[3], cam_v[3];
-  uint32_t seed;
-  int width, height, spp;
-  int g, per;
-  uint32_t s0;
-  int n_lanes;
-  int rr_start_depth, max_bounces, fold;
-};
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 mul(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ float rsqrt_ieee(float x) { return 1.0f / sqrtf(x); }
-__device__ __forceinline__ V3 norm(V3 a) { return mul(a, rsqrt_ieee(dot(a, a))); }
-__device__ __forceinline__ float comp(V3 a, int i) { return i == 0 ? a.x : (i == 1 ? a.y : a.z); }
-__device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// murmur3_x86_32 over the two words (path_id, ctr); core/rng.hash_u32.
-__device__ __forceinline__ uint32_t hash_u32(uint32_t seed, uint32_t path_id,
-                                             uint32_t ctr) {
-  uint32_t h = seed;
-  const uint32_t blocks[2] = {path_id, ctr};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint32_t k = blocks[i] * 0xCC9E2D51u;
-    k = rotl32(k, 15);
-    k *= 0x1B873593u;
-    h ^= k;
-    h = rotl32(h, 13);
-    h = h * 5u + 0xE6546B64u;
-  }
-  h ^= 8u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float uniform(uint32_t seed, uint32_t pid,
-                                         uint32_t ctr) {
-  return static_cast<float>(hash_u32(seed, pid, ctr) >> 8) * kInv2p24;
-}
-
-// core/vecmath.sincos_2pi: quarter-wave polynomial.
-__device__ __forceinline__ float qsin(float t) {
-  const float t2 = t * t;
-  return t * (1.5707962973f +
-              t2 * (-0.6459634395f +
-                    t2 * (0.0796887379f +
-                          t2 * (-0.0046725480f + t2 * 0.0001509561f))));
-}
-
-__device__ __forceinline__ void sincos_2pi(float u, float* s, float* c) {
-  const float x4 = u * 4.0f;
-  const float qd = floorf(x4);
-  const float f = x4 - qd;
-  const float s0 = qsin(f);
-  const float c0 = qsin(1.0f - f);
-  const int qi = static_cast<int>(qd) & 3;
-  const bool swap = (qi & 1) == 1;
-  const float sb = swap ? c0 : s0;
-  const float cb = swap ? s0 : c0;
-  *s = qi < 2 ? sb : -sb;
-  *c = (qi == 0 || qi == 3) ? cb : -cb;
-}
-
-// Hit distance of rect r, or kMissT (geometry/intersect.intersect_rects).
-__device__ __forceinline__ float rect_t(const Rect& r, V3 o, V3 d, V3 inv,
-                                        bool ok_x, bool ok_y, bool ok_z) {
-  const int a = r.axis;
-  const int b = a == 0 ? 1 : 0;
-  const int c = a == 2 ? 1 : 2;
-  const float t = (r.k - comp(o, a)) * comp(inv, a);
-  const float p0 = comp(o, b) + t * comp(d, b);
-  const float p1 = comp(o, c) + t * comp(d, c);
-  const bool ok = a == 0 ? ok_x : (a == 1 ? ok_y : ok_z);
-  const bool valid = p0 >= r.lo0 && p0 <= r.hi0 && p1 >= r.lo1 &&
-                     p1 <= r.hi1 && t > kSelfHitEps && ok;
-  return valid ? t : kMissT;
-}
-
-struct RayPrep {
-  V3 inv;
-  bool ok_x, ok_y, ok_z;
-};
-
-__device__ __forceinline__ RayPrep prep(V3 d) {
-  RayPrep r;
-  r.ok_x = d.x != 0.0f;
-  r.ok_y = d.y != 0.0f;
-  r.ok_z = d.z != 0.0f;
-  r.inv = v3(1.0f / (r.ok_x ? d.x : 1.0f), 1.0f / (r.ok_y ? d.y : 1.0f),
-             1.0f / (r.ok_z ? d.z : 1.0f));
-  return r;
-}
-
-// Nearest hit: strict < scan in object order; a miss keeps id 0.
-__device__ __forceinline__ float nearest(const Params& p, V3 o, V3 d,
-                                         int* id) {
-  const RayPrep rp = prep(d);
-  float t_best = kMissT;
-  int best = 0;
-  for (int i = 0; i < p.n_rects; ++i) {
-    const float t = rect_t(p.rects[i], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
-    if (t < t_best) {
-      t_best = t;
-      best = i;
-    }
-  }
-  *id = best;
-  return t_best;
-}
-
-// Shadow probe toward the light: true iff the nearest hit is the light.
-// Unwinds the nearest-hit scan: the light wins iff it is hit, no earlier
-// object has t <= t_light and no later object has t < t_light.
-__device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
-                                            float* t_light) {
-  const RayPrep rp = prep(d);
-  const float t_l =
-      rect_t(p.rects[p.light_id], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
-  *t_light = t_l;
-  if (!(t_l < kMissT)) return false;
-  for (int i = 0; i < p.n_rects; ++i) {
-    if (i == p.light_id) continue;
-    const float t = rect_t(p.rects[i], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
-    if (i < p.light_id ? t <= t_l : t < t_l) return false;
-  }
-  return true;
-}
-
-// camera/pinhole.primary_rays_cfg: box-filter jitter at counters 0 and 1.
-__device__ __forceinline__ V3 spawn_dir(const Params& p, float px, float py,
-                                        uint32_t pid) {
-  const float ju = uniform(p.seed, pid, 0u);
-  const float jv = uniform(p.seed, pid, 1u);
-  const float s = (px - 0.5f + ju) / static_cast<float>(p.width);
-  const float t =
-      ((static_cast<float>(p.height) - py - 1.0f) - 0.5f + jv) /
-      static_cast<float>(p.height);
-  const V3 d = sub(add(add(ld3(p.cam_ll), mul(ld3(p.cam_h), s)),
-                       mul(ld3(p.cam_v), t)),
-                   ld3(p.cam_o));
-  return norm(d);
-}
-
-__global__ void __launch_bounds__(kBlock)
-    megakernel_nee(const __grid_constant__ Params p, float* __restrict__ out_l,
-                   unsigned long long* __restrict__ traces) {
-  const int lane = blockIdx.x * kBlock + threadIdx.x;
-  const bool in_range = lane < p.n_lanes;
-  const int safe_lane = in_range ? lane : 0;
-  const int pix = safe_lane / p.g;
-  const uint32_t grp = static_cast<uint32_t>(safe_lane % p.g);
-  const float px = static_cast<float>(pix % p.width);
-  const float py = static_cast<float>(pix / p.width);
-  const uint32_t pid_base = static_cast<uint32_t>(pix) * static_cast<uint32_t>(p.spp);
-  uint32_t s = p.s0 + grp * static_cast<uint32_t>(p.per);
-  const uint32_t s_stop = s + static_cast<uint32_t>(p.per);
-
+template <class Mats>
+__device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
+                                            bool fold,
+                                            float* __restrict__ out_l,
+                                            unsigned long long* __restrict__ traces) {
+  const LaneRange lr = lane_range(p);
   const V3 cam_o = ld3(p.cam_o);
   const V3 lc = ld3(p.lc), leu = ld3(p.leu), lev = ld3(p.lev), ln = ld3(p.ln);
-  const V3 e_light = ld3(p.rects[p.light_id].emi);
+  const V3 e_light = mats.emission(p.light_id);
 
-  uint32_t pid = pid_base + s;
+  uint32_t s = lr.s;
+  uint32_t pid = lr.pid_base + s;
   V3 o = cam_o;
-  V3 d = spawn_dir(p, px, py, pid);
+  V3 d = spawn_dir(p, lr.px, lr.py, pid);
   V3 T = v3(1.0f, 1.0f, 1.0f);
   V3 L = v3(0.0f, 0.0f, 0.0f);
   int depth = 0;
-  bool alive = in_range && s < s_stop;
+  bool alive = lr.in_range && s < lr.s_stop;
   uint32_t n_extend = 0, n_probe = 0;
 
   while (alive) {
@@ -253,13 +72,14 @@ __global__ void __launch_bounds__(kBlock)
     int id;
     const float t_hit = nearest(p, o, d, &id);
     const bool hit = t_hit < kMissT;
-    const Rect& r = p.rects[id];
-    const V3 alb = ld3(r.alb);
+    const int axis = p.rects[id].axis;
+    const V3 alb = mats.albedo(id);
+    const V3 emi = mats.emission(id);
     // Emission pickup: throughput * emission.
-    L = add(L, v3(T.x * r.emi[0], T.y * r.emi[1], T.z * r.emi[2]));
+    L = add(L, v3(T.x * emi.x, T.y * emi.y, T.z * emi.z));
     const V3 x = hit ? add(o, mul(d, t_hit)) : v3(0.0f, 0.0f, 0.0f);
-    const V3 ng = v3(r.axis == 0 ? 1.0f : 0.0f, r.axis == 1 ? 1.0f : 0.0f,
-                     r.axis == 2 ? 1.0f : 0.0f);
+    const V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
+                     axis == 2 ? 1.0f : 0.0f);
     const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
 
     const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
@@ -304,9 +124,9 @@ __global__ void __launch_bounds__(kBlock)
     n_probe += alive_next ? 1u : 0u;
     alive_next = alive_next && depth < p.max_bounces;
 
-    if (p.fold && alive_next && success) {
+    if (fold && alive_next && success) {
       // The next bounce hits the light at t_l, picks up T_new * e_light and
-      // dies in RR (zero albedo): resolve it now.
+      // dies in RR (max albedo <= 0): resolve it now.
       L = add(L, v3(T_new.x * e_light.x, T_new.y * e_light.y,
                     T_new.z * e_light.z));
       n_extend += 1;
@@ -319,10 +139,10 @@ __global__ void __launch_bounds__(kBlock)
       T = T_new;
     } else {
       s += 1;
-      if (s < s_stop) {
-        pid = pid_base + s;
+      if (s < lr.s_stop) {
+        pid = lr.pid_base + s;
         o = cam_o;
-        d = spawn_dir(p, px, py, pid);
+        d = spawn_dir(p, lr.px, lr.py, pid);
         T = v3(1.0f, 1.0f, 1.0f);
         depth = 0;
       } else {
@@ -331,7 +151,8 @@ __global__ void __launch_bounds__(kBlock)
     }
   }
 
-  if (in_range) {
+  if (lr.in_range) {
+    const int lane = blockIdx.x * kBlock + threadIdx.x;
     out_l[3 * lane + 0] = L.x;
     out_l[3 * lane + 1] = L.y;
     out_l[3 * lane + 2] = L.z;
@@ -348,15 +169,38 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+__global__ void __launch_bounds__(kBlock)
+    megakernel_nee(const __grid_constant__ Params p, float* __restrict__ out_l,
+                   unsigned long long* __restrict__ traces) {
+  render_lane(p, BakedMaterials{p}, p.fold != 0, out_l, traces);
+}
+
+__global__ void __launch_bounds__(kBlock)
+    megakernel_nee_mat(const __grid_constant__ Params p,
+                       const float* __restrict__ alb,
+                       const float* __restrict__ emi,
+                       float* __restrict__ out_l,
+                       unsigned long long* __restrict__ traces) {
+  __shared__ float s_alb[3 * kMaxRects];
+  __shared__ float s_emi[3 * kMaxRects];
+  load_tables(p, alb, emi, s_alb, s_emi);
+  const TableMaterials mats{s_alb, s_emi};
+  const V3 a = mats.albedo(p.light_id);
+  render_lane(p, mats, fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
+}
+
 }  // namespace
 
-// Host entry point with a plain C interface (loaded with ctypes).
-// rect_f: n_rects rows of [k, lo0, lo1, hi0, hi1, albedo rgb, emission rgb];
-// light_f: [corner 3, edge_u 3, edge_v 3, unit normal 3, area];
-// cam_f: [origin 3, lower_left 3, horizontal 3, vertical 3] (all host
-// memory). out_l: (n_pix * g, 3) float32 and traces: 2 uint64, zeroed, on the
-// device. Launches on `stream` and returns the launch's cudaError_t.
-extern "C" int spt_megakernel_nee(const float* rect_f, const int* rect_axis,
+// Host entry points with a plain C interface (loaded with ctypes). rect_geom,
+// rect_axis, light_f and cam_f as fill_params (megakernel_common.cuh) reads
+// them, in host memory. out_l: (n_pix * g, 3) float32 and traces: 2 uint64,
+// zeroed, on the device. Each launches on `stream` and returns the launch's
+// cudaError_t.
+
+// Row 1, baked materials: rect_alb, rect_emi are (n_rects, 3) float32 host
+// arrays copied into the kernel parameters; fold turns the NEE fold on.
+extern "C" int spt_megakernel_nee(const float* rect_geom, const int* rect_axis,
+                                  const float* rect_alb, const float* rect_emi,
                                   int n_rects, const float* light_f,
                                   int light_id, const float* cam_f,
                                   unsigned seed, int width, int height,
@@ -364,52 +208,45 @@ extern "C" int spt_megakernel_nee(const float* rect_f, const int* rect_axis,
                                   int rr_start_depth, int max_bounces,
                                   int fold, float* out_l,
                                   unsigned long long* traces, void* stream) {
-  if (n_rects < 1 || n_rects > kMaxRects || light_id < 0 ||
-      light_id >= n_rects || width < 1 || height < 1 || g < 1 || per < 0) {
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, g, per, s0,
+                   rr_start_depth, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p = {};
   for (int i = 0; i < n_rects; ++i) {
-    const float* row = rect_f + 11 * i;
-    Rect& r = p.rects[i];
-    r.axis = rect_axis[i];
-    if (r.axis < 0 || r.axis > 2) return static_cast<int>(cudaErrorInvalidValue);
-    r.k = row[0];
-    r.lo0 = row[1];
-    r.lo1 = row[2];
-    r.hi0 = row[3];
-    r.hi1 = row[4];
     for (int c = 0; c < 3; ++c) {
-      r.alb[c] = row[5 + c];
-      r.emi[c] = row[8 + c];
+      p.rects[i].alb[c] = rect_alb[3 * i + c];
+      p.rects[i].emi[c] = rect_emi[3 * i + c];
     }
   }
-  p.n_rects = n_rects;
-  p.light_id = light_id;
-  for (int c = 0; c < 3; ++c) {
-    p.lc[c] = light_f[c];
-    p.leu[c] = light_f[3 + c];
-    p.lev[c] = light_f[6 + c];
-    p.ln[c] = light_f[9 + c];
-    p.cam_o[c] = cam_f[c];
-    p.cam_ll[c] = cam_f[3 + c];
-    p.cam_h[c] = cam_f[6 + c];
-    p.cam_v[c] = cam_f[9 + c];
-  }
-  p.area = light_f[12];
-  p.seed = seed;
-  p.width = width;
-  p.height = height;
-  p.spp = spp;
-  p.g = g;
-  p.per = per;
-  p.s0 = s0;
-  p.n_lanes = width * height * g;
-  p.rr_start_depth = rr_start_depth;
-  p.max_bounces = max_bounces;
   p.fold = fold;
-  const int grid = (p.n_lanes + kBlock - 1) / kBlock;
-  megakernel_nee<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  megakernel_nee<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, out_l, traces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 8, runtime materials: alb, emi are (n_rects, 3) float32 tables in
+// device memory, read by the kernel (no host copy).
+extern "C" int spt_megakernel_nee_mat(const float* rect_geom,
+                                      const int* rect_axis, int n_rects,
+                                      const float* light_f, int light_id,
+                                      const float* cam_f, unsigned seed,
+                                      int width, int height, int spp, int g,
+                                      int per, unsigned s0,
+                                      int rr_start_depth, int max_bounces,
+                                      const float* alb, const float* emi,
+                                      float* out_l,
+                                      unsigned long long* traces,
+                                      void* stream) {
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, g, per, s0,
+                   rr_start_depth, max_bounces)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  megakernel_nee_mat<<<grid_of(p), kBlock, 0,
+                       static_cast<cudaStream_t>(stream)>>>(p, alb, emi, out_l,
+                                                            traces);
   return static_cast<int>(cudaGetLastError());
 }

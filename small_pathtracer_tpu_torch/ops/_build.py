@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` into one shared library with a plain C
-interface, ``build/kernels/libspt_kernels.so`` at the repository root, on
-first use; ``ctypes`` loads it. A hash of the sources and the flags sits
-beside the library, and a change of either rebuilds it. There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+``nvcc`` compiles each ``csrc/*.cu`` into an object, all at once in
+parallel, and links them into one shared library with a plain C interface,
+``build/kernels/libspt_kernels.so`` at the repository root, on first use;
+``ctypes`` loads it. A hash of the sources and the flags sits beside the
+library, and a change of either rebuilds it. There is no fallback: a
+missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ NVCC_FLAGS = (
     # --use_fast_math): the kernel rounds like the eager torch ops.
     "--fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -65,6 +66,38 @@ def _digest(nvcc: str) -> str:
     return h.hexdigest()
 
 
+def _run(cmd: list[str]) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {res.returncode}):\n{res.stdout}{res.stderr}"
+        )
+    return res.stdout + res.stderr
+
+
+def _compile_all(nvcc: str, tag: str) -> tuple[list[Path], str]:
+    """One nvcc per source, all started together; waits for every one and
+    raises if any failed. Returns (objects, the compilers' output)."""
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        jobs.append((src, obj, proc))
+    outputs, failed = [], []
+    for src, obj, proc in jobs:
+        out, _ = proc.communicate()
+        outputs.append(f"{src.name}:\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} (rc {proc.returncode})")
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                           + "".join(outputs))
+    return [obj for _, obj, _ in jobs], "".join(outputs)
+
+
 def build_kernels() -> KernelLib:
     """Compile (if the sources changed) and load the kernel library."""
     nvcc = find_nvcc()
@@ -75,16 +108,14 @@ def build_kernels() -> KernelLib:
     if not (lib_path.exists() and stamp.exists()
             and stamp.read_text() == digest):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+        tag = f"{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        seconds, output = time.perf_counter() - t0, res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {res.returncode}):\n{res.stdout}{res.stderr}"
-            )
+        objs, output = _compile_all(nvcc, tag)
+        tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+        output += _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        seconds = time.perf_counter() - t0
+        for o in objs:
+            o.unlink()
         os.replace(tmp, lib_path)
         stamp.write_text(digest)
     lib = ctypes.CDLL(str(lib_path))
@@ -94,19 +125,51 @@ def build_kernels() -> KernelLib:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.spt_megakernel_nee.restype = ctypes.c_int
-    lib.spt_megakernel_nee.argtypes = [
-        p,  # rect_f: (R, 11) f32 host
+    # Geometry, light and camera (host), then the launch settings: the
+    # leading arguments of every entry point.
+    scene = [
+        p,  # rect_geom: (R, 5) f32 host [k, lo0, lo1, hi0, hi1]
         p,  # rect_axis: (R,) i32 host
-        i,  # n_rects
+    ]
+    launch = [
         p,  # light_f: 13 f32 host
         i,  # light_id
         p,  # cam_f: 12 f32 host
         u,  # seed
         i, i, i,  # width, height, spp
         i, i, u,  # g, per, s0
-        i, i, i,  # rr_start_depth, max_bounces, fold
+        i, i,  # rr_start_depth, max_bounces
+    ]
+    lib.spt_megakernel_nee.restype = ctypes.c_int
+    lib.spt_megakernel_nee.argtypes = [
+        *scene,
+        p, p,  # rect_alb, rect_emi: (R, 3) f32 host
+        i,  # n_rects
+        *launch,
+        i,  # fold
         p,  # out_l: (n_pix * g, 3) f32 device
         p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_nee_mat.restype = ctypes.c_int
+    lib.spt_megakernel_nee_mat.argtypes = [
+        *scene,
+        i,  # n_rects
+        *launch,
+        p, p,  # albedo, emission: (R, 3) f32 device
+        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_vjp.restype = ctypes.c_int
+    lib.spt_megakernel_vjp.argtypes = [
+        *scene,
+        i,  # n_rects
+        *launch,
+        p, p,  # albedo, emission: (R, 3) f32 device
+        p,  # g_img: (h, w, 3) f32 device
+        p,  # partials: f32 device scratch
+        ctypes.c_longlong,  # its length in floats
+        p,  # out: (2, R, 3) f32 device
         p,  # cudaStream_t
     ]

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve
 from .types import DIFF, LightSampler, Scene, make_scene
 
 AX_X, AX_Y, AX_Z = 0, 1, 2
@@ -40,7 +41,8 @@ def _cornell_light_sampler() -> LightSampler:
     )
 
 
-def cornell_box(device="cpu") -> Scene:
+def cornell_box(device="cuda") -> Scene:
+    device = resolve(device)
     rects = _cornell_walls() + [
         # Tall box, x in [12, 42], y in [0, 50], z in [32, 62]
         (AX_Z, 32.0, (12.0, 0.0), (42.0, 50.0), _ONE, _ZERO, DIFF),
@@ -70,7 +72,9 @@ NOT_PORTED = (
 )
 
 
-def get_scene(name: str, device="cpu") -> Scene:
+def get_scene(name: str, device="cuda") -> Scene:
+    """The preset ``name`` on ``device`` (the card by default; raises
+    RuntimeError when CUDA is absent and no other device is asked for)."""
     if name in PRESETS:
         return PRESETS[name](device)
     if name in NOT_PORTED:

@@ -90,7 +90,7 @@ def test_write_ppm_byte_identical(tmp_path):
 @pytest.mark.parametrize("aspect", [1.0, 32 / 24, 1024 / 768])
 def test_make_camera_exact(aspect):
     jc = jpinhole.make_camera(aspect=aspect)
-    tc = pinhole.make_camera(aspect=aspect)
+    tc = pinhole.make_camera(aspect=aspect, device="cpu")
     for name in tc._fields:
         np.testing.assert_array_equal(getattr(tc, name).numpy(),
                                       _np(getattr(jc, name)), err_msg=name)
@@ -108,7 +108,7 @@ def test_primary_rays_32x24():
         (pix // w).astype(np.int32), (pix * spp).astype(np.uint32),
         s.astype(np.uint32)))
     pix_t = torch.from_numpy(pix)
-    o, d, pid = _spawn(camera_from_jax(jcam), cfg, seed, pix_t % w,
+    o, d, pid = _spawn(camera_from_jax(jcam, device="cpu"), cfg, seed, pix_t % w,
                        pix_t // w, pix_t * spp, torch.from_numpy(s))
     np.testing.assert_array_equal(pid.numpy(), jpid.astype(np.int64))
     np.testing.assert_array_equal(o.numpy(), jo)

@@ -39,7 +39,7 @@ def case():
     want = {k: np.asarray(v) for k, v in [*jh._asdict().items(),
                                             *jsh._asdict().items()]}
     want["ts"] = np.asarray(ts)
-    scene = scene_from_jax(js)
+    scene = scene_from_jax(js, device="cpu")
     to, td = torch.from_numpy(o), torch.from_numpy(d)
     h = intersect.trace(scene, to, td)
     sh = intersect.shade_info(scene, to, td, h)
@@ -82,7 +82,7 @@ def test_shade_info(case):
 
 
 def test_miss_shades_object_zero():
-    scene = get_scene("cornell_box")
+    scene = get_scene("cornell_box", device="cpu")
     o = torch.tensor([[50.0, 40.0, 500.0]])   # outside, pointing away
     d = torch.tensor([[0.0, 0.0, 1.0]])
     h = intersect.trace(scene, o, d)
@@ -95,7 +95,7 @@ def test_miss_shades_object_zero():
 
 def test_tie_goes_to_first_object():
     # Two coincident rects: the lower id wins the strict < scan.
-    scene = get_scene("cornell_box")
+    scene = get_scene("cornell_box", device="cpu")
     r = scene.rects
     rects = r._replace(**{f: torch.cat([getattr(r, f)[:1], getattr(r, f)])
                           for f in r._fields})
@@ -107,8 +107,8 @@ def test_tie_goes_to_first_object():
 
 def test_scene_leaves_match_jax():
     js = jget_scene("cornell_box")
-    ours = get_scene("cornell_box")
-    conv = scene_from_jax(js)
+    ours = get_scene("cornell_box", device="cpu")
+    conv = scene_from_jax(js, device="cpu")
     for f in ours.rects._fields:
         np.testing.assert_array_equal(getattr(ours.rects, f).numpy(),
                                       getattr(conv.rects, f).numpy(), err_msg=f)
@@ -122,6 +122,6 @@ def test_scene_leaves_match_jax():
                                   "cornell_twolights", "cornell_tilted_light"])
 def test_convert_rejects_outside_slice(name):
     with pytest.raises(NotImplementedError):
-        scene_from_jax(jget_scene(name))
+        scene_from_jax(jget_scene(name), device="cpu")
     with pytest.raises(NotImplementedError):
-        get_scene(name)
+        get_scene(name, device="cpu")

@@ -53,8 +53,8 @@ def jax_box():
 @pytest.fixture(scope="module")
 def port_box(jax_box):
     cfg = spt.RenderConfig(width=W, height=H, spp=SPP, seed=SEED)
-    scene = scene_from_jax(jax_box["scene"])
-    cam = camera_from_jax(jax_box["cam"])
+    scene = scene_from_jax(jax_box["scene"], device="cpu")
+    cam = camera_from_jax(jax_box["cam"], device="cpu")
     img, traces = megakernel.render_megakernel(scene, cam, cfg, SEED)
     return scene, cam, cfg, img.numpy(), traces
 
@@ -95,8 +95,8 @@ def test_golden_without_jax():
     rendered it on the CPU). Measured: 99.77% of bytes equal, channel means
     within 0.002 levels."""
     cfg = spt.RenderConfig(width=64, height=48, spp=16, seed=42)
-    img, _ = spt.render(spt.get_scene("cornell_box"),
-                        spt.make_camera(aspect=64 / 48), cfg)
+    img, _ = spt.render(spt.get_scene("cornell_box", device="cpu"),
+                        spt.make_camera(aspect=64 / 48, device="cpu"), cfg)
     got = film.tonemap_u8(img).numpy()
     golden = film.read_ppm(str(GOLDEN))
     assert got.shape == golden.shape

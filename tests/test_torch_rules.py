@@ -6,12 +6,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+from small_pathtracer_tpu_torch import convert
 from small_pathtracer_tpu_torch.cli import main as cli_main
 from small_pathtracer_tpu_torch.ops import _build, megakernel
+from small_pathtracer_tpu_torch.scene import presets
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "small_pathtracer_tpu_torch"
@@ -58,9 +61,27 @@ def test_render_megakernel_cuda_raises_without_cuda():
         pytest.skip("this host has CUDA")
     cfg = RenderConfig(width=8, height=6, spp=1)
     with pytest.raises(RuntimeError, match="CUDA"):
-        megakernel.render_megakernel(get_scene("cornell_box"),
-                                     make_camera(aspect=8 / 6), cfg, 0,
-                                     device="cuda")
+        megakernel.render_megakernel(get_scene("cornell_box", device="cpu"),
+                                     make_camera(aspect=8 / 6, device="cpu"),
+                                     cfg, 0, device="cuda")
+
+
+@pytest.mark.parametrize("build", [
+    lambda: get_scene("cornell_box"),
+    lambda: presets.cornell_box(),
+    lambda: make_camera(),
+    lambda: convert.scene_from_jax(get_scene("cornell_box", device="cpu")),
+    lambda: convert.camera_from_jax(make_camera(device="cpu")),
+    lambda: convert.materials_from_jax(np.zeros((17, 3)), np.zeros((17, 3))),
+], ids=["get_scene", "cornell_box", "make_camera", "scene_from_jax",
+        "camera_from_jax", "materials_from_jax"])
+def test_constructors_default_to_cuda(build):
+    """With no device the public constructors build on the card; without
+    CUDA they raise instead of building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
 
 
 def test_cli_render_cuda_raises_without_cuda(tmp_path):
