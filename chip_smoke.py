@@ -4,15 +4,18 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, in parallel), holds each against its plain PyTorch version (and
-the baked forward against the committed golden image), then drives the two
-paths a user calls: ``cli render`` of the Cornell box (``nee``,
-1024x768x512) and ``cli fit`` (SGD on albedo and emission, 1024x768x512, 5
-steps). Each path runs with the kernels' launch counts set to 0 just before
-it and read just after, and fails unless its kernels launched. Every phase
-raises on failure. The second-to-last line of the output is one JSON object
-describing each kernel, the line before it the card's name and power limit,
-and the last line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
-the repository, it exits non-zero before printing a result.
+the forwards against the committed golden images), then drives the paths a
+user calls: ``cli render`` of the Cornell box (``nee``, 1024x768x512),
+``cli fit`` (SGD on albedo and emission, 1024x768x512, 5 steps) and ``cli
+render`` of the sphere scenes ``sphere_grid`` (1024x768x512) and
+``sphere_grid_1024`` (1024x768, fewer samples). Each path runs with its
+kernels' launch counts set to 0 just before it and read just after, and
+fails unless its kernels launched. Every phase raises on failure, and the
+seconds each phase took are logged at the end. The second-to-last line of
+the output is one JSON object describing each kernel, the line before it
+the card's name and power limit, and the last line ``{"ok": true,
+"device": {...}}``. Without CUDA, or outside the repository, it exits
+non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -33,6 +36,20 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "goldens" / "cornell_box_64x48x16_nee_seed42.ppm"
+GOLDEN_SPH = ROOT / "goldens" / "cornell_spheres_64x48x16_nee_seed42.ppm"
+# The sphere golden's byte-equality floor (tests/test_torch_spheres.py
+# measured 97.89% on the CPU, 97.93% with a correctly rounded sqrt as on the
+# card): grazing sphere hits flip between jax.lax.rsqrt and 1/sqrt, so it is
+# looser than the box's 99%.
+SPH_GOLDEN_EQ = 0.96
+# sphere_grid_1024's main-path samples a pixel: a render of a few seconds
+# (on an H100 80GB HBM3 at 700 W, 32 samples took 0.50 s).
+SPP_1024 = "128"
+# Tone-mapped channel means of a main-path render against its parity render
+# (x4, the same scene): within this share. The x4 render's means are biased
+# low by the concave tone map and the clamp (measured on the CPU: x4 under
+# x64 by 6% on sphere_grid, x4 under x32 by 12-17% on sphere_grid_1024).
+MEAN_TOL = 0.25
 CSRC = "small_pathtracer_tpu_torch/csrc/"
 FIT_LR = "8"  # chosen on the CPU at 32x24x16: the loss falls for 5 steps
 VJP_TOL = 1e-4  # of the largest entry of each table (reason: PERF.md)
@@ -44,12 +61,14 @@ FP32_PER_S = 67e12
 INT32_PER_S = 16.7e12
 BYTES_PER_S = 3.35e12
 # Operations counted from the .cu sources (PERF.md): fp32 (FMA as 2,
-# a divide or sqrt as 1) per nearest-hit query over the 17 rects, per
-# bounce of shading, per probe (its least: ray prep and the light's test),
-# per spawn and per pass-B gradient update; int32 per bounce (five murmur3
-# draws, 16 operations each, sharing the 6 of the path-id word) and per
-# spawn (two draws).
-FP_QUERY, FP_SHADE, FP_PROBE, FP_SPAWN, FP_GRAD = 210, 162, 18, 35, 52
+# a divide or sqrt as 1) per nearest-hit query (6 for the ray's
+# reciprocals, 12 a rect, 26 a sphere at least: the test's early exit when
+# the ray misses), per bounce of shading, per probe (its least: ray prep and
+# the light's test), per spawn and per pass-B gradient update; int32 per
+# bounce (five murmur3 draws, 16 operations each, sharing the 6 of the
+# path-id word) and per spawn (two draws).
+FP_RAY, FP_RECT, FP_SPHERE = 6, 12, 26
+FP_SHADE, FP_PROBE, FP_SPAWN, FP_GRAD = 162, 18, 35, 52
 INT_BOUNCE, INT_SPAWN = 5 * 16 + 6, 2 * 16 + 6
 
 
@@ -61,6 +80,16 @@ def log(msg: str) -> None:
         print(msg, file=sys.stderr, flush=True)
 
 
+PHASES: list[tuple[str, float]] = []
+
+
+def phase(name: str) -> None:
+    """Marks the start of a phase (the seconds of each are logged at the
+    end)."""
+    PHASES.append((name, time.perf_counter()))
+    log(f"[smoke] phase: {name}")
+
+
 def run(cmd: list[str]) -> str:
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     if res.returncode != 0:
@@ -68,9 +97,11 @@ def run(cmd: list[str]) -> str:
     return res.stdout.strip()
 
 
-def golden_bound(got: np.ndarray, golden: np.ndarray) -> tuple[float, float]:
-    """The JAX-free golden contract: >= 99% of bytes equal and each channel
-    mean within 0.5 levels. Returns (equal fraction, worst mean gap)."""
+def golden_bound(got: np.ndarray, golden: np.ndarray,
+                 min_eq: float = 0.99) -> tuple[float, float]:
+    """The JAX-free golden contract: >= min_eq of bytes equal and each
+    channel mean within 0.5 levels. Returns (equal fraction, worst mean
+    gap)."""
     if got.shape != golden.shape:
         raise AssertionError(f"shape {got.shape} != golden {golden.shape}")
     eq = float(np.mean(got == golden))
@@ -78,9 +109,9 @@ def golden_bound(got: np.ndarray, golden: np.ndarray) -> tuple[float, float]:
         got.reshape(-1, 3).astype(np.float64).mean(0)
         - golden.reshape(-1, 3).astype(np.float64).mean(0)
     )))
-    if eq < 0.99 or gap > 0.5:
+    if eq < min_eq or gap > 0.5:
         raise AssertionError(
-            f"golden mismatch: {eq:.4%} bytes equal (need 99%), "
+            f"golden mismatch: {eq:.4%} bytes equal (need {min_eq:.0%}), "
             f"channel mean gap {gap:.3f} levels (limit 0.5)"
         )
     return eq, gap
@@ -127,15 +158,25 @@ def bound(fp_ops: float, int_ops: float, n_bytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def forward_bound(traces, n_samples: int, n_lanes: int, k: int):
+def query_ops(n_rects: int, n_spheres: int = 0) -> int:
+    """fp32 operations of one nearest-hit query: 210 on the Cornell box."""
+    return FP_RAY + FP_RECT * n_rects + FP_SPHERE * n_spheres
+
+
+def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
+                  n_spheres: int = 0):
     """Forward kernels: every counted probe follows one traced, unfolded
     bounce (query, shading, probe, five draws); the extends beyond it (RR
-    deaths, folded bounces) are left out, so this is a lower bound. Bytes:
-    the per-lane radiance and the counters out, the tables in."""
+    deaths, folded bounces, SPEC/REFR bounces) are left out, so this is a
+    lower bound. Bytes: the per-lane radiance and the counters out, the
+    material tables (and, with spheres, the codes and sphere rows) in."""
     _, probe = traces
-    fp = probe * (FP_QUERY + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
+    fp = (probe * (query_ops(n_rects, n_spheres) + FP_SHADE + FP_PROBE)
+          + n_samples * FP_SPAWN)
     it = probe * INT_BOUNCE + n_samples * INT_SPAWN
-    return bound(fp, it, n_lanes * 12 + 16 + 2 * k * 3 * 4)
+    k = n_rects + n_spheres
+    tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
+    return bound(fp, it, n_lanes * 12 + 16 + tables)
 
 
 def vjp_bound(traces, n_samples: int, n_pix: int, k: int):
@@ -143,7 +184,8 @@ def vjp_bound(traces, n_samples: int, n_pix: int, k: int):
     forward's extend count), and updates the gradients once a bounce.
     Bytes: the cotangent image and the tables in, the gradients out."""
     extend, _ = traces
-    per_pass = extend * (FP_QUERY + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
+    per_pass = (extend * (query_ops(k) + FP_SHADE + FP_PROBE)
+                + n_samples * FP_SPAWN)
     fp = 2 * per_pass + extend * FP_GRAD
     it = 2 * (extend * INT_BOUNCE + n_samples * INT_SPAWN)
     return bound(fp, it, n_pix * 12 + 4 * k * 3 * 4)
@@ -167,6 +209,7 @@ def main() -> int:
         .splitlines()[-1])
 
     # Phase 2: build the kernels from this checkout's sources.
+    phase("build")
     built, build_s = timed(_build.build_kernels)
     log(f"[smoke] kernel build {built.build_seconds:.2f}s "
         f"(load included {build_s:.2f}s) from {CSRC}*.cu")
@@ -176,7 +219,7 @@ def main() -> int:
 
     # Phase 3: the baked kernel against the committed golden (rendered by
     # the JAX package on the CPU).
-    log("[smoke] phase: golden 64x48x16, kernel and plain version")
+    phase("golden 64x48x16, kernel and plain version")
     golden = film.read_ppm(str(GOLDEN))
     cfg_g = RenderConfig(width=64, height=48, spp=16, seed=42)
     scene = get_scene("cornell_box")
@@ -194,7 +237,7 @@ def main() -> int:
     # Phase 4: the baked kernel against its plain version, full width.
     # Times are medians of three wrapper calls (host clock, synchronized),
     # taken in turns.
-    log("[smoke] phase: parity 1024x768x4, kernel against plain version")
+    phase("parity 1024x768x4, kernel against plain version")
     cfg_p = RenderConfig(width=1024, height=768, spp=4, seed=3)
     cam_p = make_camera(aspect=1024 / 768)
     n_pix_p = cfg_p.width * cfg_p.height
@@ -227,8 +270,8 @@ def main() -> int:
 
     # Phase (a): the runtime-material forward with the scene's own tables
     # must equal the baked kernel and the plain version bit for bit.
-    log("[smoke] phase: runtime-material forward 1024x768x4 against the "
-        "baked kernel and the plain version")
+    phase("runtime-material forward 1024x768x4 against the baked kernel "
+          "and the plain version")
     alb, emi = mg.pack_materials(scene)
     outs, med = in_turns(
         {"kernel": lambda: mg.render_megakernel_mat(scene, cam_p, cfg_p, alb,
@@ -250,8 +293,7 @@ def main() -> int:
 
     # Phase (b): the adjoint against autograd through the plain forward, at
     # the parity shape, under a seeded cotangent.
-    log("[smoke] phase: material adjoint 1024x768x4 against its plain "
-        "version")
+    phase("material adjoint 1024x768x4 against its plain version")
     g_img = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (cfg_p.height, cfg_p.width, 3)).astype(np.float32)).to(device)
     torch.cuda.reset_peak_memory_stats()
@@ -285,7 +327,7 @@ def main() -> int:
         f"three kernel runs bit-identical")
 
     # Phase 5: the render path, as a user calls it.
-    log("[smoke] phase: main path, cli render 1024x768x512")
+    phase("main path, cli render 1024x768x512")
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cornell_1024x768x512.ppm")
         err = io.StringIO()
@@ -317,8 +359,7 @@ def main() -> int:
         raise AssertionError(f"channel means off the golden's by {rel}")
 
     # Phase (c): the training path, as a user calls it.
-    log(f"[smoke] phase: training path, cli fit 1024x768x512, 5 steps, "
-        f"lr {FIT_LR}")
+    phase(f"training path, cli fit 1024x768x512, 5 steps, lr {FIT_LR}")
     fit_argv = ["fit", "--width", "1024", "--height", "768", "--spp", "512",
                 "--steps", "5", "--train", "emission,albedo", "--lr", FIT_LR]
     out, err = io.StringIO(), io.StringIO()
@@ -384,6 +425,131 @@ def main() -> int:
             f" a launch{share}; bound {f_bounds[name][0]:.3f} ms "
             f"({f_bounds[name][1]})")
 
+    # Phase (d): the sphere-table kernel against its plain version, bit for
+    # bit, in turns as in phase 4.
+    def tab_parity(name, width, height, spp, seed):
+        sc = get_scene(name)
+        cam = make_camera(aspect=width / height)
+        cfg = RenderConfig(width=width, height=height, spp=spp, seed=seed)
+        before = megakernel.LAUNCHES_TAB
+        outs, med = in_turns(
+            {"kernel": lambda: megakernel.render_megakernel(sc, cam, cfg,
+                                                            seed),
+             "plain": lambda: megakernel.render_megakernel_plain(
+                 sc, cam, cfg, seed)},
+            ("plain", "kernel", "kernel", "plain", "plain", "kernel"))
+        if megakernel.LAUNCHES_TAB != before + 3:
+            raise AssertionError(f"{name} did not go through "
+                                 "megakernel_nee_tab")
+        for which, runs in outs.items():
+            for img_i, tr_i in runs[1:]:
+                if not (torch.equal(img_i, runs[0][0])
+                        and torch.equal(tr_i, runs[0][1])):
+                    raise AssertionError(f"{name}: {which} runs differ")
+        (k_img, k_tr), (p_img, p_tr) = outs["kernel"][0], outs["plain"][0]
+        err_ = float((k_img - p_img).abs().max())
+        log(f"[smoke] {name} {width}x{height}x{spp} seed {seed}: kernel "
+            f"{med['kernel'] * 1e3:.3f} ms traces {k_tr.tolist()}; plain "
+            f"{med['plain'] * 1e3:.3f} ms traces {p_tr.tolist()}; max |img "
+            f"diff| {err_:.3e}")
+        if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
+            raise AssertionError(f"{name}: kernel and plain version differ")
+        n_pix = width * height
+        b = forward_bound(k_tr.tolist(), n_pix * spp, n_pix,
+                          sc.rects.k.shape[0], sc.spheres.radius.shape[0])
+        return {"img": k_img / spp, "err": err_, "ms": med["kernel"] * 1e3,
+                "plain_ms": med["plain"] * 1e3, "bound": b}
+
+    phase("sphere-table kernel against its plain version, sphere_grid "
+          "1024x768x4")
+    tab = {"sphere_grid": tab_parity("sphere_grid", 1024, 768, 4, 4)}
+    phase("sphere-table kernel against its plain version, smallpt_original "
+          "1024x768x4 (SPEC + REFR)")
+    tab["smallpt_original"] = tab_parity("smallpt_original", 1024, 768, 4, 5)
+    # The plain version picks each ray's material with one torch.where per
+    # object (1031 here) and scans the spheres in chunks of 64: at
+    # 1024x768x4 that is minutes, so this scene is held at 256x192x4.
+    phase("sphere-table kernel against its plain version, sphere_grid_1024 "
+          "256x192x4")
+    tab["sphere_grid_1024"] = tab_parity("sphere_grid_1024", 256, 192, 4, 4)
+
+    # Phase (e): the sphere-table kernel against the committed sphere golden
+    # (rendered by the JAX package on the CPU), and its plain version.
+    phase("sphere golden cornell_spheres 64x48x16, kernel and plain version")
+    golden_s = film.read_ppm(str(GOLDEN_SPH))
+    scene_s = get_scene("cornell_spheres")
+    before = megakernel.LAUNCHES_TAB
+    img, tr = megakernel.render_megakernel(scene_s, cam_g, cfg_g, 42)
+    if megakernel.LAUNCHES_TAB != before + 1:
+        raise AssertionError("cornell_spheres did not go through "
+                             "megakernel_nee_tab")
+    got = film.tonemap_u8(film.finalize(img / cfg_g.spp)).cpu().numpy()
+    eq, gap = golden_bound(got, golden_s, SPH_GOLDEN_EQ)
+    p_img, p_tr = megakernel.render_megakernel_plain(scene_s, cam_g, cfg_g, 42)
+    if not (torch.equal(img, p_img) and torch.equal(tr, p_tr)):
+        raise AssertionError("kernel and plain version differ on "
+                             "cornell_spheres 64x48x16")
+    log(f"[smoke] sphere golden 64x48x16: {eq:.4%} bytes equal (floor "
+        f"{SPH_GOLDEN_EQ:.0%}), channel mean gap {gap:.3f} levels; kernel "
+        f"== plain, traces {tr.tolist()}: ok")
+
+    # Phase (f): the sphere render path, as a user calls it.
+    def cli_render_tab(name, spp):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, f"{name}.ppm")
+            err_ = io.StringIO()
+            megakernel.LAUNCHES_TAB = 0
+            with contextlib.redirect_stderr(err_):
+                rc = cli_main(["render", "--scene", name, "--width", "1024",
+                               "--height", "768", "--spp", spp, "-o", out])
+            n_launch = megakernel.LAUNCHES_TAB
+            log("[smoke] cli: " + err_.getvalue().strip())
+            if rc != 0:
+                raise AssertionError(f"cli render {name} returned {rc}")
+            if n_launch < 1:
+                raise AssertionError(f"cli render {name} did not launch "
+                                     "megakernel_nee_tab")
+            image = film.read_ppm(out)
+        mm = re.search(r"traces=(\d+)\s+seconds=([0-9.]+)", err_.getvalue())
+        if mm is None or image.shape != (768, 1024, 3):
+            raise AssertionError(f"cli render {name}: no trace count, or "
+                                 f"image shape {image.shape}")
+        rays, secs = int(mm.group(1)), float(mm.group(2))
+        got_means = image.reshape(-1, 3).astype(np.float64).mean(0)
+        ref = film.tonemap_u8(film.finalize(tab[name]["img"])).cpu().numpy()
+        ref_means = ref.reshape(-1, 3).astype(np.float64).mean(0)
+        log(f"[smoke] main path {name} 1024x768x{spp}: {n_launch} launch(es) "
+            f"of megakernel_nee_tab, {rays} rays in {secs:.3f}s = "
+            f"{rays / secs / 1e6:.1f} Mrays/s on {card}; channel means "
+            f"{got_means.round(2).tolist()} vs its x4 parity render "
+            f"{ref_means.round(2).tolist()}")
+        if np.any(np.abs(got_means - ref_means) > MEAN_TOL * ref_means):
+            raise AssertionError(f"{name}: channel means off the parity "
+                                 "render's")
+        return n_launch
+
+    phase("main path, cli render --scene sphere_grid 1024x768x512")
+    tab_launches = cli_render_tab("sphere_grid", "512")
+    phase(f"main path, cli render --scene sphere_grid_1024 1024x768x"
+          f"{SPP_1024}")
+    cli_render_tab("sphere_grid_1024", SPP_1024)
+
+    # Device time of the sphere-table kernel at the main path's shape.
+    phase("sphere-table kernel at 1024x768x512, CUDA events")
+    scene_g = get_scene("sphere_grid")
+    _, tr_g = megakernel.render_megakernel(scene_g, cam_f, cfg_f, 0)
+    tab_ms = event_ms(lambda: megakernel.render_megakernel(
+        scene_g, cam_f, cfg_f, 0), 3)
+    tab_b512 = forward_bound(tr_g.tolist(), n_pix_f * 512, n_pix_f,
+                             scene_g.rects.k.shape[0],
+                             scene_g.spheres.radius.shape[0])
+    log(f"[smoke] sphere_grid 1024x768x512 seed 0, traces {tr_g.tolist()}: "
+        f"megakernel_nee_tab {tab_ms:.3f} ms a launch; bound "
+        f"{tab_b512[0]:.3f} ms ({tab_b512[1]})")
+    PHASES.append(("end", time.perf_counter()))
+    for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
+        log(f"[smoke] {t1 - t0:8.3f} s  {name}")
+
     # No single PyTorch call computes any of these functions: library_ms is
     # null for each.
     def entry(name, source, replaces, launch, err_, ms, plain_ms, b):
@@ -402,6 +568,10 @@ def main() -> int:
         entry("megakernel_vjp", "megakernel_grad.cu",
               "megakernel_grad.py:1049", fit_launches["megakernel_vjp"],
               vjp_err, vjp_s * 1e3, vjp_plain_s * 1e3, vjp_b),
+        entry("megakernel_nee_tab", "megakernel.cu",
+              "megakernel.py:1203 (sphere_tab, call :2670)", tab_launches,
+              tab["sphere_grid"]["err"], tab["sphere_grid"]["ms"],
+              tab["sphere_grid"]["plain_ms"], tab["sphere_grid"]["bound"]),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -23,12 +23,13 @@ from ..core import film
 from ..device import resolve
 from ..integrator.wavefront import render
 from ..ops.megakernel import render_megakernel
-from ..ops.megakernel_grad import FIELDS, fit_megakernel
-from ..scene.presets import get_scene
+from ..ops.megakernel_grad import FIELDS, check_trainable, fit_megakernel
+from ..scene.presets import PRESETS, get_scene
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--scene", default="cornell_box")
+    p.add_argument("--scene", default="cornell_box",
+                   help="preset: " + ", ".join(PRESETS))
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=16)
@@ -36,12 +37,19 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernel) or cpu (eager)")
+    p.add_argument("--sphere-table", default="auto",
+                   choices=["auto", "on", "off", "cluster",
+                            "cluster_scratch"],
+                   help="the JAX package's sphere-table modes; here every "
+                        "value takes the same kernel and gives the same "
+                        "image (config.py)")
 
 
 def _build(args):
     device = resolve(args.device)
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       estimator=args.estimator, seed=args.seed)
+                       estimator=args.estimator, seed=args.seed,
+                       sphere_table=args.sphere_table)
     scene = get_scene(args.scene, device=device)
     cam = make_camera(aspect=args.width / args.height, device=device)
     return scene, cam, cfg
@@ -133,6 +141,7 @@ def cmd_fit(args) -> int:
             f"optimizer={args.optimizer}, fields={fields})"
         )
     scene, cam, cfg = _build(args)
+    check_trainable(scene)
     if args.target:
         target = torch.as_tensor(
             film.srgb_from_u8(film.read_ppm(args.target)),

@@ -6,6 +6,16 @@ render_counts``). This slice of the port runs the ``nee`` estimator with the
 hash sampler, the box filter and the pinhole camera on the regenerating
 schedule; every other value of a field raises NotImplementedError naming the
 ROADMAP.md item that ports it.
+
+``sphere_table`` takes the JAX package's five values and changes nothing:
+on the card every scene with spheres (or SPEC/REFR objects) runs through
+one kernel, ``megakernel_nee_tab``, which scans the spheres from a table in
+shared memory. The JAX package's choices between unrolled and table scans
+(``auto`` takes the table at 48 spheres or more) and its cluster
+pruning with the lane swizzle (``cluster``, ``cluster_scratch``) are
+workarounds for lockstep TPU lanes and compile times; none of them changes
+the image, since radiance is keyed by pixel, so all five values give the
+same image here.
 """
 
 from __future__ import annotations
@@ -104,10 +114,6 @@ class RenderConfig:
             raise ValueError(
                 "sphere_table must be auto/on/off/cluster/cluster_scratch, "
                 f"got {self.sphere_table!r}"
-            )
-        if self.sphere_table not in ("auto", "off"):
-            raise NotImplementedError(
-                f"sphere_table={self.sphere_table!r} " + _LATER.format(11)
             )
         if min(self.width, self.height, self.spp) < 1:
             raise ValueError("width, height and spp must be >= 1")

@@ -12,7 +12,7 @@ import torch
 
 from .camera.pinhole import CameraParams
 from .device import resolve
-from .scene.types import LightSampler, Rects, Scene
+from .scene.types import GLOS, LightSampler, Rects, Scene, Spheres
 
 
 def _leaf(obj, name, dtype, device):
@@ -26,12 +26,11 @@ def _count(block, name) -> int:
 
 def scene_from_jax(scene, device="cuda") -> Scene:
     """The port's Scene from a JAX ``Scene``; raises for anything outside
-    this slice (quads, spheres, a sphere light, a light list)."""
+    this slice (quads, a sphere light, a light list, GLOS materials)."""
     device = resolve(device)
-    if _count(scene.quads, "corner") or _count(scene.spheres, "radius"):
+    if _count(scene.quads, "corner"):
         raise NotImplementedError(
-            "quads and spheres are not ported yet (ROADMAP.md queue 1, "
-            "item 11)"
+            "quads are not ported yet (ROADMAP.md queue 1, item 11)"
         )
     if getattr(scene, "lights", None) is not None:
         raise NotImplementedError(
@@ -42,8 +41,13 @@ def scene_from_jax(scene, device="cuda") -> Scene:
         raise NotImplementedError(
             "sphere lights are not ported yet (ROADMAP.md queue 1, item 12)"
         )
+    if any(np.any(np.asarray(b.refl) == GLOS)
+           for b in (scene.rects, scene.spheres)):
+        raise NotImplementedError(
+            "GLOS materials are not ported yet (ROADMAP.md queue 1, item 11)"
+        )
     f32, i64 = torch.float32, torch.int64
-    r = scene.rects
+    r, s = scene.rects, scene.spheres
     rects = Rects(
         axis=_leaf(r, "axis", i64, device),
         k=_leaf(r, "k", f32, device),
@@ -54,13 +58,21 @@ def scene_from_jax(scene, device="cuda") -> Scene:
         refl=_leaf(r, "refl", i64, device),
         gloss=_leaf(r, "gloss", f32, device),
     )
+    spheres = Spheres(
+        center=_leaf(s, "center", f32, device).reshape(-1, 3),
+        radius=_leaf(s, "radius", f32, device),
+        albedo=_leaf(s, "albedo", f32, device).reshape(-1, 3),
+        emission=_leaf(s, "emission", f32, device).reshape(-1, 3),
+        refl=_leaf(s, "refl", i64, device),
+        gloss=_leaf(s, "gloss", f32, device),
+    )
     ls = LightSampler(
         corner=_leaf(light, "corner", f32, device),
         edge_u=_leaf(light, "edge_u", f32, device),
         edge_v=_leaf(light, "edge_v", f32, device),
         light_obj_id=int(np.asarray(light.light_obj_id)),
     )
-    return Scene(rects=rects, light=ls)
+    return Scene(rects=rects, spheres=spheres, light=ls)
 
 
 def camera_from_jax(cam, device="cuda") -> CameraParams:

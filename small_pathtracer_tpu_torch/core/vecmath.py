@@ -1,7 +1,7 @@
 """Batched 3-vector math over (..., 3) float32 tensors.
 
 Every sum is written out in the order x, y, z, and ``rsqrt`` is
-``1 / sqrt``: the CUDA kernel (``csrc/megakernel.cu``) uses the same
+``1 / sqrt``: the CUDA kernels (``csrc/megakernel.cu``) use the same
 expressions, so the eager path and the kernel round alike.
 """
 
@@ -35,6 +35,11 @@ def norm(a: torch.Tensor) -> torch.Tensor:
 
 def magnitude(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dot(a, a))
+
+
+def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection ``d - n*2*(n.d)``; the sign of n does not matter."""
+    return d - n * (2.0 * dot(n, d))[..., None]
 
 
 def orient_normal(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 // Fused regenerating path tracer, `nee` estimator, axis-aligned rects with
-// one parallelogram light, box filter, pinhole camera. Two kernels share one
-// loop body (`render_lane`, a template on where the materials come from):
+// one parallelogram light, box filter, pinhole camera. Three kernels share
+// one loop body (`render_lane`, a template on where the materials come from
+// and on whether the scene has a sphere table):
 //
 // - megakernel_nee replaces the Pallas TPU kernel of
 //   small_pathtracer_tpu/ops/megakernel.py: `build_kernel`, as
 //   `_build_render` builds it for `render_pallas` / `render_pallas_span`
 //   (baked scene, no material refs, NEE fold on). Materials sit in the
-//   kernel parameters beside the geometry.
+//   kernel parameters beside the geometry. Rects and DIFF only.
 // - megakernel_nee_mat replaces `build_kernel(mat_refs=True)` as
 //   small_pathtracer_tpu/ops/megakernel_grad.py: `_build_fwd_mat` builds it
 //   for `render_pallas_mat`: the albedo and emission (K, 3) tables are
@@ -14,18 +15,33 @@
 //   block, so a training step changes them without a host copy. The NEE
 //   fold is decided in the kernel from the light's row of the table.
 //   Equal tables give a bit-identical image and trace counts.
+// - megakernel_nee_tab replaces `build_kernel(mat_refs=True,
+//   sphere_tab=True)` as `_build_render(use_tab=True)` builds it (the same
+//   `pallas_call`, megakernel.py:2670): spheres scanned from a runtime
+//   table after every rect, and the SPEC mirror and REFR glass branches.
+//   The sphere rows [cx, cy, cz, r] are copied once per block into shared
+//   memory (16 bytes a sphere, up to kMaxSpheres); in the scan every lane
+//   of a warp reads the same row, one broadcast. The (K, 3) material tables
+//   and the (K,) material codes stay in device memory: a lane reads its
+//   winner's row once a bounce, after the scan. The shadow probe stops at
+//   the first occluder. SPEC/REFR lanes skip the NEE probe (the TPU kernel
+//   computes and discards it: every draw is keyed by its counter, so
+//   skipping changes no bit), count no probe and are never folded. The
+//   TPU kernel's cluster pruning and lane swizzle work around lockstep TPU
+//   lanes and change no pixel; they are not carried over.
 //
 // What bounds them: arithmetic and divergence, not bytes. A lane reads
 // nothing but its index, the scene (a few hundred bytes of kernel
-// parameters, read by every lane alike) and, for the table kernel, 2·K·3
-// floats per block, and writes 12 bytes of radiance plus a share of two
-// counters: about 20 bytes of I/O against thousands of operations per
-// sample (17 rect tests per nearest-hit query, two queries per bounce, five
-// murmur3 hashes per bounce on the integer pipes). Counted that way, the
-// integer operations bound both kernels: 3.8 ms at 1024x768x512 on an H100
-// SXM (700 W) against ~69 ms measured (PERF.md). What costs time is the
-// per-lane while loop: lanes of one warp die and respawn at different
-// bounces, and a diverged warp runs both paths.
+// parameters, read by every lane alike, plus the sphere and material
+// tables) and writes 12 bytes of radiance plus a share of two counters:
+// about 20 bytes of I/O against thousands of operations per sample (a rect
+// test costs ~12 operations, a sphere test ~26 at least, two queries per
+// bounce, five murmur3 hashes per bounce on the integer pipes). Counted
+// that way, the integer operations bound rows 1 and 8 on the Cornell box
+// (3.8 ms at 1024x768x512 on an H100 SXM, 700 W, against ~69 ms measured)
+// and the sphere tests bound row 2 on sphere scenes (PERF.md). What costs
+// time is the per-lane while loop: lanes of one warp die and respawn at
+// different bounces, and a diverged warp runs both paths.
 //
 // Design: one thread per lane, blocks of 128, the ragged last block masked.
 // A lane derives its pixel and sample range [s_start, s_stop) from its index
@@ -34,22 +50,54 @@
 // so a warp stays busy until its slowest lane runs out of samples. Trace
 // counts are 32-bit per thread, summed per warp, and added to two 64-bit
 // totals with one atomic per warp. Left for later: sorting or compacting
-// lanes against divergence, and a scene test cheaper than the linear scan.
+// lanes against divergence, and a scene test cheaper than the linear scan
+// (a BVH over the spheres, ROADMAP item 21).
 //
 // Numerics: see megakernel_common.cuh; the kernels match the eager plain
-// version exactly on the card. The NEE fold: a successful probe proves the
-// next extend ray hits the light, and when the light's max albedo is <= 0
-// that bounce's pickup, its extend count and the path's certain RR death are
-// resolved one iteration early. Per-lane sums and counters stay exactly
-// those of the unfolded loop.
+// version exactly on the card. The NEE fold: a successful probe from a
+// diffuse hit proves the next extend ray hits the light, and when the
+// light's max albedo is <= 0 that bounce's pickup, its extend count and the
+// path's certain RR death are resolved one iteration early. Per-lane sums
+// and counters stay exactly those of the unfolded loop.
 
 #include "megakernel_common.cuh"
 
 namespace {
 
-template <class Mats>
+constexpr int kDiff = 0, kSpec = 1;
+// integrator/wavefront._refr_scatter: air 1, glass 1.5, Schlick's R0.
+constexpr float kNntInto = 1.0f / 1.5f, kNntOut = 1.5f;
+constexpr float kR0 = 0.04f, kOneMinusR0 = 0.96f;
+
+// core/vecmath.reflect.
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) {
+  return sub(d, mul(n, 2.0f * dot(n, d)));
+}
+
+// integrator/wavefront._refr_scatter, its expressions in its order: ng the
+// geometric normal, n the one oriented against d.
+__device__ __forceinline__ void refr_scatter(V3 d, V3 ng, V3 n, float u_coin,
+                                             V3* dir, float* w) {
+  const bool into = dot(ng, n) > 0.0f;
+  const float nnt = into ? kNntInto : kNntOut;
+  const float ddn = dot(d, n);
+  const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
+  const bool tir = cos2t < 0.0f;
+  const float sq = cos2t > 0.0f ? sqrtf(cos2t) : 0.0f;
+  const float sign = into ? 1.0f : -1.0f;
+  const V3 tdir = norm(sub(mul(d, nnt), mul(ng, sign * (ddn * nnt + sq))));
+  const float c = 1.0f - (into ? -ddn : dot(tdir, ng));
+  const float re = kR0 + kOneMinusR0 * c * c * c * c * c;
+  const float tr = 1.0f - re;
+  const float pr = 0.25f + 0.5f * re;
+  const bool pick_refl = u_coin < pr || tir;
+  *w = tir ? 1.0f : (pick_refl ? re / pr : tr / (1.0f - pr));
+  *dir = pick_refl ? reflect(d, ng) : tdir;
+}
+
+template <class Mats, bool kTab>
 __device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
-                                            bool fold,
+                                            const SphereTab& tab, bool fold,
                                             float* __restrict__ out_l,
                                             unsigned long long* __restrict__ traces) {
   const LaneRange lr = lane_range(p);
@@ -70,17 +118,33 @@ __device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
   while (alive) {
     depth += 1;
     int id;
-    const float t_hit = nearest(p, o, d, &id);
+    float t_hit;
+    if constexpr (kTab) {
+      t_hit = nearest_tab(p, tab, o, d, &id);
+    } else {
+      t_hit = nearest(p, o, d, &id);
+    }
     const bool hit = t_hit < kMissT;
-    const int axis = p.rects[id].axis;
+    // The winner's rect axis, -1 for a sphere. Rows 1 and 8 read it here,
+    // as before the sphere table existed, so their code is unchanged.
+    const int axis = (kTab && id >= p.n_rects) ? -1 : p.rects[id].axis;
     const V3 alb = mats.albedo(id);
     const V3 emi = mats.emission(id);
     // Emission pickup: throughput * emission.
     L = add(L, v3(T.x * emi.x, T.y * emi.y, T.z * emi.z));
     const V3 x = hit ? add(o, mul(d, t_hit)) : v3(0.0f, 0.0f, 0.0f);
-    const V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
-                     axis == 2 ? 1.0f : 0.0f);
+    V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
+               axis == 2 ? 1.0f : 0.0f);
+    int refl = kDiff;
+    if constexpr (kTab) {
+      refl = tab.refl[id];
+      if (axis < 0) {
+        const float4 c = tab.sph[id - p.n_rects];
+        ng = norm(sub(x, v3(c.x, c.y, c.z)));
+      }
+    }
     const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
+    const bool diffuse = refl == kDiff;
 
     const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
     const float u_rr = uniform(p.seed, pid, ctr + kRR);
@@ -93,35 +157,51 @@ __device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
         (rr_active && p_max > 0.0f) ? 1.0f / (p_max > 0.0f ? p_max : 1.0f) : 1.0f;
     const V3 f = mul(alb, inv_p);
 
-    // Cosine-weighted hemisphere sample around n.
-    const float u1 = uniform(p.seed, pid, ctr + kScatterU);
-    const float u2 = uniform(p.seed, pid, ctr + kScatterV);
-    float sr1, cr1;
-    sincos_2pi(u1, &sr1, &cr1);
-    const float r2s = sqrtf(u2);
-    const V3 a = fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-    const V3 fu = norm(cross(a, n));
-    const V3 fv = cross(n, fu);
-    const V3 cos_dir = norm(add(add(mul(fu, cr1 * r2s), mul(fv, sr1 * r2s)),
-                                mul(n, sqrtf(1.0f - u2))));
+    V3 new_dir;
+    float w;
+    bool success = false;
+    if (diffuse) {
+      // Cosine-weighted hemisphere sample around n.
+      const float u1 = uniform(p.seed, pid, ctr + kScatterU);
+      const float u2 = uniform(p.seed, pid, ctr + kScatterV);
+      float sr1, cr1;
+      sincos_2pi(u1, &sr1, &cr1);
+      const float r2s = sqrtf(u2);
+      const V3 a = fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+      const V3 fu = norm(cross(a, n));
+      const V3 fv = cross(n, fu);
+      const V3 cos_dir = norm(add(add(mul(fu, cr1 * r2s), mul(fv, sr1 * r2s)),
+                                  mul(n, sqrtf(1.0f - u2))));
 
-    // NEE as continuation: probe a uniform point of the light parallelogram.
-    const float lu = uniform(p.seed, pid, ctr + kLightU);
-    const float lv = uniform(p.seed, pid, ctr + kLightV);
-    const V3 lp = add(add(lc, mul(leu, lu)), mul(lev, lv));
-    const V3 d_l = norm(sub(lp, x));
-    float t_l;
-    const bool success = probe_light(p, x, d_l, &t_l);
-    const float t_safe = success ? t_l : 1.0f;
-    const float w_nee = (fabsf(p.area * dot(d_l, ln)) / (t_safe * t_safe)) *
-                        (fabsf(dot(d_l, n)) * kInvPi);
-    const V3 new_dir = success ? d_l : cos_dir;
-    const float w = success ? w_nee : 1.0f;
+      // NEE as continuation: probe a uniform point of the light
+      // parallelogram.
+      const float lu = uniform(p.seed, pid, ctr + kLightU);
+      const float lv = uniform(p.seed, pid, ctr + kLightV);
+      const V3 lp = add(add(lc, mul(leu, lu)), mul(lev, lv));
+      const V3 d_l = norm(sub(lp, x));
+      float t_l;
+      if constexpr (kTab) {
+        success = probe_light_tab(p, tab, x, d_l, &t_l);
+      } else {
+        success = probe_light(p, x, d_l, &t_l);
+      }
+      const float t_safe = success ? t_l : 1.0f;
+      const float w_nee = (fabsf(p.area * dot(d_l, ln)) / (t_safe * t_safe)) *
+                          (fabsf(dot(d_l, n)) * kInvPi);
+      new_dir = success ? d_l : cos_dir;
+      w = success ? w_nee : 1.0f;
+    } else if (refl == kSpec) {
+      new_dir = reflect(d, ng);
+      w = 1.0f;
+    } else {
+      refr_scatter(d, ng, n, uniform(p.seed, pid, ctr + kRefrCoin), &new_dir,
+                   &w);
+    }
     const V3 T_new = mul(v3(T.x * f.x, T.y * f.y, T.z * f.z), w);
 
     bool alive_next = survive;
     n_extend += 1;
-    n_probe += alive_next ? 1u : 0u;
+    n_probe += (alive_next && diffuse) ? 1u : 0u;
     alive_next = alive_next && depth < p.max_bounces;
 
     if (fold && alive_next && success) {
@@ -172,7 +252,8 @@ __device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
 __global__ void __launch_bounds__(kBlock)
     megakernel_nee(const __grid_constant__ Params p, float* __restrict__ out_l,
                    unsigned long long* __restrict__ traces) {
-  render_lane(p, BakedMaterials{p}, p.fold != 0, out_l, traces);
+  render_lane<BakedMaterials, false>(p, BakedMaterials{p}, SphereTab{},
+                                     p.fold != 0, out_l, traces);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -186,7 +267,28 @@ __global__ void __launch_bounds__(kBlock)
   load_tables(p, alb, emi, s_alb, s_emi);
   const TableMaterials mats{s_alb, s_emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane(p, mats, fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
+  render_lane<TableMaterials, false>(p, mats, SphereTab{},
+                                     fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
+                                     out_l, traces);
+}
+
+// Dynamic shared memory: n_sph rows of float4.
+__global__ void __launch_bounds__(kBlock)
+    megakernel_nee_tab(const __grid_constant__ Params p,
+                       const float4* __restrict__ sph, int n_sph,
+                       const float* __restrict__ alb,
+                       const float* __restrict__ emi,
+                       const int* __restrict__ refl,
+                       float* __restrict__ out_l,
+                       unsigned long long* __restrict__ traces) {
+  extern __shared__ float4 s_sph[];
+  for (int i = threadIdx.x; i < n_sph; i += kBlock) s_sph[i] = sph[i];
+  __syncthreads();
+  const TableMaterials mats{alb, emi};
+  const V3 a = mats.albedo(p.light_id);
+  render_lane<TableMaterials, true>(p, mats, SphereTab{s_sph, n_sph, refl},
+                                    fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
+                                    out_l, traces);
 }
 
 }  // namespace
@@ -248,5 +350,43 @@ extern "C" int spt_megakernel_nee_mat(const float* rect_geom,
   megakernel_nee_mat<<<grid_of(p), kBlock, 0,
                        static_cast<cudaStream_t>(stream)>>>(p, alb, emi, out_l,
                                                             traces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 2, the sphere table: sph is (n_spheres, 4) float32 [cx, cy, cz, r]
+// and alb, emi (n_rects + n_spheres, 3) float32 and refl
+// (n_rects + n_spheres,) int32 (DIFF 0, SPEC 1, REFR 2) are tables in
+// device memory, rects first. More than kMaxSpheres spheres are refused
+// (cudaErrorInvalidValue); above 48 KB of rows the kernel's dynamic shared
+// memory limit is raised first.
+extern "C" int spt_megakernel_nee_tab(const float* rect_geom,
+                                      const int* rect_axis, int n_rects,
+                                      const float* light_f, int light_id,
+                                      const float* cam_f, unsigned seed,
+                                      int width, int height, int spp, int g,
+                                      int per, unsigned s0,
+                                      int rr_start_depth, int max_bounces,
+                                      const float* sph, int n_spheres,
+                                      const float* alb, const float* emi,
+                                      const int* refl, float* out_l,
+                                      unsigned long long* traces,
+                                      void* stream) {
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, g, per, s0,
+                   rr_start_depth, max_bounces) ||
+      n_spheres < 0 || n_spheres > kMaxSpheres) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = n_spheres * static_cast<int>(sizeof(float4));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        megakernel_nee_tab, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  megakernel_nee_tab<<<grid_of(p), kBlock, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      p, reinterpret_cast<const float4*>(sph), n_spheres, alb, emi, refl,
+      out_l, traces);
   return static_cast<int>(cudaGetLastError());
 }

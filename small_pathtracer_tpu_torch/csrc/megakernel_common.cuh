@@ -1,7 +1,8 @@
 // Device functions shared by the forward megakernels (megakernel.cu) and
 // the material adjoint (megakernel_grad.cu): the scene parameters, the
-// murmur3 counter RNG, the polynomial sincos, the rect tests, the nearest-hit
-// scan, the shadow probe and the primary-ray spawn.
+// murmur3 counter RNG, the polynomial sincos, the rect and sphere tests, the
+// nearest-hit scans, the shadow probes and the primary-ray spawn. The
+// adjoint uses the rect-only scans (nearest, probe_light).
 //
 // Numerics: the library is compiled with --fmad=false and IEEE division and
 // sqrt, with rsqrt written as 1/sqrtf, so each operation rounds as the eager
@@ -15,14 +16,16 @@
 namespace {
 
 constexpr int kMaxRects = 32;
+constexpr int kMaxSpheres = 4096;  // 64 KB of shared memory a block
 constexpr int kBlock = 128;
 constexpr float kMissT = 1e20f;
 constexpr float kSelfHitEps = 1e-3f;
+constexpr float kSphereEps = 1e-4f, kSphereEpsRel = 4e-6f;
 constexpr float kInvPi = 0.318309886183790671538f;
 constexpr float kInv2p24 = 1.0f / 16777216.0f;
 constexpr uint32_t kDrawsPerBounce = 8;
 constexpr uint32_t kRR = 0, kLightU = 1, kLightV = 2, kScatterU = 3,
-                   kScatterV = 4;
+                   kScatterV = 4, kRefrCoin = 6;
 
 struct Rect {
   int axis;
@@ -66,8 +69,8 @@ __device__ __forceinline__ float comp(V3 a, int i) { return i == 0 ? a.x : (i ==
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
 
 // Where a lane reads its materials: the kernel parameters (baked scene,
-// row 1) or (K, 3) tables that the block copied into shared memory (runtime
-// materials, rows 8 and 9).
+// row 1) or (K, 3) tables, which rows 8 and 9 copy into shared memory and
+// the sphere-table kernel (row 2) reads from device memory.
 struct BakedMaterials {
   const Params& p;
   __device__ __forceinline__ V3 albedo(int id) const { return ld3(p.rects[id].alb); }
@@ -210,6 +213,61 @@ __device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
     if (i == p.light_id) continue;
     const float t = rect_t(p.rects[i], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
     if (i < p.light_id ? t <= t_l : t < t_l) return false;
+  }
+  return true;
+}
+
+// Hit distance of sphere s = [cx, cy, cz, r], or kMissT
+// (geometry/intersect.intersect_spheres: the recentered quadratic, the near
+// root when it clears eps, else the far one).
+__device__ __forceinline__ float sphere_t(float4 s, V3 o, V3 d) {
+  const float opx = s.x - o.x, opy = s.y - o.y, opz = s.z - o.z;
+  const float b = opx * d.x + opy * d.y + opz * d.z;
+  const float mx = b * d.x - opx, my = b * d.y - opy, mz = b * d.z - opz;
+  const float m2 = mx * mx + my * my + mz * mz;
+  const float mlen = m2 > 0.0f ? sqrtf(m2) : 0.0f;
+  const float det = (s.w - mlen) * (s.w + mlen);
+  if (!(det > 0.0f)) return kMissT;
+  const float sdet = sqrtf(det);
+  const float t_near = b - sdet;
+  const float eps = fmaxf(kSphereEps, kSphereEpsRel * s.w);
+  const float t = t_near > eps ? t_near : b + sdet;
+  return t > eps ? t : kMissT;
+}
+
+// The sphere table of megakernel_nee_tab: geometry rows in shared memory
+// and the material code of every object (rects, then spheres) in device
+// memory.
+struct SphereTab {
+  const float4* sph;  // (n,) [cx, cy, cz, r]
+  int n;
+  const int* refl;  // (n_rects + n,)
+};
+
+// Nearest hit over the rects, then the spheres (global id n_rects + i),
+// one strict < scan.
+__device__ __forceinline__ float nearest_tab(const Params& p,
+                                             const SphereTab& tab, V3 o,
+                                             V3 d, int* id) {
+  float t_best = nearest(p, o, d, id);
+  for (int i = 0; i < tab.n; ++i) {
+    const float t = sphere_t(tab.sph[i], o, d);
+    if (t < t_best) {
+      t_best = t;
+      *id = p.n_rects + i;
+    }
+  }
+  return t_best;
+}
+
+// probe_light with the spheres: they come after the light in the scan, so
+// one blocks it iff its t < t_light. Stops at the first occluder.
+__device__ __forceinline__ bool probe_light_tab(const Params& p,
+                                                const SphereTab& tab, V3 o,
+                                                V3 d, float* t_light) {
+  if (!probe_light(p, o, d, t_light)) return false;
+  for (int i = 0; i < tab.n; ++i) {
+    if (sphere_t(tab.sph[i], o, d) < *t_light) return false;
   }
   return true;
 }

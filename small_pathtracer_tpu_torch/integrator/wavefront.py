@@ -8,6 +8,10 @@ and the plain version of the CUDA kernel (``ops/megakernel.py``).
 - NEE as continuation: at each diffuse bounce a light sample becomes the
   bounce direction when its nearest hit is the light object, with weight
   |A cos_l| / t^2 * |cos| / pi; otherwise a cosine sample with weight 1.
+- SPEC mirrors reflect about the geometric normal with weight 1; REFR glass
+  (air 1, glass 1.5) reflects or refracts by a coin with P = .25 + .5 Re
+  (Schlick), total internal reflection taking the mirror ray. Neither
+  fires an NEE probe.
 - Contribution = sum over bounces of throughput * emission.
 - Escaped rays shade the stale object 0 at x = (0, 0, 0) and keep going.
 - Lane regeneration: lane i is bound to one pixel and walks its samples
@@ -29,7 +33,7 @@ from ..camera.pinhole import CameraParams, primary_rays_cfg
 from ..config import RenderConfig
 from ..core import film, rng, vecmath as vm
 from ..geometry.intersect import shade_info, trace
-from ..scene.types import DIFF, Scene
+from ..scene.types import DIFF, GLOS, REFR, SPEC, Scene, object_arrays
 from . import sampling
 
 
@@ -63,6 +67,44 @@ def _diff_scatter(scene: Scene, sh, hit_x, u):
     return new_dir, w, torch.ones_like(probe.obj_id)
 
 
+def _spec_scatter(sh, d_in):
+    """Ideal mirror: (direction, weight 1)."""
+    return vm.reflect(d_in, sh.n_geom), torch.ones_like(d_in[:, 0])
+
+
+# Dielectric constants of _refr_scatter: air, glass, and Schlick's
+# R0 = ((1.5 - 1) / (1.5 + 1))^2.
+NC, NT = 1.0, 1.5
+R0 = 0.04
+
+
+def _refr_scatter(sh, d_in, u_coin):
+    """Ideal dielectric, Russian roulette between the mirror and the
+    refracted ray at every depth: (direction, weight). The expressions and
+    their order are the CUDA kernel's: Schlick's c^5 is the product
+    c*c*c*c*c, and each weight divides by a tensor, so the two round alike
+    on the card."""
+    n, nl = sh.n_geom, sh.n
+    refl_dir = vm.reflect(d_in, n)
+    into = vm.dot(n, nl) > 0.0
+    nnt = torch.where(into, NC / NT, NT / NC)
+    ddn = vm.dot(d_in, nl)
+    cos2t = 1.0 - nnt * nnt * (1.0 - ddn * ddn)
+    tir = cos2t < 0.0
+    pos = cos2t > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, cos2t, 1.0)), 0.0)
+    sign = torch.where(into, 1.0, -1.0)
+    tdir = vm.norm(d_in * nnt[:, None]
+                   - n * (sign * (ddn * nnt + sq))[:, None])
+    c = 1.0 - torch.where(into, -ddn, vm.dot(tdir, n))
+    re = R0 + (1.0 - R0) * c * c * c * c * c
+    tr = 1.0 - re
+    p = 0.25 + 0.5 * re
+    pick_refl = (u_coin < p) | tir
+    w = torch.where(tir, 1.0, torch.where(pick_refl, re / p, tr / (1.0 - p)))
+    return torch.where(pick_refl[:, None], refl_dir, tdir), w
+
+
 class BounceOut(NamedTuple):
     emit: torch.Tensor        # (N, 3) throughput * emission, 0 on dead lanes
     x: torch.Tensor           # (N, 3) next origin
@@ -73,9 +115,10 @@ class BounceOut(NamedTuple):
 
 
 def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
-                 depth, path_id) -> BounceOut:
+                 depth, path_id, spec_refr: bool = False) -> BounceOut:
     """One radiance()-body step over the wavefront. ``depth`` is this
-    frame's post-increment depth (>= 1)."""
+    frame's post-increment depth (>= 1). ``spec_refr``: the scene holds
+    SPEC or REFR objects (without them the material select is skipped)."""
     hit = trace(scene, o, d)
     sh = shade_info(scene, o, d, hit)
     alive_f = alive.to(T.dtype)[:, None]
@@ -86,6 +129,7 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
         p: rng.uniform_mix(seed, path_id, ctr + p)
         for p in (rng.P_RR, rng.P_LIGHT_U, rng.P_LIGHT_V,
                   rng.P_SCATTER_U, rng.P_SCATTER_V)
+        + ((rng.P_REFR_COIN,) if spec_refr else ())
     }
 
     # Russian roulette.
@@ -100,6 +144,13 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
     alive_out = alive & survive
 
     new_dir, w, probes = _diff_scatter(scene, sh, sh.x, u)
+    if spec_refr:
+        spec_dir, spec_w = _spec_scatter(sh, d)
+        refr_dir, refr_w = _refr_scatter(sh, d, u[rng.P_REFR_COIN])
+        is_spec, is_refr = sh.refl == SPEC, sh.refl == REFR
+        new_dir = torch.where(is_spec[:, None], spec_dir, torch.where(
+            is_refr[:, None], refr_dir, new_dir))
+        w = torch.where(is_spec, spec_w, torch.where(is_refr, refr_w, w))
     T_out = T * f * w[:, None]
     probe_alive = alive_out & (sh.refl == DIFF)
     traces_inc = torch.stack([
@@ -118,12 +169,15 @@ def _spawn(cam: CameraParams, cfg: RenderConfig, seed, px, py, pid_base,
     return o, d, path_id
 
 
-def check_materials(scene: Scene) -> None:
-    if bool((scene.rects.refl != DIFF).any()):
+def check_materials(scene: Scene) -> bool:
+    """Raises for GLOS objects (not ported yet); returns whether the scene
+    holds SPEC or REFR objects."""
+    refl = object_arrays(scene)[2]
+    if bool((refl == GLOS).any()):
         raise NotImplementedError(
-            "SPEC/REFR/GLOS materials are not ported yet "
-            "(ROADMAP.md queue 1, item 11)"
+            "GLOS materials are not ported yet (ROADMAP.md queue 1, item 11)"
         )
+    return bool(((refl == SPEC) | (refl == REFR)).any())
 
 
 def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
@@ -132,7 +186,7 @@ def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
     samples [s_start[i], s_stop[i]). pix, s_start, s_stop: (N,) int64.
 
     Returns (per-lane radiance sum (N, 3), traces (2,) int64)."""
-    check_materials(scene)
+    spec_refr = check_materials(scene)
     n = pix.shape[0]
     dev = pix.device
     px = pix % cfg.width
@@ -149,7 +203,8 @@ def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
 
     while bool(alive.any()):
         depth1 = depth + 1
-        out = _bounce_core(scene, cfg, seed, o, d, T, alive, depth1, pid)
+        out = _bounce_core(scene, cfg, seed, o, d, T, alive, depth1, pid,
+                           spec_refr)
         # Per-path max_bounces truncation.
         alive_after = out.alive & (depth1 < cfg.max_bounces)
         died = alive & ~alive_after

@@ -161,6 +161,19 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
+    lib.spt_megakernel_nee_tab.restype = ctypes.c_int
+    lib.spt_megakernel_nee_tab.argtypes = [
+        *scene,
+        i,  # n_rects
+        *launch,
+        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
+        i,  # n_spheres
+        p, p,  # albedo, emission: (R + S, 3) f32 device
+        p,  # refl: (R + S,) i32 device
+        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
     lib.spt_megakernel_vjp.restype = ctypes.c_int
     lib.spt_megakernel_vjp.argtypes = [
         *scene,

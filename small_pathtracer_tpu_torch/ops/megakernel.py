@@ -1,5 +1,12 @@
-"""Host wrapper of the CUDA megakernel (``csrc/megakernel.cu``): the port's
-counterpart of the JAX package's ``render_pallas`` / ``render_pallas_span``.
+"""Host wrappers of the CUDA render megakernels (``csrc/megakernel.cu``): the
+port's counterpart of the JAX package's ``render_pallas`` /
+``render_pallas_span``.
+
+- ``megakernel_nee`` (row 1 of the kernel table in ROADMAP.md) renders
+  rect-only DIFF scenes, with the materials baked into its parameters.
+- ``megakernel_nee_tab`` (row 2, the JAX sphere-table kernel) renders every
+  scene with spheres or SPEC/REFR objects: the sphere rows and the
+  material tables are device tensors.
 
 Lane layout of ``_build_render``: ``g = lane_groups(n_pix, n_s, 2^18,
 cfg.regen_groups)`` lanes per pixel, each walking ``n_s // g`` samples of the
@@ -7,8 +14,8 @@ span [s0, s0 + n_s). Lane i renders pixel i // g; the per-lane radiance sums
 are reduced over g by the wrapper, so the kernel and its plain version share
 that reduction.
 
-On a CUDA device the wrapper builds (once) and launches the kernel, or
-raises. On the CPU it runs the plain version: the eager
+On a CUDA device the wrapper builds (once) and launches a kernel, or
+raises. On the CPU it runs the plain version, for both kernels: the eager
 ``integrator.wavefront.path_trace_regen`` on the same lane layout.
 ``pack_geometry`` and ``launch_args`` also serve the runtime-material
 kernels of ``ops/megakernel_grad.py``.
@@ -28,15 +35,18 @@ from ..integrator import sampling
 from ..integrator.wavefront import (
     check_materials, lane_groups, lane_layout, path_trace_regen,
 )
-from ..scene.types import Scene
+from ..scene.types import Scene, num_spheres, object_arrays
 from . import _build
 
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch, and nowhere else).
+# Launches of each CUDA kernel in this process (the wrapper adds one per
+# launch of its kernel, and nowhere else): megakernel_nee, then
+# megakernel_nee_tab.
 LAUNCHES = 0
+LAUNCHES_TAB = 0
 
 TARGET_LANES = 1 << 18
 MAX_RECTS = 32
+MAX_SPHERES = 4096  # kMaxSpheres in csrc/megakernel_common.cuh
 
 
 def _layout(cfg: RenderConfig, n_s: int):
@@ -132,17 +142,28 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def uses_sphere_table(scene: Scene) -> bool:
+    """Whether the card renders ``scene`` with megakernel_nee_tab: it holds
+    spheres or SPEC/REFR objects (raises for GLOS objects)."""
+    spec_refr = check_materials(scene)
+    return num_spheres(scene) > 0 or spec_refr
+
+
 def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                       seed, s0: int = 0, n_s: int | None = None,
                       device=None):
     """Render sample indices [s0, s0 + n_s) of every pixel (all of spp by
-    default) on ``device`` (the scene's by default): the CUDA kernel on a
-    CUDA device, the plain version on the CPU. Returns ((h, w, 3) radiance
-    sum over the span, traces (2,) int64 [extend, probe])."""
+    default) on ``device`` (the scene's by default): a CUDA kernel on a
+    CUDA device (megakernel_nee_tab for a scene with spheres or SPEC/REFR
+    objects, megakernel_nee otherwise), the plain version on the CPU.
+    Returns ((h, w, 3) radiance sum over the span, traces (2,) int64
+    [extend, probe])."""
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_plain(scene, cam, cfg, seed, s0, n_s,
                                        device)
+    if uses_sphere_table(scene):
+        return _render_tab(scene, cam, cfg, seed, s0, n_s, device)
     global LAUNCHES
     geom = pack_geometry(scene, cam)
     n_s = cfg.spp if n_s is None else int(n_s)
@@ -166,4 +187,45 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
         )
     check_launch(err, "megakernel_nee")
     LAUNCHES += 1
+    return _reduce(out_l, cfg, n_pix, g), traces
+
+
+def sphere_tables(scene: Scene, device):
+    """The sphere-table kernel's device inputs: sphere rows (S, 4) float32
+    [cx, cy, cz, r], and albedo (K, 3), emission (K, 3) float32 and refl
+    (K,) int32 in global object order (rects, then spheres)."""
+    sp = scene.spheres
+    sph = torch.cat([sp.center, sp.radius[:, None]], dim=1)
+    alb, emi, refl = object_arrays(scene)
+    f32 = torch.float32
+    return tuple(t.to(device=device, dtype=dt).contiguous() for t, dt in (
+        (sph, f32), (alb, f32), (emi, f32), (refl, torch.int32)))
+
+
+def _render_tab(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+                s0: int, n_s: int | None, device):
+    global LAUNCHES_TAB
+    S = num_spheres(scene)
+    if S > MAX_SPHERES:
+        raise NotImplementedError(
+            f"the sphere-table kernel takes at most {MAX_SPHERES} spheres "
+            f"(64 KB of shared memory a block), got {S}"
+        )
+    geom = pack_geometry(scene, cam)
+    sph, alb, emi, refl = sphere_tables(scene, device)
+    n_s = cfg.spp if n_s is None else int(n_s)
+    n_pix, g, per = _layout(cfg, n_s)
+    lib = _build.build_kernels().lib
+    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    traces = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.spt_megakernel_nee_tab(
+            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+            len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
+            sph.data_ptr(), S, alb.data_ptr(), emi.data_ptr(),
+            refl.data_ptr(), out_l.data_ptr(), traces.data_ptr(), stream,
+        )
+    check_launch(err, "megakernel_nee_tab")
+    LAUNCHES_TAB += 1
     return _reduce(out_l, cfg, n_pix, g), traces

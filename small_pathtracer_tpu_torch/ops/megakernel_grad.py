@@ -12,7 +12,9 @@ package's ``ops/megakernel_grad.py`` for ``nee``, rects and one rect light.
   counterparts of ``loss_and_material_grads`` and ``fit_pallas``.
 
 The tables are in global object order (``pack_materials``): the rects, so
-K = 17 for ``cornell_box``. On a CUDA device each wrapper launches its
+K = 17 for ``cornell_box``. Scenes with spheres or SPEC/REFR objects are
+refused on every device (``check_trainable``): the kernels of rows 8 and 9
+know rects and DIFF only. On a CUDA device each wrapper launches its
 kernel or raises. On the CPU it runs the plain version: the eager forward
 (``render_megakernel_plain``) with the tables put into the scene and, for
 the adjoint, ``torch.autograd`` through it.
@@ -26,7 +28,9 @@ import torch
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
-from ..scene.types import LightSampler, Rects, Scene
+from ..scene.types import (
+    DIFF, LightSampler, Rects, Scene, Spheres, num_spheres,
+)
 from . import _build
 from .megakernel import (
     KernelGeometry, _layout, _reduce, _resolve, check_launch, launch_args,
@@ -42,6 +46,17 @@ LAUNCHES_VJP = 0
 # it sizes the per-block partial sums.
 KERNEL_BLOCK = 128
 FIELDS = ("albedo", "emission")
+
+
+def check_trainable(scene: Scene) -> None:
+    """Raises NotImplementedError for a scene outside rows 8 and 9 (spheres
+    or SPEC/REFR objects), on every device, so the CPU never trains a scene
+    that the card refuses."""
+    if num_spheres(scene) or bool((scene.rects.refl != DIFF).any()):
+        raise NotImplementedError(
+            "material training on scenes with spheres or SPEC/REFR objects "
+            "is not ported yet (ROADMAP.md queue 1, item 23)"
+        )
 
 
 def pack_materials(scene: Scene):
@@ -68,6 +83,7 @@ def material_grads_to_scene(scene: Scene, galb, gemi) -> Scene:
     light = scene.light
     zero = Scene(
         rects=Rects(*(torch.zeros_like(t) for t in scene.rects)),
+        spheres=Spheres(*(torch.zeros_like(t) for t in scene.spheres)),
         light=LightSampler(torch.zeros_like(light.corner),
                            torch.zeros_like(light.edge_u),
                            torch.zeros_like(light.edge_v),
@@ -109,6 +125,7 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
     (``pack_geometry(scene, cam)``) saves the host copy of the geometry per
     call; the tables never leave the device. Returns ((h, w, 3) radiance sum
     over the span, traces (2,) int64 [extend, probe])."""
+    check_trainable(scene)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
@@ -158,6 +175,7 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     is render_megakernel_mat's radiance sum over spp: (d/d albedo,
     d/d emission), each (K, 3), pathwise. The CUDA kernel on a CUDA device,
     the plain version on the CPU."""
+    check_trainable(scene)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
@@ -242,6 +260,7 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     ``seed``. The geometry is packed once; the tables stay on the device.
 
     Returns (optimized scene, list of per-step losses)."""
+    check_trainable(scene)
     if checkpoint or checkpoint_every:
         raise NotImplementedError(
             "fit checkpoints are not ported yet (ROADMAP.md queue 1, item "

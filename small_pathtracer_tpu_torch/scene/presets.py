@@ -1,12 +1,24 @@
-"""Scene presets. This slice ports ``cornell_box``: the reference's 17-rect
-scene (6 walls, the light as object 6, and two 5-face boxes)."""
+"""Scene presets, copies of the JAX package's:
+
+- ``cornell_box``: the reference's 17-rect scene (6 walls, the light as
+  object 6, and two 5-face boxes);
+- ``cornell_spheres``: the same walls and light with two DIFF spheres;
+- ``smallpt_original``: rect walls in smallpt's colours, the Cornell rect
+  light, a SPEC mirror and a REFR glass sphere;
+- ``sphere_grid(n, seed)``: the Cornell walls and light with an n-sphere
+  grid of random albedos, about 15% of them SPEC mirrors (64 by default;
+  ``sphere_grid_256`` and ``sphere_grid_1024`` are the larger rungs)."""
 
 from __future__ import annotations
 
+import functools
+import math
+
+import numpy as np
 import torch
 
 from ..device import resolve
-from .types import DIFF, LightSampler, Scene, make_scene
+from .types import DIFF, REFR, SPEC, LightSampler, Scene, make_scene
 
 AX_X, AX_Y, AX_Z = 0, 1, 2
 
@@ -57,18 +69,80 @@ def cornell_box(device="cuda") -> Scene:
         (AX_X, 88.0, (0.0, 63.0), (25.0, 88.0), _ONE, _ZERO, DIFF),
         (AX_Y, 25.0, (63.0, 63.0), (88.0, 88.0), _ONE, _ZERO, DIFF),
     ]
-    return make_scene(rects, _cornell_light_sampler(), device)
+    return make_scene(rects, _cornell_light_sampler(), device=device)
 
 
-PRESETS = {"cornell_box": cornell_box}
+def cornell_spheres(device="cuda") -> Scene:
+    device = resolve(device)
+    spheres = [
+        ((27.0, 16.5, 47.0), 16.5, (0.999, 0.999, 0.999), _ZERO, DIFF),
+        ((73.0, 16.5, 78.0), 16.5, _WHITE75, _ZERO, DIFF),
+    ]
+    return make_scene(_cornell_walls(), _cornell_light_sampler(), spheres,
+                      device)
+
+
+def smallpt_original(device="cuda") -> Scene:
+    device = resolve(device)
+    rects = [
+        (AX_Z, 0.0, (1.0, 0.0), (99.0, 81.6), _WHITE75, _ZERO, DIFF),  # back (grey)
+        (AX_Z, 170.0, (1.0, 0.0), (99.0, 81.6), _ZERO, _ZERO, DIFF),  # front (black)
+        (AX_X, 1.0, (0.0, 0.0), (81.6, 170.0), (0.75, 0.25, 0.25), _ZERO, DIFF),  # left red
+        (AX_X, 99.0, (0.0, 0.0), (81.6, 170.0), (0.25, 0.25, 0.75), _ZERO, DIFF),  # right blue
+        (AX_Y, 0.0, (1.0, 0.0), (99.0, 170.0), _WHITE75, _ZERO, DIFF),  # floor
+        (AX_Y, 81.6, (1.0, 0.0), (99.0, 170.0), _WHITE75, _ZERO, DIFF),  # ceiling
+        (AX_Y, 81.5, (32.0, 63.0), (68.0, 96.0), _ZERO, (12.0, 12.0, 12.0), DIFF),  # light
+    ]
+    spheres = [
+        ((27.0, 16.5, 47.0), 16.5, (0.999, 0.999, 0.999), _ZERO, SPEC),  # mirror
+        ((73.0, 16.5, 78.0), 16.5, (0.999, 0.999, 0.999), _ZERO, REFR),  # glass
+    ]
+    return make_scene(rects, _cornell_light_sampler(), spheres, device)
+
+
+def sphere_grid(n: int = 64, seed: int = 0, device="cuda") -> Scene:
+    """The Cornell walls and light with n radius-4 spheres on a grid. The
+    albedos and the 15% SPEC choice are drawn from
+    ``np.random.default_rng(seed)`` in the JAX preset's order, so the
+    leaves equal its bit for bit."""
+    device = resolve(device)
+    rng_ = np.random.default_rng(seed)
+    side = max(1, math.ceil(n ** (1 / 3)))
+    spheres = []
+    i = 0
+    for gx in range(side):
+        for gy in range(side):
+            for gz in range(side):
+                if i >= n:
+                    break
+                c = (
+                    20.0 + 60.0 * gx / max(1, side - 1),
+                    8.0 + 50.0 * gy / max(1, side - 1),
+                    30.0 + 100.0 * gz / max(1, side - 1),
+                )
+                alb = tuple(float(a) for a in rng_.uniform(0.3, 0.95, 3))
+                refl = SPEC if rng_.uniform() < 0.15 else DIFF
+                spheres.append((c, 4.0, alb, _ZERO, refl))
+                i += 1
+    return make_scene(_cornell_walls(), _cornell_light_sampler(), spheres,
+                      device)
+
+
+PRESETS = {
+    "cornell_box": cornell_box,
+    "cornell_spheres": cornell_spheres,
+    "smallpt_original": smallpt_original,
+    "sphere_grid": sphere_grid,
+    "sphere_grid_256": functools.partial(sphere_grid, 256),
+    "sphere_grid_1024": functools.partial(sphere_grid, 1024),
+}
 
 # Presets of the JAX package that later slices port (ROADMAP.md queue 1,
 # items 11 and 12).
 NOT_PORTED = (
-    "cornell_spheres", "cornell_spheres_roundlight", "smallpt_original",
-    "smallpt_original_true", "cornell_tilted_light", "cornell_alcove",
-    "cornell_alcove_baffled", "cornell_twolights", "cornell_glossy",
-    "veach_mis", "sphere_grid", "sphere_grid_256", "sphere_grid_1024",
+    "cornell_spheres_roundlight", "smallpt_original_true",
+    "cornell_tilted_light", "cornell_alcove", "cornell_alcove_baffled",
+    "cornell_twolights", "cornell_glossy", "veach_mis",
 )
 
 
@@ -76,7 +150,7 @@ def get_scene(name: str, device="cuda") -> Scene:
     """The preset ``name`` on ``device`` (the card by default; raises
     RuntimeError when CUDA is absent and no other device is asked for)."""
     if name in PRESETS:
-        return PRESETS[name](device)
+        return PRESETS[name](device=device)
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"scene preset {name!r} is not ported yet "

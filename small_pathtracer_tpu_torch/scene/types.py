@@ -1,9 +1,10 @@
 """Scene representation: struct-of-arrays NamedTuples of tensors.
 
-Global object ids run over the rects in order (the Cornell light is rect 6).
-This slice of the port holds axis-aligned rects and one parallelogram light;
-quads, spheres, sphere lights and light lists come with ROADMAP.md queue 1,
-items 11 and 12.
+Global object ids run over the rects first, then the spheres (the JAX
+package's order, with its quads in between: this port has none yet), so the
+Cornell light stays rect 6. This slice of the port holds axis-aligned rects,
+spheres and one parallelogram light; quads, sphere lights and light lists
+come with ROADMAP.md queue 1, items 11 and 12.
 """
 
 from __future__ import annotations
@@ -42,6 +43,21 @@ class Rects(NamedTuple):
         return Rects(*(t.to(device) for t in self))
 
 
+class Spheres(NamedTuple):
+    """Spheres. center: (S, 3); radius: (S,); albedo, emission: (S, 3);
+    refl: (S,) int64 material code; gloss: (S,) Phong exponent."""
+
+    center: torch.Tensor
+    radius: torch.Tensor
+    albedo: torch.Tensor
+    emission: torch.Tensor
+    refl: torch.Tensor
+    gloss: torch.Tensor
+
+    def to(self, device) -> "Spheres":
+        return Spheres(*(t.to(device) for t in self))
+
+
 class LightSampler(NamedTuple):
     """The NEE parallelogram: point = corner + u*edge_u + v*edge_v.
 
@@ -60,6 +76,7 @@ class LightSampler(NamedTuple):
 
 class Scene(NamedTuple):
     rects: Rects
+    spheres: Spheres
     light: LightSampler
 
     @property
@@ -67,16 +84,25 @@ class Scene(NamedTuple):
         return self.rects.k.device
 
     def to(self, device) -> "Scene":
-        return Scene(self.rects.to(device), self.light.to(device))
+        return Scene(self.rects.to(device), self.spheres.to(device),
+                     self.light.to(device))
 
 
 def make_scene(rects: list[tuple], light: LightSampler,
-               device="cpu") -> Scene:
-    """Build a Scene from a list of
-    (axis, k, (lo0, lo1), (hi0, hi1), albedo3, emission3, refl[, gloss])."""
+               spheres: list[tuple] = (), device="cpu") -> Scene:
+    """Build a Scene from lists of rects
+    (axis, k, (lo0, lo1), (hi0, hi1), albedo3, emission3, refl[, gloss])
+    and spheres (center3, radius, albedo3, emission3, refl[, gloss])."""
     if not rects:
         raise ValueError("a scene needs at least one rect")
     f32, i64 = torch.float32, torch.int64
+
+    def gloss(items, n_base):
+        return torch.tensor(
+            [float(x[n_base]) if len(x) > n_base else 0.0 for x in items],
+            dtype=f32,
+        )
+
     r = Rects(
         axis=torch.tensor([x[0] for x in rects], dtype=i64),
         k=torch.tensor([x[1] for x in rects], dtype=f32),
@@ -85,14 +111,30 @@ def make_scene(rects: list[tuple], light: LightSampler,
         albedo=torch.tensor([x[4] for x in rects], dtype=f32),
         emission=torch.tensor([x[5] for x in rects], dtype=f32),
         refl=torch.tensor([x[6] for x in rects], dtype=i64),
-        gloss=torch.tensor(
-            [float(x[7]) if len(x) > 7 else 0.0 for x in rects], dtype=f32
-        ),
+        gloss=gloss(rects, 7),
     )
-    return Scene(rects=r, light=light).to(device)
+    s = Spheres(
+        center=torch.tensor([x[0] for x in spheres],
+                            dtype=f32).reshape(-1, 3),
+        radius=torch.tensor([x[1] for x in spheres], dtype=f32),
+        albedo=torch.tensor([x[2] for x in spheres],
+                            dtype=f32).reshape(-1, 3),
+        emission=torch.tensor([x[3] for x in spheres],
+                              dtype=f32).reshape(-1, 3),
+        refl=torch.tensor([x[4] for x in spheres], dtype=i64),
+        gloss=gloss(spheres, 5),
+    )
+    return Scene(rects=r, spheres=s, light=light).to(device)
+
+
+def num_spheres(scene: Scene) -> int:
+    return scene.spheres.radius.shape[0]
 
 
 def object_arrays(scene: Scene):
-    """Per-object (albedo, emission, refl) in global-id order."""
-    r = scene.rects
-    return r.albedo, r.emission, r.refl
+    """Per-object (albedo, emission, refl) in global-id order: (K, 3),
+    (K, 3), (K,) with K = R + S."""
+    r, s = scene.rects, scene.spheres
+    return (torch.cat([r.albedo, s.albedo]),
+            torch.cat([r.emission, s.emission]),
+            torch.cat([r.refl, s.refl]))

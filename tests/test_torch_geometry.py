@@ -118,7 +118,7 @@ def test_scene_leaves_match_jax():
     assert ours.light.light_obj_id == conv.light.light_obj_id == 6
 
 
-@pytest.mark.parametrize("name", ["cornell_spheres", "smallpt_original_true",
+@pytest.mark.parametrize("name", ["cornell_glossy", "smallpt_original_true",
                                   "cornell_twolights", "cornell_tilted_light"])
 def test_convert_rejects_outside_slice(name):
     with pytest.raises(NotImplementedError):
