@@ -8,9 +8,16 @@ the forwards against the committed golden images), then drives the paths a
 user calls: ``cli render`` of the Cornell box (``nee``, 1024x768x512),
 ``cli fit`` (SGD on albedo and emission, 1024x768x512, 5 steps) and ``cli
 render`` of the sphere scenes ``sphere_grid`` (1024x768x512) and
-``sphere_grid_1024`` (1024x768, fewer samples). Each path runs with its
-kernels' launch counts set to 0 just before it and read just after, and
-fails unless its kernels launched. Every phase raises on failure, and the
+``sphere_grid_1024`` (1024x768, fewer samples). Then the per-pixel budget
+kernels (``megakernel_nee_budgets``, ``megakernel_nee_tab_budgets``) bit for
+bit against their plain version on ragged spans (``cornell_box``,
+``sphere_grid``, ``smallpt_original``), and the rest of ``cli render`` at
+1024x768x512: ``--adaptive-tol 0`` (it must count the uniform render's
+traces, one launch a wave), ``--adaptive-tol 0.01`` on ``cornell_box`` and
+``sphere_grid`` (waves, samples, card time a wave), ``--checkpoint`` with
+``--preview`` (the uniform render's traces and image) and ``--aov
+--denoise``. Each path runs with its kernels' launch counts set to 0 just
+before it and read just after, and fails unless its kernels launched. Every phase raises on failure, and the
 seconds each phase took are logged at the end. The second-to-last line of
 the output is one JSON object describing each kernel, the line before it
 the card's name and power limit, and the last line ``{"ok": true,
@@ -164,19 +171,51 @@ def query_ops(n_rects: int, n_spheres: int = 0) -> int:
 
 
 def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
-                  n_spheres: int = 0):
+                  n_spheres: int = 0, span_bytes: int = 0):
     """Forward kernels: every counted probe follows one traced, unfolded
     bounce (query, shading, probe, five draws); the extends beyond it (RR
     deaths, folded bounces, SPEC/REFR bounces) are left out, so this is a
     lower bound. Bytes: the per-lane radiance and the counters out, the
-    material tables (and, with spheres, the codes and sphere rows) in."""
+    material tables (and, with spheres, the codes and sphere rows) in, and
+    the budget kernels' span bounds (span_bytes) in."""
     _, probe = traces
     fp = (probe * (query_ops(n_rects, n_spheres) + FP_SHADE + FP_PROBE)
           + n_samples * FP_SPAWN)
     it = probe * INT_BOUNCE + n_samples * INT_SPAWN
     k = n_rects + n_spheres
     tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
-    return bound(fp, it, n_lanes * 12 + 16 + tables)
+    return bound(fp, it, n_lanes * 12 + 16 + tables + span_bytes)
+
+
+def ragged_spans(n_pix: int, start_hi: int, len_hi: int, seed: int):
+    """Seeded per-pixel spans: s_start in [0, start_hi), lengths in
+    [0, len_hi], about 10% of them empty. Returns int32 (s_start, s_stop)."""
+    r = np.random.default_rng(seed)
+    s_start = r.integers(0, start_hi, n_pix)
+    length = r.integers(0, len_hi + 1, n_pix)
+    length[r.random(n_pix) < 0.1] = 0
+    return s_start.astype(np.int32), (s_start + length).astype(np.int32)
+
+
+def cli_stderr(cli_main, argv: list[str]) -> str:
+    """Runs the port's CLI; returns its stderr, raises on a non-zero
+    return."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    for line in err.getvalue().strip().splitlines():
+        log("[smoke] cli: " + line)
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} returned {rc}")
+    return err.getvalue()
+
+
+def cli_traces(text: str) -> tuple[int, float]:
+    """(traces, seconds) from cli render's last stderr line."""
+    m = re.search(r"traces=(\d+)\s+seconds=([0-9.]+)", text)
+    if m is None:
+        raise AssertionError("cli render printed no trace count")
+    return int(m.group(1)), float(m.group(2))
 
 
 def vjp_bound(traces, n_samples: int, n_pix: int, k: int):
@@ -197,6 +236,7 @@ def main() -> int:
     from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
     from small_pathtracer_tpu_torch.cli import main as cli_main
     from small_pathtracer_tpu_torch.core import film
+    from small_pathtracer_tpu_torch.integrator.wavefront import render_counts
     from small_pathtracer_tpu_torch.ops import _build, megakernel
     from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
 
@@ -546,6 +586,176 @@ def main() -> int:
     log(f"[smoke] sphere_grid 1024x768x512 seed 0, traces {tr_g.tolist()}: "
         f"megakernel_nee_tab {tab_ms:.3f} ms a launch; bound "
         f"{tab_b512[0]:.3f} ms ({tab_b512[1]})")
+    # Phases (g)-(l): per-pixel budgets (row 3) and the rest of cli render.
+    from small_pathtracer_tpu_torch.core import imageio
+    from small_pathtracer_tpu_torch.utils import adaptive, checkpoint
+    from small_pathtracer_tpu_torch.utils.aov import render_aovs
+    from small_pathtracer_tpu_torch.utils.denoise import denoise
+
+    def budgets_parity(name, spp, start_hi, len_hi, seed):
+        """A budget kernel against its plain version on ragged spans, bit
+        for bit, in turns (plain, kernel, kernel, plain)."""
+        sc = get_scene(name)
+        cfg = RenderConfig(width=1024, height=768, spp=spp, seed=seed)
+        n_pix = cfg.width * cfg.height
+        s_start, s_stop = ragged_spans(n_pix, start_hi, len_hi, seed)
+        counter = ("LAUNCHES_TAB_BUDGETS" if megakernel.uses_sphere_table(sc)
+                   else "LAUNCHES_BUDGETS")
+        before = getattr(megakernel, counter)
+        outs, med = in_turns(
+            {"kernel": lambda: megakernel.render_megakernel_budgets(
+                sc, cam_f, cfg, seed, s_start, s_stop),
+             "plain": lambda: megakernel.render_megakernel_budgets_plain(
+                 sc, cam_f, cfg, seed, s_start, s_stop)},
+            ("plain", "kernel", "kernel", "plain"))
+        if getattr(megakernel, counter) != before + 2:
+            raise AssertionError(f"{name}: the budgets wrapper did not "
+                                 f"count 2 launches in {counter}")
+        for which, runs in outs.items():
+            if not (torch.equal(runs[1][0], runs[0][0])
+                    and torch.equal(runs[1][1], runs[0][1])):
+                raise AssertionError(f"{name}: {which} runs differ")
+        (k_l, k_tr), (p_l, p_tr) = outs["kernel"][0], outs["plain"][0]
+        err_ = float((k_l - p_l).abs().max())
+        n_samples = int((s_stop - s_start).sum())
+        b = forward_bound(k_tr.tolist(), n_samples, n_pix,
+                          sc.rects.k.shape[0], sc.spheres.radius.shape[0],
+                          span_bytes=2 * 4 * n_pix)
+        log(f"[smoke] budgets {name} 1024x768 spp {spp}, spans [0,{start_hi})"
+            f" + [0,{len_hi}] ({n_samples} samples, "
+            f"{float(np.mean(s_stop == s_start)):.1%} empty), seed {seed}: "
+            f"kernel {med['kernel'] * 1e3:.3f} ms traces {k_tr.tolist()}; "
+            f"plain {med['plain'] * 1e3:.3f} ms traces {p_tr.tolist()}; max "
+            f"|diff| {err_:.3e}; bound {b[0]:.3f} ms ({b[1]})")
+        if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
+            raise AssertionError(f"budgets {name}: kernel and plain version "
+                                 "differ")
+        return {"err": err_, "ms": med["kernel"] * 1e3,
+                "plain_ms": med["plain"] * 1e3, "bound": b}
+
+    phase("budgets kernel against its plain version, cornell_box 1024x768, "
+          "ragged spans")
+    bud = {"cornell_box": budgets_parity("cornell_box", 64, 32, 32, 6)}
+    phase("table budgets kernel against its plain version, sphere_grid and "
+          "smallpt_original 1024x768, ragged spans")
+    bud["sphere_grid"] = budgets_parity("sphere_grid", 64, 8, 6, 7)
+    bud["smallpt_original"] = budgets_parity("smallpt_original", 64, 8, 6, 8)
+
+    base = ["render", "--width", "1024", "--height", "768", "--spp", "512"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # tol 0: every pixel to 512 samples in 8 waves of 64.
+        phase("cli render --adaptive-tol 0 --adaptive-wave 64 1024x768x512")
+        megakernel.LAUNCHES_BUDGETS = 0
+        text = cli_stderr(cli_main, base + [
+            "--adaptive-tol", "0", "--adaptive-wave", "64",
+            "-o", os.path.join(tmp, "tol0.png")])
+        n_launch = megakernel.LAUNCHES_BUDGETS
+        waves = int(re.search(r"\[adaptive\] (\d+) waves", text).group(1))
+        tol0_traces, _ = cli_traces(text)
+        log(f"[smoke] adaptive tol 0: {waves} waves, {n_launch} launches of "
+            f"megakernel_nee_budgets, traces {tol0_traces} (uniform "
+            f"{traces})")
+        if not (waves == 8 and n_launch == waves and tol0_traces == traces):
+            raise AssertionError("adaptive tol 0 differs from the uniform "
+                                 "render")
+
+        # tol 0.01, with each wave's spans kept to time its kernel after.
+        def adaptive_run(name):
+            spans = []
+            real = adaptive.render_megakernel_budgets
+
+            def keep(sc, cam, cfg, seed, s_start, s_stop):
+                spans.append((s_start.clone(), s_stop.clone()))
+                return real(sc, cam, cfg, seed, s_start, s_stop)
+
+            megakernel.LAUNCHES_BUDGETS = megakernel.LAUNCHES_TAB_BUDGETS = 0
+            adaptive.render_megakernel_budgets = keep
+            try:
+                text_ = cli_stderr(cli_main, base + [
+                    "--scene", name, "--adaptive-tol", "0.01",
+                    "-o", os.path.join(tmp, f"{name}_adaptive.png")])
+            finally:
+                adaptive.render_megakernel_budgets = real
+            launches_ = {
+                "megakernel_nee_budgets": megakernel.LAUNCHES_BUDGETS,
+                "megakernel_nee_tab_budgets":
+                    megakernel.LAUNCHES_TAB_BUDGETS}
+            m_ = re.search(r"\[adaptive\] (\d+) waves, (\d+) samples "
+                           r"\((\d+)% .*spp range (\d+)-(\d+)", text_)
+            n_waves = int(m_.group(1))
+            rays, secs = cli_traces(text_)
+            sc = get_scene(name)
+            kernel = ("megakernel_nee_tab_budgets"
+                      if megakernel.uses_sphere_table(sc)
+                      else "megakernel_nee_budgets")
+            if launches_[kernel] != n_waves or len(spans) != n_waves:
+                raise AssertionError(f"{name}: {launches_} launches for "
+                                     f"{n_waves} waves")
+            cfg = RenderConfig(width=1024, height=768, spp=512, seed=0)
+            wave_ms = [event_ms(lambda: megakernel.render_megakernel_budgets(
+                sc, cam_f, cfg, 0, a, b), 3) for a, b in spans]
+            active = [int((b > a).sum()) for a, b in spans]
+            log(f"[smoke] adaptive {name} 1024x768x512 tol 0.01: {n_waves} "
+                f"waves ({launches_[kernel]} launches of {kernel}), "
+                f"{m_.group(2)} samples = {m_.group(3)}% of uniform, spp "
+                f"{m_.group(4)}-{m_.group(5)}, {rays} rays in {secs:.3f} s = "
+                f"{rays / secs / 1e6:.1f} Mrays/s on {card}")
+            log(f"[smoke] adaptive {name}: card ms a wave "
+                f"{[round(x, 3) for x in wave_ms]}, active pixels a wave "
+                f"{active}")
+            return launches_[kernel]
+
+        phase("cli render --adaptive-tol 0.01 cornell_box 1024x768x512")
+        adaptive_launches = {"cornell_box": adaptive_run("cornell_box")}
+        phase("cli render --adaptive-tol 0.01 sphere_grid 1024x768x512")
+        adaptive_launches["sphere_grid"] = adaptive_run("sphere_grid")
+
+        phase("cli render --checkpoint --checkpoint-every 128 --preview "
+              "1024x768x512")
+        ck, pv = os.path.join(tmp, "r.ckpt"), os.path.join(tmp, "prev.png")
+        megakernel.LAUNCHES = 0
+        text = cli_stderr(cli_main, base + [
+            "--checkpoint", ck, "--checkpoint-every", "128", "--preview", pv,
+            "-o", os.path.join(tmp, "ck.png")])
+        ck_launches = megakernel.LAUNCHES
+        ck_traces, _ = cli_traces(text)
+        preview = imageio.read_image(pv)
+        cfg_u = RenderConfig(width=1024, height=768, spp=512, seed=0)
+        img_ck, _ = checkpoint.render_with_checkpoints(scene, cam_f, cfg_u,
+                                                       "", 128)
+        img_u, _ = render_counts(scene, cam_f, cfg_u)
+        ck_err = float((img_ck - img_u).abs().max())
+        log(f"[smoke] checkpoint: {ck_launches} launches of megakernel_nee, "
+            f"traces {ck_traces} (uniform {traces}), preview "
+            f"{preview.shape}, max |span image - uniform| {ck_err:.3e}")
+        if not (ck_launches == 4 and ck_traces == traces
+                and preview.shape == (768, 1024, 3) and ck_err <= 1e-5):
+            raise AssertionError("the checkpointed render differs from the "
+                                 "uniform one")
+
+        phase("cli render --aov --denoise 1024x768x512")
+        prefix = os.path.join(tmp, "aov")
+        out_d = os.path.join(tmp, "denoised.png")
+        cli_stderr(cli_main, base + ["--aov", prefix, "--denoise",
+                                     "-o", out_d])
+        with np.load(prefix + ".npz") as z:
+            aovs = {k: z[k] for k in z.files}
+        shapes = {k: v.shape for k, v in aovs.items()}
+        den = imageio.read_image(out_d)
+        ppms = [film.read_ppm(f"{prefix}.{k}.ppm").shape for k in aovs]
+        if not (all(np.isfinite(v).all() for v in aovs.values())
+                and shapes["albedo"] == (768, 1024, 3)
+                and shapes["depth"] == (768, 1024)
+                and den.shape == (768, 1024, 3)):
+            raise AssertionError("the AOV or denoised outputs are wrong")
+        # The two passes' own times (plain torch on the card).
+        feats, aov_s = timed(lambda: render_aovs(scene, cam_f, cfg_u))
+        _, den_s = timed(lambda: denoise(img_u, feats, iterations=5,
+                                         sigma_l=0.5))
+        log(f"[smoke] aov: {shapes}, PPMs {ppms}; denoised {den.shape}; "
+            f"AOV pass (64 samples) {aov_s:.3f} s, denoiser (5 passes) "
+            f"{den_s:.3f} s")
+
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
         log(f"[smoke] {t1 - t0:8.3f} s  {name}")
@@ -572,6 +782,14 @@ def main() -> int:
               "megakernel.py:1203 (sphere_tab, call :2670)", tab_launches,
               tab["sphere_grid"]["err"], tab["sphere_grid"]["ms"],
               tab["sphere_grid"]["plain_ms"], tab["sphere_grid"]["bound"]),
+        entry("megakernel_nee_budgets", "megakernel.cu", "megakernel.py:2783",
+              adaptive_launches["cornell_box"], bud["cornell_box"]["err"],
+              bud["cornell_box"]["ms"], bud["cornell_box"]["plain_ms"],
+              bud["cornell_box"]["bound"]),
+        entry("megakernel_nee_tab_budgets", "megakernel.cu",
+              "megakernel.py:2783", adaptive_launches["sphere_grid"],
+              bud["sphere_grid"]["err"], bud["sphere_grid"]["ms"],
+              bud["sphere_grid"]["plain_ms"], bud["sphere_grid"]["bound"]),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -3,6 +3,15 @@
 ``--device`` defaults to ``cuda``, where the render runs through the CUDA
 kernels, and raises when CUDA is absent. ``--device cpu`` runs the eager
 wavefront and, for ``fit``, torch.autograd through it.
+
+``render`` takes the JAX CLI's single-card flags, with its messages and
+composition rules: adaptive sampling (``--adaptive-tol``, through the
+budget kernels), checkpointed and progressive renders (``--checkpoint``,
+``--preview``, through span renders), first-hit AOVs (``--aov``), the
+a-trous denoiser (``--denoise``), and PPM or PNG output by extension.
+One difference: ``--adaptive-tol 0`` runs the adaptive waves (the
+uniform image, wave by wave), where the JAX CLI takes 0 for a uniform
+render; leave the flag out for that.
 """
 
 from __future__ import annotations
@@ -15,16 +24,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from ..config import ESTIMATORS, RenderConfig
 from ..camera.pinhole import make_camera
-from ..core import film
+from ..core import film, imageio
 from ..device import resolve
 from ..integrator.wavefront import render
 from ..ops.megakernel import render_megakernel
 from ..ops.megakernel_grad import FIELDS, check_trainable, fit_megakernel
 from ..scene.presets import PRESETS, get_scene
+from ..utils.adaptive import adaptive_render
+from ..utils.aov import render_aovs
+from ..utils.checkpoint import render_with_checkpoints
+from ..utils.denoise import denoise
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
@@ -71,15 +85,81 @@ def card_name(device: torch.device) -> str:
     return res.stdout.strip()
 
 
+def _u8(x) -> np.ndarray:
+    """[0, 1] floats to uint8, linearly (no gamma)."""
+    x = np.asarray(x, np.float32)
+    return (np.clip(x, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def _write_aovs(prefix: str, aovs) -> None:
+    """The feature buffers as PPMs to look at (albedo tone-mapped like a
+    render, normal mapped from [-1, 1] to [0, 1], depth over its max,
+    coverage as grey) and PREFIX.npz with the float32 arrays."""
+    host = {k: v.cpu().numpy().astype(np.float32) for k, v in aovs.items()}
+
+    def gray3(x):
+        return np.repeat(np.asarray(x)[..., None], 3, axis=-1)
+
+    film.write_ppm(prefix + ".albedo.ppm",
+                   film.tonemap_u8(aovs["albedo"]).cpu().numpy())
+    film.write_ppm(prefix + ".normal.ppm", _u8((host["normal"] + 1.0) * 0.5))
+    dep = host["depth"]
+    dmax = float(dep.max())
+    film.write_ppm(prefix + ".depth.ppm",
+                   gray3(_u8(dep / (dmax if dmax > 0 else 1.0))))
+    film.write_ppm(prefix + ".coverage.ppm", gray3(_u8(host["coverage"])))
+    np.savez(prefix + ".npz", **host)
+
+
 def cmd_render(args) -> int:
     scene, cam, cfg = _build(args)
     t0 = time.perf_counter()
-    img, traces = render(scene, cam, cfg)
+    if args.adaptive_tol is not None:
+        if args.checkpoint or args.preview:
+            raise SystemExit(
+                "--adaptive-tol composes with --pallas only (not --mesh/"
+                "--checkpoint/--preview/--guided)"
+            )
+        res = adaptive_render(scene, cam, cfg, tol=args.adaptive_tol,
+                              wave=args.adaptive_wave, log=sys.stderr)
+        img, traces = res.image, sum(res.traces)
+        spp_map = res.spp_map.cpu().numpy()
+        print(
+            f"[adaptive] {res.waves} waves, {res.total_samples} samples "
+            f"({100.0 * res.total_samples / res.uniform_samples:.0f}% of "
+            f"uniform {cfg.spp} spp), spp range "
+            f"{int(spp_map.min())}-{int(spp_map.max())}",
+            file=sys.stderr,
+        )
+        if args.adaptive_map:
+            m = spp_map.astype(np.float32) / float(spp_map.max())
+            film.write_ppm(args.adaptive_map, film.tonemap_u8(
+                torch.from_numpy(np.repeat(m[..., None], 3, axis=-1))
+            ).numpy())
+    elif args.checkpoint or args.preview:
+        every = args.checkpoint_every
+        if args.preview:
+            every = (args.preview_every or args.checkpoint_every
+                     or max(1, cfg.spp // 8))
+        img, traces = render_with_checkpoints(
+            scene, cam, cfg, args.checkpoint, every,
+            preview_path=args.preview,
+        )
+    else:
+        img, traces = render(scene, cam, cfg)
+    if args.aov or args.denoise:
+        aovs = render_aovs(scene, cam, cfg,
+                           spp=args.aov_spp if args.aov_spp > 0 else None)
+        if args.denoise:
+            img = film.finalize(denoise(img, aovs, iterations=args.denoise,
+                                        sigma_l=args.denoise_sigma_l))
+        if args.aov:
+            _write_aovs(args.aov, aovs)
     if not bool(torch.isfinite(img).all()):
         raise RuntimeError("the render produced non-finite pixels")
     u8 = film.tonemap_u8(img).cpu().numpy()
     dt = time.perf_counter() - t0
-    film.write_ppm(args.output, u8)
+    imageio.write_image(args.output, u8)
     print(
         f"wrote {args.output}  {cfg.width}x{cfg.height}x{cfg.spp}spp "
         f"on {scene.device}  traces={traces}  seconds={dt:.6f}  "
@@ -179,7 +259,51 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_render = sub.add_parser("render", help="render an image")
     _add_render_args(p_render)
-    p_render.add_argument("-o", "--output", default="image.ppm")
+    p_render.add_argument("-o", "--output", default="image.ppm",
+                          help="output image: ASCII PPM for .ppm, else PNG")
+    p_render.add_argument(
+        "--adaptive-tol", type=float, default=None,
+        help="adaptive sampling: stop a pixel when the standard error of "
+             "its mean falls below TOL * (luma + 0.02); --spp becomes the "
+             "per-pixel cap (utils/adaptive.py). 0 = every pixel to spp, "
+             "in waves; without the flag, uniform sampling")
+    p_render.add_argument(
+        "--adaptive-wave", type=int, default=0,
+        help="samples per adaptive wave (0 = auto: spp/8, at least 8)")
+    p_render.add_argument(
+        "--adaptive-map", default="",
+        help="also write the per-pixel spp heatmap to this PPM path")
+    p_render.add_argument(
+        "--checkpoint", default="",
+        help="render-state checkpoint path (resume if it exists)")
+    p_render.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="save render state every N spp (0 = only at end)")
+    p_render.add_argument(
+        "--preview", default="",
+        help="progressive preview: write the tone-mapped running mean here "
+             "(atomically, PPM/PNG by extension) after every "
+             "--preview-every spp chunk")
+    p_render.add_argument(
+        "--preview-every", type=int, default=0,
+        help="preview/chunk interval in spp (default: --checkpoint-every, "
+             "else spp/8)")
+    p_render.add_argument(
+        "--aov", default="",
+        help="also render first-hit feature buffers (utils/aov.py) and "
+             "write PREFIX.{albedo,normal,depth,coverage}.ppm plus "
+             "PREFIX.npz with the raw float32 arrays")
+    p_render.add_argument(
+        "--aov-spp", type=int, default=0,
+        help="primary samples for the AOV pass (0 = auto: min(spp, 64))")
+    p_render.add_argument(
+        "--denoise", type=int, nargs="?", const=5, default=0, metavar="N",
+        help="edge-aware a-trous denoise (utils/denoise.py) with N passes "
+             "(bare flag = 5) guided by an AOV pass; filters the linear "
+             "image before the tone map")
+    p_render.add_argument(
+        "--denoise-sigma-l", type=float, default=0.5,
+        help="denoiser luminance edge stop (bigger = smoother)")
     p_render.set_defaults(fn=cmd_render)
     p_bench = sub.add_parser("bench", help="measure Mrays/s on the card")
     _add_render_args(p_bench)

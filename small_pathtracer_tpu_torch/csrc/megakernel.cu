@@ -1,7 +1,8 @@
 // Fused regenerating path tracer, `nee` estimator, axis-aligned rects with
-// one parallelogram light, box filter, pinhole camera. Three kernels share
+// one parallelogram light, box filter, pinhole camera. Five kernels share
 // one loop body (`render_lane`, a template on where the materials come from
-// and on whether the scene has a sphere table):
+// and on whether the scene has a sphere table, fed a LaneRange by the
+// kernel's lane source):
 //
 // - megakernel_nee replaces the Pallas TPU kernel of
 //   small_pathtracer_tpu/ops/megakernel.py: `build_kernel`, as
@@ -29,6 +30,16 @@
 //   skipping changes no bit), count no probe and are never folded. The
 //   TPU kernel's cluster pruning and lane swizzle work around lockstep TPU
 //   lanes and change no pixel; they are not carried over.
+// - megakernel_nee_budgets and megakernel_nee_tab_budgets replace
+//   `_build_render_budgets` (megakernel.py:2756, its `pallas_call` at
+//   :2783) as `render_pallas_budgets` builds it for the adaptive waves of
+//   utils/adaptive.py: rows 1 and 2 with per-pixel sample budgets. One lane
+//   renders one pixel's span [s_start, s_stop), read from two int32
+//   device arrays (lane_range_budgets); the TPU kernel's padded px, py and
+//   pid_base planes are derived from the lane index instead. Empty spans
+//   are born dead. In a late wave most lanes are dead and a warp with one
+//   live lane still runs the whole path: compacting the live pixels is
+//   left for a later change (ROADMAP queue 2, row 3).
 //
 // What bounds them: arithmetic and divergence, not bytes. A lane reads
 // nothing but its index, the scene (a few hundred bytes of kernel
@@ -45,7 +56,7 @@
 //
 // Design: one thread per lane, blocks of 128, the ragged last block masked.
 // A lane derives its pixel and sample range [s_start, s_stop) from its index
-// (no input planes) and keeps the whole path state in registers across the
+// (no input planes; the budget kernels read the span) and keeps the whole path state in registers across the
 // bounce loop; a lane whose path dies respawns at once with its next sample,
 // so a warp stays busy until its slowest lane runs out of samples. Trace
 // counts are 32-bit per thread, summed per warp, and added to two 64-bit
@@ -95,12 +106,15 @@ __device__ __forceinline__ void refr_scatter(V3 d, V3 ng, V3 n, float u_coin,
   *dir = pick_refl ? reflect(d, ng) : tdir;
 }
 
+// One lane's samples [lr.s, lr.s_stop) of pixel lr.pix; lr comes from the
+// kernel's lane source (lane_range or lane_range_budgets).
 template <class Mats, bool kTab>
-__device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
+__device__ __forceinline__ void render_lane(const Params& p,
+                                            const LaneRange& lr,
+                                            const Mats& mats,
                                             const SphereTab& tab, bool fold,
                                             float* __restrict__ out_l,
                                             unsigned long long* __restrict__ traces) {
-  const LaneRange lr = lane_range(p);
   const V3 cam_o = ld3(p.cam_o);
   const V3 lc = ld3(p.lc), leu = ld3(p.leu), lev = ld3(p.lev), ln = ld3(p.ln);
   const V3 e_light = mats.emission(p.light_id);
@@ -252,8 +266,21 @@ __device__ __forceinline__ void render_lane(const Params& p, const Mats& mats,
 __global__ void __launch_bounds__(kBlock)
     megakernel_nee(const __grid_constant__ Params p, float* __restrict__ out_l,
                    unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, false>(p, BakedMaterials{p}, SphereTab{},
-                                     p.fold != 0, out_l, traces);
+  render_lane<BakedMaterials, false>(p, lane_range(p), BakedMaterials{p},
+                                     SphereTab{}, p.fold != 0, out_l, traces);
+}
+
+// Row 3 on rect-only DIFF scenes: row 1 with one lane a pixel and its
+// span read from s_start / s_stop.
+__global__ void __launch_bounds__(kBlock)
+    megakernel_nee_budgets(const __grid_constant__ Params p,
+                           const int* __restrict__ s_start,
+                           const int* __restrict__ s_stop,
+                           float* __restrict__ out_l,
+                           unsigned long long* __restrict__ traces) {
+  render_lane<BakedMaterials, false>(
+      p, lane_range_budgets(p, s_start, s_stop), BakedMaterials{p},
+      SphereTab{}, p.fold != 0, out_l, traces);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -267,7 +294,7 @@ __global__ void __launch_bounds__(kBlock)
   load_tables(p, alb, emi, s_alb, s_emi);
   const TableMaterials mats{s_alb, s_emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, false>(p, mats, SphereTab{},
+  render_lane<TableMaterials, false>(p, lane_range(p), mats, SphereTab{},
                                      fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
                                      out_l, traces);
 }
@@ -286,7 +313,31 @@ __global__ void __launch_bounds__(kBlock)
   __syncthreads();
   const TableMaterials mats{alb, emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, true>(p, mats, SphereTab{s_sph, n_sph, refl},
+  render_lane<TableMaterials, true>(p, lane_range(p), mats,
+                                    SphereTab{s_sph, n_sph, refl},
+                                    fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
+                                    out_l, traces);
+}
+
+// Row 3 on scenes with spheres or SPEC/REFR objects: row 2 with one lane a
+// pixel and its span read from s_start / s_stop.
+__global__ void __launch_bounds__(kBlock)
+    megakernel_nee_tab_budgets(const __grid_constant__ Params p,
+                               const float4* __restrict__ sph, int n_sph,
+                               const float* __restrict__ alb,
+                               const float* __restrict__ emi,
+                               const int* __restrict__ refl,
+                               const int* __restrict__ s_start,
+                               const int* __restrict__ s_stop,
+                               float* __restrict__ out_l,
+                               unsigned long long* __restrict__ traces) {
+  extern __shared__ float4 s_sph[];
+  for (int i = threadIdx.x; i < n_sph; i += kBlock) s_sph[i] = sph[i];
+  __syncthreads();
+  const TableMaterials mats{alb, emi};
+  const V3 a = mats.albedo(p.light_id);
+  render_lane<TableMaterials, true>(p, lane_range_budgets(p, s_start, s_stop),
+                                    mats, SphereTab{s_sph, n_sph, refl},
                                     fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
                                     out_l, traces);
 }
@@ -298,6 +349,37 @@ __global__ void __launch_bounds__(kBlock)
 // them, in host memory. out_l: (n_pix * g, 3) float32 and traces: 2 uint64,
 // zeroed, on the device. Each launches on `stream` and returns the launch's
 // cudaError_t.
+
+namespace {
+
+// Copies the (n_rects, 3) host materials into the kernel parameters.
+void bake_materials(Params* p, const float* rect_alb, const float* rect_emi,
+                    int n_rects, int fold) {
+  for (int i = 0; i < n_rects; ++i) {
+    for (int c = 0; c < 3; ++c) {
+      p->rects[i].alb[c] = rect_alb[3 * i + c];
+      p->rects[i].emi[c] = rect_emi[3 * i + c];
+    }
+  }
+  p->fold = fold;
+}
+
+// Dynamic shared memory of n_spheres rows for a sphere-table kernel: raises
+// the kernel's limit above 48 KB. Returns the bytes, or -1 (and the error
+// in *err) when the attribute cannot be set.
+template <class Kernel>
+int sphere_smem(Kernel kernel, int n_spheres, cudaError_t* err) {
+  const int smem = n_spheres * static_cast<int>(sizeof(float4));
+  *err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (*err != cudaSuccess) return -1;
+  }
+  return smem;
+}
+
+}  // namespace
 
 // Row 1, baked materials: rect_alb, rect_emi are (n_rects, 3) float32 host
 // arrays copied into the kernel parameters; fold turns the NEE fold on.
@@ -316,13 +398,7 @@ extern "C" int spt_megakernel_nee(const float* rect_geom, const int* rect_axis,
                    rr_start_depth, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int i = 0; i < n_rects; ++i) {
-    for (int c = 0; c < 3; ++c) {
-      p.rects[i].alb[c] = rect_alb[3 * i + c];
-      p.rects[i].emi[c] = rect_emi[3 * i + c];
-    }
-  }
-  p.fold = fold;
+  bake_materials(&p, rect_alb, rect_emi, n_rects, fold);
   megakernel_nee<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, out_l, traces);
   return static_cast<int>(cudaGetLastError());
@@ -378,15 +454,62 @@ extern "C" int spt_megakernel_nee_tab(const float* rect_geom,
       n_spheres < 0 || n_spheres > kMaxSpheres) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem = n_spheres * static_cast<int>(sizeof(float4));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        megakernel_nee_tab, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err;
+  const int smem = sphere_smem(megakernel_nee_tab, n_spheres, &err);
+  if (smem < 0) return static_cast<int>(err);
   megakernel_nee_tab<<<grid_of(p), kBlock, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       p, reinterpret_cast<const float4*>(sph), n_spheres, alb, emi, refl,
       out_l, traces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 3, per-pixel budgets: one lane a pixel (n_lanes = width * height),
+// rendering samples [s_start[i], s_stop[i]) of pixel i, from two
+// (width * height,) int32 device arrays; out_l is (width * height, 3).
+// Baked materials and the NEE fold as row 1.
+extern "C" int spt_megakernel_nee_budgets(
+    const float* rect_geom, const int* rect_axis, const float* rect_alb,
+    const float* rect_emi, int n_rects, const float* light_f, int light_id,
+    const float* cam_f, unsigned seed, int width, int height, int spp,
+    int rr_start_depth, int max_bounces, int fold, const int* s_start,
+    const int* s_stop, float* out_l, unsigned long long* traces,
+    void* stream) {
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, 1, 0, 0u, rr_start_depth,
+                   max_bounces)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  bake_materials(&p, rect_alb, rect_emi, n_rects, fold);
+  megakernel_nee_budgets<<<grid_of(p), kBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      p, s_start, s_stop, out_l, traces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 3 with the sphere table: the tables as row 2, the lanes as
+// spt_megakernel_nee_budgets.
+extern "C" int spt_megakernel_nee_tab_budgets(
+    const float* rect_geom, const int* rect_axis, int n_rects,
+    const float* light_f, int light_id, const float* cam_f, unsigned seed,
+    int width, int height, int spp, int rr_start_depth, int max_bounces,
+    const float* sph, int n_spheres, const float* alb, const float* emi,
+    const int* refl, const int* s_start, const int* s_stop, float* out_l,
+    unsigned long long* traces, void* stream) {
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, 1, 0, 0u, rr_start_depth,
+                   max_bounces) ||
+      n_spheres < 0 || n_spheres > kMaxSpheres) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  const int smem = sphere_smem(megakernel_nee_tab_budgets, n_spheres, &err);
+  if (smem < 0) return static_cast<int>(err);
+  megakernel_nee_tab_budgets<<<grid_of(p), kBlock, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      p, reinterpret_cast<const float4*>(sph), n_spheres, alb, emi, refl,
+      s_start, s_stop, out_l, traces);
   return static_cast<int>(cudaGetLastError());
 }

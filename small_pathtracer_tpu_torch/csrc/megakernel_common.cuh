@@ -311,6 +311,25 @@ __device__ __forceinline__ LaneRange lane_range(const Params& p) {
   return r;
 }
 
+// Per-pixel budgets (the adaptive waves): lane i renders pixel i, samples
+// [s_start[i], s_stop[i]) read from two (n_pix,) int32 device arrays. The
+// wrapper launches n_lanes = n_pix (g = 1); a lane with an empty span is
+// born dead and counts nothing.
+__device__ __forceinline__ LaneRange lane_range_budgets(
+    const Params& p, const int* __restrict__ s_start,
+    const int* __restrict__ s_stop) {
+  LaneRange r;
+  const int lane = blockIdx.x * kBlock + threadIdx.x;
+  r.in_range = lane < p.n_lanes;
+  r.pix = r.in_range ? lane : 0;
+  r.px = static_cast<float>(r.pix % p.width);
+  r.py = static_cast<float>(r.pix / p.width);
+  r.pid_base = static_cast<uint32_t>(r.pix) * static_cast<uint32_t>(p.spp);
+  r.s = r.in_range ? static_cast<uint32_t>(s_start[r.pix]) : 0u;
+  r.s_stop = r.in_range ? static_cast<uint32_t>(s_stop[r.pix]) : 0u;
+  return r;
+}
+
 // Host: fills the geometry, light, camera and launch settings of p from
 // rect_geom (n_rects rows of [k, lo0, lo1, hi0, hi1]), rect_axis,
 // light_f ([corner 3, edge_u 3, edge_v 3, unit normal 3, area]) and cam_f

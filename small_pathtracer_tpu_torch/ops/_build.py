@@ -131,15 +131,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # rect_geom: (R, 5) f32 host [k, lo0, lo1, hi0, hi1]
         p,  # rect_axis: (R,) i32 host
     ]
-    launch = [
+    head = [
         p,  # light_f: 13 f32 host
         i,  # light_id
         p,  # cam_f: 12 f32 host
         u,  # seed
         i, i, i,  # width, height, spp
-        i, i, u,  # g, per, s0
-        i, i,  # rr_start_depth, max_bounces
     ]
+    depth = [i, i]  # rr_start_depth, max_bounces
+    launch = [*head, i, i, u, *depth]  # g, per, s0 between
+    # The budget kernels (row 3) take one lane a pixel: no g, per or s0.
+    budget_launch = [*head, *depth]
     lib.spt_megakernel_nee.restype = ctypes.c_int
     lib.spt_megakernel_nee.argtypes = [
         *scene,
@@ -171,6 +173,32 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p,  # albedo, emission: (R + S, 3) f32 device
         p,  # refl: (R + S,) i32 device
         p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_nee_budgets.restype = ctypes.c_int
+    lib.spt_megakernel_nee_budgets.argtypes = [
+        *scene,
+        p, p,  # rect_alb, rect_emi: (R, 3) f32 host
+        i,  # n_rects
+        *budget_launch,
+        i,  # fold
+        p, p,  # s_start, s_stop: (n_pix,) i32 device
+        p,  # out_l: (n_pix, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_nee_tab_budgets.restype = ctypes.c_int
+    lib.spt_megakernel_nee_tab_budgets.argtypes = [
+        *scene,
+        i,  # n_rects
+        *budget_launch,
+        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
+        i,  # n_spheres
+        p, p,  # albedo, emission: (R + S, 3) f32 device
+        p,  # refl: (R + S,) i32 device
+        p, p,  # s_start, s_stop: (n_pix,) i32 device
+        p,  # out_l: (n_pix, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
