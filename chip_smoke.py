@@ -16,9 +16,20 @@ bit against their plain version on ragged spans (``cornell_box``,
 traces, one launch a wave), ``--adaptive-tol 0.01`` on ``cornell_box`` and
 ``sphere_grid`` (waves, samples, card time a wave), ``--checkpoint`` with
 ``--preview`` (the uniform render's traces and image) and ``--aov
---denoise``. Each path runs with its kernels' launch counts set to 0 just
-before it and read just after, and fails unless its kernels launched. Every phase raises on failure, and the
-seconds each phase took are logged at the end. The second-to-last line of
+--denoise``. Then the ``cosine`` and ``nee_textbook`` estimators and path
+guiding: ``pow_pos`` against ``torch.pow``; ``train_guide`` twice (the same
+bits); the guided kernels (rows 4 and 5: ``megakernel_guided``,
+``megakernel_guided_primary`` and their ``_tab`` twins) and the unguided
+``megakernel_cosine`` / ``megakernel_textbook`` (and ``_tab``) bit for bit
+against their plain versions; an all-sentinel table against the unguided
+kernel; ``cli render --guided --scene cornell_alcove_baffled --estimator
+nee_textbook`` at 1024x768x512 (one launch, its linear mean within 2% of
+the unguided render's, the pixel variance of both at x64), with
+``--guide-online 4`` (4 launches) and with ``--checkpoint --preview`` (4
+spans); and each new kernel's own main path at 1024x768x512. Each path
+runs with its kernels' launch counts set to 0 just before it and read just
+after, and fails unless its kernels launched. Every phase raises on
+failure, and the seconds each phase took are logged at the end. The second-to-last line of
 the output is one JSON object describing each kernel, the line before it
 the card's name and power limit, and the last line ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside the repository, it exits
@@ -77,6 +88,45 @@ BYTES_PER_S = 3.35e12
 FP_RAY, FP_RECT, FP_SPHERE = 6, 12, 26
 FP_SHADE, FP_PROBE, FP_SPAWN, FP_GRAD = 162, 18, 35, 52
 INT_BOUNCE, INT_SPAWN = 5 * 16 + 6, 2 * 16 + 6
+# The cosine and nee_textbook kernels and path guiding, counted the same way
+# from csrc/megakernel_lane.cuh (FP_SHADE = 162 is about the first three
+# plus the selects): every traced bounce's least shading (hit point,
+# orientation, RR, throughput, pickup) 33; the cosine sample at a diffuse
+# bounce 83; the light sample and NEE weight of a textbook probe 41 and its
+# direct term 12. int32: a draw 16 (the RR draw a bounce, two scatter
+# draws a diffuse bounce, two light draws a probe), the path-id word 6 a
+# bounce. A guided vertex's mixture (~150 fp32: voxel id, decode, lobe
+# frame, pow_pos, lobe sample, pdfs) is left out: the kernels do not count
+# their guided vertices, so the guided kernels' bound is their unguided
+# twin's plus the guide's bytes, still a lower bound.
+FP_SHADE_MIN, FP_COS_SAMPLE, FP_NEE, FP_DIRECT = 33, 83, 41, 12
+INT_DRAW, INT_WORD = 16, 6
+# Path guiding's smoke runs: the CLI's defaults (beta 0.6, k 8, the
+# pre-pass at 1/8 of 1024x768 with 16 samples, 8 bounces, seed + 1) and the
+# agreement of a guided and an unguided render's linear means (the
+# estimator is unbiased; at 512 samples the means' noise is far below it).
+GUIDE_BETA, GUIDE_K, GUIDE_MEAN_TOL = 0.6, 8.0, 0.02
+
+
+# The kernels of the cosine and nee_textbook estimators and of path guiding:
+# (name, source under CSRC, the TPU kernel it replaces).
+NEW_KERNELS = (
+    ("megakernel_cosine", "megakernel.cu",
+     "megakernel.py:1203 (estimator cosine, call :2670)"),
+    ("megakernel_textbook", "megakernel.cu",
+     "megakernel.py:1203 (estimator nee_textbook, call :2670)"),
+    ("megakernel_cosine_tab", "megakernel.cu",
+     "megakernel.py:1203 (sphere_tab, cosine, call :2670)"),
+    ("megakernel_textbook_tab", "megakernel.cu",
+     "megakernel.py:1203 (sphere_tab, nee_textbook, call :2670)"),
+    ("megakernel_guided", "megakernel_guided.cu", "megakernel.py:2972"),
+    ("megakernel_guided_tab", "megakernel_guided.cu",
+     "megakernel.py:2972 (sphere scenes)"),
+    ("megakernel_guided_primary", "megakernel_guided.cu",
+     "megakernel.py:3111"),
+    ("megakernel_guided_primary_tab", "megakernel_guided.cu",
+     "megakernel.py:3111 (sphere scenes)"),
+)
 
 
 def log(msg: str) -> None:
@@ -171,17 +221,33 @@ def query_ops(n_rects: int, n_spheres: int = 0) -> int:
 
 
 def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
-                  n_spheres: int = 0, span_bytes: int = 0):
-    """Forward kernels: every counted probe follows one traced, unfolded
-    bounce (query, shading, probe, five draws); the extends beyond it (RR
-    deaths, folded bounces, SPEC/REFR bounces) are left out, so this is a
-    lower bound. Bytes: the per-lane radiance and the counters out, the
+                  n_spheres: int = 0, span_bytes: int = 0, est: str = "nee",
+                  diffuse_only: bool = True):
+    """Forward kernels. nee: every counted probe follows one traced,
+    unfolded bounce (query, shading, probe, five draws); the extends beyond
+    it (RR deaths, folded bounces, SPEC/REFR bounces) are left out.
+    cosine and nee_textbook: every extend is a query with the least
+    shading; the diffuse bounces (nee_textbook: its probes; cosine: every
+    extend when ``diffuse_only``, else none) add the cosine sample, each
+    textbook probe the light sample, weight and direct term; the guided
+    mixture is left out. So this is a lower bound. Bytes: the per-lane radiance and the counters out, the
     material tables (and, with spheres, the codes and sphere rows) in, and
-    the budget kernels' span bounds (span_bytes) in."""
-    _, probe = traces
-    fp = (probe * (query_ops(n_rects, n_spheres) + FP_SHADE + FP_PROBE)
-          + n_samples * FP_SPAWN)
-    it = probe * INT_BOUNCE + n_samples * INT_SPAWN
+    the budget kernels' span bounds or the guide table (span_bytes) in."""
+    extend, probe = traces
+    q = query_ops(n_rects, n_spheres)
+    if est == "nee":
+        fp = probe * (q + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
+        it = probe * INT_BOUNCE + n_samples * INT_SPAWN
+    else:
+        diffuse = probe if est == "nee_textbook" else (
+            extend if diffuse_only else 0)
+        fp = (extend * (q + FP_SHADE_MIN) + diffuse * FP_COS_SAMPLE
+              + n_samples * FP_SPAWN)
+        it = (extend * (INT_DRAW + INT_WORD) + diffuse * 2 * INT_DRAW
+              + n_samples * INT_SPAWN)
+        if est == "nee_textbook":
+            fp += probe * (FP_PROBE + FP_NEE + FP_DIRECT)
+            it += probe * 2 * INT_DRAW
     k = n_rects + n_spheres
     tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
     return bound(fp, it, n_lanes * 12 + 16 + tables + span_bytes)
@@ -756,12 +822,331 @@ def main() -> int:
             f"AOV pass (64 samples) {aov_s:.3f} s, denoiser (5 passes) "
             f"{den_s:.3f} s")
 
+    # Phases (m)-(u): the cosine and nee_textbook estimators (rows 1 and 2
+    # grow) and path guiding (rows 4 and 5).
+    from small_pathtracer_tpu_torch.core import vecmath as vm
+    from small_pathtracer_tpu_torch.experiment import path_guiding as pg
+
+    lbn = megakernel.LAUNCHES_BY_NAME
+    alcove = get_scene("cornell_alcove_baffled")
+    smallpt = get_scene("smallpt_original")
+    est_kernel = {"cosine": "megakernel_cosine",
+                  "nee_textbook": "megakernel_textbook"}
+
+    def zero_counts():
+        megakernel.LAUNCHES = megakernel.LAUNCHES_TAB = 0
+        megakernel.LAUNCHES_BUDGETS = megakernel.LAUNCHES_TAB_BUDGETS = 0
+        for key in lbn:
+            lbn[key] = 0
+
+    def kernel_name(sc, est, kind):
+        tab = "_tab" if megakernel.uses_sphere_table(sc) else ""
+        if kind == "unguided":
+            return est_kernel[est] + tab
+        return ("megakernel_guided" + ("_primary" if kind == "primary"
+                                       else "") + tab)
+
+    def render_fn(sc, cfg, seed, kind, guide, plain=False):
+        """A call of the wrapper (or its plain version) of one kind:
+        unguided, voxel (row 4) or primary (row 5)."""
+        if kind == "unguided":
+            fn = (megakernel.render_megakernel_plain if plain
+                  else megakernel.render_megakernel)
+            return lambda: fn(sc, cam_f, cfg, seed)
+        if kind == "voxel":
+            fn = (megakernel.render_megakernel_guided_plain if plain
+                  else megakernel.render_megakernel_guided)
+        else:
+            fn = (megakernel.render_megakernel_guided_primary_plain if plain
+                  else megakernel.render_megakernel_guided_primary)
+        return lambda: fn(sc, cam_f, cfg, seed, guide, GUIDE_BETA, GUIDE_K)
+
+    def sc_bound(sc, tr, n_samples, n_lanes, est, guide_bytes):
+        return forward_bound(tr, n_samples, n_lanes, sc.rects.k.shape[0],
+                             sc.spheres.radius.shape[0], guide_bytes, est,
+                             not megakernel.uses_sphere_table(sc))
+
+    def new_parity(label, sc, est, kind, guide, seed):
+        """The kernel against its plain version at 1024x768x4, bit for bit:
+        kernel, plain, kernel (the plain version takes 1-4 s a run)."""
+        width, height = 1024, 768
+        cfg = RenderConfig(width=width, height=height, spp=4, estimator=est,
+                           seed=seed)
+        name = kernel_name(sc, est, kind)
+        before = lbn[name]
+        outs, med = in_turns(
+            {"kernel": render_fn(sc, cfg, seed, kind, guide),
+             "plain": render_fn(sc, cfg, seed, kind, guide, plain=True)},
+            ("kernel", "plain", "kernel"))
+        if lbn[name] != before + 2:
+            raise AssertionError(f"{label}: {name} did not count 2 launches")
+        (k_img, k_tr), (k_img2, k_tr2) = outs["kernel"]
+        p_img, p_tr = outs["plain"][0]
+        if not (torch.equal(k_img, k_img2) and torch.equal(k_tr, k_tr2)):
+            raise AssertionError(f"{label}: kernel runs differ")
+        err_ = float((k_img - p_img).abs().max())
+        n_pix = width * height
+        b = sc_bound(sc, k_tr.tolist(), n_pix * 4, n_pix, est,
+                     guide_bytes(kind, n_pix))
+        log(f"[smoke] {label} {width}x{height}x4 seed {seed}: {name} "
+            f"{med['kernel'] * 1e3:.3f} ms traces {k_tr.tolist()}; "
+            f"plain {med['plain'] * 1e3:.3f} ms "
+            f"traces {p_tr.tolist()}; max |img diff| {err_:.3e}; bound "
+            f"{b[0]:.3f} ms ({b[1]})")
+        if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
+            raise AssertionError(f"{label}: kernel and plain version differ")
+        return {"name": name, "err": err_, "ms": med["kernel"] * 1e3,
+                "plain_ms": med["plain"] * 1e3, "bound": b}
+
+    def guide_bytes(kind, n_pix):
+        """The guide the kernel reads: the packed voxel table, or one
+        packed lobe a pixel."""
+        if kind == "unguided":
+            return 0
+        return (pg.N_VOXELS if kind == "voxel" else n_pix) * 4
+
+    phase("pow_pos against torch.pow on 1e6 uniforms, u^(1/9)")
+    u_np = (np.random.default_rng(11).integers(0, 1 << 24, 1_000_000)
+            * 2.0 ** -24).astype(np.float32)
+    p9 = np.float32(1.0 / (GUIDE_K + 1.0))
+    u_t = torch.from_numpy(u_np).to(device)
+    p_t = torch.tensor(p9, device=device)
+    ref64 = np.power(u_np.astype(np.float64), np.float64(p9))
+    ulp = np.spacing(np.maximum(ref64, 1e-30).astype(np.float32))
+    pow_ours = vm.pow_pos(u_t, p_t).cpu().numpy()
+    pow_lib = torch.pow(u_t, p_t).cpu().numpy()
+    pow_share = float(np.mean(pow_ours != pow_lib))
+    log(f"[smoke] pow: pow_pos and torch.pow differ on {pow_share:.4%} of "
+        f"1e6 uniforms; max error against float64: pow_pos "
+        f"{(np.abs(pow_ours - ref64) / ulp).max():.3f} ulp, torch.pow "
+        f"{(np.abs(pow_lib - ref64) / ulp).max():.3f} ulp")
+
+    phase("train_guide at the CLI's pre-pass size (128x96x16, 8 bounces), "
+          "twice")
+    tcfg = RenderConfig(width=128, height=96, spp=16, seed=1)
+    m1, train_s = timed(lambda: pg.train_guide(alcove, cam_f, tcfg, 8, 1))
+    m2, _ = timed(lambda: pg.train_guide(alcove, cam_f, tcfg, 8, 1))
+    if not torch.equal(m1, m2):
+        raise AssertionError("train_guide gave two different tables")
+    guides = {"cornell_alcove_baffled": pg.guide_lobes(m1)}
+    for nm, sc in (("cornell_box", scene), ("smallpt_original", smallpt)):
+        guides[nm] = pg.guide_lobes(pg.train_guide(sc, cam_f, tcfg, 8, 1))
+    log(f"[smoke] train_guide: the same bits twice, {train_s:.4f} s; guided "
+        "voxels " + ", ".join(f"{k} {int(g[1].sum())}"
+                              for k, g in guides.items()))
+
+    phase("row 4 against its plain version 1024x768x4: "
+          "cornell_alcove_baffled nee_textbook, cornell_box cosine, "
+          "smallpt_original cosine")
+    par = {}  # kernel name -> its first parity run
+    for nm, sc, est in (("cornell_alcove_baffled", alcove, "nee_textbook"),
+                        ("cornell_box", scene, "cosine"),
+                        ("smallpt_original", smallpt, "cosine")):
+        r = new_parity(f"row 4 {nm} {est}", sc, est, "voxel", guides[nm], 12)
+        par.setdefault(r["name"], r)
+    phase("row 5 against its plain version 1024x768x4: "
+          "cornell_alcove_baffled nee_textbook, smallpt_original cosine")
+    for nm, sc, est in (("cornell_alcove_baffled", alcove, "nee_textbook"),
+                        ("smallpt_original", smallpt, "cosine")):
+        r = new_parity(f"row 5 {nm} {est}", sc, est, "primary", guides[nm], 13)
+        par.setdefault(r["name"], r)
+    phase("unguided cosine and nee_textbook against their plain version "
+          "1024x768x4")
+    for nm, sc, est in (("cornell_box", scene, "cosine"),
+                        ("cornell_alcove_baffled", alcove, "nee_textbook"),
+                        ("smallpt_original", smallpt, "cosine"),
+                        ("smallpt_original", smallpt, "nee_textbook")):
+        r = new_parity(f"unguided {nm} {est}", sc, est, "unguided", None, 14)
+        par.setdefault(r["name"], r)
+
+    phase("an all-sentinel table against the unguided kernel, rows 4 and 5, "
+          "bit for bit")
+    empty = (torch.zeros((pg.N_VOXELS, 3), device=device),
+             torch.zeros(pg.N_VOXELS, dtype=torch.bool, device=device))
+    for est in ("cosine", "nee_textbook"):
+        for nm, sc in (("cornell_alcove_baffled", alcove),
+                       ("smallpt_original", smallpt)):
+            cfg = RenderConfig(width=1024, height=768, spp=4, estimator=est,
+                               seed=15)
+            u_img, u_tr = render_fn(sc, cfg, 15, "unguided", None)()
+            for kind in ("voxel", "primary"):
+                g_img, g_tr = render_fn(sc, cfg, 15, kind, empty)()
+                if not (torch.equal(g_img, u_img) and torch.equal(g_tr, u_tr)):
+                    raise AssertionError(f"empty table {kind} {nm} {est} "
+                                         "differs from the unguided kernel")
+            log(f"[smoke] empty table {nm} {est}: rows 4 and 5 equal the "
+                f"unguided kernel bit for bit, traces {u_tr.tolist()}")
+
+    cfg512 = {est: RenderConfig(width=1024, height=768, spp=512,
+                                estimator=est, seed=0)
+              for est in ("cosine", "nee_textbook")}
+    alc_args = ["--scene", "cornell_alcove_baffled", "--estimator",
+                "nee_textbook"]
+    main = {}  # kernel name -> (launches, x512 event ms, bound)
+
+    def x512(name, sc, est, kind, guide, tr):
+        """Event time of three launches in a row at 1024x768x512 seed 0,
+        and the bound from these traces."""
+        ms = event_ms(render_fn(sc, cfg512[est], 0, kind, guide), 3)
+        n_pix = 1024 * 768
+        b = sc_bound(sc, tr, n_pix * 512, n_pix, est, guide_bytes(kind, n_pix))
+        log(f"[smoke] {name} 1024x768x512 seed 0: {ms:.3f} ms a launch "
+            f"(CUDA events), traces {tr}; bound {b[0]:.3f} ms ({b[1]})")
+        return ms, b
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("main path, cli render --guided --scene cornell_alcove_baffled "
+              "--estimator nee_textbook 1024x768x512")
+        zero_counts()
+        text = cli_stderr(cli_main, base + alc_args + [
+            "--guided", "-o", os.path.join(tmp, "guided.png")])
+        counts = dict(lbn, megakernel_nee=megakernel.LAUNCHES)
+        mg_ = re.search(r"guide table trained: (\d+) guided voxels \(pre-pass "
+                        r"([0-9.]+) s\)", text)
+        g_rays, g_secs = cli_traces(text)
+        if counts["megakernel_guided"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"cli render --guided launched {counts}")
+        n_vox, pre_s = int(mg_.group(1)), float(mg_.group(2))
+        guide_a = guides["cornell_alcove_baffled"]
+        if n_vox != int(guide_a[1].sum()):
+            raise AssertionError("the CLI's table differs from train_guide's")
+        cfg_tb = cfg512["nee_textbook"]
+        img_g, tr_g = megakernel.render_megakernel_guided(
+            alcove, cam_f, cfg_tb, 0, guide_a, GUIDE_BETA, GUIDE_K)
+        if int(tr_g.sum()) != g_rays:
+            raise AssertionError("the CLI's traces differ from the wrapper's")
+        ms_g, b_g = x512("megakernel_guided", alcove, "nee_textbook", "voxel",
+                         guide_a, tr_g.tolist())
+        main["megakernel_guided"] = (1, ms_g, b_g)
+        log(f"[smoke] main path cli render --guided: pre-pass {pre_s:.4f} s, "
+            f"{n_vox} guided voxels, 1 launch of megakernel_guided "
+            f"{ms_g:.3f} ms (CUDA events), {g_rays} rays in {g_secs:.3f} s "
+            f"wall = {g_rays / g_secs / 1e6:.1f} Mrays/s on {card}")
+
+        zero_counts()
+        text = cli_stderr(cli_main, base + alc_args + [
+            "-o", os.path.join(tmp, "unguided.png")])
+        n_tb = lbn["megakernel_textbook"]
+        u_rays, u_secs = cli_traces(text)
+        if n_tb != 1:
+            raise AssertionError("cli render --estimator nee_textbook did "
+                                 "not launch megakernel_textbook once")
+        img_u, tr_u = megakernel.render_megakernel(alcove, cam_f, cfg_tb, 0)
+        ms_u, b_u = x512("megakernel_textbook", alcove, "nee_textbook",
+                         "unguided", None, tr_u.tolist())
+        main["megakernel_textbook"] = (1, ms_u, b_u)
+        spp_t = torch.tensor(512.0, device=device)
+        mean_g = (img_g / spp_t).reshape(-1, 3).double().mean(0)
+        mean_u = (img_u / spp_t).reshape(-1, 3).double().mean(0)
+        rel = ((mean_g - mean_u).abs() / mean_u).cpu().numpy()
+        log(f"[smoke] unguided cli render: {u_rays} rays in {u_secs:.3f} s "
+            f"wall = {u_rays / u_secs / 1e6:.1f} Mrays/s, megakernel_textbook "
+            f"{ms_u:.3f} ms; linear means guided "
+            f"{mean_g.cpu().numpy().round(5).tolist()} unguided "
+            f"{mean_u.cpu().numpy().round(5).tolist()} (relative gap "
+            f"{rel.round(5).tolist()}, limit {GUIDE_MEAN_TOL})")
+        if np.any(rel > GUIDE_MEAN_TOL):
+            raise AssertionError("the guided and unguided means disagree")
+
+        phase("variance: cornell_alcove_baffled 1024x768x64, seeds 0 and 1, "
+              "guided and unguided")
+        var = {}
+        for kind in ("voxel", "unguided"):
+            imgs = []
+            for seed in (0, 1):
+                cfg = RenderConfig(width=1024, height=768, spp=64,
+                                   estimator="nee_textbook", seed=seed)
+                img, _ = render_fn(alcove, cfg, seed, kind, guide_a)()
+                imgs.append(img / torch.tensor(64.0, device=device))
+            var[kind] = float(((imgs[0] - imgs[1]) ** 2).double().mean())
+        log(f"[smoke] mean squared difference of seeds 0 and 1 at x64 "
+            f"(twice the pixel variance): guided {var['voxel']:.6e}, "
+            f"unguided {var['unguided']:.6e}, ratio "
+            f"{var['unguided'] / var['voxel']:.3f}")
+
+        phase("cli render --guided --guide-online 4 1024x768x512")
+        zero_counts()
+        text = cli_stderr(cli_main, base + alc_args + [
+            "--guided", "--guide-online", "4",
+            "-o", os.path.join(tmp, "online.png")])
+        n_on = lbn["megakernel_guided"]
+        on_rays, on_secs = cli_traces(text)
+        log(f"[smoke] online: {n_on} launches of megakernel_guided, "
+            f"{on_rays} rays in {on_secs:.3f} s = "
+            f"{on_rays / on_secs / 1e6:.1f} Mrays/s")
+        if n_on != 4:
+            raise AssertionError("--guide-online 4 did not launch 4 times")
+
+        phase("cli render --guided --checkpoint --checkpoint-every 128 "
+              "--preview 1024x768x512")
+        ck, pv = os.path.join(tmp, "g.ckpt"), os.path.join(tmp, "g.png")
+        zero_counts()
+        text = cli_stderr(cli_main, base + alc_args + [
+            "--guided", "--checkpoint", ck, "--checkpoint-every", "128",
+            "--preview", pv, "-o", os.path.join(tmp, "gck.png")])
+        n_ck = lbn["megakernel_guided"]
+        ck_rays, _ = cli_traces(text)
+        img_ck, _ = checkpoint.render_with_checkpoints(
+            alcove, cam_f, cfg_tb, "", 128, guide=guide_a,
+            guide_beta=GUIDE_BETA, guide_k=GUIDE_K)
+        ck_err = float((img_ck - film.finalize(img_g / spp_t)).abs().max())
+        log(f"[smoke] guided checkpoint: {n_ck} span launches, traces "
+            f"{ck_rays} (one launch {g_rays}), preview "
+            f"{imageio.read_image(pv).shape}, max |span image - one-launch "
+            f"image| {ck_err:.3e}")
+        if not (n_ck == 4 and ck_rays == g_rays and ck_err <= 1e-5):
+            raise AssertionError("the guided checkpointed render differs")
+
+        phase("the other new kernels' main paths at 1024x768x512: cli render "
+              "cosine (cornell_box), smallpt_original cosine guided, cosine "
+              "and nee_textbook; row 5 through its wrapper")
+        for name, args_, sc, est, kind in (
+                ("megakernel_cosine", ["--estimator", "cosine"], scene,
+                 "cosine", "unguided"),
+                ("megakernel_guided_tab",
+                 ["--scene", "smallpt_original", "--estimator", "cosine",
+                  "--guided"], smallpt, "cosine", "voxel"),
+                ("megakernel_cosine_tab",
+                 ["--scene", "smallpt_original", "--estimator", "cosine"],
+                 smallpt, "cosine", "unguided"),
+                ("megakernel_textbook_tab",
+                 ["--scene", "smallpt_original", "--estimator",
+                  "nee_textbook"], smallpt, "nee_textbook", "unguided")):
+            zero_counts()
+            text = cli_stderr(cli_main, base + args_ + [
+                "-o", os.path.join(tmp, f"{name}.png")])
+            n_l = lbn[name]
+            rays, secs = cli_traces(text)
+            if n_l != 1:
+                raise AssertionError(f"{name}: {n_l} launches")
+            nm = "cornell_box" if sc is scene else "smallpt_original"
+            _, tr = render_fn(sc, cfg512[est], 0, kind, guides[nm])()
+            ms, b = x512(name, sc, est, kind, guides[nm], tr.tolist())
+            main[name] = (n_l, ms, b)
+            log(f"[smoke] main path {name}: 1 launch, {rays} rays in "
+                f"{secs:.3f} s = {rays / secs / 1e6:.1f} Mrays/s")
+        for name, sc, est, nm in (
+                ("megakernel_guided_primary", alcove, "nee_textbook",
+                 "cornell_alcove_baffled"),
+                ("megakernel_guided_primary_tab", smallpt, "cosine",
+                 "smallpt_original")):
+            zero_counts()
+            img, tr = render_fn(sc, cfg512[est], 0, "primary", guides[nm])()
+            n_l = lbn[name]
+            if n_l != 1 or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{name}: {n_l} launches or a non-finite "
+                                     "image")
+            ms, b = x512(name, sc, est, "primary", guides[nm], tr.tolist())
+            main[name] = (n_l, ms, b)
+
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
         log(f"[smoke] {t1 - t0:8.3f} s  {name}")
 
     # No single PyTorch call computes any of these functions: library_ms is
-    # null for each.
+    # null for each. The new kernels' ms, plain_ms and bound_ms are their
+    # parity runs' at 1024x768x4; their x512 event times and bounds are in
+    # the log.
     def entry(name, source, replaces, launch, err_, ms, plain_ms, b):
         return {"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": "small_pathtracer_tpu/ops/" + replaces,
@@ -790,6 +1175,9 @@ def main() -> int:
               "megakernel.py:2783", adaptive_launches["sphere_grid"],
               bud["sphere_grid"]["err"], bud["sphere_grid"]["ms"],
               bud["sphere_grid"]["plain_ms"], bud["sphere_grid"]["bound"]),
+        *(entry(name, source, replaces, main[name][0], par[name]["err"],
+                par[name]["ms"], par[name]["plain_ms"], par[name]["bound"])
+          for name, source, replaces in NEW_KERNELS),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

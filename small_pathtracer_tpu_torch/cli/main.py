@@ -7,8 +7,13 @@ wavefront and, for ``fit``, torch.autograd through it.
 ``render`` takes the JAX CLI's single-card flags, with its messages and
 composition rules: adaptive sampling (``--adaptive-tol``, through the
 budget kernels), checkpointed and progressive renders (``--checkpoint``,
-``--preview``, through span renders), first-hit AOVs (``--aov``), the
-a-trous denoiser (``--denoise``), and PPM or PNG output by extension.
+``--preview``, through span renders), voxel path guiding (``--guided``, a
+training pre-pass and the guided kernel; ``--guide-online R`` retrains
+between R spans), first-hit AOVs (``--aov``), the a-trous denoiser
+(``--denoise``), and PPM or PNG output by extension. The JAX CLI's
+``--guided`` without ``--pallas`` runs its fixed-depth jnp estimator; here
+the device decides, as everywhere: the guided kernel on the card, its plain
+version on the CPU.
 One difference: ``--adaptive-tol 0`` runs the adaptive waves (the
 uniform image, wave by wave), where the JAX CLI takes 0 for a uniform
 render; leave the flag out for that.
@@ -32,8 +37,13 @@ from ..camera.pinhole import make_camera
 from ..core import film, imageio
 from ..device import resolve
 from ..integrator.wavefront import render
-from ..ops.megakernel import render_megakernel
-from ..ops.megakernel_grad import FIELDS, check_trainable, fit_megakernel
+from ..experiment.path_guiding import (
+    guide_lobes, render_guided_online, train_guide,
+)
+from ..ops.megakernel import render_megakernel, render_megakernel_guided
+from ..ops.megakernel_grad import (
+    FIELDS, check_estimator, check_trainable, fit_megakernel,
+)
 from ..scene.presets import PRESETS, get_scene
 from ..utils.adaptive import adaptive_render
 from ..utils.aov import render_aovs
@@ -111,11 +121,59 @@ def _write_aovs(prefix: str, aovs) -> None:
     np.savez(prefix + ".npz", **host)
 
 
+def _render_guided_cli(args, scene, cam, cfg):
+    """render --guided: a cosine training pre-pass at 1/8 of the resolution
+    (at least 16x16, seed + 1; the 10-unit voxel grid needs coverage, not
+    pixels), its lobe table, then the guided render (online, in
+    checkpointed spans, or one launch). Returns (clamped linear image,
+    traces)."""
+    if cfg.estimator not in ("cosine", "nee_textbook"):
+        raise SystemExit(
+            "--guided requires --estimator cosine or nee_textbook "
+            "(C13-continuation estimators replace the bounce with the "
+            "light sample, leaving nothing to guide)"
+        )
+    if args.guide_online > 0 and (args.checkpoint or args.preview):
+        raise SystemExit(
+            "--guide-online does not compose with "
+            "--checkpoint/--mesh/--preview yet (the span schedule is "
+            "owned by the online loop); drop one of the flags"
+        )
+    tcfg = RenderConfig(width=max(args.width // 8, 16),
+                        height=max(args.height // 8, 16),
+                        spp=args.guide_train_spp, seed=args.seed + 1)
+    t0 = time.perf_counter()
+    guide = guide_lobes(train_guide(scene, cam, tcfg, args.guide_bounces,
+                                    tcfg.seed))
+    n_guided = int(guide[1].sum())
+    print(f"guide table trained: {n_guided} guided voxels (pre-pass "
+          f"{time.perf_counter() - t0:.6f} s)", file=sys.stderr)
+    if args.guide_online > 0:
+        img, tr = render_guided_online(
+            scene, cam, cfg, cfg.seed, args.guide_beta, args.guide_k,
+            rounds=args.guide_online, train_spp=args.guide_train_spp,
+            train_bounces=args.guide_bounces)
+    elif args.checkpoint or args.preview:
+        every = args.checkpoint_every
+        if args.preview:
+            every = (args.preview_every or args.checkpoint_every
+                     or max(1, cfg.spp // 8))
+        return render_with_checkpoints(
+            scene, cam, cfg, args.checkpoint, every,
+            preview_path=args.preview, guide=guide,
+            guide_beta=args.guide_beta, guide_k=args.guide_k)
+    else:
+        img, tr = render_megakernel_guided(scene, cam, cfg, cfg.seed, guide,
+                                           args.guide_beta, args.guide_k)
+    spp_t = torch.tensor(float(cfg.spp), device=img.device)
+    return film.finalize(img / spp_t), int(tr.sum())
+
+
 def cmd_render(args) -> int:
     scene, cam, cfg = _build(args)
     t0 = time.perf_counter()
     if args.adaptive_tol is not None:
-        if args.checkpoint or args.preview:
+        if args.checkpoint or args.preview or args.guided:
             raise SystemExit(
                 "--adaptive-tol composes with --pallas only (not --mesh/"
                 "--checkpoint/--preview/--guided)"
@@ -136,6 +194,8 @@ def cmd_render(args) -> int:
             film.write_ppm(args.adaptive_map, film.tonemap_u8(
                 torch.from_numpy(np.repeat(m[..., None], 3, axis=-1))
             ).numpy())
+    elif args.guided:
+        img, traces = _render_guided_cli(args, scene, cam, cfg)
     elif args.checkpoint or args.preview:
         every = args.checkpoint_every
         if args.preview:
@@ -222,6 +282,7 @@ def cmd_fit(args) -> int:
         )
     scene, cam, cfg = _build(args)
     check_trainable(scene)
+    check_estimator(cfg)
     if args.target:
         target = torch.as_tensor(
             film.srgb_from_u8(film.read_ppm(args.target)),
@@ -288,6 +349,28 @@ def main(argv=None) -> int:
         "--preview-every", type=int, default=0,
         help="preview/chunk interval in spp (default: --checkpoint-every, "
              "else spp/8)")
+    p_render.add_argument(
+        "--guided", action="store_true",
+        help="voxel path guiding (experiment/path_guiding.py): train a lobe "
+             "table with a short pre-pass, then importance-sample the guided "
+             "mixture through the guided kernel; estimator must be cosine "
+             "or nee_textbook")
+    p_render.add_argument(
+        "--guide-beta", type=float, default=0.6,
+        help="guided-mixture lobe probability in guided voxels")
+    p_render.add_argument("--guide-k", type=float, default=8.0,
+                          help="power-cosine lobe sharpness")
+    p_render.add_argument(
+        "--guide-train-spp", type=int, default=16,
+        help="spp of the guide-training pre-pass (at 1/8 res)")
+    p_render.add_argument(
+        "--guide-bounces", type=int, default=8,
+        help="bounce depth of the guide-training passes")
+    p_render.add_argument(
+        "--guide-online", type=int, default=0, metavar="R",
+        help="online guiding: render in R sample spans, refining the lobe "
+             "table between spans from low-res training passes; 0 = one "
+             "pre-trained table for the whole render")
     p_render.add_argument(
         "--aov", default="",
         help="also render first-hit feature buffers (utils/aov.py) and "

@@ -2,10 +2,10 @@
 
 The field set and defaults are the JAX package's, minus ``use_pallas``: the
 device of the scene tensors decides the path (``integrator.wavefront.
-render_counts``). This slice of the port runs the ``nee`` estimator with the
-hash sampler, the box filter and the pinhole camera on the regenerating
-schedule; every other value of a field raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+render_counts``). The port runs the ``nee``, ``cosine`` and ``nee_textbook``
+estimators with the hash sampler, the box filter and the pinhole camera on
+the regenerating schedule; every other value of a field raises
+NotImplementedError naming the ROADMAP.md item that ports it.
 
 ``sphere_table`` takes the JAX package's five values and changes nothing:
 on the card every scene with spheres (or SPEC/REFR objects) runs through
@@ -31,6 +31,14 @@ ESTIMATORS = (
     "nee_textbook",
     "mis",
 )
+
+# The estimators the port renders; the others wait for ROADMAP item 10.
+PORTED_ESTIMATORS = ("nee", "cosine", "nee_textbook")
+
+# The JAX package's "auto" sphere_table threshold: its guided kernels refuse
+# the scenes it would route through the sphere table (ops/megakernel.py
+# check_guided), so the port refuses the same ones.
+SPHERE_TABLE_AUTO_MIN = 48
 
 _LATER = "is not ported yet (ROADMAP.md queue 1, item {})"
 
@@ -62,7 +70,7 @@ class RenderConfig:
             raise ValueError(
                 f"unknown estimator {self.estimator!r}; one of {ESTIMATORS}"
             )
-        if self.estimator != "nee":
+        if self.estimator not in PORTED_ESTIMATORS:
             raise NotImplementedError(
                 f"estimator {self.estimator!r} " + _LATER.format(10)
             )

@@ -96,3 +96,17 @@ def materials_from_jax(albedo, emission, device="cuda"):
         if t.ndim != 2 or t.shape[1] != 3:
             raise ValueError(f"expected a (K, 3) table, got {tuple(t.shape)}")
     return tables
+
+
+def guide_from_jax(mu, use, device="cuda"):
+    """The port's guide (mu (V, 3) float32, use (V,) bool) from a JAX
+    ``guide_lobes`` table given as arrays, for the guided renders of
+    ``ops.megakernel``."""
+    device = resolve(device)
+    mu_t = torch.as_tensor(np.array(mu, dtype=np.float32), device=device)
+    use_t = torch.as_tensor(np.array(use, dtype=bool), device=device)
+    if mu_t.ndim != 2 or mu_t.shape[1] != 3 or tuple(use_t.shape) != (
+            mu_t.shape[0],):
+        raise ValueError(f"expected mu (V, 3) and use (V,), got "
+                         f"{tuple(mu_t.shape)} and {tuple(use_t.shape)}")
+    return mu_t, use_t

@@ -2,7 +2,9 @@
 
 Every sum is written out in the order x, y, z, and ``rsqrt`` is
 ``1 / sqrt``: the CUDA kernels (``csrc/megakernel.cu``) use the same
-expressions, so the eager path and the kernel round alike.
+expressions, so the eager path and the kernel round alike. The real powers
+of path guiding (``pow_pos``) are built from the same IEEE operations on
+both sides too, not from a library ``pow``.
 """
 
 from __future__ import annotations
@@ -80,3 +82,69 @@ def sincos_2pi(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     sin = torch.where(qi < 2, sb, -sb)
     cos = torch.where((qi == 0) | (qi == 3), cb, -cb)
     return sin, cos
+
+
+def pow_const(x: torch.Tensor, k: float) -> torch.Tensor:
+    """x ** k for a fixed exponent, the JAX package's ``vm.pow_const``: an
+    integer k in [1, 64] is a squaring chain in its loop order (k = 8 is
+    ((x*x)*(x*x))*((x*x)*(x*x))); any other k is ``pow_pos(x, k)``
+    (x >= 0)."""
+    kf = float(k)
+    if kf.is_integer() and 1 <= kf <= 64:
+        n = int(kf)
+        result = None
+        base = x
+        while n:
+            if n & 1:
+                result = base if result is None else result * base
+            n >>= 1
+            if n:
+                base = base * base
+        return result
+    return pow_pos(x, torch.tensor(kf, dtype=torch.float32, device=x.device))
+
+
+# pow_pos: log2 of the mantissa m in [sqrt(1/2), sqrt(2)] from the atanh
+# series in s = (m - 1) / (m + 1) (2 / ((2j + 1) ln 2), j = 0..4), and 2^f
+# for f in [-1/2, 1/2] from the Taylor series ((ln 2)^j / j!, j = 0..7).
+# Each coefficient is its float32 value; csrc/megakernel_lane.cuh holds
+# the same literals.
+_LOG2_C = (2.88539004, 0.961796701, 0.577078044, 0.412198573, 0.3205989)
+_EXP2_C = (1.0, 0.693147182, 0.240226507, 0.0555041097, 0.00961812865,
+           0.00133335579, 0.000154035297, 1.52527336e-05)
+_SQRT2 = 1.41421354
+_MIN_NORMAL = 2.0 ** -126
+
+
+def pow_pos(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """x ** p for float32 x >= 0 and a float32 scalar tensor p > 0, as
+    exp2(p * log2(x)) from float32 +, -, *, / and bit operations only, in
+    the order ``pow_pos`` in csrc/megakernel_lane.cuh computes them, so
+    the kernels and this plain version give the same bits on any device
+    (a library pow may round differently in each). For the lobe sample's
+    u ** (1 / 9) it is within 2 ulp of the float64 power (1.72 ulp at most
+    on 1e6 uniforms, tests/test_torch_guiding.py); 0 where x or the result
+    is below the smallest normal float (2^-126)."""
+    f32, i32 = torch.float32, torch.int32
+    ok = x >= _MIN_NORMAL
+    bits = torch.where(ok, x, 1.0).contiguous().view(i32)
+    e = (bits >> 23) - 127
+    m = ((bits & 0x7FFFFF) | 0x3F800000).view(f32)
+    big = m > _SQRT2
+    m = torch.where(big, m * 0.5, m)
+    e = torch.where(big, e + 1, e)
+    s = (m - 1.0) / (m + 1.0)
+    s2 = s * s
+    poly = torch.full_like(s, _LOG2_C[4])
+    for c in _LOG2_C[3::-1]:
+        poly = poly * s2 + c
+    t = (e.to(f32) + s * poly) * p
+    n = torch.floor(t + 0.5)
+    f = t - n
+    q = torch.full_like(f, _EXP2_C[7])
+    for c in _EXP2_C[6::-1]:
+        q = q * f + c
+    ok = ok & (n >= -126.0) & (n <= 127.0)
+    n_i = torch.where(ok, n, 0.0).to(i32)
+    scale = ((n_i + 127) << 23).view(f32)
+    return torch.where(ok, q * scale, 0.0)

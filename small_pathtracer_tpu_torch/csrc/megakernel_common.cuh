@@ -25,7 +25,7 @@ constexpr float kInvPi = 0.318309886183790671538f;
 constexpr float kInv2p24 = 1.0f / 16777216.0f;
 constexpr uint32_t kDrawsPerBounce = 8;
 constexpr uint32_t kRR = 0, kLightU = 1, kLightV = 2, kScatterU = 3,
-                   kScatterV = 4, kRefrCoin = 6;
+                   kScatterV = 4, kMixCoin = 5, kRefrCoin = 6;
 
 struct Rect {
   int axis;

@@ -1,0 +1,450 @@
+// The loop body of the forward kernels (megakernel.cu, megakernel_guided.cu):
+// `render_lane`, one lane's samples, a template on where the materials
+// come from, whether the scene has a sphere table, the estimator and the
+// guide source; the SPEC/REFR scatter; path guiding's device functions
+// (the voxel lookup, the octahedral decode, the real power, the defensive
+// mixture); and the host helpers the entry points share.
+//
+// Numerics: see megakernel_common.cuh. Every expression below is the one
+// integrator/wavefront.py (the plain version) computes, in its order.
+
+#pragma once
+
+#include "megakernel_common.cuh"
+
+namespace {
+
+constexpr int kDiff = 0, kSpec = 1;
+// integrator/wavefront._refr_scatter: air 1, glass 1.5, Schlick's R0.
+constexpr float kNntInto = 1.0f / 1.5f, kNntOut = 1.5f;
+constexpr float kR0 = 0.04f, kOneMinusR0 = 0.96f;
+
+// Estimators (ops/megakernel.py EST_CODE): NEE as continuation, the cosine
+// continuation alone, and textbook NEE (a shadow probe's direct term, the
+// cosine continuation, the next pickup of the light suppressed).
+constexpr int kNee = 0, kCosine = 1, kTextbook = 2;
+
+// core/vecmath.reflect.
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) {
+  return sub(d, mul(n, 2.0f * dot(n, d)));
+}
+
+// integrator/wavefront._refr_scatter, its expressions in its order: ng the
+// geometric normal, n the one oriented against d.
+__device__ __forceinline__ void refr_scatter(V3 d, V3 ng, V3 n, float u_coin,
+                                             V3* dir, float* w) {
+  const bool into = dot(ng, n) > 0.0f;
+  const float nnt = into ? kNntInto : kNntOut;
+  const float ddn = dot(d, n);
+  const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
+  const bool tir = cos2t < 0.0f;
+  const float sq = cos2t > 0.0f ? sqrtf(cos2t) : 0.0f;
+  const float sign = into ? 1.0f : -1.0f;
+  const V3 tdir = norm(sub(mul(d, nnt), mul(ng, sign * (ddn * nnt + sq))));
+  const float c = 1.0f - (into ? -ddn : dot(tdir, ng));
+  const float re = kR0 + kOneMinusR0 * c * c * c * c * c;
+  const float tr = 1.0f - re;
+  const float pr = 0.25f + 0.5f * re;
+  const bool pick_refl = u_coin < pr || tir;
+  *w = tir ? 1.0f : (pick_refl ? re / pr : tr / (1.0f - pr));
+  *dir = pick_refl ? reflect(d, ng) : tdir;
+}
+
+// ---- Path guiding (experiment/path_guiding.py, ops/megakernel.py) ----
+
+// The reference's voxel grid: x in [0, 100), y in [-1, 85), z in [-1, 171),
+// 10-unit voxels, ids clamped into the grid.
+constexpr int kNVox0 = 10, kNVox1 = 9, kNVox2 = 18;
+constexpr int kNVoxels = kNVox0 * kNVox1 * kNVox2;  // 1620
+constexpr int kGuideSentinel = -2147483647 - 1;  // int32 min
+constexpr float kOctQ = 3.05185094e-05f;  // float32(1 / 32767)
+
+__device__ __forceinline__ int voxel_axis(float c, float lo, int n) {
+  const int q = static_cast<int>(floorf((c - lo) / 10.0f));
+  return q < 0 ? 0 : (q > n - 1 ? n - 1 : q);
+}
+
+// path_guiding.voxel_id.
+__device__ __forceinline__ int voxel_id(V3 x) {
+  return (voxel_axis(x.x, 0.0f, kNVox0) * kNVox1 +
+          voxel_axis(x.y, -1.0f, kNVox1)) * kNVox2 +
+         voxel_axis(x.z, -1.0f, kNVox2);
+}
+
+// ops/megakernel.oct_decode: the low 16 bits (u) and the high 16 (v) as
+// int16, each over 32767, the octahedral chart's lower half unfolded.
+__device__ __forceinline__ V3 oct_decode(int packed) {
+  const int iu = static_cast<int16_t>(packed & 0xFFFF);
+  const int iv = packed >> 16;  // arithmetic shift
+  const float u = static_cast<float>(iu) * kOctQ;
+  const float v = static_cast<float>(iv) * kOctQ;
+  const float az = 1.0f - fabsf(u) - fabsf(v);
+  const bool fold = az < 0.0f;
+  const float su = u >= 0.0f ? 1.0f : -1.0f;
+  const float sv = v >= 0.0f ? 1.0f : -1.0f;
+  const float uf = fold ? (1.0f - fabsf(v)) * su : u;
+  const float vf = fold ? (1.0f - fabsf(u)) * sv : v;
+  const float inv = rsqrt_ieee(uf * uf + vf * vf + az * az);
+  return v3(uf * inv, vf * inv, az * inv);
+}
+
+// core/vecmath.pow_pos: x^p for x >= 0 as exp2(p * log2(x)) from +, -, *, /
+// and bit operations (a library powf may round unlike the plain version's
+// pow); 0 below the smallest normal float.
+__device__ __forceinline__ float pow_pos(float x, float p) {
+  bool ok = x >= 1.17549435e-38f;
+  const int bits = __float_as_int(ok ? x : 1.0f);
+  int e = (bits >> 23) - 127;
+  float m = __int_as_float((bits & 0x7FFFFF) | 0x3F800000);
+  const bool big = m > 1.41421354f;
+  m = big ? m * 0.5f : m;
+  e = big ? e + 1 : e;
+  const float s = (m - 1.0f) / (m + 1.0f);
+  const float s2 = s * s;
+  float poly = 0.3205989f;
+  poly = poly * s2 + 0.412198573f;
+  poly = poly * s2 + 0.577078044f;
+  poly = poly * s2 + 0.961796701f;
+  poly = poly * s2 + 2.88539004f;
+  const float t = (static_cast<float>(e) + s * poly) * p;
+  const float n = floorf(t + 0.5f);
+  const float f = t - n;
+  float q = 1.52527336e-05f;
+  q = q * f + 0.000154035297f;
+  q = q * f + 0.00133335579f;
+  q = q * f + 0.00961812865f;
+  q = q * f + 0.0555041097f;
+  q = q * f + 0.240226507f;
+  q = q * f + 0.693147182f;
+  q = q * f + 1.0f;
+  ok = ok && n >= -126.0f && n <= 127.0f;
+  const int n_i = ok ? static_cast<int>(n) : 0;
+  return ok ? q * __int_as_float((n_i + 127) << 23) : 0.0f;
+}
+
+// The mixture's constants (ops/megakernel._guide_consts): the lobe
+// probability, its power k, (k + 1) / (2 pi), 1 / (k + 1), and k as an
+// integer in [1, 64] (else 0).
+struct GuideParams {
+  float beta, k, norm_k, inv_k1;
+  int k_int;
+};
+
+// core/vecmath.pow_const: an integer power as its squaring chain.
+__device__ __forceinline__ float pow_k(const GuideParams& g, float x) {
+  if (g.k_int > 0) {
+    int n = g.k_int;
+    float result = 0.0f, base = x;
+    bool have = false;
+    while (n) {
+      if (n & 1) {
+        result = have ? result * base : base;
+        have = true;
+      }
+      n >>= 1;
+      if (n) base = base * base;
+    }
+    return result;
+  }
+  return pow_pos(x, g.k);
+}
+
+// integrator/wavefront.guided_mixture on a guided vertex (beta_eff = beta):
+// the power-cosine lobe around mu from the cosine sample's u2 and angle,
+// the coin, and the weight pdf_cos / pdf_mix. Returns ok (false: the lane
+// ends, with weight 0).
+__device__ __forceinline__ bool guided_mixture(const GuideParams& g, V3 n,
+                                               V3 mu, V3 cos_dir, float sr1,
+                                               float cr1, float u2,
+                                               float u_coin, V3* dir,
+                                               float* w) {
+  const V3 a = fabsf(mu.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  const V3 mu_u = norm(cross(a, mu));
+  const V3 mu_v = cross(mu, mu_u);
+  const float wz = pow_pos(u2, g.inv_k1);
+  const float sin_t = sqrtf(fmaxf(1.0f - wz * wz, 0.0f));
+  const V3 d_lobe = norm(add(add(mul(mu_u, cr1 * sin_t), mul(mu_v, sr1 * sin_t)),
+                             mul(mu, wz)));
+  const V3 d = u_coin < g.beta ? d_lobe : cos_dir;
+  const float cos_n = dot(d, n);
+  const float cos_mu = dot(d, mu);
+  const float pdf_lobe = g.norm_k * pow_k(g, fmaxf(cos_mu, 0.0f));
+  const float pdf_cos = fmaxf(cos_n, 0.0f) * kInvPi;
+  const float pdf_mix = g.beta * pdf_lobe + (1.0f - g.beta) * pdf_cos;
+  const bool ok = pdf_mix > 1e-9f && cos_n > 0.0f;
+  *w = ok ? pdf_cos / pdf_mix : 0.0f;
+  *dir = d;
+  return ok;
+}
+
+// Guide sources of render_lane: none (rows 1, 2, 3, 8); row 4's voxel
+// table of packed lobes (kNVoxels entries, in shared memory), read at each
+// diffuse hit's voxel; row 5's packed lobe of each pixel (device memory),
+// the lane's pixel's, at depth 1 only.
+struct NoGuide {
+  static constexpr int kKind = 0;
+};
+struct VoxelGuide {
+  static constexpr int kKind = 1;
+  const int* tab;
+  GuideParams g;
+};
+struct LaneGuide {
+  static constexpr int kKind = 2;
+  const int* lobes;
+  GuideParams g;
+};
+
+// One lane's samples [lr.s, lr.s_stop) of pixel lr.pix; lr comes from the
+// kernel's lane source (lane_range or lane_range_budgets).
+template <class Mats, bool kTab, int kEst = kNee, class Guide = NoGuide>
+__device__ __forceinline__ void render_lane(const Params& p,
+                                            const LaneRange& lr,
+                                            const Mats& mats,
+                                            const SphereTab& tab, bool fold,
+                                            float* __restrict__ out_l,
+                                            unsigned long long* __restrict__ traces,
+                                            const Guide& guide = Guide{}) {
+  const V3 cam_o = ld3(p.cam_o);
+  const V3 lc = ld3(p.lc), leu = ld3(p.leu), lev = ld3(p.lev), ln = ld3(p.ln);
+  const V3 e_light = mats.emission(p.light_id);
+
+  uint32_t s = lr.s;
+  uint32_t pid = lr.pid_base + s;
+  V3 o = cam_o;
+  V3 d = spawn_dir(p, lr.px, lr.py, pid);
+  V3 T = v3(1.0f, 1.0f, 1.0f);
+  V3 L = v3(0.0f, 0.0f, 0.0f);
+  int depth = 0;
+  bool alive = lr.in_range && s < lr.s_stop;
+  // nee_textbook: the previous bounce's probe already counted the light.
+  bool suppress = false;
+  uint32_t n_extend = 0, n_probe = 0;
+
+  while (alive) {
+    depth += 1;
+    int id;
+    float t_hit;
+    if constexpr (kTab) {
+      t_hit = nearest_tab(p, tab, o, d, &id);
+    } else {
+      t_hit = nearest(p, o, d, &id);
+    }
+    const bool hit = t_hit < kMissT;
+    // The winner's rect axis, -1 for a sphere. Rows 1 and 8 read it here,
+    // as before the sphere table existed, so their code is unchanged.
+    const int axis = (kTab && id >= p.n_rects) ? -1 : p.rects[id].axis;
+    const V3 alb = mats.albedo(id);
+    const V3 emi = mats.emission(id);
+    // Emission pickup: throughput * emission (nee_textbook adds it with
+    // the direct term below, or drops it when the light was just probed).
+    V3 pick = v3(T.x * emi.x, T.y * emi.y, T.z * emi.z);
+    if constexpr (kEst == kTextbook) {
+      if (suppress && hit && id == p.light_id) pick = v3(0.0f, 0.0f, 0.0f);
+    } else {
+      L = add(L, pick);
+    }
+    const V3 x = hit ? add(o, mul(d, t_hit)) : v3(0.0f, 0.0f, 0.0f);
+    V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
+               axis == 2 ? 1.0f : 0.0f);
+    int refl = kDiff;
+    if constexpr (kTab) {
+      refl = tab.refl[id];
+      if (axis < 0) {
+        const float4 c = tab.sph[id - p.n_rects];
+        ng = norm(sub(x, v3(c.x, c.y, c.z)));
+      }
+    }
+    const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
+    const bool diffuse = refl == kDiff;
+
+    const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
+    const float u_rr = uniform(p.seed, pid, ctr + kRR);
+
+    // Russian roulette.
+    const float p_max = fmaxf(alb.x, fmaxf(alb.y, alb.z));
+    const bool rr_active = depth > p.rr_start_depth || p_max <= 0.0f;
+    const bool survive = rr_active ? u_rr < p_max : true;
+    const float inv_p =
+        (rr_active && p_max > 0.0f) ? 1.0f / (p_max > 0.0f ? p_max : 1.0f) : 1.0f;
+    const V3 f = mul(alb, inv_p);
+
+    V3 new_dir;
+    float w;
+    bool success = false;
+    bool ok_g = true;                 // guided: the mixture sample carries
+    V3 direct = v3(0.0f, 0.0f, 0.0f);  // nee_textbook's direct term
+    if (diffuse) {
+      // Cosine-weighted hemisphere sample around n.
+      const float u1 = uniform(p.seed, pid, ctr + kScatterU);
+      const float u2 = uniform(p.seed, pid, ctr + kScatterV);
+      float sr1, cr1;
+      sincos_2pi(u1, &sr1, &cr1);
+      const float r2s = sqrtf(u2);
+      const V3 a = fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+      const V3 fu = norm(cross(a, n));
+      const V3 fv = cross(n, fu);
+      const V3 cos_dir = norm(add(add(mul(fu, cr1 * r2s), mul(fv, sr1 * r2s)),
+                                  mul(n, sqrtf(1.0f - u2))));
+
+      if constexpr (kEst == kCosine) {
+        new_dir = cos_dir;
+        w = 1.0f;
+      } else {
+        // Probe a uniform point of the light parallelogram.
+        const float lu = uniform(p.seed, pid, ctr + kLightU);
+        const float lv = uniform(p.seed, pid, ctr + kLightV);
+        const V3 lp = add(add(lc, mul(leu, lu)), mul(lev, lv));
+        const V3 d_l = norm(sub(lp, x));
+        float t_l;
+        if constexpr (kTab) {
+          success = probe_light_tab(p, tab, x, d_l, &t_l);
+        } else {
+          success = probe_light(p, x, d_l, &t_l);
+        }
+        const float t_safe = success ? t_l : 1.0f;
+        const float w_nee = (fabsf(p.area * dot(d_l, ln)) / (t_safe * t_safe)) *
+                            (fabsf(dot(d_l, n)) * kInvPi);
+        if constexpr (kEst == kNee) {
+          // NEE as continuation.
+          new_dir = success ? d_l : cos_dir;
+          w = success ? w_nee : 1.0f;
+        } else {
+          // Textbook: the direct term with the throughput before the
+          // update, and the cosine continuation.
+          new_dir = cos_dir;
+          w = 1.0f;
+          if (success) {
+            direct = v3(((w_nee * T.x) * alb.x) * e_light.x,
+                        ((w_nee * T.y) * alb.y) * e_light.y,
+                        ((w_nee * T.z) * alb.z) * e_light.z);
+          }
+        }
+      }
+      if constexpr (Guide::kKind != NoGuide::kKind) {
+        // The defensive mixture where the vertex has a lobe; elsewhere the
+        // cosine sample with weight 1 is what the mixture gives exactly.
+        int entry = kGuideSentinel;
+        if constexpr (Guide::kKind == VoxelGuide::kKind) {
+          entry = guide.tab[voxel_id(x)];
+        } else {
+          if (depth == 1) entry = guide.lobes[lr.pix];
+        }
+        if (entry != kGuideSentinel) {
+          ok_g = guided_mixture(guide.g, n, oct_decode(entry), cos_dir, sr1,
+                                cr1, u2, uniform(p.seed, pid, ctr + kMixCoin),
+                                &new_dir, &w);
+        }
+      }
+    } else if (refl == kSpec) {
+      new_dir = reflect(d, ng);
+      w = 1.0f;
+    } else {
+      refr_scatter(d, ng, n, uniform(p.seed, pid, ctr + kRefrCoin), &new_dir,
+                   &w);
+    }
+    const V3 T_new = mul(v3(T.x * f.x, T.y * f.y, T.z * f.z), w);
+
+    bool alive_next = survive;
+    n_extend += 1;
+    if constexpr (kEst == kNee) {
+      n_probe += (alive_next && diffuse) ? 1u : 0u;
+    } else if constexpr (kEst == kTextbook) {
+      n_probe += diffuse ? 1u : 0u;  // before RR
+    }
+    alive_next = alive_next && depth < p.max_bounces;
+    if constexpr (Guide::kKind != NoGuide::kKind) {
+      alive_next = alive_next && ok_g;
+    }
+
+    if constexpr (kEst == kNee) {
+      if (fold && alive_next && success) {
+        // The next bounce hits the light at t_l, picks up T_new * e_light
+        // and dies in RR (max albedo <= 0): resolve it now.
+        L = add(L, v3(T_new.x * e_light.x, T_new.y * e_light.y,
+                      T_new.z * e_light.z));
+        n_extend += 1;
+        alive_next = false;
+      }
+    }
+    if constexpr (kEst == kTextbook) {
+      L = add(L, add(pick, direct));
+      suppress = alive_next && diffuse;
+    }
+
+    if (alive_next) {
+      o = x;
+      d = new_dir;
+      T = T_new;
+    } else {
+      s += 1;
+      if (s < lr.s_stop) {
+        pid = lr.pid_base + s;
+        o = cam_o;
+        d = spawn_dir(p, lr.px, lr.py, pid);
+        T = v3(1.0f, 1.0f, 1.0f);
+        depth = 0;
+      } else {
+        alive = false;
+      }
+    }
+  }
+
+  if (lr.in_range) {
+    const int lane = blockIdx.x * kBlock + threadIdx.x;
+    out_l[3 * lane + 0] = L.x;
+    out_l[3 * lane + 1] = L.y;
+    out_l[3 * lane + 2] = L.z;
+  }
+  unsigned long long ext = n_extend, prb = n_probe;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ext += __shfl_down_sync(0xFFFFFFFFu, ext, off);
+    prb += __shfl_down_sync(0xFFFFFFFFu, prb, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&traces[0], ext);
+    atomicAdd(&traces[1], prb);
+  }
+}
+
+// Copies the sphere rows into the block's dynamic shared memory (every
+// thread must call it: it ends in a barrier) and returns them.
+__device__ __forceinline__ const float4* load_spheres(
+    const float4* __restrict__ sph, int n_sph) {
+  extern __shared__ float4 s_sph[];
+  for (int i = threadIdx.x; i < n_sph; i += kBlock) s_sph[i] = sph[i];
+  __syncthreads();
+  return s_sph;
+}
+
+// ---- Host helpers of the entry points ----
+
+// Copies the (n_rects, 3) host materials into the kernel parameters.
+inline void bake_materials(Params* p, const float* rect_alb,
+                           const float* rect_emi, int n_rects, int fold) {
+  for (int i = 0; i < n_rects; ++i) {
+    for (int c = 0; c < 3; ++c) {
+      p->rects[i].alb[c] = rect_alb[3 * i + c];
+      p->rects[i].emi[c] = rect_emi[3 * i + c];
+    }
+  }
+  p->fold = fold;
+}
+
+// Dynamic shared memory of n_spheres rows for a sphere-table kernel: raises
+// the kernel's limit above 48 KB. Returns the bytes, or -1 (and the error
+// in *err) when the attribute cannot be set.
+template <class Kernel>
+int sphere_smem(Kernel kernel, int n_spheres, cudaError_t* err) {
+  const int smem = n_spheres * static_cast<int>(sizeof(float4));
+  *err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (*err != cudaSuccess) return -1;
+  }
+  return smem;
+}
+
+}  // namespace

@@ -31,6 +31,23 @@ def sample_cosine(nl: torch.Tensor, u1: torch.Tensor,
     return vm.norm(d)
 
 
+def sample_power_cosine(mu: torch.Tensor, u1: torch.Tensor,
+                        u2: torch.Tensor, inv_k1: torch.Tensor) -> torch.Tensor:
+    """A cos^k lobe sample around the unit axis mu, inv_k1 = 1 / (k + 1) as
+    a float32 tensor: cos(theta) = u2^(1/(k+1)) (``vm.pow_pos``), the pdf
+    (k + 1) / (2 pi) cos^k; normalized. k = 1 is the cosine lobe."""
+    uax, vax = vm.onb_from_w(mu)
+    sr1, cr1 = vm.sincos_2pi(u1)
+    wz = vm.pow_pos(u2, inv_k1)
+    sin_t = torch.sqrt(torch.clamp(1.0 - wz * wz, min=0.0))
+    d = (
+        uax * (cr1 * sin_t)[..., None]
+        + vax * (sr1 * sin_t)[..., None]
+        + mu * wz[..., None]
+    )
+    return vm.norm(d)
+
+
 def light_area_normal(light: LightSampler):
     """Area and unit normal of the NEE parallelogram (1296 and (0, -1, 0)
     for the Cornell light)."""

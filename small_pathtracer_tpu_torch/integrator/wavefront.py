@@ -1,17 +1,30 @@
-"""Regenerating wavefront path integrator, ``nee`` estimator, in eager torch.
+"""Regenerating wavefront path integrator in eager torch: the ``nee``,
+``cosine`` and ``nee_textbook`` estimators, unguided or with the guided
+mixture of path guiding.
 
-The port of the JAX package's ``integrator/wavefront.py`` for this slice,
-and the plain version of the CUDA kernel (``ops/megakernel.py``).
+The port of the JAX package's ``integrator/wavefront.py`` for these
+estimators, and the plain version of the CUDA kernels (``ops/megakernel.py``).
 
 - Russian roulette starts after depth ``rr_start_depth`` (or at once when
   the hit's max albedo p is 0); survivors scale throughput by 1/p.
-- NEE as continuation: at each diffuse bounce a light sample becomes the
-  bounce direction when its nearest hit is the light object, with weight
-  |A cos_l| / t^2 * |cos| / pi; otherwise a cosine sample with weight 1.
+- ``nee``, NEE as continuation: at each diffuse bounce a light sample
+  becomes the bounce direction when its nearest hit is the light object,
+  with weight |A cos_l| / t^2 * |cos| / pi; otherwise a cosine sample with
+  weight 1.
+- ``cosine``: the cosine sample with weight 1, no probe.
+- ``nee_textbook``: one shadow probe at each live diffuse vertex (before
+  RR) adds T * albedo * e_light * the same weight as a direct term, the
+  continuation is the cosine sample, and the next bounce's pickup of the
+  light is suppressed (a lane that respawns picks up its primary emission).
+- Guided (``Guide``, the plain version of rows 4 and 5): ``cosine`` and
+  ``nee_textbook`` continue from diffuse vertices through the defensive
+  mixture beta * power-cosine(k) around a lobe mu + (1 - beta) * cosine,
+  drawn from the cosine sample's uniforms and a coin, weighted by
+  pdf_cos / pdf_mix; a lobe sample below the surface ends the path.
 - SPEC mirrors reflect about the geometric normal with weight 1; REFR glass
   (air 1, glass 1.5) reflects or refracts by a coin with P = .25 + .5 Re
   (Schlick), total internal reflection taking the mirror ray. Neither
-  fires an NEE probe.
+  fires an NEE probe or is guided.
 - Contribution = sum over bounces of throughput * emission.
 - Escaped rays shade the stale object 0 at x = (0, 0, 0) and keep going.
 - Lane regeneration: lane i is bound to one pixel and walks its samples
@@ -19,13 +32,15 @@ and the plain version of the CUDA kernel (``ops/megakernel.py``).
 - Every draw is a pure function of (seed, path_id, depth*8 + purpose), so
   the image does not depend on the lane layout.
 - Trace counters [extend, probe] are int64: extend counts one nearest-hit
-  query per live lane per bounce, probe one NEE probe per lane that
-  survived RR on a diffuse surface.
+  query per live lane per bounce; probe counts one NEE probe per lane that
+  survived RR on a diffuse surface (``nee``), per live lane on a diffuse
+  surface (``nee_textbook``), none (``cosine``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -49,22 +64,62 @@ def _nee_sample(light, probe_o, nl, u):
     return d_l, w_fn
 
 
-def _diff_scatter(scene: Scene, sh, hit_x, u):
-    """Diffuse bounce of the ``nee`` estimator: (direction (N, 3), weight
-    (N,), probes (N,) int64)."""
-    nl = sh.n
-    cos_dir = sampling.sample_cosine(
-        nl, u[rng.P_SCATTER_U], u[rng.P_SCATTER_V]
-    )
+def _probe_light(scene: Scene, x, nl, u):
+    """The shadow probe of ``nee`` and ``nee_textbook``: (direction to the
+    light sample (N, 3), whether its nearest hit is the light (N,), the NEE
+    weight (N,), finite on every lane)."""
     light = scene.light
-    d_l, w_fn = _nee_sample(light, hit_x, nl, u)
-    probe = trace(scene, hit_x, d_l)
+    d_l, w_fn = _nee_sample(light, x, nl, u)
+    probe = trace(scene, x, d_l)
     success = probe.hit & (probe.obj_id == light.light_obj_id)
     # A miss has t = 1e20, whose square overflows float32.
     t_safe = torch.where(success, probe.t, 1.0)
-    new_dir = torch.where(success[:, None], d_l, cos_dir)
-    w = torch.where(success, w_fn(t_safe), 1.0)
-    return new_dir, w, torch.ones_like(probe.obj_id)
+    return d_l, success, w_fn(t_safe)
+
+
+class Guide(NamedTuple):
+    """The guided mixture of rows 4 and 5 for the plain version.
+
+    ``lobes(x, depth)`` returns the decoded lobe (N, 3) and its use flag
+    (N,) of each lane at its hit points x (N, 3): a voxel-table lookup
+    (row 4) or the lane's own lobe at depth 1 (row 5). ``beta`` is the lobe
+    probability of a guided diffuse vertex, ``k`` the lobe's power."""
+
+    lobes: Callable[[torch.Tensor, torch.Tensor],
+                    tuple[torch.Tensor, torch.Tensor]]
+    beta: float
+    k: float
+
+
+def guided_mixture(nl, mu, use, u1, u2, u_coin, beta: float, k: float):
+    """The defensive mixture at each lane's vertex: (direction (N, 3),
+    weight pdf_cos / pdf_mix (N,), ok (N,): false where the sample is below
+    the surface or its pdf is ~0; those lanes get weight 0 and end).
+
+    The lobe sample uses the cosine sample's uniforms u1, u2; the mixture
+    picks it where u_coin < beta_eff (beta where ``use``, else 0, which
+    makes the weight exactly 1). The kernels compute the same expressions
+    in the same order: 1 / (k + 1), (k + 1) / (2 pi) and beta are float32
+    device tensors, and the real power u2^(1/(k+1)) is ``vm.pow_pos``."""
+    dev = nl.device
+    f32 = torch.float32
+    beta_t = torch.tensor(beta, dtype=f32, device=dev)
+    inv_k1 = torch.tensor(1.0 / (float(k) + 1.0), dtype=f32, device=dev)
+    norm_k = torch.tensor((float(k) + 1.0) / (2.0 * math.pi), dtype=f32,
+                          device=dev)
+    beta_eff = torch.where(use, beta_t, 0.0)
+    cos_dir = sampling.sample_cosine(nl, u1, u2)
+    d_lobe = sampling.sample_power_cosine(mu, u1, u2, inv_k1)
+    take = u_coin < beta_eff
+    new_d = torch.where(take[..., None], d_lobe, cos_dir)
+    cos_n = vm.dot(new_d, nl)
+    cos_mu = vm.dot(new_d, mu)
+    pdf_lobe = norm_k * vm.pow_const(torch.clamp(cos_mu, min=0.0), k)
+    pdf_cos = torch.clamp(cos_n, min=0.0) * (1.0 / math.pi)
+    pdf_mix = beta_eff * pdf_lobe + (1.0 - beta_eff) * pdf_cos
+    ok = (pdf_mix > 1e-9) & (cos_n > 0.0)
+    w = torch.where(ok, pdf_cos / torch.where(ok, pdf_mix, 1.0), 0.0)
+    return new_d, w, ok
 
 
 def _spec_scatter(sh, d_in):
@@ -106,31 +161,43 @@ def _refr_scatter(sh, d_in, u_coin):
 
 
 class BounceOut(NamedTuple):
-    emit: torch.Tensor        # (N, 3) throughput * emission, 0 on dead lanes
+    emit: torch.Tensor        # (N, 3) pickup (+ direct term), 0 on dead lanes
     x: torch.Tensor           # (N, 3) next origin
     new_dir: torch.Tensor     # (N, 3)
     T: torch.Tensor           # (N, 3) next throughput
-    alive: torch.Tensor       # (N,) alive and survived RR
+    alive: torch.Tensor       # (N,) alive, survived RR (and the mixture)
     traces_inc: torch.Tensor  # (2,) int64 [extend, probe]
+    no_emit_next: torch.Tensor  # (N,) nee_textbook: suppress the next pickup
 
 
 def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
-                 depth, path_id, spec_refr: bool = False) -> BounceOut:
+                 depth, path_id, spec_refr: bool = False, no_emit=None,
+                 guide: Guide | None = None) -> BounceOut:
     """One radiance()-body step over the wavefront. ``depth`` is this
     frame's post-increment depth (>= 1). ``spec_refr``: the scene holds
-    SPEC or REFR objects (without them the material select is skipped)."""
+    SPEC or REFR objects (without them the material select is skipped).
+    ``no_emit`` (N,) bool: nee_textbook lanes whose previous probe already
+    counted the light. ``guide``: continue diffuse vertices through the
+    guided mixture (``cosine`` and ``nee_textbook`` only)."""
+    est = cfg.estimator
     hit = trace(scene, o, d)
     sh = shade_info(scene, o, d, hit)
     alive_f = alive.to(T.dtype)[:, None]
     emit = alive_f * T * sh.emission
+    light_id = scene.light.light_obj_id
+    if est == "nee_textbook" and no_emit is not None:
+        is_light_hit = hit.hit & (hit.obj_id == light_id)
+        emit = emit * (~(no_emit & is_light_hit)).to(T.dtype)[:, None]
 
     ctr = depth.to(torch.int64) * rng.DRAWS_PER_BOUNCE
-    u = {
-        p: rng.uniform_mix(seed, path_id, ctr + p)
-        for p in (rng.P_RR, rng.P_LIGHT_U, rng.P_LIGHT_V,
-                  rng.P_SCATTER_U, rng.P_SCATTER_V)
-        + ((rng.P_REFR_COIN,) if spec_refr else ())
-    }
+    purposes = [rng.P_RR, rng.P_SCATTER_U, rng.P_SCATTER_V]
+    if est != "cosine":
+        purposes += [rng.P_LIGHT_U, rng.P_LIGHT_V]
+    if guide is not None:
+        purposes.append(rng.P_MIX_COIN)
+    if spec_refr:
+        purposes.append(rng.P_REFR_COIN)
+    u = {p: rng.uniform_mix(seed, path_id, ctr + p) for p in purposes}
 
     # Russian roulette.
     p_max = torch.amax(sh.albedo, dim=-1)
@@ -142,8 +209,30 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
     )
     f = sh.albedo * inv_p[:, None]
     alive_out = alive & survive
+    is_diff = sh.refl == DIFF
 
-    new_dir, w, probes = _diff_scatter(scene, sh, sh.x, u)
+    u1, u2 = u[rng.P_SCATTER_U], u[rng.P_SCATTER_V]
+    if guide is not None:
+        mu, use = guide.lobes(sh.x, depth)
+        new_dir, w, ok = guided_mixture(sh.n, mu, use & is_diff, u1, u2,
+                                        u[rng.P_MIX_COIN], guide.beta,
+                                        guide.k)
+        alive_out = alive_out & (ok | ~is_diff)
+    else:
+        new_dir = sampling.sample_cosine(sh.n, u1, u2)
+        w = torch.ones_like(u1)
+    probe_lanes = torch.zeros_like(alive)
+    if est in ("nee", "nee_textbook"):
+        d_l, success, w_d = _probe_light(scene, sh.x, sh.n, u)
+    if est == "nee":
+        new_dir = torch.where(success[:, None], d_l, new_dir)
+        w = torch.where(success, w_d, w)
+        probe_lanes = alive_out & is_diff
+    elif est == "nee_textbook":
+        e_light = object_arrays(scene)[1][light_id]
+        gate = (alive & is_diff & success).to(T.dtype)
+        emit = emit + (gate * w_d)[:, None] * T * sh.albedo * e_light
+        probe_lanes = alive & is_diff
     if spec_refr:
         spec_dir, spec_w = _spec_scatter(sh, d)
         refr_dir, refr_w = _refr_scatter(sh, d, u[rng.P_REFR_COIN])
@@ -152,13 +241,13 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
             is_refr[:, None], refr_dir, new_dir))
         w = torch.where(is_spec, spec_w, torch.where(is_refr, refr_w, w))
     T_out = T * f * w[:, None]
-    probe_alive = alive_out & (sh.refl == DIFF)
     traces_inc = torch.stack([
         alive.sum(dtype=torch.int64),
-        (probes * probe_alive).sum(dtype=torch.int64),
+        probe_lanes.sum(dtype=torch.int64),
     ])
     return BounceOut(emit=emit, x=sh.x, new_dir=new_dir, T=T_out,
-                     alive=alive_out, traces_inc=traces_inc)
+                     alive=alive_out, traces_inc=traces_inc,
+                     no_emit_next=alive_out & is_diff)
 
 
 def _spawn(cam: CameraParams, cfg: RenderConfig, seed, px, py, pid_base,
@@ -181,9 +270,11 @@ def check_materials(scene: Scene) -> bool:
 
 
 def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
-                     cam: CameraParams, pix, s_start, s_stop):
+                     cam: CameraParams, pix, s_start, s_stop,
+                     guide: Guide | None = None):
     """Regenerating wavefront over lanes: lane i renders pixel ``pix[i]``,
     samples [s_start[i], s_stop[i]). pix, s_start, s_stop: (N,) int64.
+    ``guide``: the guided mixture at diffuse vertices (rows 4 and 5).
 
     Returns (per-lane radiance sum (N, 3), traces (2,) int64)."""
     spec_refr = check_materials(scene)
@@ -200,11 +291,12 @@ def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
     depth = torch.zeros(n, dtype=torch.int64, device=dev)
     s = s_start.clone()
     n_traces = torch.zeros(2, dtype=torch.int64, device=dev)
+    no_emit = torch.zeros(n, dtype=torch.bool, device=dev)
 
     while bool(alive.any()):
         depth1 = depth + 1
         out = _bounce_core(scene, cfg, seed, o, d, T, alive, depth1, pid,
-                           spec_refr)
+                           spec_refr, no_emit, guide)
         # Per-path max_bounces truncation.
         alive_after = out.alive & (depth1 < cfg.max_bounces)
         died = alive & ~alive_after
@@ -222,6 +314,8 @@ def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
         pid = torch.where(respawn, pid_sp, pid)
         alive = alive_after | respawn
         n_traces = n_traces + out.traces_inc
+        # A respawned lane picks up its primary hit's emission.
+        no_emit = out.no_emit_next & ~respawn
     return L, n_traces
 
 

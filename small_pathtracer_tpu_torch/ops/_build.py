@@ -124,7 +124,7 @@ def build_kernels() -> KernelLib:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     # Geometry, light and camera (host), then the launch settings: the
     # leading arguments of every entry point.
     scene = [
@@ -142,8 +142,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     launch = [*head, i, i, u, *depth]  # g, per, s0 between
     # The budget kernels (row 3) take one lane a pixel: no g, per or s0.
     budget_launch = [*head, *depth]
-    lib.spt_megakernel_nee.restype = ctypes.c_int
-    lib.spt_megakernel_nee.argtypes = [
+    lib.spt_megakernel.restype = ctypes.c_int
+    lib.spt_megakernel.argtypes = [
+        i,  # estimator: 0 nee, 1 cosine, 2 nee_textbook
         *scene,
         p, p,  # rect_alb, rect_emi: (R, 3) f32 host
         i,  # n_rects
@@ -163,8 +164,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
-    lib.spt_megakernel_nee_tab.restype = ctypes.c_int
-    lib.spt_megakernel_nee_tab.argtypes = [
+    lib.spt_megakernel_tab.restype = ctypes.c_int
+    lib.spt_megakernel_tab.argtypes = [
+        i,  # estimator
         *scene,
         i,  # n_rects
         *launch,
@@ -199,6 +201,40 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # refl: (R + S,) i32 device
         p, p,  # s_start, s_stop: (n_pix,) i32 device
         p,  # out_l: (n_pix, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    # The guided kernels (rows 4 and 5) take the guide first.
+    guide = [
+        i,  # estimator: 1 cosine, 2 nee_textbook
+        i,  # primary: 0 voxel table (row 4), 1 pixel lobes (row 5)
+        p,  # table: (V,) or (n_pix,) i32 device, packed lobes
+        i,  # its length
+        f, f, f, f,  # beta, k, (k + 1) / (2 pi), 1 / (k + 1)
+        i,  # k as an int in [1, 64], else 0
+    ]
+    lib.spt_megakernel_guided.restype = ctypes.c_int
+    lib.spt_megakernel_guided.argtypes = [
+        *guide,
+        *scene,
+        p, p,  # rect_alb, rect_emi: (R, 3) f32 host
+        i,  # n_rects
+        *launch,
+        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_guided_tab.restype = ctypes.c_int
+    lib.spt_megakernel_guided_tab.argtypes = [
+        *guide,
+        *scene,
+        i,  # n_rects
+        *launch,
+        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
+        i,  # n_spheres
+        p, p,  # albedo, emission: (R + S, 3) f32 device
+        p,  # refl: (R + S,) i32 device
+        p,  # out_l: (n_pix * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]

@@ -7,10 +7,20 @@ port's counterpart of the JAX package's ``render_pallas`` /
 - ``megakernel_nee_tab`` (row 2, the JAX sphere-table kernel) renders every
   scene with spheres or SPEC/REFR objects: the sphere rows and the
   material tables are device tensors.
+- ``megakernel_cosine`` / ``megakernel_textbook`` and their ``_tab``
+  twins are rows 1 and 2 with the ``cosine`` and ``nee_textbook``
+  estimators (``render_megakernel`` picks the kernel from cfg.estimator).
 - ``megakernel_nee_budgets`` and ``megakernel_nee_tab_budgets`` (row 3, the
   JAX ``render_pallas_budgets``) are rows 1 and 2 with per-pixel sample
   budgets: ``render_megakernel_budgets``, the unit of an adaptive wave
-  (``utils/adaptive.py``).
+  (``utils/adaptive.py``); ``nee`` only.
+- ``megakernel_guided`` and ``megakernel_guided_tab`` (row 4, the JAX
+  ``render_pallas_guided``) guide every diffuse vertex from a voxel table of
+  packed lobes: ``render_megakernel_guided``. ``megakernel_guided_primary``
+  and ``megakernel_guided_primary_tab`` (row 5,
+  ``render_pallas_guided_primary``) guide the first diffuse vertex from one
+  lobe a pixel: ``render_megakernel_guided_primary``. Both take the
+  ``cosine`` and ``nee_textbook`` estimators.
 
 Lane layout of ``_build_render``: ``g = lane_groups(n_pix, n_s, 2^18,
 cfg.regen_groups)`` lanes per pixel, each walking ``n_s // g`` samples of the
@@ -32,23 +42,40 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..camera.pinhole import CameraParams
-from ..config import RenderConfig
+import math
+
+from ..camera.pinhole import CameraParams, primary_rays
+from ..config import SPHERE_TABLE_AUTO_MIN, RenderConfig
+from ..core import vecmath as vm
 from ..device import resolve
+from ..experiment.path_guiding import voxel_id
+from ..geometry.intersect import shade_info, trace
 from ..integrator import sampling
 from ..integrator.wavefront import (
-    check_materials, lane_groups, lane_layout, path_trace_regen,
+    Guide, check_materials, lane_groups, lane_layout, path_trace_regen,
 )
 from ..scene.types import Scene, num_spheres, object_arrays
 from . import _build
 
 # Launches of each CUDA kernel in this process (the wrapper adds one per
 # launch of its kernel, and nowhere else): megakernel_nee,
-# megakernel_nee_tab, megakernel_nee_budgets, megakernel_nee_tab_budgets.
+# megakernel_nee_tab, megakernel_nee_budgets, megakernel_nee_tab_budgets,
+# and the kernels of the cosine and nee_textbook estimators and of path
+# guiding by name in LAUNCHES_BY_NAME.
 LAUNCHES = 0
 LAUNCHES_TAB = 0
 LAUNCHES_BUDGETS = 0
 LAUNCHES_TAB_BUDGETS = 0
+LAUNCHES_BY_NAME = dict.fromkeys((
+    "megakernel_cosine", "megakernel_textbook", "megakernel_cosine_tab",
+    "megakernel_textbook_tab", "megakernel_guided", "megakernel_guided_tab",
+    "megakernel_guided_primary", "megakernel_guided_primary_tab"), 0)
+
+# The estimator codes of csrc/megakernel_lane.cuh (kNee, kCosine,
+# kTextbook), and each one's row 1 kernel.
+EST_CODE = {"nee": 0, "cosine": 1, "nee_textbook": 2}
+_EST_KERNEL = {"nee": "megakernel_nee", "cosine": "megakernel_cosine",
+               "nee_textbook": "megakernel_textbook"}
 
 TARGET_LANES = 1 << 18
 MAX_RECTS = 32
@@ -171,8 +198,9 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                       device=None):
     """Render sample indices [s0, s0 + n_s) of every pixel (all of spp by
     default) on ``device`` (the scene's by default): a CUDA kernel on a
-    CUDA device (megakernel_nee_tab for a scene with spheres or SPEC/REFR
-    objects, megakernel_nee otherwise), the plain version on the CPU.
+    CUDA device (row 2, megakernel_{nee,cosine,textbook}_tab, for a scene
+    with spheres or SPEC/REFR objects, row 1 megakernel_{nee,cosine,
+    textbook} otherwise, by cfg.estimator), the plain version on the CPU.
     Returns ((h, w, 3) radiance sum over the span, traces (2,) int64
     [extend, probe])."""
     device = _resolve(scene, device)
@@ -181,7 +209,6 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                                        device)
     if uses_sphere_table(scene):
         return _render_tab(scene, cam, cfg, seed, s0, n_s, device)
-    global LAUNCHES
     geom = pack_geometry(scene, cam)
     n_s = cfg.spp if n_s is None else int(n_s)
     n_pix, g, per = _layout(cfg, n_s)
@@ -192,15 +219,26 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spt_megakernel_nee(
-            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-            alb.ctypes.data, emi.ctypes.data, len(geom.rect_axis),
-            *launch_args(geom, cfg, seed, g, per, s0), fold,
-            out_l.data_ptr(), traces.data_ptr(), stream,
+        err = lib.spt_megakernel(
+            EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
+            geom.rect_axis.ctypes.data, alb.ctypes.data, emi.ctypes.data,
+            len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
+            fold, out_l.data_ptr(), traces.data_ptr(), stream,
         )
-    check_launch(err, "megakernel_nee")
-    LAUNCHES += 1
+    _count(_EST_KERNEL[cfg.estimator], err)
     return _reduce(out_l, cfg, n_pix, g), traces
+
+
+def _count(name: str, err: int) -> None:
+    """Raises if the launch of kernel ``name`` failed, else counts it."""
+    global LAUNCHES, LAUNCHES_TAB
+    check_launch(err, name)
+    if name == "megakernel_nee":
+        LAUNCHES += 1
+    elif name == "megakernel_nee_tab":
+        LAUNCHES_TAB += 1
+    else:
+        LAUNCHES_BY_NAME[name] += 1
 
 
 def _baked_materials(scene: Scene, geom: KernelGeometry):
@@ -235,7 +273,6 @@ def _check_spheres(scene: Scene) -> int:
 
 def _render_tab(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                 s0: int, n_s: int | None, device):
-    global LAUNCHES_TAB
     S = _check_spheres(scene)
     geom = pack_geometry(scene, cam)
     sph, alb, emi, refl = sphere_tables(scene, device)
@@ -246,14 +283,14 @@ def _render_tab(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spt_megakernel_nee_tab(
-            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-            len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
-            sph.data_ptr(), S, alb.data_ptr(), emi.data_ptr(),
-            refl.data_ptr(), out_l.data_ptr(), traces.data_ptr(), stream,
+        err = lib.spt_megakernel_tab(
+            EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
+            geom.rect_axis.ctypes.data, len(geom.rect_axis),
+            *launch_args(geom, cfg, seed, g, per, s0), sph.data_ptr(), S,
+            alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
+            out_l.data_ptr(), traces.data_ptr(), stream,
         )
-    check_launch(err, "megakernel_nee_tab")
-    LAUNCHES_TAB += 1
+    _count(_EST_KERNEL[cfg.estimator] + "_tab", err)
     return _reduce(out_l, cfg, n_pix, g), traces
 
 
@@ -296,7 +333,12 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
     On a CUDA device this launches megakernel_nee_tab_budgets for a scene
     with spheres or SPEC/REFR objects, megakernel_nee_budgets otherwise; on
     the CPU it runs the plain version. Returns ((n_pix, 3) float32 radiance
-    sum over each span, traces (2,) int64 [extend, probe])."""
+    sum over each span, traces (2,) int64 [extend, probe]). ``nee`` only:
+    the other estimators raise NotImplementedError on every device."""
+    if cfg.estimator != "nee":
+        raise NotImplementedError(
+            f"per-pixel budgets with estimator {cfg.estimator!r} are not "
+            "ported yet (ROADMAP.md queue 1, item 10)")
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_budgets_plain(scene, cam, cfg, seed,
@@ -338,3 +380,257 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
         check_launch(err, "megakernel_nee_budgets")
         LAUNCHES_BUDGETS += 1
     return out_l, traces
+
+
+# ---------------------------------------------------------------------------
+# Path guiding (rows 4 and 5). The guide is (mu (V, 3), use (V,)) from
+# experiment/path_guiding.guide_lobes. The kernels take each voxel's lobe
+# as one int32: its octahedral chart point quantized to two int16 in
+# [-32767, 32767] (low 16 bits u, high 16 bits v); GUIDE_SENTINEL marks an
+# unguided voxel (no real entry has that pattern). The mixture pdf uses the
+# decoded lobe, so the quantization (~2e-5 rad of aim) adds no bias. The
+# port's table is a flat (V,) int32 device tensor: the kernel copies it
+# into shared memory and reads one entry a diffuse hit (the TPU's (rows,
+# 128) plane served Mosaic's lane-axis gather only).
+
+GUIDE_SENTINEL = np.int32(-(2 ** 31))
+_OCT_Q = 1.0 / 32767.0
+
+
+def oct_decode(packed: torch.Tensor):
+    """Packed lobes (N,) int32 -> (mu (N, 3) unit float32, use (N,) bool),
+    in the order the kernels' ``oct_decode`` computes them. The sentinel
+    decodes to a finite unit vector too, with use False."""
+    p = packed.to(torch.int64)
+    iu = ((p & 0xFFFF) ^ 0x8000) - 0x8000  # the low half, sign-extended
+    iv = p >> 16
+    u = iu.to(torch.float32) * _OCT_Q
+    v = iv.to(torch.float32) * _OCT_Q
+    az = 1.0 - torch.abs(u) - torch.abs(v)
+    fold = az < 0.0
+    su = torch.where(u >= 0.0, 1.0, -1.0)
+    sv = torch.where(v >= 0.0, 1.0, -1.0)
+    uf = torch.where(fold, (1.0 - torch.abs(v)) * su, u)
+    vf = torch.where(fold, (1.0 - torch.abs(u)) * sv, v)
+    inv = vm.rsqrt(uf * uf + vf * vf + az * az)
+    mu = torch.stack([uf * inv, vf * inv, az * inv], dim=-1)
+    return mu, packed != int(GUIDE_SENTINEL)
+
+
+def pack_guide_entries(guide) -> np.ndarray:
+    """(mu (V, 3), use (V,)) tensors or arrays -> (V,) int32 packed lobes,
+    GUIDE_SENTINEL where use is False (the JAX package's
+    ``pack_guide_entries``, in float64 numpy)."""
+    mu = np.asarray(torch.as_tensor(guide[0]).detach().cpu(), np.float64)
+    use = np.asarray(torch.as_tensor(guide[1]).cpu()).astype(bool)
+    n = np.linalg.norm(mu, axis=1)
+    n = np.where(n > 0, n, 1.0)
+    m = mu / n[:, None]
+    denom = np.abs(m).sum(axis=1)
+    denom = np.where(denom > 0, denom, 1.0)
+    u = m[:, 0] / denom
+    w = m[:, 1] / denom
+    lower = m[:, 2] < 0
+
+    def sgn(x):
+        return np.where(x >= 0, 1.0, -1.0)
+
+    uf = np.where(lower, (1.0 - np.abs(w)) * sgn(u), u)
+    wf = np.where(lower, (1.0 - np.abs(u)) * sgn(w), w)
+    iu = np.clip(np.rint(uf * 32767.0), -32767, 32767).astype(np.int64)
+    iv = np.clip(np.rint(wf * 32767.0), -32767, 32767).astype(np.int64)
+    packed = (iu & 0xFFFF) | ((iv & 0xFFFF) << 16)  # uint32 bit pattern
+    packed = np.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+    return np.where(use, packed, int(GUIDE_SENTINEL)).astype(np.int32)
+
+
+def guide_table(guide, device) -> torch.Tensor:
+    """The kernels' voxel table: pack_guide_entries as a (V,) int32
+    tensor on ``device``."""
+    return torch.from_numpy(pack_guide_entries(guide)).to(device)
+
+
+def dequantize_guide(guide, device=None):
+    """The (mu (V, 3), use (V,)) table the guided kernels see after the
+    quantization: the fixed-depth ``render_guided`` on it is comparable
+    with the kernels to float order."""
+    dev = torch.as_tensor(guide[0]).device if device is None else device
+    return oct_decode(guide_table(guide, dev))
+
+
+def check_guided(scene: Scene, cfg: RenderConfig) -> None:
+    """The JAX guided entries' refusals, on every device: an estimator
+    other than cosine or nee_textbook (ValueError), and a scene the JAX
+    package would render through its sphere table (ValueError): spheres
+    with sphere_table on, cluster or cluster_scratch, or auto with
+    SPHERE_TABLE_AUTO_MIN spheres or more."""
+    if cfg.estimator not in ("cosine", "nee_textbook"):
+        raise ValueError(
+            "the guided megakernel composes with the cosine-continuation "
+            "estimators ('cosine', 'nee_textbook') only; got "
+            f"estimator={cfg.estimator!r}")
+    S = num_spheres(scene)
+    mode = cfg.sphere_table
+    if S and (mode in ("on", "cluster", "cluster_scratch")
+              or (mode == "auto" and S >= SPHERE_TABLE_AUTO_MIN)):
+        raise ValueError(
+            "the guided megakernel does not support sphere_table mode yet; "
+            "pass sphere_table='off' or drop --guided")
+
+
+def pixel_primary_lobes(scene: Scene, cam: CameraParams, cfg: RenderConfig,
+                        guide, device=None) -> torch.Tensor:
+    """(n_pix,) int32 packed lobe of each pixel on ``device``: the voxel
+    table's entry at the hit of the pixel's centre ray. Any lobe a pixel
+    keeps the estimator unbiased; the centre ray only aims it."""
+    device = _resolve(scene, device)
+    sc, cm = scene.to(device), cam.to(device)
+    w, h = cfg.width, cfg.height
+    pix = torch.arange(w * h, dtype=torch.int64, device=device)
+    half = torch.full((w * h,), 0.5, dtype=torch.float32, device=device)
+    o, d = primary_rays(cm, w, h, pix % w,
+                        torch.div(pix, w, rounding_mode="floor"), half, half)
+    sh = shade_info(sc, o, d, trace(sc, o, d))
+    return guide_table(guide, device).index_select(0, voxel_id(sh.x))
+
+
+def _guide_consts(beta: float, k: float) -> tuple:
+    """(beta, k, (k + 1) / (2 pi), 1 / (k + 1), k as an int in [1, 64] or
+    0): the guide arguments of the kernel entry points."""
+    kf = float(k)
+    k_int = int(kf) if kf.is_integer() and 1 <= kf <= 64 else 0
+    return (float(beta), kf, (kf + 1.0) / (2.0 * math.pi), 1.0 / (kf + 1.0),
+            k_int)
+
+
+def render_megakernel_guided_plain(scene: Scene, cam: CameraParams,
+                                   cfg: RenderConfig, seed, guide,
+                                   beta: float = 0.5, k: float = 8.0,
+                                   s0: int = 0, n_s: int | None = None,
+                                   device=None):
+    """Row 4's plain version: the eager regenerating wavefront on the
+    kernel's lane layout, each diffuse vertex guided from the packed voxel
+    table. Returns ((h, w, 3) radiance sum over the span, traces (2,))."""
+    check_guided(scene, cfg)
+    device = _resolve(scene, device)
+    mu_tab, use_tab = oct_decode(guide_table(guide, device))
+
+    def lobes(x, depth):
+        vid = voxel_id(x)
+        return mu_tab.index_select(0, vid), use_tab.index_select(0, vid)
+
+    return _guided_plain(scene, cam, cfg, seed, Guide(lobes, beta, k), s0,
+                         n_s, device)
+
+
+def render_megakernel_guided_primary_plain(scene: Scene, cam: CameraParams,
+                                           cfg: RenderConfig, seed, guide,
+                                           beta: float = 0.5, k: float = 8.0,
+                                           s0: int = 0,
+                                           n_s: int | None = None,
+                                           device=None):
+    """Row 5's plain version: as row 4's, the lane's pixel lobe
+    (``pixel_primary_lobes``) guiding depth 1 only."""
+    check_guided(scene, cfg)
+    device = _resolve(scene, device)
+    n_pix, g, _ = _layout(cfg, cfg.spp if n_s is None else int(n_s))
+    pix_lobes = pixel_primary_lobes(scene, cam, cfg, guide, device)
+    lane = torch.arange(n_pix * g, dtype=torch.int64, device=device)
+    mu_l, use_l = oct_decode(pix_lobes.index_select(
+        0, torch.div(lane, g, rounding_mode="floor")))
+
+    def lobes(x, depth):
+        return mu_l, use_l & (depth == 1)
+
+    return _guided_plain(scene, cam, cfg, seed, Guide(lobes, beta, k), s0,
+                         n_s, device)
+
+
+def _guided_plain(scene, cam, cfg, seed, guide: Guide, s0, n_s, device):
+    n_s = cfg.spp if n_s is None else int(n_s)
+    n_pix, g, per = _layout(cfg, n_s)
+    pix, s_start, s_stop = lane_layout(n_pix, g, per, int(s0), device)
+    L, traces = path_trace_regen(scene.to(device), cfg, int(seed),
+                                 cam.to(device), pix, s_start, s_stop, guide)
+    return _reduce(L, cfg, n_pix, g), traces
+
+
+def render_megakernel_guided(scene: Scene, cam: CameraParams,
+                             cfg: RenderConfig, seed, guide,
+                             beta: float = 0.5, k: float = 8.0, s0: int = 0,
+                             n_s: int | None = None, device=None):
+    """Guided render of sample indices [s0, s0 + n_s) (all of spp by
+    default), the JAX package's ``render_pallas_guided``: every diffuse
+    vertex samples the defensive mixture of a power-cosine(k) lobe from
+    the voxel table ``guide`` (probability beta) and the cosine lobe. On a
+    CUDA device megakernel_guided (megakernel_guided_tab for a scene with
+    spheres or SPEC/REFR objects), on the CPU the plain version.
+    cfg.estimator is cosine or nee_textbook. Returns ((h, w, 3) radiance
+    sum over the span, traces (2,) int64 [extend, probe])."""
+    check_guided(scene, cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return render_megakernel_guided_plain(scene, cam, cfg, seed, guide,
+                                              beta, k, s0, n_s, device)
+    return _launch_guided(scene, cam, cfg, seed, guide_table(guide, device),
+                          0, beta, k, s0, n_s, device)
+
+
+def render_megakernel_guided_primary(scene: Scene, cam: CameraParams,
+                                     cfg: RenderConfig, seed, guide,
+                                     beta: float = 0.5, k: float = 8.0,
+                                     s0: int = 0, n_s: int | None = None,
+                                     device=None):
+    """Primary-vertex guided render, the JAX package's
+    ``render_pallas_guided_primary``: each lane guides its first diffuse
+    vertex from its pixel's lobe (``pixel_primary_lobes``); deeper bounces
+    are unguided. megakernel_guided_primary (``_tab``) on a CUDA device,
+    the plain version on the CPU. Returns as render_megakernel_guided."""
+    check_guided(scene, cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return render_megakernel_guided_primary_plain(
+            scene, cam, cfg, seed, guide, beta, k, s0, n_s, device)
+    lobes = pixel_primary_lobes(scene, cam, cfg, guide, device)
+    return _launch_guided(scene, cam, cfg, seed, lobes, 1, beta, k, s0, n_s,
+                          device)
+
+
+def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+                   table: torch.Tensor, primary: int, beta: float, k: float,
+                   s0: int, n_s: int | None, device):
+    """Launches row 4 (primary 0: ``table`` is the (V,) voxel table) or row
+    5 (primary 1: ``table`` is the (n_pix,) pixel lobes)."""
+    tab = uses_sphere_table(scene)
+    geom = pack_geometry(scene, cam)
+    n_s = cfg.spp if n_s is None else int(n_s)
+    n_pix, g, per = _layout(cfg, n_s)
+    table = table.to(device=device, dtype=torch.int32).contiguous()
+    head = (EST_CODE[cfg.estimator], primary, table.data_ptr(),
+            table.numel(), *_guide_consts(beta, k))
+    lib = _build.build_kernels().lib
+    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    traces = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if tab:
+            S = _check_spheres(scene)
+            sph, alb, emi, refl = sphere_tables(scene, device)
+            err = lib.spt_megakernel_guided_tab(
+                *head, geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, len(geom.rect_axis),
+                *launch_args(geom, cfg, seed, g, per, s0), sph.data_ptr(), S,
+                alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        else:
+            alb, emi, _ = _baked_materials(scene, geom)
+            err = lib.spt_megakernel_guided(
+                *head, geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, alb.ctypes.data, emi.ctypes.data,
+                len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+    name = "megakernel_guided" + ("_primary" if primary else "")
+    _count(name + ("_tab" if tab else ""), err)
+    return _reduce(out_l, cfg, n_pix, g), traces

@@ -12,9 +12,10 @@ package's ``ops/megakernel_grad.py`` for ``nee``, rects and one rect light.
   counterparts of ``loss_and_material_grads`` and ``fit_pallas``.
 
 The tables are in global object order (``pack_materials``): the rects, so
-K = 17 for ``cornell_box``. Scenes with spheres or SPEC/REFR objects are
-refused on every device (``check_trainable``): the kernels of rows 8 and 9
-know rects and DIFF only. On a CUDA device each wrapper launches its
+K = 17 for ``cornell_box``. Scenes with spheres or SPEC/REFR objects and
+estimators other than ``nee`` are refused on every device
+(``check_trainable``, ``check_estimator``): the kernels of rows 8 and 9
+know rects, DIFF and ``nee`` only. On a CUDA device each wrapper launches its
 kernel or raises. On the CPU it runs the plain version: the eager forward
 (``render_megakernel_plain``) with the tables put into the scene and, for
 the adjoint, ``torch.autograd`` through it.
@@ -57,6 +58,15 @@ def check_trainable(scene: Scene) -> None:
             "material training on scenes with spheres or SPEC/REFR objects "
             "is not ported yet (ROADMAP.md queue 1, item 23)"
         )
+
+
+def check_estimator(cfg: RenderConfig) -> None:
+    """Raises NotImplementedError for an estimator other than ``nee``, on
+    every device: rows 8 and 9 trace the ``nee`` estimator only."""
+    if cfg.estimator != "nee":
+        raise NotImplementedError(
+            f"material training with estimator {cfg.estimator!r} is not "
+            "ported yet (ROADMAP.md queue 1, item 10)")
 
 
 def pack_materials(scene: Scene):
@@ -126,6 +136,7 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
     call; the tables never leave the device. Returns ((h, w, 3) radiance sum
     over the span, traces (2,) int64 [extend, probe])."""
     check_trainable(scene)
+    check_estimator(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
@@ -176,6 +187,7 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     d/d emission), each (K, 3), pathwise. The CUDA kernel on a CUDA device,
     the plain version on the CPU."""
     check_trainable(scene)
+    check_estimator(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
@@ -261,6 +273,7 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 
     Returns (optimized scene, list of per-step losses)."""
     check_trainable(scene)
+    check_estimator(cfg)
     if checkpoint or checkpoint_every:
         raise NotImplementedError(
             "fit checkpoints are not ported yet (ROADMAP.md queue 1, item "

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import resolve
+
 # Material codes (the reference's Refl_t, plus the GLOS extension).
 DIFF = 0
 SPEC = 1
@@ -89,10 +91,12 @@ class Scene(NamedTuple):
 
 
 def make_scene(rects: list[tuple], light: LightSampler,
-               spheres: list[tuple] = (), device="cpu") -> Scene:
+               spheres: list[tuple] = (), device="cuda") -> Scene:
     """Build a Scene from lists of rects
     (axis, k, (lo0, lo1), (hi0, hi1), albedo3, emission3, refl[, gloss])
-    and spheres (center3, radius, albedo3, emission3, refl[, gloss])."""
+    and spheres (center3, radius, albedo3, emission3, refl[, gloss]) on
+    ``device``, the card by default (RuntimeError without CUDA)."""
+    device = resolve(device)
     if not rects:
         raise ValueError("a scene needs at least one rect")
     f32, i64 = torch.float32, torch.int64

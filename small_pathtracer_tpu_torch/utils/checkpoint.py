@@ -7,8 +7,9 @@ fingerprint of the config, scene and camera), and resuming continues the
 sample loop at the samples done: the image equals an uninterrupted
 render's up to the order of float additions.
 
-Spans run through ``ops.megakernel.render_megakernel(..., s0, n_s)``: the
-render kernels on the card, their plain version on the CPU. The resume file
+Spans run through ``ops.megakernel.render_megakernel(..., s0, n_s)``, or
+``render_megakernel_guided`` with a guide table: the render kernels on the
+card, their plain version on the CPU. The resume file
 is an npz of the port's own: the JAX package does not read it, nor does the
 port read the JAX package's (their fingerprints hash different configs).
 """
@@ -27,7 +28,9 @@ import torch
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
 from ..core import film, imageio
-from ..ops.megakernel import render_megakernel
+from ..ops.megakernel import (
+    pack_guide_entries, render_megakernel, render_megakernel_guided,
+)
 from ..scene.types import Scene
 
 
@@ -40,12 +43,18 @@ def _leaves(tree):
             yield from _leaves(item)
 
 
-def fingerprint(scene: Scene, cam: CameraParams, cfg: RenderConfig) -> str:
+def fingerprint(scene: Scene, cam: CameraParams, cfg: RenderConfig,
+                guide=None, beta: float = 0.5, k: float = 8.0) -> str:
     """Hash of the config and of every scene and camera tensor (and the
-    light's object id)."""
+    light's object id); with a guide, of its packed table, beta and k too
+    (the JAX package's fingerprint leaves the guide out, so a resume there
+    can mix two tables)."""
     h = hashlib.sha256()
     h.update(json.dumps(dataclasses.asdict(cfg), sort_keys=True).encode())
     h.update(str(scene.light.light_obj_id).encode())
+    if guide is not None:
+        h.update(pack_guide_entries(guide).tobytes())
+        h.update(repr((float(beta), float(k))).encode())
     for leaf in _leaves((scene, cam)):
         h.update(str(leaf.dtype).encode())
         h.update(leaf.detach().cpu().contiguous().numpy().tobytes())
@@ -96,12 +105,15 @@ def load_state(path: str, fp: str):
 def render_with_checkpoints(scene: Scene, cam: CameraParams,
                             cfg: RenderConfig, ckpt_path: str,
                             every_spp: int = 0, mesh=None,
-                            preview_path: str = "", guide=None):
+                            preview_path: str = "", guide=None,
+                            guide_beta: float = 0.5, guide_k: float = 8.0):
     """Render in spans of ``every_spp`` samples (0: one span), saving the
     state to ``ckpt_path`` after each span ("" saves nothing) and resuming
     from it when it holds this render's state. With ``preview_path``, the
     tone-mapped running mean (the final image at the samples done so far)
     is written there after each span, atomically, PPM or PNG by extension.
+    With ``guide`` ((mu, use) from ``guide_lobes``) the spans are guided
+    renders (``render_megakernel_guided`` with guide_beta and guide_k).
 
     Returns (clamped linear (h, w, 3) image on the scene's device, total
     traces (extend + probe) as an int)."""
@@ -109,13 +121,9 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
         raise NotImplementedError(
             "sharded checkpoint renders are not ported yet (ROADMAP.md "
             "queue 1, item 17)")
-    if guide is not None:
-        raise NotImplementedError(
-            "guided checkpoint renders are not ported yet (ROADMAP.md "
-            "queue 1, item 18)")
     dev = scene.device
     n_pix = cfg.width * cfg.height
-    fp = fingerprint(scene, cam, cfg)
+    fp = fingerprint(scene, cam, cfg, guide, guide_beta, guide_k)
     st = load_state(ckpt_path, fp) if ckpt_path else None
     if st is not None:
         acc_np, spp_done, traces = st
@@ -127,7 +135,13 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
     step = every_spp if every_spp > 0 else cfg.spp
     while spp_done < cfg.spp:
         n_s = min(step, cfg.spp - spp_done)
-        L, tr = render_megakernel(scene, cam, cfg, cfg.seed, spp_done, n_s)
+        if guide is not None:
+            L, tr = render_megakernel_guided(scene, cam, cfg, cfg.seed, guide,
+                                             guide_beta, guide_k, spp_done,
+                                             n_s)
+        else:
+            L, tr = render_megakernel(scene, cam, cfg, cfg.seed, spp_done,
+                                      n_s)
         acc = acc + L.reshape(n_pix, 3)
         traces += int(tr.sum())
         spp_done += n_s

@@ -116,7 +116,7 @@ def test_lane_groups_matches_jax(n_pix, n_s, target):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("estimator", "cosine"), ("estimator", "mis"), ("sampler", "sobol"),
+    ("estimator", "uniform"), ("estimator", "mis"), ("sampler", "sobol"),
     ("pixel_filter", "tent"), ("aperture", 2.0), ("wavefront", "scan"),
     ("rng_backend", "mix_packed"), ("light_sample_mode", "glibc_overflow"),
 ])

@@ -173,12 +173,16 @@ def test_preview_written_atomically(tmp_path):
     assert os.listdir(tmp_path) == ["prev.png"]
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "17"),
-                                     ({"guide": object()}, "18")],
-                         ids=["mesh", "guide"])
-def test_sharded_and_guided_spans_raise(kw, item):
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"mesh": object()}, NotImplementedError, "item 17"),
+    ({"guide": (torch.zeros(1620, 3), torch.zeros(1620, dtype=torch.bool))},
+     ValueError, "cosine-continuation"),
+], ids=["mesh", "guide"])
+def test_sharded_and_guided_spans_raise(kw, exc, match):
+    """Sharded spans are not ported (item 17); guided spans are, and refuse
+    the ``nee`` estimator as the guided kernels do."""
     scene, cam, cfg = _box(4, 4, 2)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(exc, match=match):
         ck.render_with_checkpoints(scene, cam, cfg, "", 0, **kw)
 
 

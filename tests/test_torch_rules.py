@@ -15,6 +15,7 @@ from small_pathtracer_tpu_torch import convert
 from small_pathtracer_tpu_torch.cli import main as cli_main
 from small_pathtracer_tpu_torch.ops import _build, megakernel
 from small_pathtracer_tpu_torch.scene import presets
+from small_pathtracer_tpu_torch.scene.types import make_scene
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "small_pathtracer_tpu_torch"
@@ -32,6 +33,7 @@ def _modules():
 def test_importing_every_module_pulls_in_no_jax():
     mods = list(_modules())
     assert "small_pathtracer_tpu_torch.ops.megakernel" in mods
+    assert "small_pathtracer_tpu_torch.experiment.path_guiding" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -73,8 +75,13 @@ def test_render_megakernel_cuda_raises_without_cuda():
     lambda: convert.scene_from_jax(get_scene("cornell_box", device="cpu")),
     lambda: convert.camera_from_jax(make_camera(device="cpu")),
     lambda: convert.materials_from_jax(np.zeros((17, 3)), np.zeros((17, 3))),
+    lambda: make_scene([(0, 1.0, (0.0, 0.0), (1.0, 1.0), (0.5,) * 3,
+                         (0.0,) * 3, 0)],
+                       get_scene("cornell_box", device="cpu").light),
+    lambda: convert.guide_from_jax(np.zeros((1620, 3)), np.zeros(1620, bool)),
 ], ids=["get_scene", "cornell_box", "make_camera", "scene_from_jax",
-        "camera_from_jax", "materials_from_jax"])
+        "camera_from_jax", "materials_from_jax", "make_scene",
+        "guide_from_jax"])
 def test_constructors_default_to_cuda(build):
     """With no device the public constructors build on the card; without
     CUDA they raise instead of building on the CPU."""
