@@ -26,7 +26,14 @@ kernel; ``cli render --guided --scene cornell_alcove_baffled --estimator
 nee_textbook`` at 1024x768x512 (one launch, its linear mean within 2% of
 the unguided render's, the pixel variance of both at x64), with
 ``--guide-online 4`` (4 launches) and with ``--checkpoint --preview`` (4
-spans); and each new kernel's own main path at 1024x768x512. Each path
+spans); and each new kernel's own main path at 1024x768x512. Then the
+geometry adjoint ``megakernel_geom``: its image-only launch bit for bit
+against ``megakernel_nee_tab`` and the plain version, its adjoint against
+autograd through the plain version row by row and against itself (``cornell_spheres``
+and ``smallpt_original`` at 1024x768x4, ``sphere_grid`` at 256x192x4),
+``cli fit --train center,radius --scene cornell_spheres`` at 1024x768x512
+(5 steps: 1 + 2 launches a step, the best loss below the first, sphere 0
+nearer the truth) and the adjoint's event time at x512. Each path
 runs with its kernels' launch counts set to 0 just before it and read just
 after, and fails unless its kernels launched. Every phase raises on
 failure, and the seconds each phase took are logged at the end. The second-to-last line of
@@ -294,6 +301,230 @@ def vjp_bound(traces, n_samples: int, n_pix: int, k: int):
     fp = 2 * per_pass + extend * FP_GRAD
     it = 2 * (extend * INT_BOUNCE + n_samples * INT_SPAWN)
     return bound(fp, it, n_pix * 12 + 4 * k * 3 * 4)
+
+
+# The geometry adjoint (row 11) against autograd through its plain version,
+# row by row: each object's albedo and emission rows and each sphere's
+# [cx, cy, cz, r] row within these shares of that row's own largest entry
+# (the hand pullback and autograd compute one linearization in two formula
+# orders; grazing sphere hits amplify the rounding, PERF.md). A row held to
+# its own scale shows a contribution summed into the wrong object's row.
+# (materials, sphere rows) a scene. Measured on an H100 (PERF.md §6): every
+# material row within 2.3e-6; sphere rows within 2.7e-7 on cornell_spheres
+# and 9.0e-7 on sphere_grid, held to 1e-5; the glass of smallpt_original
+# refracts at grazing angles, 6.9e-4 under cotangent seed 5, held to 1e-3.
+GEOM_TOL = {"cornell_spheres": (1e-4, 1e-5), "smallpt_original": (1e-4, 1e-3),
+            "sphere_grid": (1e-4, 1e-5)}
+# The least fp32 operations of a VJP bounce beyond its replayed bounce,
+# counted from csrc/megakernel_geom.cu: the material terms (~40) and the
+# cheapest pullback (a rect winner's cosine sample and hit point, ~60).
+FP_VJP = 100
+
+
+def geom_bound(counts, n_samples: int, n_pix: int, n_rects: int,
+               n_spheres: int, n_blocks: int, recompute: bool = False):
+    """megakernel_geom from its own counters [extend, probe, replayed, VJP].
+    The function's bound: the gradient needs pass A's bounces (a query with
+    the least shading each), pass A's probes at their least, one pullback a
+    bounce (FP_VJP, one a VJP bounce) and a spawn a sample. With
+    ``recompute`` this algorithm's bound instead: its replayed bounces and
+    each VJP bounce's own query too, and a spawn a backward sweep's bounce
+    (the replays' probes still left out). Bytes: the cotangent and the
+    image, the tables, the per-block partials out and in."""
+    extend, probe, replay, vjp = counts
+    bounces = extend + (replay + vjp if recompute else 0)
+    spawns = n_samples + (vjp if recompute else 0)
+    fp = (bounces * (query_ops(n_rects, n_spheres) + FP_SHADE_MIN)
+          + probe * (FP_PROBE + FP_NEE) + vjp * FP_VJP + spawns * FP_SPAWN)
+    it = bounces * (INT_DRAW + INT_WORD) + spawns * INT_SPAWN
+    k = n_rects + n_spheres
+    slots = 6 * k + 4 * n_spheres
+    return bound(fp, it, n_pix * 24 + k * 28 + n_spheres * 16
+                 + 2 * n_blocks * slots * 4)
+
+
+def worst_row(kt: torch.Tensor, pt: torch.Tensor):
+    """(ratio, row, row's largest |plain| entry) of the row with the largest
+    max |kernel - plain| over its own largest |plain| entry; a row whose
+    plain entries are all 0 has ratio 0 when the kernel's are too, else
+    inf."""
+    err = (kt - pt).abs().amax(dim=1)
+    scale = pt.abs().amax(dim=1)
+    ratio = torch.where(scale > 0, err / scale.clamp_min(1e-30),
+                        torch.where(err > 0, float("inf"), 0.0))
+    i = int(ratio.argmax())
+    return float(ratio[i]), i, float(scale[i])
+
+
+def geom_phases(card: str, cli_main) -> dict:
+    """The geometry adjoint, megakernel_geom (row 11): the image-only launch
+    against megakernel_nee_tab and the plain version, bit for bit; the
+    adjoint against autograd through the plain version and against itself;
+    ``cli fit --train center,radius``; the x512 event time. Returns its
+    ``kernels`` entry's numbers."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.ops import _build, megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+
+    def parity(name, width, height, seed, g_seeds):
+        """Image-only parity, then the adjoint under the cotangent of each
+        of g_seeds; returns the first cotangent's numbers."""
+        sc = get_scene(name)
+        cam = make_camera(aspect=width / height)
+        cfg = RenderConfig(width=width, height=height, spp=4, seed=seed)
+        t_img, t_tr = megakernel.render_megakernel(sc, cam, cfg, seed)
+        outs, med = in_turns(
+            {"kernel": lambda: mgeo.geom_run(sc, cam, cfg, seed,
+                                             with_counts=True),
+             "plain": lambda: mgeo.geom_run_plain(sc, cam, cfg, seed)},
+            ("plain", "kernel", "kernel", "plain"))
+        for img_i, *_, c_i in outs["kernel"] + outs["plain"]:
+            if not (torch.equal(img_i, t_img) and torch.equal(c_i[:2], t_tr)):
+                raise AssertionError(f"{name}: the image-only launch or its "
+                                     "plain version differs from "
+                                     "megakernel_nee_tab")
+        return [adjoint(sc, cam, cfg, name, seed, g_seed, t_img, t_tr,
+                        med) for g_seed in g_seeds][0]
+
+    def adjoint(sc, cam, cfg, name, seed, g_seed, t_img, t_tr, med):
+        width, height = cfg.width, cfg.height
+        n_pix = width * height
+        g = torch.from_numpy(np.random.default_rng(g_seed).standard_normal(
+            (height, width, 3)).astype(np.float32)).to("cuda")
+        runs, secs = [], []
+        for _ in range(3):
+            out, sec = timed(lambda: mgeo.geom_run(sc, cam, cfg, seed, g,
+                                                   with_counts=True))
+            runs.append(out)
+            secs.append(sec)
+        for out in runs[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(out, runs[0])):
+                raise AssertionError(f"{name}: adjoint runs differ")
+        k_img, k_sph, k_alb, k_emi, counts = runs[0]
+        if not (torch.equal(k_img, t_img) and torch.equal(counts[:2], t_tr)
+                and int(counts[3]) == int(t_tr[0])):
+            raise AssertionError(f"{name}: the adjoint's pass A differs from "
+                                 "megakernel_nee_tab, or it ran a VJP bounce "
+                                 "count other than the extends")
+        torch.cuda.reset_peak_memory_stats()
+        (_, p_sph, p_alb, p_emi, _), p_s = timed(
+            lambda: mgeo.geom_run_plain(sc, cam, cfg, seed, g))
+        peak = torch.cuda.max_memory_allocated()
+        err_, bad = 0.0, []
+        tol_mat, tol_sph = GEOM_TOL[name]
+        for label, kt, pt, tol in (("albedo", k_alb, p_alb, tol_mat),
+                                   ("emission", k_emi, p_emi, tol_mat),
+                                   ("sphere rows", k_sph, p_sph, tol_sph)):
+            e = float((kt - pt).abs().max())
+            ratio, row, scale = worst_row(kt, pt)
+            err_ = max(err_, e)
+            log(f"[smoke] geom adjoint {name} (cotangent seed {g_seed}) d/d "
+                f"{label}: max |kernel - plain| {e:.3e} (table's largest "
+                f"entry {float(pt.abs().max()):.3e}); worst row {row}: "
+                f"ratio {ratio:.3e} to its largest entry {scale:.3e} (limit "
+                f"{tol:g})")
+            if not ratio <= tol:
+                bad.append(f"d/d {label} row {row} off by {ratio:.3e} of "
+                           f"its largest entry > {tol}")
+        if bad:
+            raise AssertionError(f"{name}: " + "; ".join(bad))
+        _, groups, _ = megakernel._layout(cfg, cfg.spp)
+        b = geom_bound(counts.tolist(), n_pix * 4, n_pix,
+                       sc.rects.k.shape[0], sc.spheres.radius.shape[0],
+                       -(-n_pix * groups // mgeo.KERNEL_BLOCK))
+        b_alg = geom_bound(counts.tolist(), n_pix * 4, n_pix,
+                           sc.rects.k.shape[0], sc.spheres.radius.shape[0],
+                           -(-n_pix * groups // mgeo.KERNEL_BLOCK), True)
+        ms = float(np.median(secs)) * 1e3
+        log(f"[smoke] geom {name} {width}x{height}x4 seed {seed}: image-only "
+            f"{med['kernel'] * 1e3:.3f} ms (plain {med['plain'] * 1e3:.3f} "
+            f"ms) == megakernel_nee_tab, traces {t_tr.tolist()}; adjoint "
+            f"{ms:.3f} ms, counts {counts.tolist()}, three runs "
+            f"bit-identical; plain adjoint {p_s:.3f} s, peak memory "
+            f"{peak / 2**30:.2f} GiB; bound {b[0]:.3f} ms ({b[1]}; the "
+            f"recompute algorithm's {b_alg[0]:.3f} ms)")
+        return {"err": err_, "ms": ms, "plain_ms": p_s * 1e3, "bound": b}
+
+    phase("geometry adjoint against megakernel_nee_tab and its plain "
+          "version, cornell_spheres 1024x768x4")
+    res = {"cornell_spheres": parity("cornell_spheres", 1024, 768, 3, (3,))}
+    # The glass scene under two cotangents: grazing refraction puts the
+    # sphere rows' largest rounding gap near its limit under seed 5.
+    phase("geometry adjoint, smallpt_original 1024x768x4 (SPEC + REFR), "
+          "cotangent seeds 3 and 5")
+    res["smallpt_original"] = parity("smallpt_original", 1024, 768, 3,
+                                     (3, 5))
+    phase("geometry adjoint, sphere_grid 256x192x4 (64 spheres)")
+    res["sphere_grid"] = parity("sphere_grid", 256, 192, 3, (3,))
+
+    phase("main path, cli fit --train center,radius --scene cornell_spheres "
+          "1024x768x512, 5 steps")
+    out, err_io = io.StringIO(), io.StringIO()
+    mgeo.LAUNCHES_GEOM = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err_io):
+        rc = cli_main(["fit", "--scene", "cornell_spheres", "--width", "1024",
+                       "--height", "768", "--spp", "512", "--steps", "5",
+                       "--train", "center,radius"])
+    launches = mgeo.LAUNCHES_GEOM
+    for line in err_io.getvalue().strip().splitlines():
+        log("[smoke] cli fit: " + line)
+    if rc != 0:
+        raise AssertionError(f"cli fit --train center,radius returned {rc}")
+    fit = json.loads(out.getvalue().strip().splitlines()[-1])
+    log("[smoke] cli fit: " + json.dumps(fit))
+    steps = [(float(a), float(b)) for a, b in re.findall(
+        r"loss (\S+).*?seconds (\S+)", err_io.getvalue())]
+    losses = [a for a, _ in steps]
+    truth = get_scene("cornell_spheres").spheres.center[0].cpu().numpy()
+    start = truth + np.array([4.0, 0.0, -3.0], np.float32)
+    d0 = float(np.linalg.norm(start - truth))
+    d1 = float(np.linalg.norm(np.asarray(fit["center"]) - truth))
+    if launches != 1 + 2 * 5:
+        raise AssertionError(f"cli fit launched megakernel_geom {launches} "
+                             "times, not 1 + 2 a step")
+    if len(losses) != 5 or not min(losses) < losses[0] or not d1 < d0:
+        raise AssertionError(f"the geometry fit did not descend: losses "
+                             f"{losses}, sphere 0 {d0:.3f} -> {d1:.3f} from "
+                             "the truth")
+    if _build.build_kernels().build_seconds != 0.0:
+        raise AssertionError("moving the spheres rebuilt the library")
+    step_s = float(np.median([b for _, b in steps]))
+    log(f"[smoke] geometry fit: {launches} launches of megakernel_geom "
+        f"(1 + 2 a step); loss {losses[0]:.6f} -> best {min(losses):.6f}; "
+        f"sphere 0 {d0:.3f} -> {d1:.3f} from the truth; {step_s:.4f} s a "
+        f"step (median of 5) on {card}; no rebuild")
+
+    phase("geometry adjoint at 1024x768x512, CUDA events")
+    sc = get_scene("cornell_spheres")
+    cam = make_camera(aspect=1024 / 768)
+    cfg = RenderConfig(width=1024, height=768, spp=512, seed=0)
+    geometry = megakernel.pack_geometry(sc, cam)
+    g = torch.full((768, 1024, 3), 1e-7, device="cuda")
+    counts = mgeo.geom_run(sc, cam, cfg, 0, g, geometry=geometry,
+                           with_counts=True)[4].tolist()
+    img_ms = event_ms(lambda: mgeo.geom_run(sc, cam, cfg, 0,
+                                            geometry=geometry), 3)
+    before = megakernel.LAUNCHES_TAB
+    tab_ms = event_ms(lambda: megakernel.render_megakernel(sc, cam, cfg, 0),
+                      3)
+    if megakernel.LAUNCHES_TAB != before + 3:
+        raise AssertionError("cornell_spheres did not go through "
+                             "megakernel_nee_tab")
+    adj_ms = event_ms(lambda: mgeo.geom_run(sc, cam, cfg, 0, g,
+                                            geometry=geometry), 2)
+    n_pix = 1024 * 768
+    b512, b512_alg = (geom_bound(counts, n_pix * 512, n_pix,
+                                 sc.rects.k.shape[0],
+                                 sc.spheres.radius.shape[0],
+                                 -(-n_pix // 128), alg) for alg in (False, True))
+    log(f"[smoke] cornell_spheres 1024x768x512 seed 0: megakernel_geom "
+        f"image-only {img_ms:.3f} ms (megakernel_nee_tab {tab_ms:.3f} ms, "
+        f"ratio {img_ms / tab_ms:.3f}), adjoint {adj_ms:.3f} ms a launch, "
+        f"counts {counts} [extend, probe, replayed, VJP]; bound "
+        f"{b512[0]:.3f} ms ({b512[1]}; the recompute algorithm's "
+        f"{b512_alg[0]:.3f} ms)")
+    res["cornell_spheres"]["launches"] = launches
+    return res["cornell_spheres"]
 
 
 def main() -> int:
@@ -1139,6 +1370,8 @@ def main() -> int:
             ms, b = x512(name, sc, est, "primary", guides[nm], tr.tolist())
             main[name] = (n_l, ms, b)
 
+    geo = geom_phases(card, cli_main)
+
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
         log(f"[smoke] {t1 - t0:8.3f} s  {name}")
@@ -1178,6 +1411,9 @@ def main() -> int:
         *(entry(name, source, replaces, main[name][0], par[name]["err"],
                 par[name]["ms"], par[name]["plain_ms"], par[name]["bound"])
           for name, source, replaces in NEW_KERNELS),
+        entry("megakernel_geom", "megakernel_geom.cu", "megakernel_geom.py:1488",
+              geo["launches"], geo["err"], geo["ms"], geo["plain_ms"],
+              geo["bound"]),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -41,6 +41,7 @@ from ..experiment.path_guiding import (
     guide_lobes, render_guided_online, train_guide,
 )
 from ..ops.megakernel import render_megakernel, render_megakernel_guided
+from ..ops import megakernel_geom
 from ..ops.megakernel_grad import (
     FIELDS, check_estimator, check_trainable, fit_megakernel,
 )
@@ -267,13 +268,74 @@ def _fit_result(loss: float, steps: int) -> dict:
     return {"steps": steps, "final_loss": loss}
 
 
+def _read_target(path: str, cfg: RenderConfig, device) -> torch.Tensor:
+    target = torch.as_tensor(film.srgb_from_u8(film.read_ppm(path)),
+                             dtype=torch.float32, device=device)
+    if tuple(target.shape) != (cfg.height, cfg.width, 3):
+        raise SystemExit(
+            f"--target is {tuple(target.shape[:2])} pixels, the render "
+            f"{(cfg.height, cfg.width)}"
+        )
+    return target
+
+
+def _cmd_fit_geom(args, fields: tuple[str, ...]) -> int:
+    """Sphere fitting through the geometry adjoint (the JAX CLI's ``fit
+    --pallas --train center,...``): normalized-step descent on the spheres'
+    fields, one image and one adjoint launch of megakernel_geom a step.
+    Without ``--target`` the self-test: the target is the scene at seed + 1,
+    then sphere ``--fd-sphere`` (or 0) is moved by (4, 0, -3) and its
+    radius scaled by 1.1."""
+    bad = [f for f in fields if f not in megakernel_geom.FIELDS]
+    if bad or args.optimizer != "sgd":
+        raise SystemExit(
+            "fit --train center,... supports --optimizer sgd on "
+            "center/radius/albedo/emission "
+            f"(got optimizer={args.optimizer}, fields={fields})"
+        )
+    scene, cam, cfg = _build(args)
+    si = args.fd_sphere if args.fd_sphere >= 0 else None
+    n_sph = scene.spheres.radius.shape[0]
+    if n_sph == 0:
+        raise SystemExit("scene has no spheres to fit")
+    if si is not None and si >= n_sph:
+        raise SystemExit(f"--fd-sphere {si} out of range ({n_sph})")
+    megakernel_geom.check_fit(fields, si)
+    if args.target:
+        target = _read_target(args.target, cfg, scene.device)
+    else:
+        img_sum = megakernel_geom.geom_run(scene, cam, cfg, cfg.seed + 1)[0]
+        target = img_sum / cfg.spp
+        s0 = si if si is not None else 0
+        sp = scene.spheres
+        center, radius = sp.center.clone(), sp.radius.clone()
+        center[s0] += torch.tensor([4.0, 0.0, -3.0], device=center.device)
+        radius[s0] *= 1.1
+        scene = scene._replace(spheres=sp._replace(center=center,
+                                                   radius=radius))
+    fitted, losses = megakernel_geom.fit_geom(
+        scene, cam, cfg, target, sphere_idx=si, fields=fields,
+        steps=args.steps, lr=args.lr, seed=cfg.seed, log=sys.stderr,
+    )
+    out = _fit_result(losses[-1], args.steps)
+    ri = si if si is not None else 0
+    out["center"] = fitted.spheres.center[ri].tolist()
+    out["radius"] = float(fitted.spheres.radius[ri])
+    print(json.dumps(out, allow_nan=False))
+    return 0
+
+
 def cmd_fit(args) -> int:
     """Inverse rendering on the kernels: SGD on the albedo and emission
-    tables (the JAX CLI's ``fit --pallas``). Without ``--target`` the target
-    is the scene rendered with emission x1.5 at seed + 1."""
+    tables (the JAX CLI's ``fit --pallas``), or, when ``--train`` names
+    center or radius, sphere fitting through the geometry adjoint
+    (``_cmd_fit_geom``). Without ``--target`` the material fit's target is
+    the scene rendered with emission x1.5 at seed + 1."""
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
     fields = tuple(args.train.split(","))
+    if {"center", "radius"} & set(fields):
+        return _cmd_fit_geom(args, fields)
     bad = [f for f in fields if f not in FIELDS]
     if bad or args.optimizer != "sgd":
         raise SystemExit(
@@ -284,15 +346,7 @@ def cmd_fit(args) -> int:
     check_trainable(scene)
     check_estimator(cfg)
     if args.target:
-        target = torch.as_tensor(
-            film.srgb_from_u8(film.read_ppm(args.target)),
-            dtype=torch.float32, device=scene.device,
-        )
-        if tuple(target.shape) != (cfg.height, cfg.width, 3):
-            raise SystemExit(
-                f"--target is {tuple(target.shape[:2])} pixels, the render "
-                f"{(cfg.height, cfg.width)}"
-            )
+        target = _read_target(args.target, cfg, scene.device)
     else:
         bright = scene._replace(rects=scene.rects._replace(
             emission=scene.rects.emission * 1.5))
@@ -392,14 +446,21 @@ def main(argv=None) -> int:
     _add_render_args(p_bench)
     p_bench.set_defaults(fn=cmd_bench)
     p_fit = sub.add_parser(
-        "fit", help="inverse rendering: SGD on albedo/emission")
+        "fit", help="inverse rendering: SGD on albedo/emission, or sphere "
+                    "fitting with --train center,radius")
     _add_render_args(p_fit)
     p_fit.add_argument("--target", default="", help="target PPM image")
     p_fit.add_argument("--steps", type=int, default=20)
     p_fit.add_argument("--lr", type=float, default=1.0)
     p_fit.add_argument("--train", default="emission,albedo",
-                       help="comma-separated fields to train: "
-                            "albedo, emission")
+                       help="comma-separated fields to train: albedo, "
+                            "emission; naming center or radius fits the "
+                            "spheres' center, radius, albedo, emission "
+                            "through the geometry adjoint")
+    p_fit.add_argument("--fd-sphere", type=int, default=-1,
+                       help="with --train center/radius: fit sphere IDX "
+                            "only (needs the edge-sampled boundary terms, "
+                            "not ported yet: item 16)")
     p_fit.add_argument("--optimizer", default="sgd",
                        help="sgd (the only one the kernel path takes)")
     p_fit.set_defaults(fn=cmd_fit)

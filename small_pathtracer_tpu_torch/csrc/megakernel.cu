@@ -135,25 +135,6 @@ __global__ void __launch_bounds__(kBlock)
                                      out_l, traces);
 }
 
-// Row 2 with estimator kEst: the sphere rows (n_sph float4) in dynamic
-// shared memory, the material tables in device memory.
-template <int kEst>
-__device__ __forceinline__ void tab_body(const Params& p,
-                                         const float4* __restrict__ sph,
-                                         int n_sph,
-                                         const float* __restrict__ alb,
-                                         const float* __restrict__ emi,
-                                         const int* __restrict__ refl,
-                                         float* __restrict__ out_l,
-                                         unsigned long long* __restrict__ traces) {
-  const float4* s_sph = load_spheres(sph, n_sph);
-  const TableMaterials mats{alb, emi};
-  const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, true, kEst>(
-      p, lane_range(p), mats, SphereTab{s_sph, n_sph, refl},
-      kEst == kNee && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
-}
-
 #define SPT_TAB_KERNEL(name, est)                                          \
   __global__ void __launch_bounds__(kBlock)                                \
       name(const __grid_constant__ Params p, const float4* __restrict__ sph, \

@@ -1,7 +1,8 @@
 // Device functions shared by the forward megakernels (megakernel.cu) and
-// the material adjoint (megakernel_grad.cu): the scene parameters, the
-// murmur3 counter RNG, the polynomial sincos, the rect and sphere tests, the
-// nearest-hit scans, the shadow probes and the primary-ray spawn. The
+// the adjoints (megakernel_grad.cu, megakernel_geom.cu): the scene
+// parameters, the murmur3 counter RNG, the polynomial sincos, the rect and
+// sphere tests, the nearest-hit scans, the shadow probes, the primary-ray
+// spawn, and the adjoints' fixed-order `reduce_partials`. The material
 // adjoint uses the rect-only scans (nearest, probe_light).
 //
 // Numerics: the library is compiled with --fmad=false and IEEE division and
@@ -384,5 +385,27 @@ inline bool fill_params(Params* p, const float* rect_geom,
 }
 
 inline int grid_of(const Params& p) { return (p.n_lanes + kBlock - 1) / kBlock; }
+
+constexpr int kReduceThreads = 256;
+
+// out[slot] = sum over blocks b of partials[b, slot], in a fixed order: a
+// strided sum per thread, then a tree in shared memory. One block a slot.
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_partials(const float* __restrict__ partials, int n_blocks,
+                    int n_slots, float* __restrict__ out) {
+  __shared__ float buf[kReduceThreads];
+  const int sl = blockIdx.x;
+  float v = 0.0f;
+  for (int b = threadIdx.x; b < n_blocks; b += kReduceThreads) {
+    v += partials[b * n_slots + sl];
+  }
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  for (int half = kReduceThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[sl] = buf[0];
+}
 
 }  // namespace

@@ -1,0 +1,533 @@
+// Geometry and material adjoint of the sphere-table megakernel, `nee`
+// estimator, axis-aligned rects (unrolled) and spheres (the runtime table)
+// with DIFF, SPEC and REFR materials and one parallelogram light.
+//
+// Replaces the Pallas TPU kernel of small_pathtracer_tpu/ops/megakernel_geom.py:
+// `build_geom_grad_kernel`, as `_build_geom_run` builds it for `geom_run` /
+// `geom_vjp` (its `pallas_call` at :1488). Given the per-pixel cotangent g
+// of the radiance sum I, it returns the pathwise interior cotangents of
+// sum(g·I) with respect to every sphere's (center, radius) and every
+// object's (albedo, emission). With bk == 0 it only renders I (the
+// image-only launch of a fit step): the TPU kernel's pass A alone, which
+// is row 2's loop body (`tab_body<kNee>` of megakernel_lane.cuh, the NEE
+// fold on), so it is megakernel_nee_tab's image, counts and time.
+//
+// Algorithm (the TPU kernel's): per sample, pass A traces the path and
+// latches its radiance L and its depth D. Then for j = D..1 the lane
+// replays bounces 1..j-1 and runs bounce j as a VJP bounce, carrying
+// λ = (dL/do, dL/dd) of the state after bounce j. A VJP bounce adds
+//   - the material terms of the material adjoint (megakernel_grad.cu):
+//     d/d albedo with the RR 1/p term split over the channels tied at p_max,
+//     and d/d emission, from T_j·S_{j+1} = (L − A_{j+1}) / (f_j·w_j);
+//   - the pullback of the bounce's continuous map (o, d, c, r) -> (x, d', w)
+//     under (λ_x, λ_d, σ_w), σ_w = dL/dw_j = Σ_c g_c·T_j S_{j+1}·albedo_c·inv_p
+//     (`bounce_vjp` below): the winner sphere's (c, r) cotangent, and the new
+//     λ for bounce j-1. The TPU kernel pulls back with jax.vjp inside the
+//     kernel; here the pullback is derived by hand, the same formulas in the
+//     same order as ops/megakernel_geom.py `bounce_vjp`, which the tests hold
+//     against torch.autograd branch by branch.
+// Replay costs D(D+1)/2 bounces a sample; every bounce is VJP'd once.
+//
+// Design: one thread per lane on the forward's lane layout (blocks of 128).
+// Every bounce, of pass A, a replay or a VJP bounce, is `bounce` of
+// megakernel_lane.cuh, render_lane's own; the loop has one spawn site, and
+// the library is built with --fmad=false, so every replay retraces pass A
+// bit for bit and pass A's image and [extend, probe] counts are
+// megakernel_nee_tab's (pass A leaves the NEE fold out: it changes
+// neither). A warp loops while any of its lanes is active, so all 32 lanes
+// meet once an iteration at `warp_accumulate`: the lanes that ran a VJP
+// bounce group by winner object, and each group's contributions are summed
+// by a fixed xor tree and added by lane 0 to the warp's row of gradient
+// slots in shared memory. The block sums its four rows in a fixed order
+// into one row of per-block partials and `reduce_partials` sums those rows
+// in a fixed order: the gradient has the same bits from run to run,
+// without per-thread columns (a column is 6K + 4S floats, 349 KB a block
+// for 64 spheres) and without atomics.
+//
+// What bounds it: operations. The gradient needs pass A's bounces (a
+// nearest-hit query and the shading each), its shadow probes, and one
+// pullback of a few hundred operations a bounce; this algorithm traces
+// D(D+1)/2 more bounces a sample in its replays (the counters report the
+// replayed and the VJP bounces). Bytes are the cotangent image, the tables
+// and the partials. The long tail of D (RR from depth 5, up to
+// max_bounces) holds a warp: one long path costs its whole warp the
+// quadratic replay. Left for later: checkpointing states every k bounces
+// (O(D·k) replay), a tape in local memory for short paths, and sorting
+// lanes by depth against the tail.
+
+#include "megakernel_lane.cuh"
+
+namespace {
+
+constexpr int kMaxGeomSpheres = 1024;
+constexpr int kWarps = kBlock / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__device__ __forceinline__ float sgnf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+__device__ __forceinline__ void add_comp(V3* v, int i, float s) {
+  if (i == 0) {
+    v->x += s;
+  } else if (i == 1) {
+    v->y += s;
+  } else {
+    v->z += s;
+  }
+}
+
+// u = v·rs, rs = 1/|v|: the cotangent of v under g_u.
+__device__ __forceinline__ V3 norm_vjp(V3 u, float rs, V3 g_u) {
+  return mul(sub(g_u, mul(u, dot(u, g_u))), rs);
+}
+
+// r = d − ng·(2 ng·d): the cotangents of d and ng under lam.
+__device__ __forceinline__ void reflect_vjp(V3 d, V3 ng, V3 lam, V3* g_d,
+                                            V3* g_ng) {
+  const float k2 = 2.0f * dot(ng, d);
+  const float gk = -dot(ng, lam);
+  *g_d = add(lam, mul(ng, 2.0f * gk));
+  *g_ng = add(mul(lam, -k2), mul(d, 2.0f * gk));
+}
+
+struct Pullback {
+  V3 g_o, g_d, g_c;
+  float g_r;
+};
+
+// The pullback of the bounce's continuous map (o, d, c, r) -> (x, d', w),
+// every discrete choice fixed by the primal b, under (lam_x, lam_d, sig_w):
+// ops/megakernel_geom.py `bounce_vjp`, per lane.
+__device__ __noinline__ Pullback bounce_vjp(const Params& p,
+                                            const SphereTab& tab,
+                                            const Bounce& b, V3 o, V3 d,
+                                            V3 lam_x, V3 lam_d, float sig_w) {
+  const V3 zero = v3(0.0f, 0.0f, 0.0f);
+  V3 g_x = zero, g_n = zero, g_ng = zero, g_d = zero;
+  if (b.diffuse && b.success) {
+    // d' = dl = norm(lp − x), w = |A·(dl·ln)| / tl² · |dl·n| / π.
+    const V3 ln = ld3(p.ln);
+    const int a_l = p.rects[p.light_id].axis;
+    const V3 vl = sub(b.lp, b.x);
+    const float rs_l = rsqrt_ieee(dot(vl, vl));
+    const V3 dl = mul(vl, rs_l);
+    const float dla = comp(dl, a_l);
+    const float inv_l = 1.0f / (dla != 0.0f ? dla : 1.0f);
+    const float tl = (p.rects[p.light_id].k - comp(b.x, a_l)) * inv_l;
+    const float a1 = p.area * dot(dl, ln);
+    const float q = fabsf(a1) / (tl * tl);
+    const float cs = dot(dl, b.n);
+    const float bb = fabsf(cs) * kInvPi;
+    const float gq = sig_w * bb;
+    const float gb = sig_w * q;
+    const float gcs = gb * kInvPi * sgnf(cs);
+    const float ga1 = gq / (tl * tl) * sgnf(a1);
+    const float gtl = -2.0f * gq * q / tl;
+    V3 gdl = add(add(lam_d, mul(ln, ga1 * p.area)), mul(b.n, gcs));
+    g_n = mul(dl, gcs);
+    add_comp(&g_x, a_l, -(gtl * inv_l));
+    add_comp(&gdl, a_l, -(gtl * tl * inv_l));
+    g_x = sub(g_x, norm_vjp(dl, rs_l, gdl));
+  } else if (b.diffuse) {
+    // d' = the cosine sample in the frame of n, w = 1.
+    const V3 a = fabsf(b.n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+    const V3 cr = cross(a, b.n);
+    const float rs_u = rsqrt_ieee(dot(cr, cr));
+    const V3 fu = mul(cr, rs_u);
+    const V3 fv = cross(b.n, fu);
+    const V3 sv = add(add(mul(fu, b.alpha), mul(fv, b.beta)), mul(b.n, b.wz));
+    const float rs_s = rsqrt_ieee(dot(sv, sv));
+    const V3 gsv = norm_vjp(mul(sv, rs_s), rs_s, lam_d);
+    V3 gfu = mul(gsv, b.alpha);
+    const V3 gfv = mul(gsv, b.beta);
+    g_n = add(mul(gsv, b.wz), cross(fu, gfv));
+    gfu = add(gfu, cross(gfv, b.n));
+    const V3 gcr = norm_vjp(fu, rs_u, gfu);
+    g_n = add(g_n, cross(gcr, a));
+  } else if (b.refl == kSpec) {
+    reflect_vjp(d, b.ng, lam_d, &g_d, &g_ng);
+  } else {
+    // REFR (refr_scatter's expressions; its decisions recomputed).
+    const bool into = dot(b.ng, b.n) > 0.0f;
+    const float nnt = into ? kNntInto : kNntOut;
+    const float ddn = dot(d, b.n);
+    const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
+    const bool tir = cos2t < 0.0f;
+    const float sq = cos2t > 0.0f ? sqrtf(cos2t) : 0.0f;
+    const float sgn = into ? 1.0f : -1.0f;
+    const float h = sgn * (ddn * nnt + sq);
+    const V3 tv = sub(mul(d, nnt), mul(b.ng, h));
+    const float rs_t = rsqrt_ieee(dot(tv, tv));
+    const V3 td = mul(tv, rs_t);
+    const float c = 1.0f - (into ? -ddn : dot(td, b.ng));
+    const float re = kR0 + kOneMinusR0 * c * c * c * c * c;
+    const float tr = 1.0f - re;
+    const float pr = 0.25f + 0.5f * re;
+    const bool pick_refl = b.coin < pr || tir;
+    float gddn = 0.0f;
+    V3 gtd = zero;
+    if (!tir) {
+      float gre, gpr;
+      if (pick_refl) {
+        gre = sig_w / pr;
+        gpr = -sig_w * re / (pr * pr);
+      } else {
+        gre = -(sig_w / (1.0f - pr));
+        gpr = sig_w * tr / ((1.0f - pr) * (1.0f - pr));
+      }
+      gre = gre + 0.5f * gpr;
+      const float gcc = gre * kOneMinusR0 * 5.0f * (c * c * c * c);
+      if (into) {
+        gddn = gcc;
+      } else {
+        gtd = mul(b.ng, -gcc);
+        g_ng = mul(td, -gcc);
+      }
+    }
+    if (pick_refl) {
+      V3 gd_r, gng_r;
+      reflect_vjp(d, b.ng, lam_d, &gd_r, &gng_r);
+      g_d = gd_r;
+      g_ng = add(g_ng, gng_r);
+    } else {
+      gtd = add(gtd, lam_d);
+    }
+    const V3 gtv = norm_vjp(td, rs_t, gtd);
+    g_d = add(g_d, mul(gtv, nnt));
+    g_ng = sub(g_ng, mul(gtv, h));
+    const float gh = -dot(b.ng, gtv);
+    gddn = gddn + sgn * nnt * gh;
+    const float gsq = sgn * gh;
+    const float gcos2t = cos2t > 0.0f ? gsq * 0.5f / sq : 0.0f;
+    gddn = gddn + gcos2t * nnt * nnt * 2.0f * ddn;
+    g_d = add(g_d, mul(b.n, gddn));
+    g_n = mul(d, gddn);
+  }
+
+  // n = sign·ng; ng = norm(x − c) on a sphere winner.
+  const float sign = dot(b.ng, d) < 0.0f ? 1.0f : -1.0f;
+  g_ng = add(g_ng, mul(g_n, sign));
+  Pullback out{zero, g_d, zero, 0.0f};
+  float4 c4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (b.axis < 0) {
+    c4 = tab.sph[b.id - p.n_rects];
+    const V3 v = sub(b.x, v3(c4.x, c4.y, c4.z));
+    const V3 gv = norm_vjp(b.ng, rsqrt_ieee(dot(v, v)), g_ng);
+    g_x = add(g_x, gv);
+    out.g_c = neg(gv);
+  }
+  if (!b.hit) return out;
+  // x = o + d·t.
+  g_x = add(g_x, lam_x);
+  out.g_o = g_x;
+  out.g_d = add(out.g_d, mul(g_x, b.t));
+  const float g_t = dot(g_x, d);
+  if (b.axis >= 0) {
+    // t = (k − o[a]) / d[a].
+    const int a = b.axis;
+    const float da = comp(d, a);
+    const float inv = 1.0f / (da != 0.0f ? da : 1.0f);
+    add_comp(&out.g_o, a, -(g_t * inv));
+    add_comp(&out.g_d, a, -(g_t * b.t * inv));
+    return out;
+  }
+  // t = b ∓ sqrt((r − |m|)(r + |m|)), m = b·d − op, op = c − o, b = op·d
+  // (sphere_t's expressions; the root recomputed).
+  const V3 op = sub(v3(c4.x, c4.y, c4.z), o);
+  const float bq = dot(op, d);
+  const V3 m = sub(mul(d, bq), op);
+  const float m2 = dot(m, m);
+  const float mlen = m2 > 0.0f ? sqrtf(m2) : 0.0f;
+  const float r = c4.w;
+  const float sdet = sqrtf((r - mlen) * (r + mlen));
+  const float eps = fmaxf(kSphereEps, kSphereEpsRel * r);
+  const bool near = bq - sdet > eps;
+  const float g_sd = near ? -g_t : g_t;
+  const float g_det = g_sd * 0.5f / sdet;
+  out.g_r = g_det * 2.0f * r;
+  const float g_m2 = m2 > 0.0f ? -g_det : 0.0f;
+  const V3 g_m = mul(m, 2.0f * g_m2);
+  const float g_b = g_t + dot(g_m, d);
+  const V3 g_dd = add(mul(g_m, bq), mul(op, g_b));
+  const V3 g_op = add(neg(g_m), mul(d, g_b));
+  out.g_o = sub(out.g_o, g_op);
+  out.g_d = add(out.g_d, g_dd);
+  out.g_c = add(out.g_c, g_op);
+  return out;
+}
+
+// The VJP bounce's contributions to one object's slots: albedo rgb,
+// emission rgb, and for a sphere (center, radius).
+struct Contrib {
+  int key;  // the winner's global id, -1 for none
+  float v[10];
+};
+
+// All 32 lanes of the warp call it. Lanes with the same key are summed by
+// a fixed xor tree (the other lanes add 0), one key at a time in the order
+// of their lowest lane, and lane 0 adds the sums to the warp's row:
+// albedo at 3·id, emission at 3K + 3·id, sphere s at 6K + 4s.
+__device__ __forceinline__ void warp_accumulate(const Contrib& ct, float* row,
+                                                int n_rects, int k_obj) {
+  unsigned pending = __ballot_sync(kFull, ct.key >= 0);
+  while (pending) {
+    const int src = __ffs(pending) - 1;
+    const int k0 = __shfl_sync(kFull, ct.key, src);
+    const bool mine = ct.key == k0;
+    const int nv = k0 >= n_rects ? 10 : 6;
+    float s[10];
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      s[i] = 0.0f;
+      if (i < nv) {
+        float x = mine ? ct.v[i] : 0.0f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          x += __shfl_xor_sync(kFull, x, off);
+        }
+        s[i] = x;
+      }
+    }
+    if ((threadIdx.x & 31) == 0) {
+      for (int c = 0; c < 3; ++c) {
+        row[3 * k0 + c] += s[c];
+        row[3 * k_obj + 3 * k0 + c] += s[3 + c];
+      }
+      if (nv == 10) {
+        float* gs = row + 6 * k_obj + 4 * (k0 - n_rects);
+        for (int j = 0; j < 4; ++j) gs[j] += s[6 + j];
+      }
+    }
+    pending &= ~__ballot_sync(kFull, mine);
+  }
+}
+
+// The image-only launch (bk == 0): row 2's kernel body.
+__global__ void __launch_bounds__(kBlock)
+    megakernel_geom_image(const __grid_constant__ Params p,
+                          const float4* __restrict__ sph, int n_sph,
+                          const float* __restrict__ alb,
+                          const float* __restrict__ emi,
+                          const int* __restrict__ refl,
+                          float* __restrict__ out_l,
+                          unsigned long long* __restrict__ counts) {
+  tab_body<kNee>(p, sph, n_sph, alb, emi, refl, out_l, counts);
+}
+
+// The adjoint launch.
+__global__ void __launch_bounds__(kBlock)
+    megakernel_geom(const __grid_constant__ Params p,
+                    const float4* __restrict__ sph, int n_sph,
+                    const float* __restrict__ alb,
+                    const float* __restrict__ emi,
+                    const int* __restrict__ refl,
+                    const float* __restrict__ g_img,
+                    float* __restrict__ partials, float* __restrict__ out_l,
+                    unsigned long long* __restrict__ counts) {
+  // Dynamic shared memory: the sphere rows, then a row of gradient slots a
+  // warp.
+  const float4* s_sph = load_spheres(sph, n_sph);
+  const int k_obj = p.n_rects + n_sph;
+  const int n_slots = 6 * k_obj + 4 * n_sph;
+  float* rows = reinterpret_cast<float*>(const_cast<float4*>(s_sph) + n_sph);
+  for (int i = threadIdx.x; i < kWarps * n_slots; i += kBlock) rows[i] = 0.0f;
+  __syncthreads();
+  float* my_row = rows + (threadIdx.x >> 5) * n_slots;
+  const TableMaterials mats{alb, emi};
+  const SphereTab tab{s_sph, n_sph, refl};
+  const LaneRange lr = lane_range(p);
+  const LightFrame lf = light_frame(p);
+  const V3 zero = v3(0.0f, 0.0f, 0.0f), one = v3(1.0f, 1.0f, 1.0f);
+  const V3 gc = lr.in_range ? ld3(g_img + 3 * lr.pix) : zero;
+  const V3 cam_o = ld3(p.cam_o);
+
+  uint32_t s = lr.s, pid = 0;
+  V3 o = cam_o, d = zero, T = one;
+  V3 A = zero;   // this sample's emission partial sum
+  V3 L = zero;   // the lane's radiance sum over its samples (the image)
+  V3 LA = zero;  // pass A's radiance of the sample in the backward sweep
+  V3 lam_o = zero, lam_d = zero;
+  int depth = 0, jtgt = 0;
+  bool active = lr.in_range && s < lr.s_stop;
+  bool spawn = true, backward = false;
+  uint32_t n_ext = 0, n_prb = 0, n_rep = 0, n_vjp = 0;
+
+  while (__any_sync(kFull, active)) {
+    Contrib ct;
+    ct.key = -1;
+    if (active) {
+      if (spawn) {  // the one spawn site of every pass
+        pid = lr.pid_base + s;
+        o = cam_o;
+        d = spawn_dir(p, lr.px, lr.py, pid);
+        T = one;
+        A = zero;
+        depth = 0;
+        spawn = false;
+      }
+      depth += 1;
+      const Bounce b = bounce<TableMaterials, true, kNee>(
+          p, tab, mats, lf, o, d, pid, depth, lr.pix, NoGuide{});
+      const V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
+      const V3 A_new = add(A, pick);
+      const V3 T_new = mul(v3(T.x * b.f.x, T.y * b.f.y, T.z * b.f.z), b.w);
+      if (!backward) {  // pass A
+        L = add(L, pick);
+        n_ext += 1;
+        n_prb += (b.survive && b.diffuse) ? 1u : 0u;
+        if (b.survive && depth < p.max_bounces) {
+          o = b.x;
+          d = b.new_dir;
+          T = T_new;
+          A = A_new;
+        } else {
+          LA = A_new;
+          jtgt = depth;
+          backward = true;
+          lam_o = zero;
+          lam_d = zero;
+          spawn = true;
+        }
+      } else if (depth < jtgt) {  // replay toward the target bounce
+        n_rep += 1;
+        o = b.x;
+        d = b.new_dir;
+        T = T_new;
+        A = A_new;
+      } else {  // the VJP bounce j = jtgt
+        n_vjp += 1;
+        const V3 fw = mul(b.f, b.w);
+        const V3 TS = v3(fw.x != 0.0f ? (LA.x - A_new.x) / fw.x : 0.0f,
+                         fw.y != 0.0f ? (LA.y - A_new.y) / fw.y : 0.0f,
+                         fw.z != 0.0f ? (LA.z - A_new.z) / fw.z : 0.0f);
+        const float f_scale = b.inv_p * b.w;
+        const float s_ta = gc.x * TS.x * b.alb.x + gc.y * TS.y * b.alb.y +
+                           gc.z * TS.z * b.alb.z;
+        const float s_am =
+            b.rr_scaled ? s_ta * b.w * (-(b.inv_p * b.inv_p)) : 0.0f;
+        const float p_max = fmaxf(b.alb.x, fmaxf(b.alb.y, b.alb.z));
+        const float eq_x = b.alb.x == p_max ? 1.0f : 0.0f;
+        const float eq_y = b.alb.y == p_max ? 1.0f : 0.0f;
+        const float eq_z = b.alb.z == p_max ? 1.0f : 0.0f;
+        const float n_eq = eq_x + eq_y + eq_z;
+        const float am = s_am / (n_eq > 0.0f ? n_eq : 1.0f);
+        const Pullback pb = bounce_vjp(p, tab, b, o, d, lam_o, lam_d,
+                                       s_ta * b.inv_p);
+        ct.key = b.id;
+        ct.v[0] = gc.x * TS.x * f_scale + eq_x * am;
+        ct.v[1] = gc.y * TS.y * f_scale + eq_y * am;
+        ct.v[2] = gc.z * TS.z * f_scale + eq_z * am;
+        ct.v[3] = gc.x * T.x;
+        ct.v[4] = gc.y * T.y;
+        ct.v[5] = gc.z * T.z;
+        ct.v[6] = pb.g_c.x;
+        ct.v[7] = pb.g_c.y;
+        ct.v[8] = pb.g_c.z;
+        ct.v[9] = pb.g_r;
+        lam_o = pb.g_o;
+        lam_d = pb.g_d;
+        jtgt -= 1;
+        if (jtgt > 0) {
+          spawn = true;
+        } else {  // the next sample
+          backward = false;
+          s += 1;
+          if (s < lr.s_stop) {
+            spawn = true;
+          } else {
+            active = false;
+          }
+        }
+      }
+    }
+    warp_accumulate(ct, my_row, p.n_rects, k_obj);
+  }
+
+  if (lr.in_range) {
+    const int lane = blockIdx.x * kBlock + threadIdx.x;
+    out_l[3 * lane + 0] = L.x;
+    out_l[3 * lane + 1] = L.y;
+    out_l[3 * lane + 2] = L.z;
+  }
+  unsigned long long c4[4] = {n_ext, n_prb, n_rep, n_vjp};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      c4[i] += __shfl_down_sync(kFull, c4[i], off);
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+    for (int i = 0; i < 4; ++i) atomicAdd(&counts[i], c4[i]);
+  }
+  // This block's sums: the warps' rows in a fixed order.
+  __syncthreads();
+  for (int sl = threadIdx.x; sl < n_slots; sl += kBlock) {
+    float v = rows[sl];
+    for (int w = 1; w < kWarps; ++w) v += rows[w * n_slots + sl];
+    partials[static_cast<size_t>(blockIdx.x) * n_slots + sl] = v;
+  }
+}
+
+}  // namespace
+
+// Host entry point with a plain C interface (loaded with ctypes). Geometry,
+// light and camera as fill_params (megakernel_common.cuh) reads them, in
+// host memory. On the device: sph (n_spheres, 4) float32 [cx, cy, cz, r];
+// alb, emi (n_rects + n_spheres, 3) float32 and refl (n_rects + n_spheres,)
+// int32, rects first; out_l (n_pix·g, 3) float32; counts 4 uint64, zeroed:
+// [extend, probe] of pass A, replayed bounces, VJP bounces (bk == 0: the
+// image-only launch, [extend, probe] only). With bk != 0 also g_img
+// (height, width, 3) float32; partials: scratch of n_partials floats, at
+// least ceil(n_pix·g / 128)·n_slots with n_slots = 6·(n_rects + n_spheres)
+// + 4·n_spheres; out: n_slots floats, d/d albedo (K, 3), d/d emission
+// (K, 3), d/d sphere rows (S, 4). 1 to kMaxGeomSpheres spheres. Launches on
+// `stream`; returns the first launch error.
+extern "C" int spt_megakernel_geom(
+    const float* rect_geom, const int* rect_axis, int n_rects,
+    const float* light_f, int light_id, const float* cam_f, unsigned seed,
+    int width, int height, int spp, int g, int per, unsigned s0,
+    int rr_start_depth, int max_bounces, const float* sph, int n_spheres,
+    const float* alb, const float* emi, const int* refl, int bk,
+    const float* g_img, float* partials, long long n_partials, float* out,
+    float* out_l, unsigned long long* counts, void* stream) {
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, g, per, s0,
+                   rr_start_depth, max_bounces) ||
+      n_spheres < 1 || n_spheres > kMaxGeomSpheres) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_blocks = grid_of(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* sph4 = reinterpret_cast<const float4*>(sph);
+  cudaError_t err = cudaSuccess;
+  if (!bk) {
+    const int smem = sphere_smem(megakernel_geom_image, n_spheres, &err);
+    if (smem < 0) return static_cast<int>(err);
+    megakernel_geom_image<<<n_blocks, kBlock, smem, st>>>(
+        p, sph4, n_spheres, alb, emi, refl, out_l, counts);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int n_slots = 6 * (n_rects + n_spheres) + 4 * n_spheres;
+  if (g_img == nullptr ||
+      n_partials < static_cast<long long>(n_blocks) * n_slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem =
+      sizeof(float4) * n_spheres + sizeof(float) * kWarps * n_slots;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(megakernel_geom,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  megakernel_geom<<<n_blocks, kBlock, smem, st>>>(
+      p, sph4, n_spheres, alb, emi, refl, g_img, partials, out_l, counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials<<<n_slots, kReduceThreads, 0, st>>>(partials, n_blocks,
+                                                      n_slots, out);
+  return static_cast<int>(cudaGetLastError());
+}

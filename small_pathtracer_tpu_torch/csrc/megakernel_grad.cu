@@ -43,8 +43,6 @@
 
 namespace {
 
-constexpr int kReduceThreads = 256;
-
 __global__ void __launch_bounds__(kBlock)
     megakernel_vjp(const __grid_constant__ Params p,
                    const float* __restrict__ alb,
@@ -197,26 +195,6 @@ __global__ void __launch_bounds__(kBlock)
     }
     if (ln32 == 0) partials[blockIdx.x * n_slots + sl] = v;
   }
-}
-
-// out[slot] = sum over blocks b of partials[b, slot], in a fixed order: a
-// strided sum per thread, then a tree in shared memory. One block a slot.
-__global__ void __launch_bounds__(kReduceThreads)
-    reduce_partials(const float* __restrict__ partials, int n_blocks,
-                    int n_slots, float* __restrict__ out) {
-  __shared__ float buf[kReduceThreads];
-  const int sl = blockIdx.x;
-  float v = 0.0f;
-  for (int b = threadIdx.x; b < n_blocks; b += kReduceThreads) {
-    v += partials[b * n_slots + sl];
-  }
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int half = kReduceThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[sl] = buf[0];
 }
 
 }  // namespace

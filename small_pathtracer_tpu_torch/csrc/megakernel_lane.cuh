@@ -1,9 +1,12 @@
 // The loop body of the forward kernels (megakernel.cu, megakernel_guided.cu):
 // `render_lane`, one lane's samples, a template on where the materials
 // come from, whether the scene has a sphere table, the estimator and the
-// guide source; the SPEC/REFR scatter; path guiding's device functions
-// (the voxel lookup, the octahedral decode, the real power, the defensive
-// mixture); and the host helpers the entry points share.
+// guide source; `bounce`, its one bounce, which the geometry adjoint
+// (megakernel_geom.cu) traces too, so both compute every bounce with the
+// same expressions; `tab_body`, row 2's kernel body; the SPEC/REFR scatter;
+// path guiding's device functions (the voxel lookup, the octahedral
+// decode, the real power, the defensive mixture); and the host helpers the
+// entry points share.
 //
 // Numerics: see megakernel_common.cuh. Every expression below is the one
 // integrator/wavefront.py (the plain version) computes, in its order.
@@ -195,6 +198,184 @@ struct LaneGuide {
   GuideParams g;
 };
 
+// The light parallelogram's corner, edges and normal, read once a lane.
+struct LightFrame {
+  V3 lc, leu, lev, ln;
+};
+
+__device__ __forceinline__ LightFrame light_frame(const Params& p) {
+  return LightFrame{ld3(p.lc), ld3(p.leu), ld3(p.lev), ld3(p.ln)};
+}
+
+// One bounce: what render_lane and the geometry adjoint (megakernel_geom.cu)
+// read of it. Fields a caller does not read cost it nothing (inlined).
+struct Bounce {
+  int id;        // the winner
+  float t;       // its distance, kMissT on a miss
+  bool hit;
+  int axis;      // the winner's rect axis, -1 for a sphere
+  int refl;
+  bool diffuse;
+  V3 x, ng, n;   // hit point, geometric normal, the normal against d
+  V3 alb, emi;
+  bool survive;    // Russian roulette
+  bool rr_scaled;  // RR active with p_max > 0: f = albedo / p_max
+  float inv_p;
+  V3 f;
+  V3 new_dir;
+  float w;
+  bool success;  // the NEE probe reached the light
+  float w_nee;   // its weight (nee_textbook's direct term)
+  bool ok_g;     // guided: the mixture sample carries
+  float alpha, beta, wz;  // the cosine sample: fu·alpha + fv·beta + n·wz
+  V3 lp;                  // the light sample
+  float coin;             // REFR's coin
+};
+
+// A bounce from (o, d) in two parts, in render_lane's order: the nearest
+// hit and its materials (`bounce_hit`), then, after the caller's emission
+// pickup, the hit point and normals, Russian roulette and the scatter of
+// the estimator kEst (and the guide on a diffuse hit; pix is the lane's
+// pixel, for row 5's lobes) for bounce `depth` of sample pid
+// (`bounce_scatter`). `bounce` runs both.
+template <class Mats, bool kTab>
+__device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab,
+                                           const Mats& mats, V3 o, V3 d,
+                                           Bounce* b) {
+  if constexpr (kTab) {
+    b->t = nearest_tab(p, tab, o, d, &b->id);
+  } else {
+    b->t = nearest(p, o, d, &b->id);
+  }
+  b->hit = b->t < kMissT;
+  // The winner's rect axis, -1 for a sphere. Rows 1 and 8 read it here,
+  // as before the sphere table existed, so their code is unchanged.
+  b->axis = (kTab && b->id >= p.n_rects) ? -1 : p.rects[b->id].axis;
+  b->alb = mats.albedo(b->id);
+  b->emi = mats.emission(b->id);
+}
+
+template <bool kTab, int kEst, class Guide>
+__device__ __forceinline__ void bounce_scatter(const Params& p,
+                                               const SphereTab& tab,
+                                               const LightFrame& lf, V3 o,
+                                               V3 d, uint32_t pid, int depth,
+                                               int pix, const Guide& guide,
+                                               Bounce* bp) {
+  Bounce& b = *bp;
+  const int axis = b.axis;
+  b.x = b.hit ? add(o, mul(d, b.t)) : v3(0.0f, 0.0f, 0.0f);
+  V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
+             axis == 2 ? 1.0f : 0.0f);
+  b.refl = kDiff;
+  if constexpr (kTab) {
+    b.refl = tab.refl[b.id];
+    if (axis < 0) {
+      const float4 c = tab.sph[b.id - p.n_rects];
+      ng = norm(sub(b.x, v3(c.x, c.y, c.z)));
+    }
+  }
+  b.ng = ng;
+  const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
+  b.n = n;
+  b.diffuse = b.refl == kDiff;
+
+  const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
+  const float u_rr = uniform(p.seed, pid, ctr + kRR);
+
+  // Russian roulette.
+  const float p_max = fmaxf(b.alb.x, fmaxf(b.alb.y, b.alb.z));
+  const bool rr_active = depth > p.rr_start_depth || p_max <= 0.0f;
+  b.survive = rr_active ? u_rr < p_max : true;
+  b.rr_scaled = rr_active && p_max > 0.0f;
+  b.inv_p = b.rr_scaled ? 1.0f / (p_max > 0.0f ? p_max : 1.0f) : 1.0f;
+  b.f = mul(b.alb, b.inv_p);
+
+  b.success = false;
+  b.w_nee = 0.0f;
+  b.ok_g = true;
+  b.alpha = b.beta = b.wz = b.coin = 0.0f;
+  b.lp = v3(0.0f, 0.0f, 0.0f);
+  if (b.diffuse) {
+    // Cosine-weighted hemisphere sample around n.
+    const float u1 = uniform(p.seed, pid, ctr + kScatterU);
+    const float u2 = uniform(p.seed, pid, ctr + kScatterV);
+    float sr1, cr1;
+    sincos_2pi(u1, &sr1, &cr1);
+    const float r2s = sqrtf(u2);
+    b.alpha = cr1 * r2s;
+    b.beta = sr1 * r2s;
+    b.wz = sqrtf(1.0f - u2);
+    const V3 a = fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+    const V3 fu = norm(cross(a, n));
+    const V3 fv = cross(n, fu);
+    const V3 cos_dir =
+        norm(add(add(mul(fu, b.alpha), mul(fv, b.beta)), mul(n, b.wz)));
+
+    if constexpr (kEst == kCosine) {
+      b.new_dir = cos_dir;
+      b.w = 1.0f;
+    } else {
+      // Probe a uniform point of the light parallelogram.
+      const float lu = uniform(p.seed, pid, ctr + kLightU);
+      const float lv = uniform(p.seed, pid, ctr + kLightV);
+      b.lp = add(add(lf.lc, mul(lf.leu, lu)), mul(lf.lev, lv));
+      const V3 d_l = norm(sub(b.lp, b.x));
+      float t_l;
+      if constexpr (kTab) {
+        b.success = probe_light_tab(p, tab, b.x, d_l, &t_l);
+      } else {
+        b.success = probe_light(p, b.x, d_l, &t_l);
+      }
+      const float t_safe = b.success ? t_l : 1.0f;
+      b.w_nee = (fabsf(p.area * dot(d_l, lf.ln)) / (t_safe * t_safe)) *
+                (fabsf(dot(d_l, n)) * kInvPi);
+      if constexpr (kEst == kNee) {
+        // NEE as continuation.
+        b.new_dir = b.success ? d_l : cos_dir;
+        b.w = b.success ? b.w_nee : 1.0f;
+      } else {
+        // Textbook: the cosine continuation (render_lane adds the direct
+        // term).
+        b.new_dir = cos_dir;
+        b.w = 1.0f;
+      }
+    }
+    if constexpr (Guide::kKind != NoGuide::kKind) {
+      // The defensive mixture where the vertex has a lobe; elsewhere the
+      // cosine sample with weight 1 is what the mixture gives exactly.
+      int entry = kGuideSentinel;
+      if constexpr (Guide::kKind == VoxelGuide::kKind) {
+        entry = guide.tab[voxel_id(b.x)];
+      } else {
+        if (depth == 1) entry = guide.lobes[pix];
+      }
+      if (entry != kGuideSentinel) {
+        b.ok_g = guided_mixture(guide.g, n, oct_decode(entry), cos_dir, sr1,
+                                cr1, u2, uniform(p.seed, pid, ctr + kMixCoin),
+                                &b.new_dir, &b.w);
+      }
+    }
+  } else if (b.refl == kSpec) {
+    b.new_dir = reflect(d, ng);
+    b.w = 1.0f;
+  } else {
+    b.coin = uniform(p.seed, pid, ctr + kRefrCoin);
+    refr_scatter(d, ng, n, b.coin, &b.new_dir, &b.w);
+  }
+}
+
+template <class Mats, bool kTab, int kEst, class Guide>
+__device__ __forceinline__ Bounce bounce(const Params& p, const SphereTab& tab,
+                                         const Mats& mats, const LightFrame& lf,
+                                         V3 o, V3 d, uint32_t pid, int depth,
+                                         int pix, const Guide& guide) {
+  Bounce b;
+  bounce_hit<Mats, kTab>(p, tab, mats, o, d, &b);
+  bounce_scatter<kTab, kEst>(p, tab, lf, o, d, pid, depth, pix, guide, &b);
+  return b;
+}
+
 // One lane's samples [lr.s, lr.s_stop) of pixel lr.pix; lr comes from the
 // kernel's lane source (lane_range or lane_range_budgets).
 template <class Mats, bool kTab, int kEst = kNee, class Guide = NoGuide>
@@ -206,7 +387,7 @@ __device__ __forceinline__ void render_lane(const Params& p,
                                             unsigned long long* __restrict__ traces,
                                             const Guide& guide = Guide{}) {
   const V3 cam_o = ld3(p.cam_o);
-  const V3 lc = ld3(p.lc), leu = ld3(p.leu), lev = ld3(p.lev), ln = ld3(p.ln);
+  const LightFrame lf = light_frame(p);
   const V3 e_light = mats.emission(p.light_id);
 
   uint32_t s = lr.s;
@@ -223,142 +404,43 @@ __device__ __forceinline__ void render_lane(const Params& p,
 
   while (alive) {
     depth += 1;
-    int id;
-    float t_hit;
-    if constexpr (kTab) {
-      t_hit = nearest_tab(p, tab, o, d, &id);
-    } else {
-      t_hit = nearest(p, o, d, &id);
-    }
-    const bool hit = t_hit < kMissT;
-    // The winner's rect axis, -1 for a sphere. Rows 1 and 8 read it here,
-    // as before the sphere table existed, so their code is unchanged.
-    const int axis = (kTab && id >= p.n_rects) ? -1 : p.rects[id].axis;
-    const V3 alb = mats.albedo(id);
-    const V3 emi = mats.emission(id);
+    Bounce b;
+    bounce_hit<Mats, kTab>(p, tab, mats, o, d, &b);
     // Emission pickup: throughput * emission (nee_textbook adds it with
     // the direct term below, or drops it when the light was just probed).
-    V3 pick = v3(T.x * emi.x, T.y * emi.y, T.z * emi.z);
+    V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
     if constexpr (kEst == kTextbook) {
-      if (suppress && hit && id == p.light_id) pick = v3(0.0f, 0.0f, 0.0f);
+      if (suppress && b.hit && b.id == p.light_id) pick = v3(0.0f, 0.0f, 0.0f);
     } else {
       L = add(L, pick);
     }
-    const V3 x = hit ? add(o, mul(d, t_hit)) : v3(0.0f, 0.0f, 0.0f);
-    V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
-               axis == 2 ? 1.0f : 0.0f);
-    int refl = kDiff;
-    if constexpr (kTab) {
-      refl = tab.refl[id];
-      if (axis < 0) {
-        const float4 c = tab.sph[id - p.n_rects];
-        ng = norm(sub(x, v3(c.x, c.y, c.z)));
+    bounce_scatter<kTab, kEst>(p, tab, lf, o, d, pid, depth, lr.pix, guide,
+                               &b);
+    // nee_textbook's direct term, with the throughput before the update.
+    V3 direct = v3(0.0f, 0.0f, 0.0f);
+    if constexpr (kEst == kTextbook) {
+      if (b.success) {
+        direct = v3(((b.w_nee * T.x) * b.alb.x) * e_light.x,
+                    ((b.w_nee * T.y) * b.alb.y) * e_light.y,
+                    ((b.w_nee * T.z) * b.alb.z) * e_light.z);
       }
     }
-    const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
-    const bool diffuse = refl == kDiff;
+    const V3 T_new = mul(v3(T.x * b.f.x, T.y * b.f.y, T.z * b.f.z), b.w);
 
-    const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
-    const float u_rr = uniform(p.seed, pid, ctr + kRR);
-
-    // Russian roulette.
-    const float p_max = fmaxf(alb.x, fmaxf(alb.y, alb.z));
-    const bool rr_active = depth > p.rr_start_depth || p_max <= 0.0f;
-    const bool survive = rr_active ? u_rr < p_max : true;
-    const float inv_p =
-        (rr_active && p_max > 0.0f) ? 1.0f / (p_max > 0.0f ? p_max : 1.0f) : 1.0f;
-    const V3 f = mul(alb, inv_p);
-
-    V3 new_dir;
-    float w;
-    bool success = false;
-    bool ok_g = true;                 // guided: the mixture sample carries
-    V3 direct = v3(0.0f, 0.0f, 0.0f);  // nee_textbook's direct term
-    if (diffuse) {
-      // Cosine-weighted hemisphere sample around n.
-      const float u1 = uniform(p.seed, pid, ctr + kScatterU);
-      const float u2 = uniform(p.seed, pid, ctr + kScatterV);
-      float sr1, cr1;
-      sincos_2pi(u1, &sr1, &cr1);
-      const float r2s = sqrtf(u2);
-      const V3 a = fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-      const V3 fu = norm(cross(a, n));
-      const V3 fv = cross(n, fu);
-      const V3 cos_dir = norm(add(add(mul(fu, cr1 * r2s), mul(fv, sr1 * r2s)),
-                                  mul(n, sqrtf(1.0f - u2))));
-
-      if constexpr (kEst == kCosine) {
-        new_dir = cos_dir;
-        w = 1.0f;
-      } else {
-        // Probe a uniform point of the light parallelogram.
-        const float lu = uniform(p.seed, pid, ctr + kLightU);
-        const float lv = uniform(p.seed, pid, ctr + kLightV);
-        const V3 lp = add(add(lc, mul(leu, lu)), mul(lev, lv));
-        const V3 d_l = norm(sub(lp, x));
-        float t_l;
-        if constexpr (kTab) {
-          success = probe_light_tab(p, tab, x, d_l, &t_l);
-        } else {
-          success = probe_light(p, x, d_l, &t_l);
-        }
-        const float t_safe = success ? t_l : 1.0f;
-        const float w_nee = (fabsf(p.area * dot(d_l, ln)) / (t_safe * t_safe)) *
-                            (fabsf(dot(d_l, n)) * kInvPi);
-        if constexpr (kEst == kNee) {
-          // NEE as continuation.
-          new_dir = success ? d_l : cos_dir;
-          w = success ? w_nee : 1.0f;
-        } else {
-          // Textbook: the direct term with the throughput before the
-          // update, and the cosine continuation.
-          new_dir = cos_dir;
-          w = 1.0f;
-          if (success) {
-            direct = v3(((w_nee * T.x) * alb.x) * e_light.x,
-                        ((w_nee * T.y) * alb.y) * e_light.y,
-                        ((w_nee * T.z) * alb.z) * e_light.z);
-          }
-        }
-      }
-      if constexpr (Guide::kKind != NoGuide::kKind) {
-        // The defensive mixture where the vertex has a lobe; elsewhere the
-        // cosine sample with weight 1 is what the mixture gives exactly.
-        int entry = kGuideSentinel;
-        if constexpr (Guide::kKind == VoxelGuide::kKind) {
-          entry = guide.tab[voxel_id(x)];
-        } else {
-          if (depth == 1) entry = guide.lobes[lr.pix];
-        }
-        if (entry != kGuideSentinel) {
-          ok_g = guided_mixture(guide.g, n, oct_decode(entry), cos_dir, sr1,
-                                cr1, u2, uniform(p.seed, pid, ctr + kMixCoin),
-                                &new_dir, &w);
-        }
-      }
-    } else if (refl == kSpec) {
-      new_dir = reflect(d, ng);
-      w = 1.0f;
-    } else {
-      refr_scatter(d, ng, n, uniform(p.seed, pid, ctr + kRefrCoin), &new_dir,
-                   &w);
-    }
-    const V3 T_new = mul(v3(T.x * f.x, T.y * f.y, T.z * f.z), w);
-
-    bool alive_next = survive;
+    bool alive_next = b.survive;
     n_extend += 1;
     if constexpr (kEst == kNee) {
-      n_probe += (alive_next && diffuse) ? 1u : 0u;
+      n_probe += (alive_next && b.diffuse) ? 1u : 0u;
     } else if constexpr (kEst == kTextbook) {
-      n_probe += diffuse ? 1u : 0u;  // before RR
+      n_probe += b.diffuse ? 1u : 0u;  // before RR
     }
     alive_next = alive_next && depth < p.max_bounces;
     if constexpr (Guide::kKind != NoGuide::kKind) {
-      alive_next = alive_next && ok_g;
+      alive_next = alive_next && b.ok_g;
     }
 
     if constexpr (kEst == kNee) {
-      if (fold && alive_next && success) {
+      if (fold && alive_next && b.success) {
         // The next bounce hits the light at t_l, picks up T_new * e_light
         // and dies in RR (max albedo <= 0): resolve it now.
         L = add(L, v3(T_new.x * e_light.x, T_new.y * e_light.y,
@@ -369,12 +451,12 @@ __device__ __forceinline__ void render_lane(const Params& p,
     }
     if constexpr (kEst == kTextbook) {
       L = add(L, add(pick, direct));
-      suppress = alive_next && diffuse;
+      suppress = alive_next && b.diffuse;
     }
 
     if (alive_next) {
-      o = x;
-      d = new_dir;
+      o = b.x;
+      d = b.new_dir;
       T = T_new;
     } else {
       s += 1;
@@ -416,6 +498,26 @@ __device__ __forceinline__ const float4* load_spheres(
   for (int i = threadIdx.x; i < n_sph; i += kBlock) s_sph[i] = sph[i];
   __syncthreads();
   return s_sph;
+}
+
+// Row 2 (megakernel.cu) with estimator kEst, and the image-only launch of
+// the geometry adjoint (megakernel_geom.cu): the sphere rows (n_sph float4)
+// in dynamic shared memory, the material tables in device memory.
+template <int kEst>
+__device__ __forceinline__ void tab_body(const Params& p,
+                                         const float4* __restrict__ sph,
+                                         int n_sph,
+                                         const float* __restrict__ alb,
+                                         const float* __restrict__ emi,
+                                         const int* __restrict__ refl,
+                                         float* __restrict__ out_l,
+                                         unsigned long long* __restrict__ traces) {
+  const float4* s_sph = load_spheres(sph, n_sph);
+  const TableMaterials mats{alb, emi};
+  const V3 a = mats.albedo(p.light_id);
+  render_lane<TableMaterials, true, kEst>(
+      p, lane_range(p), mats, SphereTab{s_sph, n_sph, refl},
+      kEst == kNee && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
 }
 
 // ---- Host helpers of the entry points ----

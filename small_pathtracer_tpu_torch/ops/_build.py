@@ -250,3 +250,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # out: (2, R, 3) f32 device
         p,  # cudaStream_t
     ]
+    lib.spt_megakernel_geom.restype = ctypes.c_int
+    lib.spt_megakernel_geom.argtypes = [
+        *scene,
+        i,  # n_rects
+        *launch,
+        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
+        i,  # n_spheres
+        p, p,  # albedo, emission: (R + S, 3) f32 device
+        p,  # refl: (R + S,) i32 device
+        i,  # bk: 0 the image-only launch, 1 the adjoint
+        p,  # g_img: (h, w, 3) f32 device, or null
+        p,  # partials: f32 device scratch
+        ctypes.c_longlong,  # its length in floats
+        p,  # out: 6 (R + S) + 4 S f32 device
+        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # counts: (4,) u64 device
+        p,  # cudaStream_t
+    ]

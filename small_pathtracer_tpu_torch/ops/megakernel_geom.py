@@ -1,0 +1,742 @@
+"""Sphere-geometry training on the card: the port's counterpart of the JAX
+package's ``ops/megakernel_geom.py`` for ``nee``, sphere-table scenes
+(rects unrolled, spheres in the runtime table), DIFF/SPEC/REFR and one rect
+light.
+
+- ``geom_run`` / ``geom_vjp``: one launch of ``megakernel_geom``
+  (``csrc/megakernel_geom.cu``). The image-only launch (``g_img=None``)
+  runs the TPU kernel's pass A alone, which is row 2's loop body: the
+  image, counts and time of ``megakernel_nee_tab``. The adjoint launch
+  traces the same paths with the same bounce code and adds the pathwise
+  interior cotangents of every sphere's (center, radius) and every
+  object's (albedo, emission) under the per-pixel cotangent ``g_img`` of
+  the radiance sum.
+- ``RenderSpheres``: the two launches as one ``torch.autograd.Function``;
+  ``loss_and_geom_grads`` and ``fit_geom``: the JAX package's
+  ``loss_and_geom_grads`` and ``fit_pallas_geom`` on one card, the
+  trust-region steps on the common-random-number loss.
+- ``diff_step`` and ``bounce_vjp``: one bounce's continuous map (o, d,
+  center, radius) -> (x, d', w) with every discrete choice fixed, and its
+  pullback derived by hand in the formulas and order of the kernel's
+  ``bounce_vjp``. The TPU kernel gets the pullback from ``jax.vjp`` inside
+  the kernel; the card has no such thing, so this is the written
+  derivation, held against ``torch.autograd`` by the tests.
+
+Gradient layout (the port's tables, not the JAX 16-slot ``gtab``): sphere
+rows (S, 4) ``[cx, cy, cz, r]`` as ``ops/megakernel.sphere_tables`` packs
+them, and albedo and emission (K, 3) in global object order (rects, then
+spheres). ``grads_to_scene`` turns them into a scene-shaped tuple.
+
+On a CUDA device each wrapper launches the kernel or raises; on the CPU it
+runs the plain version, ``geom_run_plain``: the eager regenerating forward
+on the kernel's lane layout, and torch.autograd through it with the sphere
+rows and material tables as leaves (the forward fixes every discrete
+choice, so this is the same pathwise interior gradient). Silhouette
+(boundary) terms are not computed, as in the JAX kernel.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import NamedTuple
+
+import torch
+
+from ..camera.pinhole import CameraParams
+from ..config import RenderConfig
+from ..core import vecmath as vm
+from ..integrator.sampling import light_area_normal
+from ..integrator.wavefront import (
+    check_materials, lane_layout, path_trace_regen,
+)
+from ..scene.types import DIFF, SPEC, Scene, num_spheres
+from . import _build
+from .megakernel import (
+    KernelGeometry, _layout, _reduce, _resolve, check_launch, launch_args,
+    pack_geometry, sphere_tables,
+)
+from .megakernel_grad import material_grads_to_scene
+
+# Launches of megakernel_geom in this process (the wrapper adds one per
+# launch, and nowhere else).
+LAUNCHES_GEOM = 0
+
+# Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
+# per-block partial sums. The kernel keeps one row of gradient slots a warp
+# in shared memory beside the sphere rows, which caps the sphere count.
+KERNEL_BLOCK = 128
+MAX_GEOM_SPHERES = 1024  # kMaxGeomSpheres in csrc/megakernel_geom.cu
+FIELDS = ("center", "radius", "albedo", "emission")
+
+_ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
+
+
+# ---------------------------------------------------------------------------
+# Scope and layout.
+
+def check_geom(scene: Scene, cfg: RenderConfig) -> None:
+    """The refusals of this slice, on every device: estimators other than
+    ``nee`` (item 10), GLOS (item 11), and the JAX kernel's own ValueErrors
+    (no spheres, no unrolled object, a light that is not an unrolled rect).
+    Light lists and sphere lights never reach here: the port's Scene holds
+    neither (``convert.scene_from_jax`` refuses them, item 12)."""
+    if cfg.estimator != "nee":
+        raise NotImplementedError(
+            f"the geometry adjoint with estimator {cfg.estimator!r} "
+            + _ITEM.format(10))
+    check_materials(scene)
+    if num_spheres(scene) == 0:
+        raise ValueError("no spheres to differentiate; use the material "
+                         "adjoint kernel (ops/megakernel_grad.py)")
+    R = scene.rects.k.shape[0]
+    if R == 0:
+        raise ValueError("sphere-table mode needs at least one unrolled "
+                         "rect/quad (C15 miss default)")
+    if int(scene.light.light_obj_id) >= R:
+        raise ValueError("the light must be an unrolled rect/quad")
+
+
+def pack_tables(scene: Scene):
+    """(sph (S, 4) [cx, cy, cz, r], albedo (K, 3), emission (K, 3)) float32
+    copies of the scene's trainable leaves on its device."""
+    sph, alb, emi, _ = sphere_tables(scene, scene.device)
+    return sph.clone(), alb.clone(), emi.clone()
+
+
+def scene_with_tables(scene: Scene, sph, alb, emi) -> Scene:
+    """Inverse of pack_tables: the tables put back into the scene (the
+    tensors themselves, so gradients flow to them)."""
+    R, S = scene.rects.k.shape[0], num_spheres(scene)
+    for t, shape in ((sph, (S, 4)), (alb, (R + S, 3)), (emi, (R + S, 3))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected a {shape} table, got {tuple(t.shape)}")
+    return scene._replace(
+        rects=scene.rects._replace(albedo=alb[:R], emission=emi[:R]),
+        spheres=scene.spheres._replace(center=sph[:, :3], radius=sph[:, 3],
+                                       albedo=alb[R:], emission=emi[R:]),
+    )
+
+
+def grads_to_scene(scene: Scene, g_sph, g_alb, g_emi) -> Scene:
+    """The kernel's gradient tables as a scene-shaped tuple of gradients
+    (zeros for every other leaf), the counterpart of the JAX package's
+    ``grads_to_scene``."""
+    R = scene.rects.k.shape[0]
+    zero = material_grads_to_scene(scene, torch.zeros_like(scene.rects.albedo),
+                                   torch.zeros_like(scene.rects.emission))
+    return zero._replace(
+        rects=zero.rects._replace(albedo=g_alb[:R], emission=g_emi[:R]),
+        spheres=zero.spheres._replace(center=g_sph[:, :3],
+                                      radius=g_sph[:, 3], albedo=g_alb[R:],
+                                      emission=g_emi[R:]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# One bounce as a continuous map, and its pullback.
+
+RECT, SPHERE, MISS = 0, 1, 2
+INV_PI = 1.0 / math.pi
+NNT_INTO, NNT_OUT, R0 = 1.0 / 1.5, 1.5, 0.04
+
+
+class Bounce(NamedTuple):
+    """The discrete choices and draws of one bounce, per lane (N,): what
+    the forward fixed. ``n = sign * ng``; the cosine sample is
+    ``norm(fu * alpha + fv * beta + n * wz)`` in the frame of n; ``lp`` the
+    light sample; ``coin`` the REFR coin. The frame's axis pick, REFR's
+    ``into``, ``tir`` and reflect/refract pick follow from the primal."""
+
+    kind: torch.Tensor     # RECT, SPHERE or MISS
+    axis: torch.Tensor     # the rect winner's axis (rect 0's on a miss)
+    k: torch.Tensor        # the rect winner's plane offset
+    near: torch.Tensor     # sphere winner: the near root
+    refl: torch.Tensor     # DIFF, SPEC or REFR
+    sign: torch.Tensor     # +-1.0
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    wz: torch.Tensor
+    lp: torch.Tensor       # (N, 3)
+    success: torch.Tensor  # the NEE probe reached the light
+    coin: torch.Tensor
+
+
+class LightConsts(NamedTuple):
+    """The NEE weight's light: the sampler's unit normal (3,) and area,
+    and the light rect's axis and plane offset (the probe's distance)."""
+
+    ln: torch.Tensor
+    area: torch.Tensor
+    axis: int
+    k: torch.Tensor
+
+
+def light_consts(scene: Scene) -> LightConsts:
+    """The LightConsts of the scene's light sampler and light rect."""
+    area, ln = light_area_normal(scene.light)
+    i = int(scene.light.light_obj_id)
+    return LightConsts(ln, area, int(scene.rects.axis[i]), scene.rects.k[i])
+
+
+def _onehot(axis, like):
+    return (axis[:, None] == torch.arange(3, device=like.device)).to(like.dtype)
+
+
+def _col(v, axis):
+    return torch.gather(v, 1, axis[:, None])[:, 0]
+
+
+def _safe_norm(v):
+    l2 = vm.dot(v, v)
+    return v * vm.rsqrt(torch.where(l2 > 0.0, l2, 1.0))[:, None]
+
+
+def diff_step(o, d, c, r, b: Bounce, light: LightConsts):
+    """One bounce's continuous map (o, d, winner sphere center c (N, 3) and
+    radius r (N,)) -> (x (N, 3), d' (N, 3), w (N,)), every discrete choice
+    fixed by ``b``; torch.autograd differentiates it. The expressions are
+    the eager forward's (integrator/wavefront.py, geometry/intersect.py)."""
+    is_sph, is_rect = b.kind == SPHERE, b.kind == RECT
+    da = _col(d, b.axis)
+    t_rect = (b.k - _col(o, b.axis)) * (1.0 / torch.where(da != 0.0, da, 1.0))
+    op = c - o
+    bq = vm.dot(op, d)
+    m = bq[:, None] * d - op
+    m2 = vm.dot(m, m)
+    mlen = torch.where(m2 > 0.0, torch.sqrt(torch.where(m2 > 0.0, m2, 1.0)),
+                       0.0)
+    det = (r - mlen) * (r + mlen)
+    sdet = torch.sqrt(torch.where(det > 0.0, det, 1.0))
+    t_sph = torch.where(b.near, bq - sdet, bq + sdet)
+    t = torch.where(is_sph, t_sph, torch.where(is_rect, t_rect, 0.0))
+    x = torch.where((b.kind != MISS)[:, None], o + t[:, None] * d, 0.0)
+    ng = torch.where(is_sph[:, None], _safe_norm(x - c), _onehot(b.axis, x))
+    n = ng * b.sign[:, None]
+    # DIFF: the cosine sample in the frame of n (axis pick detached).
+    pick = (torch.abs(n.detach()[:, 0]) > 0.1)[:, None]
+    e_y = torch.tensor([0.0, 1.0, 0.0], device=x.device)
+    e_x = torch.tensor([1.0, 0.0, 0.0], device=x.device)
+    fu = _safe_norm(vm.cross(torch.where(pick, e_y, e_x), n))
+    fv = vm.cross(n, fu)
+    cos_dir = _safe_norm(fu * b.alpha[:, None] + fv * b.beta[:, None]
+                         + n * b.wz[:, None])
+    # DIFF: NEE toward the light sample, the probe's distance to the light
+    # rect's plane.
+    dl = _safe_norm(b.lp - x)
+    dla = dl[:, light.axis]
+    tl = (light.k - x[:, light.axis]) * (
+        1.0 / torch.where(dla != 0.0, dla, 1.0))
+    tl = torch.where(b.success, tl, 1.0)
+    w_nee = (torch.abs(light.area * vm.dot(dl, light.ln)) / (tl * tl)) * (
+        torch.abs(vm.dot(dl, n)) * INV_PI)
+    dir_diff = torch.where(b.success[:, None], dl, cos_dir)
+    w_diff = torch.where(b.success, w_nee, 1.0)
+    # SPEC: the mirror about the geometric normal.
+    refl_dir = vm.reflect(d, ng)
+    # REFR: Schlick's dielectric, decisions detached.
+    into = b.sign > 0.0
+    nnt = torch.where(into, NNT_INTO, NNT_OUT)
+    ddn = vm.dot(d, n)
+    cos2t = 1.0 - nnt * nnt * (1.0 - ddn * ddn)
+    tir = (cos2t < 0.0).detach()
+    pos = cos2t > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, cos2t, 1.0)), 0.0)
+    sgn = torch.where(into, 1.0, -1.0)
+    td = _safe_norm(d * nnt[:, None] - ng * (sgn * (ddn * nnt + sq))[:, None])
+    cc = 1.0 - torch.where(into, -ddn, vm.dot(td, ng))
+    re = R0 + (1.0 - R0) * cc * cc * cc * cc * cc
+    pr = 0.25 + 0.5 * re
+    pick_refl = ((b.coin < pr) | tir).detach()
+    w_refr = torch.where(tir, 1.0, torch.where(pick_refl, re / pr,
+                                               (1.0 - re) / (1.0 - pr)))
+    dir_refr = torch.where(pick_refl[:, None], refl_dir, td)
+    is_diff, is_spec = (b.refl == DIFF)[:, None], (b.refl == SPEC)[:, None]
+    d_new = torch.where(is_diff, dir_diff,
+                        torch.where(is_spec, refl_dir, dir_refr))
+    w = torch.where(b.refl == DIFF, w_diff,
+                    torch.where(b.refl == SPEC, 1.0, w_refr))
+    return x, d_new, w
+
+
+def _reflect_vjp(d, ng, lam):
+    """r = d - ng * (2 (ng . d)): (g_d, g_ng) under the cotangent lam."""
+    k2 = 2.0 * vm.dot(ng, d)
+    gk = -vm.dot(ng, lam)
+    g_d = lam + ng * (2.0 * gk)[:, None]
+    g_ng = -lam * k2[:, None] + d * (2.0 * gk)[:, None]
+    return g_d, g_ng
+
+
+def _norm_vjp(u, rs, g_u):
+    """u = v * rs, rs = 1 / |v|: the cotangent of v."""
+    return (g_u - u * vm.dot(u, g_u)[:, None]) * rs[:, None]
+
+
+def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
+               sig_w):
+    """The pullback of ``diff_step`` at (o, d, c, r) under the cotangents
+    (lam_x, lam_d, sig_w) of (x, d', w): returns (g_o, g_d, g_c, g_r),
+    derived by hand, in the formulas and order of ``bounce_vjp`` in
+    csrc/megakernel_geom.cu (there per lane with branches; here every
+    branch on every lane, then selected)."""
+    z3 = torch.zeros_like(o)
+    is_sph, is_rect, hit = b.kind == SPHERE, b.kind == RECT, b.kind != MISS
+    # Forward quantities.
+    da = _col(d, b.axis)
+    inv = 1.0 / torch.where(da != 0.0, da, 1.0)
+    t_rect = (b.k - _col(o, b.axis)) * inv
+    op = c - o
+    bq = vm.dot(op, d)
+    m = bq[:, None] * d - op
+    m2 = vm.dot(m, m)
+    mlen = torch.where(m2 > 0.0, torch.sqrt(torch.where(m2 > 0.0, m2, 1.0)),
+                       0.0)
+    det = (r - mlen) * (r + mlen)
+    sdet = torch.sqrt(torch.where(det > 0.0, det, 1.0))
+    t = torch.where(is_sph, torch.where(b.near, bq - sdet, bq + sdet),
+                    torch.where(is_rect, t_rect, 0.0))
+    x = torch.where(hit[:, None], o + d * t[:, None], 0.0)
+    v = x - c
+    v2 = vm.dot(v, v)
+    rs_n = vm.rsqrt(torch.where(v2 > 0.0, v2, 1.0))
+    ng = torch.where(is_sph[:, None], v * rs_n[:, None], _onehot(b.axis, x))
+    n = ng * b.sign[:, None]
+
+    # Scatter: the cotangents of x, n, ng and d from (lam_d, sig_w).
+    # DIFF, NEE success: d' = dl = norm(lp - x), w = w_nee.
+    vl = b.lp - x
+    vl2 = vm.dot(vl, vl)
+    rs_l = vm.rsqrt(torch.where(vl2 > 0.0, vl2, 1.0))
+    dl = vl * rs_l[:, None]
+    dla = dl[:, light.axis]
+    inv_l = 1.0 / torch.where(dla != 0.0, dla, 1.0)
+    tl = (light.k - x[:, light.axis]) * inv_l
+    cl = vm.dot(dl, light.ln)
+    a1 = light.area * cl
+    q = torch.abs(a1) / (tl * tl)
+    cs = vm.dot(dl, n)
+    bb = torch.abs(cs) * INV_PI
+    gq = sig_w * bb
+    gb = sig_w * q
+    gcs = gb * INV_PI * torch.sign(cs)
+    ga1 = gq / (tl * tl) * torch.sign(a1)
+    gtl = -2.0 * gq * q / tl
+    gdl = lam_d + light.ln * (ga1 * light.area)[:, None] + n * gcs[:, None]
+    gn_nee = dl * gcs[:, None]
+    e_l = torch.zeros_like(o)
+    e_l[:, light.axis] = 1.0
+    gx_nee = -e_l * (gtl * inv_l)[:, None]
+    gdl = gdl - e_l * (gtl * tl * inv_l)[:, None]
+    gx_nee = gx_nee - _norm_vjp(dl, rs_l, gdl)
+
+    # DIFF, NEE failure: d' = the cosine sample, w = 1.
+    pick = (torch.abs(n[:, 0]) > 0.1)[:, None]
+    e_y = torch.tensor([0.0, 1.0, 0.0], device=x.device)
+    e_x = torch.tensor([1.0, 0.0, 0.0], device=x.device)
+    ax = torch.where(pick, e_y, e_x).expand_as(n)
+    cr = vm.cross(ax, n)
+    cr2 = vm.dot(cr, cr)
+    rs_u = vm.rsqrt(torch.where(cr2 > 0.0, cr2, 1.0))
+    fu = cr * rs_u[:, None]
+    fv = vm.cross(n, fu)
+    sv = (fu * b.alpha[:, None] + fv * b.beta[:, None] + n * b.wz[:, None])
+    sv2 = vm.dot(sv, sv)
+    rs_s = vm.rsqrt(torch.where(sv2 > 0.0, sv2, 1.0))
+    dn = sv * rs_s[:, None]
+    gsv = _norm_vjp(dn, rs_s, lam_d)
+    gfu = gsv * b.alpha[:, None]
+    gfv = gsv * b.beta[:, None]
+    gn_cos = gsv * b.wz[:, None] + vm.cross(fu, gfv)
+    gfu = gfu + vm.cross(gfv, n)
+    gcr = _norm_vjp(fu, rs_u, gfu)
+    gn_cos = gn_cos + vm.cross(gcr, ax)
+
+    # SPEC: d' = reflect(d, ng), w = 1.
+    gd_spec, gng_spec = _reflect_vjp(d, ng, lam_d)
+
+    # REFR.
+    into = b.sign > 0.0
+    nnt = torch.where(into, NNT_INTO, NNT_OUT)
+    ddn = vm.dot(d, n)
+    cos2t = 1.0 - nnt * nnt * (1.0 - ddn * ddn)
+    tir = cos2t < 0.0
+    pos = cos2t > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, cos2t, 1.0)), 0.0)
+    sgn = torch.where(into, 1.0, -1.0)
+    h = sgn * (ddn * nnt + sq)
+    tv = d * nnt[:, None] - ng * h[:, None]
+    tv2 = vm.dot(tv, tv)
+    rs_t = vm.rsqrt(torch.where(tv2 > 0.0, tv2, 1.0))
+    td = tv * rs_t[:, None]
+    cc = 1.0 - torch.where(into, -ddn, vm.dot(td, ng))
+    c4 = cc * cc * cc * cc
+    re = R0 + (1.0 - R0) * c4 * cc
+    tr = 1.0 - re
+    pr = 0.25 + 0.5 * re
+    pick_refl = (b.coin < pr) | tir
+    gre = torch.where(pick_refl, sig_w / pr, -(sig_w / (1.0 - pr)))
+    gpr = torch.where(pick_refl, -sig_w * re / (pr * pr),
+                      sig_w * tr / ((1.0 - pr) * (1.0 - pr)))
+    gre = gre + 0.5 * gpr
+    gcc = torch.where(tir, 0.0, gre * (1.0 - R0) * 5.0 * c4)
+    gddn = torch.where(into, gcc, 0.0)
+    gtd = -ng * torch.where(into, 0.0, gcc)[:, None]
+    gng_refr = -td * torch.where(into, 0.0, gcc)[:, None]
+    gd_r, gng_r = _reflect_vjp(d, ng, lam_d)
+    refl_m = pick_refl[:, None]
+    gd_refr = torch.where(refl_m, gd_r, z3)
+    gng_refr = gng_refr + torch.where(refl_m, gng_r, z3)
+    gtd = gtd + torch.where(refl_m, z3, lam_d)
+    gtv = _norm_vjp(td, rs_t, gtd)
+    gd_refr = gd_refr + gtv * nnt[:, None]
+    gng_refr = gng_refr - gtv * h[:, None]
+    gh = -vm.dot(ng, gtv)
+    gddn = gddn + sgn * nnt * gh
+    gsq = sgn * gh
+    gcos2t = torch.where(pos, gsq * 0.5 / sq, 0.0)
+    gddn = gddn + gcos2t * nnt * nnt * 2.0 * ddn
+    gd_refr = gd_refr + n * gddn[:, None]
+    gn_refr = d * gddn[:, None]
+
+    # Select the scatter's cotangents by material.
+    is_diff = (b.refl == DIFF)[:, None]
+    is_spec = (b.refl == SPEC)[:, None]
+    succ = b.success[:, None]
+    g_x = torch.where(is_diff & succ, gx_nee, z3)
+    g_n = torch.where(is_diff, torch.where(succ, gn_nee, gn_cos),
+                      torch.where(is_spec, z3, gn_refr))
+    g_ng = torch.where(is_diff, z3, torch.where(is_spec, gng_spec, gng_refr))
+    g_d = torch.where(is_diff, z3, torch.where(is_spec, gd_spec, gd_refr))
+
+    # n = sign * ng; ng = norm(x - c) on a sphere winner.
+    g_ng = g_ng + g_n * b.sign[:, None]
+    gv = _norm_vjp(ng, rs_n, g_ng)
+    sph_m = is_sph[:, None]
+    g_x = g_x + torch.where(sph_m, gv, z3)
+    g_c = -torch.where(sph_m, gv, z3)
+    # x = o + d t on a hit.
+    g_x = torch.where(hit[:, None], g_x + lam_x, z3)
+    g_o = g_x
+    g_d = g_d + g_x * t[:, None]
+    g_t = vm.dot(g_x, d)
+    # Rect winner: t = (k - o[a]) / d[a].
+    e_a = _onehot(b.axis, o)
+    rect_m = is_rect[:, None]
+    g_o = g_o - torch.where(rect_m, e_a * (g_t * inv)[:, None], z3)
+    g_d = g_d - torch.where(rect_m, e_a * (g_t * t * inv)[:, None], z3)
+    # Sphere winner: t = b -+ sqrt((r - |m|)(r + |m|)), m = b d - op.
+    g_sd = torch.where(b.near, -g_t, g_t)
+    g_det = g_sd * 0.5 / sdet
+    g_r = torch.where(is_sph, g_det * 2.0 * r, 0.0)
+    g_m2 = torch.where(m2 > 0.0, -g_det, 0.0)
+    g_m = m * (2.0 * g_m2)[:, None]
+    g_b = g_t + vm.dot(g_m, d)
+    g_dd = g_m * bq[:, None] + op * g_b[:, None]
+    g_op = -g_m + d * g_b[:, None]
+    g_o = g_o - torch.where(sph_m, g_op, z3)
+    g_d = g_d + torch.where(sph_m, g_dd, z3)
+    g_c = g_c + torch.where(sph_m, g_op, z3)
+    return g_o, g_d, g_c, g_r
+
+
+# ---------------------------------------------------------------------------
+# The plain version.
+
+def _plain_chunk(n_spheres: int, device) -> int:
+    """Lanes of one autograd chunk: the eager loop keeps every bounce's
+    (N, S) intersection temporaries for the backward, so bound the lanes by
+    the sphere count on the card; the CPU runs one chunk."""
+    if device.type == "cpu":
+        return 1 << 62
+    return max(4096, (1 << 21) // (16 + n_spheres))
+
+
+def geom_run_plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+                   g_img=None, device=None):
+    """The kernel's plain version: the eager regenerating forward on the
+    kernel's lane layout and, with ``g_img``, torch.autograd of
+    sum(g_img * img_sum) through it, the sphere rows and material tables as
+    leaves. With ``g_img`` the lanes run in chunks (``_plain_chunk``: one
+    on the CPU, a bounded number on the card), their gradients summed:
+    exact up to summation order. Returns (img_sum (h, w, 3), g_sph (S, 4), g_alb
+    (K, 3), g_emi (K, 3), traces (2,) int64 [extend, probe]); the
+    gradients are zero without ``g_img``."""
+    check_geom(scene, cfg)
+    device = _resolve(scene, device)
+    sc, cm = scene.to(device), cam.to(device)
+    leaves = pack_tables(sc)
+    n_pix, g, per = _layout(cfg, cfg.spp)
+    pix, s_start, s_stop = lane_layout(n_pix, g, per, 0, device)
+    n = pix.shape[0]
+    grads = [torch.zeros_like(t) for t in leaves]
+    want = g_img is not None
+    if want:
+        g_pix = g_img.detach().to(device=device, dtype=torch.float32)
+        if tuple(g_pix.shape) != (cfg.height, cfg.width, 3):
+            raise ValueError(f"g_img must be ({cfg.height}, {cfg.width}, 3)"
+                             f", got {tuple(g_pix.shape)}")
+        g_lane = g_pix.reshape(n_pix, 3).index_select(0, pix)
+        chunk = _plain_chunk(num_spheres(sc), device)
+    else:
+        chunk = n
+    Ls, traces = [], torch.zeros(2, dtype=torch.int64, device=device)
+    for a in range(0, n, chunk):
+        z = slice(a, min(n, a + chunk))
+        with torch.set_grad_enabled(want):
+            lv = [t.detach().requires_grad_(want) for t in leaves]
+            L, tr = path_trace_regen(scene_with_tables(sc, *lv), cfg,
+                                     int(seed), cm, pix[z], s_start[z],
+                                     s_stop[z])
+            if want:
+                parts = torch.autograd.grad(L, lv, grad_outputs=g_lane[z],
+                                            allow_unused=True)
+                for acc, p in zip(grads, parts):
+                    if p is not None:
+                        acc += p
+        Ls.append(L.detach())
+        traces += tr
+    img = _reduce(torch.cat(Ls), cfg, n_pix, g)
+    return (img, *grads, traces)
+
+
+# ---------------------------------------------------------------------------
+# The kernel.
+
+def _check_spheres(scene: Scene) -> int:
+    S = num_spheres(scene)
+    if S > MAX_GEOM_SPHERES:
+        raise NotImplementedError(
+            f"the geometry-adjoint kernel takes at most {MAX_GEOM_SPHERES} "
+            f"spheres (its per-warp gradient rows and the sphere rows share "
+            f"a block's shared memory), got {S}"
+        )
+    return S
+
+
+def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+            g_img, device, geometry: KernelGeometry | None):
+    global LAUNCHES_GEOM
+    S = _check_spheres(scene)
+    geom = pack_geometry(scene, cam) if geometry is None else geometry
+    R = len(geom.rect_axis)
+    sph, alb, emi, refl = sphere_tables(scene, device)
+    K = R + S
+    n_pix, g, per = _layout(cfg, cfg.spp)
+    n_slots = 6 * K + 4 * S
+    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    counts = torch.zeros(4, dtype=torch.int64, device=device)
+    out = torch.zeros(n_slots, dtype=torch.float32, device=device)
+    if g_img is None:
+        bk, g_ptr, partials = 0, None, out[:0]
+    else:
+        bk = 1
+        g_img = g_img.detach().to(device=device,
+                                  dtype=torch.float32).contiguous()
+        if tuple(g_img.shape) != (cfg.height, cfg.width, 3):
+            raise ValueError(f"g_img must be ({cfg.height}, {cfg.width}, 3)"
+                             f", got {tuple(g_img.shape)}")
+        g_ptr = g_img.data_ptr()
+        n_blocks = -(-n_pix * g // KERNEL_BLOCK)
+        partials = torch.empty(n_blocks * n_slots, dtype=torch.float32,
+                               device=device)
+    lib = _build.build_kernels().lib
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.spt_megakernel_geom(
+            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
+            *launch_args(geom, cfg, seed, g, per, 0), sph.data_ptr(), S,
+            alb.data_ptr(), emi.data_ptr(), refl.data_ptr(), bk, g_ptr,
+            partials.data_ptr(), partials.numel(), out.data_ptr(),
+            out_l.data_ptr(), counts.data_ptr(), stream,
+        )
+    check_launch(err, "megakernel_geom")
+    LAUNCHES_GEOM += 1
+    g_alb = out[:3 * K].reshape(K, 3)
+    g_emi = out[3 * K:6 * K].reshape(K, 3)
+    g_sph = out[6 * K:].reshape(S, 4)
+    return _reduce(out_l, cfg, n_pix, g), g_sph, g_alb, g_emi, counts
+
+
+def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+             g_img=None, device=None, geometry: KernelGeometry | None = None,
+             with_counts: bool = False):
+    """One launch of the geometry-adjoint kernel (the JAX ``geom_run``).
+
+    With ``g_img=None`` the image-only launch: pass A alone (row 2's loop
+    body, the NEE fold on), the image of megakernel_nee_tab bit for bit,
+    zero gradients. With ``g_img`` (h, w, 3)
+    the adjoint launch: the same image, and the pathwise interior
+    cotangents of sum(g_img * img_sum). The two launches trace the same
+    paths (common random numbers), so a fit step's loss and gradient see
+    one path set. ``geometry`` (``pack_geometry(scene, cam)``) saves the
+    host packing of the rects a call.
+
+    Returns (img_sum (h, w, 3) radiance sum over spp, g_sph (S, 4)
+    [cx, cy, cz, r], g_alb (K, 3), g_emi (K, 3)), and with ``with_counts``
+    the counters: on the card (4,) int64 [extend, probe, replayed bounces,
+    VJP bounces] (the first two pass A's, which are megakernel_nee_tab's);
+    on the CPU (2,) [extend, probe]."""
+    check_geom(scene, cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        img, gs, ga, ge, counts = geom_run_plain(scene, cam, cfg, seed, g_img,
+                                                 device)
+    else:
+        img, gs, ga, ge, counts = _launch(scene, cam, cfg, seed, g_img,
+                                          device, geometry)
+    return (img, gs, ga, ge, counts) if with_counts else (img, gs, ga, ge)
+
+
+def geom_vjp(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+             g_img, device=None, geometry: KernelGeometry | None = None):
+    """The adjoint launch's gradients alone: (g_sph, g_alb, g_emi)."""
+    return geom_run(scene, cam, cfg, seed, g_img, device, geometry)[1:]
+
+
+class RenderSpheres(torch.autograd.Function):
+    """img_sum (h, w, 3) as a function of the sphere rows and material
+    tables. Forward: the image-only launch; backward: the adjoint launch
+    under grad_output with the same seed, so the same paths.
+
+    apply(sph, alb, emi, scene, cam, cfg, seed, geometry=None)"""
+
+    @staticmethod
+    def forward(ctx, sph, alb, emi, scene, cam, cfg, seed, geometry=None):
+        sc = scene_with_tables(scene, sph.detach(), alb.detach(),
+                               emi.detach())
+        ctx.render_args = (sc, cam, cfg, seed, geometry)
+        return geom_run(sc, cam, cfg, seed, geometry=geometry)[0]
+
+    @staticmethod
+    def backward(ctx, g_img):
+        sc, cam, cfg, seed, geometry = ctx.render_args
+        g_sph, g_alb, g_emi = geom_vjp(sc, cam, cfg, seed, g_img,
+                                       geometry=geometry)
+        return g_sph, g_alb, g_emi, None, None, None, None, None
+
+
+def _no_edge_terms(edge_sphere) -> None:
+    if edge_sphere is not None:
+        raise NotImplementedError(
+            "the edge-sampled boundary terms (edge_sphere, fit --fd-sphere "
+            "with a geometry field) need grad/edge.py, which "
+            + _ITEM.format(16))
+
+
+def loss_and_geom_grads(scene: Scene, cam: CameraParams, cfg: RenderConfig,
+                        seed, target, edge_sphere: int | None = None,
+                        geometry: KernelGeometry | None = None):
+    """One geometry-training evaluation: the MSE of the linear mean image
+    against ``target`` (h, w, 3), with the pathwise interior gradients of
+    every sphere's (center, radius) and every object's (albedo, emission).
+    Two launches of one kernel, image then adjoint, so the loss and the
+    gradient see one path set. Returns (loss (), g_sph (S, 4), g_alb
+    (K, 3), g_emi (K, 3))."""
+    _no_edge_terms(edge_sphere)
+    check_geom(scene, cfg)
+    sph, alb, emi = (t.requires_grad_() for t in pack_tables(scene))
+    img_sum = RenderSpheres.apply(sph, alb, emi, scene, cam, cfg, seed,
+                                  geometry)
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=img_sum.device)
+    diff = img_sum / cfg.spp - target
+    loss = torch.mean(diff * diff)
+    g_sph, g_alb, g_emi = torch.autograd.grad(loss, (sph, alb, emi))
+    return loss.detach(), g_sph, g_alb, g_emi
+
+
+def check_fit(fields, sphere_idx: int | None = None, mesh=None) -> None:
+    """fit_geom's refusals: a field outside FIELDS (ValueError), a
+    geometry field of one sphere (its boundary terms, item 16) and a mesh
+    (the sharded step, item 17)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sharded geometry train step (mesh=, queue 2 row 12) "
+            + _ITEM.format(17))
+    bad = [f for f in fields if f not in FIELDS]
+    if bad:
+        raise ValueError(f"fields must be in {FIELDS}, got {bad}")
+    if {"center", "radius"} & set(fields):
+        _no_edge_terms(sphere_idx)
+
+
+def fit_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
+             sphere_idx: int | None = None,
+             fields: tuple[str, ...] = ("center", "radius"), steps: int = 10,
+             lr: float = 1.0, seed: int = 0, log=None, mesh=None):
+    """Sphere inverse rendering through the geometry adjoint, the JAX
+    package's ``fit_pallas_geom`` on one card: normalized-step descent (the
+    direction from the gradient, the step length capped and backtracked on
+    the common-random-number loss; ``lr`` is the initial geometry step in
+    scene units, materials take min(lr, 0.1)), one image and one adjoint
+    launch a step. ``fields``: of center, radius, albedo, emission (the
+    spheres'); ``sphere_idx`` masks the update to one sphere, which with a
+    geometry field would add the edge-sampled boundary terms (item 16).
+
+    Returns (best scene, [losses]); losses[-1] describes the returned
+    scene."""
+    check_fit(fields, sphere_idx, mesh)
+    check_geom(scene, cfg)
+    geometry = (pack_geometry(scene, cam) if scene.device.type == "cuda"
+                else None)
+    cap0_geo, cap0_mat = float(lr), min(float(lr), 0.1)
+    cap_geo, cap_mat = cap0_geo, cap0_mat
+    losses: list[float] = []
+    s, best_loss, best_s = scene, float("inf"), scene
+    R = scene.rects.k.shape[0]
+
+    def msel(arr):
+        if sphere_idx is None:
+            return arr
+        m = torch.zeros(arr.shape[0], dtype=torch.bool, device=arr.device)
+        m[sphere_idx] = True
+        return torch.where(m.reshape((-1,) + (1,) * (arr.ndim - 1)), arr,
+                           0.0)
+
+    def step(grad, cap):
+        nrm = float(torch.linalg.vector_norm(grad))
+        if nrm < 1e-30:
+            return torch.zeros_like(grad)
+        return -cap * grad / nrm
+
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss, g_sph, g_alb, g_emi = loss_and_geom_grads(
+            s, cam, cfg, seed, target, geometry=geometry)
+        loss = float(loss)  # waits for the step's kernels
+        if loss > best_loss:
+            s = best_s
+            cap_geo *= 0.5
+            cap_mat *= 0.5
+            losses.append(best_loss)
+            if log is not None:
+                print(f"step {i}: loss {loss:.6f} rejected (cap -> "
+                      f"{cap_geo:.3f})  seconds "
+                      f"{time.perf_counter() - t0:.6f}", file=log, flush=True)
+            continue
+        best_loss, best_s = loss, s
+        cap_geo = min(1.2 * cap_geo, cap0_geo)
+        cap_mat = min(1.2 * cap_mat, cap0_mat)
+        losses.append(loss)
+        sp = s.spheres
+        if "center" in fields:
+            sp = sp._replace(center=sp.center + step(msel(g_sph[:, :3]),
+                                                     cap_geo))
+        if "radius" in fields:
+            sp = sp._replace(radius=torch.clamp(
+                sp.radius + step(msel(g_sph[:, 3]), cap_geo), min=1e-3))
+        if "albedo" in fields:
+            sp = sp._replace(albedo=torch.clamp(
+                sp.albedo + step(msel(g_alb[R:]), cap_mat), 0.0, 1.0))
+        if "emission" in fields:
+            sp = sp._replace(emission=torch.clamp(
+                sp.emission + step(msel(g_emi[R:]), cap_mat), min=0.0))
+        s = s._replace(spheres=sp)
+        if log is not None:
+            idx = sphere_idx if sphere_idx is not None else 0
+            cc = [round(v, 3) for v in s.spheres.center[idx].tolist()]
+            print(f"step {i}: loss {loss:.6f} center {cc} radius "
+                  f"{float(s.spheres.radius[idx]):.3f}  seconds "
+                  f"{time.perf_counter() - t0:.6f}", file=log, flush=True)
+    return best_s, losses
