@@ -428,7 +428,7 @@ def geom_phases(card: str, cli_main) -> dict:
                            f"its largest entry > {tol}")
         if bad:
             raise AssertionError(f"{name}: " + "; ".join(bad))
-        _, groups, _ = megakernel._layout(cfg, cfg.spp)
+        groups = megakernel.full_layout(cfg).g
         b = geom_bound(counts.tolist(), n_pix * 4, n_pix,
                        sc.rects.k.shape[0], sc.spheres.radius.shape[0],
                        -(-n_pix * groups // mgeo.KERNEL_BLOCK))
@@ -460,12 +460,12 @@ def geom_phases(card: str, cli_main) -> dict:
     phase("main path, cli fit --train center,radius --scene cornell_spheres "
           "1024x768x512, 5 steps")
     out, err_io = io.StringIO(), io.StringIO()
-    mgeo.LAUNCHES_GEOM = 0
+    megakernel.LAUNCHES.clear()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err_io):
         rc = cli_main(["fit", "--scene", "cornell_spheres", "--width", "1024",
                        "--height", "768", "--spp", "512", "--steps", "5",
                        "--train", "center,radius"])
-    launches = mgeo.LAUNCHES_GEOM
+    launches = megakernel.LAUNCHES["megakernel_geom"]
     for line in err_io.getvalue().strip().splitlines():
         log("[smoke] cli fit: " + line)
     if rc != 0:
@@ -504,10 +504,10 @@ def geom_phases(card: str, cli_main) -> dict:
                            with_counts=True)[4].tolist()
     img_ms = event_ms(lambda: mgeo.geom_run(sc, cam, cfg, 0,
                                             geometry=geometry), 3)
-    before = megakernel.LAUNCHES_TAB
+    before = megakernel.LAUNCHES["megakernel_nee_tab"]
     tab_ms = event_ms(lambda: megakernel.render_megakernel(sc, cam, cfg, 0),
                       3)
-    if megakernel.LAUNCHES_TAB != before + 3:
+    if megakernel.LAUNCHES["megakernel_nee_tab"] != before + 3:
         raise AssertionError("cornell_spheres did not go through "
                              "megakernel_nee_tab")
     adj_ms = event_ms(lambda: mgeo.geom_run(sc, cam, cfg, 0, g,
@@ -525,6 +525,608 @@ def geom_phases(card: str, cli_main) -> dict:
         f"{b512_alg[0]:.3f} ms)")
     res["cornell_spheres"]["launches"] = launches
     return res["cornell_spheres"]
+
+
+# The sharded rows (6, 7, 10 and 12): the mesh of the per-shard phases and
+# of the main path, and the main path's 4 ranks on the one card. NCCL
+# refuses two ranks on one device, so those ranks use gloo, which stages the
+# CUDA tensors of each collective through host memory.
+SHARD_MESH = (2, 2)
+MESH_RANKS = 4
+MESH_BACKEND = "gloo"
+MESH_TIMEOUT = 300.0
+FIT_MESH_STEPS = 2
+# The sharded against the unsharded run (tests/test_distributed.py's bar):
+# images within the sum order, traces exactly; the train steps' loss within
+# 1e-5 and gradients within 1e-5 absolute (__graft_entry__.py:151-183).
+SHARD_RTOL, SHARD_ATOL, STEP_TOL = 2e-5, 2e-6, 1e-5
+
+
+def mesh_rank(paths: list, mat_step: bool) -> dict:
+    """One rank of the main path over the 2x2 mesh (run by
+    ``launcher.spawn``): each ``cli`` argv of ``paths`` [(label, argv)],
+    ``launcher.distributed_render`` of ``cornell_box`` at 1024x768x512
+    (the multi-rank entry point of the library), then, with ``mat_step``,
+    one ``material_train_step_sharded`` step at 1024x768x512 (the entry
+    point a user calls: the JAX package has no CLI path for it). The launch
+    counts are set to 0 just before each path and read just after. Returns
+    {label: {rc, launches, stdout, stderr, seconds}} with host values
+    only."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.cli import main as cli_main
+    from small_pathtracer_tpu_torch.core import film
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
+    from small_pathtracer_tpu_torch.parallel import launcher
+    from small_pathtracer_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    for label, argv in paths:
+        out_io, err_io = io.StringIO(), io.StringIO()
+        megakernel.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with (contextlib.redirect_stdout(out_io),
+              contextlib.redirect_stderr(err_io)):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        out[label] = {"rc": rc, "launches": dict(megakernel.LAUNCHES),
+                      "stdout": out_io.getvalue(),
+                      "stderr": err_io.getvalue(),
+                      "seconds": time.perf_counter() - t0}
+    sc = get_scene("cornell_box")
+    cam = make_camera(aspect=1024 / 768)
+    cfg = RenderConfig(width=1024, height=768, spp=512, seed=0)
+    megakernel.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    img, traces = launcher.distributed_render(
+        sc, cam, cfg, backend=MESH_BACKEND, device="cuda",
+        mesh_shape=SHARD_MESH)
+    torch.cuda.synchronize()
+    out["distributed_render"] = {
+        "rc": 0, "launches": dict(megakernel.LAUNCHES), "traces": traces,
+        "u8": film.tonemap_u8(img).cpu().numpy(),
+        "seconds": time.perf_counter() - t0}
+    if mat_step:
+        target = _mat_target(sc, cam, cfg)
+        mesh = make_mesh(SHARD_MESH)
+        step = mg.material_train_step_sharded(sc, cam, cfg, mesh, target)
+        alb, emi = mg.pack_materials(sc)
+        megakernel.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, galb, gemi = step(alb, emi, 0)
+        torch.cuda.synchronize()
+        out["row10"] = {"rc": 0, "launches": dict(megakernel.LAUNCHES),
+                        "loss": float(loss), "galb": galb.cpu().numpy(),
+                        "gemi": gemi.cpu().numpy(),
+                        "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _mat_target(sc, cam, cfg):
+    """cli fit's self-test target: the scene with emission x1.5 at seed 1."""
+    from small_pathtracer_tpu_torch.ops import megakernel
+
+    bright = sc._replace(rects=sc.rects._replace(
+        emission=sc.rects.emission * 1.5))
+    return megakernel.render_megakernel(bright, cam, cfg, 1)[0] / cfg.spp
+
+
+def shard_phases(card: str, cli_main, guide_alcove) -> list:
+    """Rows 7, 6, 10 and 12 on a shard's lanes: each coordinate of a 2x2
+    mesh (``Mesh.single``, one process) at 1024x768x4 against its plain
+    version (forward launches bit for bit, adjoint partials to rows 9 and
+    11's contracts), the shards' sums against the unsharded kernels; ``cli
+    render --mesh 1x1`` in one NCCL process against ``cli render`` byte for
+    byte; and the main path as 4 gloo ranks on the card: ``cli render
+    --mesh 2x2`` (``cornell_box``, ``sphere_grid``, ``--guided`` alcove),
+    ``distributed_render`` of ``cornell_box``, one
+    ``material_train_step_sharded`` step and ``cli fit --train
+    center,radius --mesh 2x2`` (2 steps), all at 1024x768x512. Returns the
+    ``kernels`` entries of the four rows."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.core import film
+    from small_pathtracer_tpu_torch.ops import _build, megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+    from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
+    from small_pathtracer_tpu_torch.parallel import launcher
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+
+    width, height = 1024, 768
+    n_pix = width * height
+    cam = make_camera(aspect=width / height)
+    coords = [(i, j) for i in range(SHARD_MESH[0])
+              for j in range(SHARD_MESH[1])]
+    n_loc = n_pix // SHARD_MESH[0]
+    coll_bytes = n_pix * 3 * 4  # the image all-reduce of a span
+    launched = megakernel.LAUNCHES
+
+    def lanes(cfg):
+        """The lanes of all the coordinates' launches."""
+        return sum(lay.n_pix_loc * lay.g for lay in (
+            megakernel.shard_of(cfg, Mesh.single(SHARD_MESH, c))
+            for c in coords))
+
+    def assemble(parts):
+        rows = []
+        for i in range(SHARD_MESH[0]):
+            acc = parts[(i, 0)]
+            for j in range(1, SHARD_MESH[1]):
+                acc = acc + parts[(i, j)]
+            rows.append(acc)
+        return torch.cat(rows)
+
+    def per_shard(label, name, kernel_fn, plain_fn, exact=True):
+        """Each coordinate's launch against its plain version, in turns
+        (plain, kernel, kernel, plain): bit for bit when ``exact``; the
+        kernel runs of a coordinate bit-identical. Returns ({coord: kernel
+        output}, largest |kernel - plain|, summed medians (kernel s, plain
+        s))."""
+        ks, err, k_sum, p_sum = {}, 0.0, 0.0, 0.0
+        for c in coords:
+            m = Mesh.single(SHARD_MESH, c)
+            before = launched[name]
+            outs, med = in_turns({"kernel": lambda: kernel_fn(m),
+                                  "plain": lambda: plain_fn(m)},
+                                 ("plain", "kernel", "kernel", "plain"))
+            if launched[name] != before + 2:
+                raise AssertionError(f"{label} {c}: {name} did not count 2 "
+                                     "launches")
+            k1, k2 = outs["kernel"]
+            if not all(torch.equal(a, b) for a, b in zip(k1, k2)):
+                raise AssertionError(f"{label} {c}: kernel runs differ")
+            if exact and not all(torch.equal(a, b)
+                                 for a, b in zip(k1, outs["plain"][0])):
+                raise AssertionError(f"{label} {c}: kernel and plain "
+                                     "version differ")
+            ks[c] = k1
+            err = max([err] + [float((a.double() - b.double()).abs().max())
+                               for a, b in zip(k1, outs["plain"][0])])
+            k_sum += med["kernel"]
+            p_sum += med["plain"]
+        log(f"[smoke] {label} per shard {width}x{height}x4, mesh "
+            f"{SHARD_MESH}, coords {coords}: {name} == plain"
+            f"{' bit for bit' if exact else ''} on every coordinate; "
+            f"kernel {k_sum * 1e3:.3f} ms, plain {p_sum * 1e3:.3f} ms "
+            f"(sums of the coordinates' medians)")
+        return ks, err, (k_sum, p_sum)
+
+    def check_sum(label, img, tr, want_img, want_tr):
+        err = float((img.reshape(want_img.shape) - want_img).abs().max())
+        ok = torch.allclose(img.reshape(want_img.shape), want_img,
+                            rtol=SHARD_RTOL, atol=SHARD_ATOL)
+        log(f"[smoke] {label} shard sum: traces {tr.tolist()} (unsharded "
+            f"{want_tr.tolist()}), max |image - unsharded| {err:.3e}")
+        if not (ok and torch.equal(tr, want_tr)):
+            raise AssertionError(f"{label}: the shards' sum differs from the "
+                                 "unsharded kernel")
+        return err
+
+    entries, res = {}, {}
+    # Row 7 on cornell_box (megakernel_nee) and sphere_grid (_tab).
+    for scene_name, name in (("cornell_box", "megakernel_nee"),
+                             ("sphere_grid", "megakernel_nee_tab")):
+        phase(f"row 7 per shard on {scene_name} {width}x{height}x4, mesh "
+              f"{SHARD_MESH}")
+        sc = get_scene(scene_name)
+        cfg = RenderConfig(width=width, height=height, spp=4, seed=3)
+        ks, err, (k_s, p_s) = per_shard(
+            f"row 7 {scene_name}", name,
+            lambda m: megakernel.render_megakernel_sharded(sc, cam, cfg, m, 3),
+            lambda m: megakernel.render_megakernel_sharded_plain(
+                sc, cam, cfg, m, 3))
+        tr = sum(v[1] for v in ks.values())
+        want, want_tr = megakernel.render_megakernel(sc, cam, cfg, 3)
+        check_sum(f"row 7 {scene_name}", assemble(
+            {c: v[0] for c, v in ks.items()}), tr, want, want_tr)
+        b = forward_bound(tr.tolist(), n_pix * 4, lanes(cfg),
+                          sc.rects.k.shape[0], sc.spheres.radius.shape[0],
+                          coll_bytes)
+        res[name] = {"err": err, "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+                     "bound": b}
+
+    phase(f"row 6 per shard on cornell_alcove_baffled nee_textbook "
+          f"{width}x{height}x4, mesh {SHARD_MESH}")
+    alcove = get_scene("cornell_alcove_baffled")
+    cfg = RenderConfig(width=width, height=height, spp=4, seed=12,
+                       estimator="nee_textbook")
+    ks, err, (k_s, p_s) = per_shard(
+        "row 6", "megakernel_guided",
+        lambda m: megakernel.render_megakernel_guided_sharded(
+            alcove, cam, cfg, m, 12, guide_alcove, GUIDE_BETA, GUIDE_K),
+        lambda m: megakernel.render_megakernel_guided_sharded_plain(
+            alcove, cam, cfg, m, 12, guide_alcove, GUIDE_BETA, GUIDE_K))
+    tr = sum(v[1] for v in ks.values())
+    want, want_tr = megakernel.render_megakernel_guided(
+        alcove, cam, cfg, 12, guide_alcove, GUIDE_BETA, GUIDE_K)
+    check_sum("row 6", assemble({c: v[0] for c, v in ks.items()}), tr,
+              want, want_tr)
+    b = forward_bound(tr.tolist(), n_pix * 4, lanes(cfg),
+                      alcove.rects.k.shape[0], 0, 1620 * 4 + coll_bytes,
+                      "nee_textbook")
+    res["megakernel_guided"] = {"err": err, "ms": k_s * 1e3,
+                                "plain_ms": p_s * 1e3, "bound": b}
+
+    # Rows 10 and 12: each shard's forward and adjoint partials, then a
+    # train step's collectives done by hand over the shards against the
+    # unsharded step (a seeded target, so the gradients are a loss's).
+    rng = np.random.default_rng(21)
+    target = torch.from_numpy(rng.uniform(0.0, 0.6, (height, width, 3))
+                              .astype(np.float32)).to("cuda")
+
+    def step_by_hand(forward, adjoint, cfg):
+        fw = {c: forward(Mesh.single(SHARD_MESH, c)) for c in coords}
+        img = assemble(fw)
+        diff = img / torch.tensor(float(cfg.spp), device="cuda") \
+            - target.reshape(n_pix, 3)
+        loss = float(torch.sum(diff.double() ** 2)) / (n_pix * 3)
+        g = diff * torch.tensor(2.0 / (n_pix * 3 * cfg.spp), device="cuda")
+        grads = None
+        for c in coords:
+            part = adjoint(Mesh.single(SHARD_MESH, c),
+                           g[c[0] * n_loc:(c[0] + 1) * n_loc])
+            grads = list(part) if grads is None else [
+                a + b_ for a, b_ in zip(grads, part)]
+        return loss, g, grads
+
+    phase(f"row 10 per shard on cornell_box {width}x{height}x4: forward and "
+          "adjoint partials, and a train step by hand")
+    box = get_scene("cornell_box")
+    cfg = RenderConfig(width=width, height=height, spp=4, seed=3)
+    alb, emi = mg.pack_materials(box)
+    ks, err, (k_s, p_s) = per_shard(
+        "row 10 forward", "megakernel_nee_mat",
+        lambda m: mg.render_megakernel_mat_shard(box, cam, cfg, m, alb, emi,
+                                                 3),
+        lambda m: mg.render_megakernel_mat_shard_plain(box, cam, cfg, m, alb,
+                                                       emi, 3))
+    tr10 = sum(v[1] for v in ks.values())
+    loss, g, grads = step_by_hand(
+        lambda m: mg.render_megakernel_mat_shard(box, cam, cfg, m, alb, emi,
+                                                 3)[0],
+        lambda m, g_: mg.render_megakernel_vjp_shard(box, cam, cfg, m, alb,
+                                                     emi, 3, g_), cfg)
+    worst = vjp_err = 0.0
+    vk_s = vp_s = 0.0
+    for c in coords:
+        m = Mesh.single(SHARD_MESH, c)
+        g_c = g[c[0] * n_loc:(c[0] + 1) * n_loc]
+        outs, med = in_turns(
+            {"kernel": lambda: mg.render_megakernel_vjp_shard(
+                box, cam, cfg, m, alb, emi, 3, g_c),
+             "plain": lambda: mg.render_megakernel_vjp_shard_plain(
+                 box, cam, cfg, m, alb, emi, 3, g_c)},
+            ("plain", "kernel", "kernel", "plain"))
+        vk_s += med["kernel"]
+        vp_s += med["plain"]
+        for kt, pt in zip(outs["kernel"][0], outs["plain"][0]):
+            scale = float(pt.abs().max())
+            e = float((kt - pt).abs().max())
+            worst = max(worst, e / scale)
+            vjp_err = max(vjp_err, e)
+            if not e <= VJP_TOL * scale:
+                raise AssertionError(f"row 10 adjoint partial {c}: {e} > "
+                                     f"{VJP_TOL} x {scale}")
+        if not all(torch.equal(a, b_) for a, b_ in zip(*outs["kernel"])):
+            raise AssertionError(f"row 10 adjoint partial {c}: runs differ")
+    w_loss, w_alb, w_emi = mg.loss_and_material_grads(box, cam, cfg, 3,
+                                                      target)
+    d_loss = abs(loss - float(w_loss))
+    d_g = max(float((grads[0] - w_alb).abs().max()),
+              float((grads[1] - w_emi).abs().max()))
+    log(f"[smoke] row 10 adjoint partials: within {worst:.3e} of each "
+        f"table's largest entry of autograd (limit {VJP_TOL:g}), kernel "
+        f"{vk_s * 1e3:.3f} ms, plain {vp_s * 1e3:.3f} ms; step by hand: "
+        f"loss {loss:.9f} vs unsharded {float(w_loss):.9f} (|d| {d_loss:.3e})"
+        f", gradients |d| {d_g:.3e} (limits {STEP_TOL:g})")
+    if not (d_loss <= STEP_TOL and d_g <= STEP_TOL):
+        raise AssertionError("row 10: the shards' step differs from the "
+                             "unsharded step")
+    k_box = box.rects.k.shape[0]
+    res["megakernel_nee_mat"] = {
+        "err": err, "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+        "bound": forward_bound(tr10.tolist(), n_pix * 4, lanes(cfg), k_box,
+                               0, coll_bytes)}
+    vb = vjp_bound(tr10.tolist(), n_pix * 4, n_pix, k_box)
+    res["megakernel_vjp"] = {
+        "err": vjp_err, "ms": vk_s * 1e3, "plain_ms": vp_s * 1e3,
+        "bound": (vb[0] + 2 * k_box * 12 / BYTES_PER_S * 1e3, vb[1])}
+
+    phase(f"row 12 per shard on cornell_spheres {width}x{height}x4: image "
+          "and adjoint partials, and a train step by hand")
+    sph_sc = get_scene("cornell_spheres")
+    cfg = RenderConfig(width=width, height=height, spp=4, seed=3)
+    ks, err, (k_s, p_s) = per_shard(
+        "row 12 image", "megakernel_geom",
+        lambda m: mgeo.geom_run_shard(sph_sc, cam, cfg, m, 3)[0:1],
+        lambda m: mgeo.geom_run_shard_plain(sph_sc, cam, cfg, m, 3)[0:1])
+    loss, g, grads = step_by_hand(
+        lambda m: mgeo.geom_run_shard(sph_sc, cam, cfg, m, 3)[0],
+        lambda m, g_: mgeo.geom_run_shard(sph_sc, cam, cfg, m, 3, g_)[1:4],
+        cfg)
+    worst, gk_s, gp_s, counts = 0.0, 0.0, 0.0, None
+    tol_mat, tol_sph = GEOM_TOL["cornell_spheres"]
+    for c in coords:
+        m = Mesh.single(SHARD_MESH, c)
+        g_c = g[c[0] * n_loc:(c[0] + 1) * n_loc]
+        out_k, sec_k = timed(lambda: mgeo.geom_run_shard(sph_sc, cam, cfg, m,
+                                                          3, g_c))
+        out_p, sec_p = timed(lambda: mgeo.geom_run_shard_plain(
+            sph_sc, cam, cfg, m, 3, g_c))
+        gk_s += sec_k
+        gp_s += sec_p
+        counts = out_k[4] if counts is None else counts + out_k[4]
+        for kt, pt, tol in zip(out_k[1:4], out_p[1:4],
+                               (tol_sph, tol_mat, tol_mat)):
+            ratio, row, _ = worst_row(kt, pt)
+            worst = max(worst, ratio)
+            err = max(err, float((kt - pt).abs().max()))
+            if not ratio <= tol:
+                raise AssertionError(f"row 12 adjoint partial {c}: row {row} "
+                                     f"off by {ratio:.3e} > {tol}")
+    w_loss, w_sph, w_alb, w_emi = mgeo.loss_and_geom_grads(sph_sc, cam, cfg,
+                                                           3, target)
+    d_loss = abs(loss - float(w_loss))
+    d_g = max(float((a - b_).abs().max())
+              for a, b_ in zip(grads, (w_sph, w_alb, w_emi)))
+    log(f"[smoke] row 12 adjoint partials: worst row {worst:.3e} of its own "
+        f"largest entry of autograd (limits {GEOM_TOL['cornell_spheres']}), "
+        f"kernel {gk_s * 1e3:.3f} ms, plain {gp_s * 1e3:.3f} ms; counts "
+        f"{counts.tolist()}; step by hand: loss {loss:.9f} vs unsharded "
+        f"{float(w_loss):.9f} (|d| {d_loss:.3e}), gradients |d| {d_g:.3e} "
+        f"(limits {STEP_TOL:g})")
+    if not (d_loss <= STEP_TOL and d_g <= STEP_TOL):
+        raise AssertionError("row 12: the shards' step differs from the "
+                             "unsharded step")
+    gb = geom_bound(counts.tolist(), n_pix * 4, n_pix,
+                    sph_sc.rects.k.shape[0], sph_sc.spheres.radius.shape[0],
+                    -(-lanes(cfg) // mgeo.KERNEL_BLOCK))
+    res["megakernel_geom"] = {
+        "err": err, "ms": gk_s * 1e3, "plain_ms": gp_s * 1e3,
+        "bound": (gb[0] + coll_bytes / BYTES_PER_S * 1e3, gb[1])}
+
+    phase("the shard kernels at 1024x768x512, CUDA events around the four "
+          "coordinates' launches")
+    cfg512 = RenderConfig(width=width, height=height, spp=512, seed=0)
+    cfg512_tb = RenderConfig(width=width, height=height, spp=512, seed=0,
+                             estimator="nee_textbook")
+    meshes = [Mesh.single(SHARD_MESH, c) for c in coords]
+    g512 = torch.full((n_loc, 3), 1e-7, device="cuda")
+
+    def mesh_ms(fn, n=2):
+        """ms of the four coordinates' launches, and their summed traces
+        or counts."""
+        counts = sum(fn(m)[-1] for m in meshes)
+        return event_ms(lambda: [fn(m) for m in meshes], n), counts.tolist()
+
+    x512 = {
+        "megakernel_nee": mesh_ms(lambda m: megakernel.render_megakernel_sharded(
+            box, cam, cfg512, m, 0)),
+        "megakernel_nee_tab": mesh_ms(
+            lambda m: megakernel.render_megakernel_sharded(
+                get_scene("sphere_grid"), cam, cfg512, m, 0)),
+        "megakernel_guided": mesh_ms(
+            lambda m: megakernel.render_megakernel_guided_sharded(
+                alcove, cam, cfg512_tb, m, 0, guide_alcove, GUIDE_BETA,
+                GUIDE_K)),
+        "megakernel_nee_mat": mesh_ms(lambda m: mg.render_megakernel_mat_shard(
+            box, cam, cfg512, m, alb, emi, 0)),
+        "megakernel_vjp": (event_ms(lambda: [mg.render_megakernel_vjp_shard(
+            box, cam, cfg512, m, alb, emi, 0, g512) for m in meshes], 2),
+            None),
+        "megakernel_geom": mesh_ms(lambda m: mgeo.geom_run_shard(
+            sph_sc, cam, cfg512, m, 0, g512), 1),
+    }
+    geom_img_ms = event_ms(lambda: [mgeo.geom_run_shard(
+        sph_sc, cam, cfg512, m, 0) for m in meshes], 2)
+    tr_box512 = x512["megakernel_nee_mat"][1]
+    b512 = {
+        "megakernel_nee": forward_bound(x512["megakernel_nee"][1],
+                                        n_pix * 512, lanes(cfg512), k_box, 0,
+                                        coll_bytes),
+        "megakernel_nee_tab": forward_bound(
+            x512["megakernel_nee_tab"][1], n_pix * 512, lanes(cfg512),
+            get_scene("sphere_grid").rects.k.shape[0],
+            get_scene("sphere_grid").spheres.radius.shape[0], coll_bytes),
+        "megakernel_guided": forward_bound(
+            x512["megakernel_guided"][1], n_pix * 512, lanes(cfg512),
+            alcove.rects.k.shape[0], 0, 1620 * 4 + coll_bytes,
+            "nee_textbook"),
+        "megakernel_nee_mat": forward_bound(tr_box512, n_pix * 512,
+                                            lanes(cfg512), k_box, 0,
+                                            coll_bytes),
+        "megakernel_vjp": vjp_bound(tr_box512, n_pix * 512, n_pix, k_box),
+        "megakernel_geom": geom_bound(
+            x512["megakernel_geom"][1], n_pix * 512, n_pix,
+            sph_sc.rects.k.shape[0], sph_sc.spheres.radius.shape[0],
+            -(-lanes(cfg512) // mgeo.KERNEL_BLOCK)),
+    }
+    for name, (ms, counts) in x512.items():
+        res[name]["ms512"] = ms
+        log(f"[smoke] {name} on the 2x2 shards 1024x768x512 seed 0: "
+            f"{ms:.3f} ms for the four launches (CUDA events), counts "
+            f"{counts if counts is not None else tr_box512}; bound "
+            f"{b512[name][0]:.3f} ms ({b512[name][1]})")
+    log(f"[smoke] megakernel_geom image-only on the 2x2 shards 1024x768x512: "
+        f"{geom_img_ms:.3f} ms for the four launches")
+
+    base = ["--width", str(width), "--height", str(height), "--spp", "512"]
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("cli render --mesh 1x1 1024x768x512 in one NCCL process "
+              "against cli render")
+        a, b_ = os.path.join(tmp, "plain.ppm"), os.path.join(tmp, "m11.ppm")
+        launched.clear()
+        text_a = cli_stderr(cli_main, ["render", *base, "-o", a])
+        n_plain = launched["megakernel_nee"]
+        launched.clear()
+        text_b = cli_stderr(cli_main, ["render", *base, "--mesh", "1x1",
+                                       "--dist-backend", "nccl", "-o", b_])
+        n_mesh = launched["megakernel_nee"]
+        same = Path(a).read_bytes() == Path(b_).read_bytes()
+        tr_a, tr_b = cli_traces(text_a)[0], cli_traces(text_b)[0]
+        log(f"[smoke] cli render --mesh 1x1 (nccl): {n_mesh} shard launch of "
+            f"megakernel_nee, traces {tr_b} (cli render: {n_plain} launch, "
+            f"{tr_a}); output bytes equal: {same}")
+        if not (same and n_plain == 1 and n_mesh == 1 and tr_a == tr_b):
+            raise AssertionError("cli render --mesh 1x1 differs from cli "
+                                 "render")
+        ref_img = film.read_ppm(a)
+
+        phase("unsharded references at 1024x768x512: cli render sphere_grid, "
+              "--guided alcove, cli fit --train center,radius (2 steps), the "
+              "material step")
+        sg_ppm = os.path.join(tmp, "sg.ppm")
+        tr_sg = cli_traces(cli_stderr(cli_main, [
+            "render", *base, "--scene", "sphere_grid", "-o", sg_ppm]))[0]
+        gd_ppm = os.path.join(tmp, "gd.ppm")
+        alc = ["--scene", "cornell_alcove_baffled", "--estimator",
+               "nee_textbook", "--guided"]
+        text_g = cli_stderr(cli_main, ["render", *base, *alc, "-o", gd_ppm])
+        tr_gd, sec_gd = cli_traces(text_g)
+        fit_argv = ["fit", *base, "--scene", "cornell_spheres", "--steps",
+                    str(FIT_MESH_STEPS), "--train", "center,radius"]
+        out_io, err_io = io.StringIO(), io.StringIO()
+        with (contextlib.redirect_stdout(out_io),
+              contextlib.redirect_stderr(err_io)):
+            if cli_main(fit_argv) != 0:
+                raise AssertionError("cli fit returned non-zero")
+        fit_losses = [float(x) for x in re.findall(
+            r"step \d+: loss (\S+)", err_io.getvalue())]
+        w_loss, w_alb, w_emi = mg.loss_and_material_grads(
+            box, cam, cfg512, 0, _mat_target(box, cam, cfg512))
+
+        phase(f"main path over a {SHARD_MESH[0]}x{SHARD_MESH[1]} mesh: "
+              f"{MESH_RANKS} {MESH_BACKEND} ranks on the card, cli render "
+              "(cornell_box, sphere_grid, --guided alcove), distributed_render"
+              " (cornell_box), the material "
+              f"step, cli fit --train center,radius ({FIT_MESH_STEPS} steps)"
+              ", all 1024x768x512")
+        mesh_arg = ["--mesh", f"{SHARD_MESH[0]}x{SHARD_MESH[1]}",
+                    "--dist-backend", MESH_BACKEND]
+        paths = [
+            ("box", ["render", *base, *mesh_arg,
+                     "-o", os.path.join(tmp, "mbox.ppm")]),
+            ("sphere_grid", ["render", *base, "--scene", "sphere_grid",
+                             *mesh_arg, "-o", os.path.join(tmp, "msg.ppm")]),
+            ("guided", ["render", *base, *alc, *mesh_arg,
+                        "-o", os.path.join(tmp, "mgd.ppm")]),
+            ("fit", [*fit_argv, *mesh_arg]),
+        ]
+        t0 = time.perf_counter()
+        ranks = launcher.spawn(mesh_rank, MESH_RANKS, MESH_BACKEND, "cuda",
+                               MESH_TIMEOUT, args=(paths, True))
+        spawn_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        for r in ranks:
+            for label, v in r.items():
+                if v["rc"] != 0:
+                    raise AssertionError(f"mesh path {label} returned "
+                                         f"{v['rc']}")
+        launches = {}
+        for label in ("box", "sphere_grid", "guided", "fit",
+                      "distributed_render", "row10"):
+            tot = {}
+            for r in ranks:
+                for k, n in r[label]["launches"].items():
+                    tot[k] = tot.get(k, 0) + n
+            launches[label] = tot
+            log(f"[smoke] mesh {label}: launches over the ranks {tot}, "
+                f"rank seconds {[round(r[label]['seconds'], 3) for r in ranks]}")
+        for line in (r0["box"]["stderr"] + r0["guided"]["stderr"]
+                     + r0["fit"]["stderr"]).strip().splitlines():
+            log("[smoke] mesh rank 0: " + line)
+        need = {"box": ("megakernel_nee", MESH_RANKS),
+                "sphere_grid": ("megakernel_nee_tab", MESH_RANKS),
+                "guided": ("megakernel_guided", MESH_RANKS),
+                "distributed_render": ("megakernel_nee", MESH_RANKS),
+                "row10": ("megakernel_nee_mat", MESH_RANKS),
+                # Each rank's cli fit renders its target in one image-only
+                # launch, then takes 2 shard launches a step.
+                "fit": ("megakernel_geom",
+                        (1 + 2 * FIT_MESH_STEPS) * MESH_RANKS)}
+        for label, (name, n) in need.items():
+            if launches[label].get(name, 0) != n:
+                raise AssertionError(f"mesh {label}: {name} launched "
+                                     f"{launches[label].get(name, 0)} times, "
+                                     f"not {n}")
+        if launches["row10"].get("megakernel_vjp", 0) != MESH_RANKS:
+            raise AssertionError("the material step did not launch "
+                                 "megakernel_vjp on every rank")
+        tr_box, sec_box = cli_traces(r0["box"]["stderr"])
+        m_img = film.read_ppm(os.path.join(tmp, "mbox.ppm"))
+        eq = float(np.mean(m_img == ref_img))
+        gap = int(np.abs(m_img.astype(int) - ref_img.astype(int)).max())
+        tr_msg = cli_traces(r0["sphere_grid"]["stderr"])[0]
+        tr_mgd, sec_mgd = cli_traces(r0["guided"]["stderr"])
+        m_losses = [float(x) for x in re.findall(
+            r"step \d+: loss (\S+)", r0["fit"]["stderr"])]
+        sec_1 = cli_traces(text_a)[1]
+        log(f"[smoke] main path mesh 2x2 ({MESH_BACKEND}, {MESH_RANKS} ranks "
+            f"on one card, {spawn_s:.3f} s with start-up): cli render box "
+            f"{sec_box:.3f} s wall, traces {tr_box} (one rank: {sec_1:.3f} s,"
+            f" {tr_a}); {eq:.4%} of bytes equal, largest gap {gap} levels; "
+            f"sphere_grid traces {tr_msg} (one rank {tr_sg}); guided "
+            f"{sec_mgd:.3f} s, traces {tr_mgd} (one rank {sec_gd:.3f} s, "
+            f"{tr_gd}); fit losses {m_losses} (one rank {fit_losses}); "
+            f"material step loss {r0['row10']['loss']:.9f} (unsharded "
+            f"{float(w_loss):.9f}) in {r0['row10']['seconds']:.3f} s on "
+            f"{card}")
+        if not (tr_box == tr_a and tr_msg == tr_sg and tr_mgd == tr_gd
+                and eq >= 0.999 and gap <= 1):
+            raise AssertionError("the mesh renders differ from the unsharded "
+                                 "ones")
+        dr = r0["distributed_render"]
+        dr_eq = float(np.mean(dr["u8"] == ref_img))
+        dr_gap = int(np.abs(dr["u8"].astype(int) - ref_img.astype(int)).max())
+        log(f"[smoke] distributed_render box 2x2 ({MESH_BACKEND}): "
+            f"{dr['seconds']:.3f} s on rank 0, traces "
+            f"{[r['distributed_render']['traces'] for r in ranks]} (one "
+            f"rank: {tr_a}); {dr_eq:.4%} of bytes equal to cli render's, "
+            f"largest gap {dr_gap} levels; bytes equal to cli render --mesh "
+            f"2x2: {bool(np.array_equal(dr['u8'], m_img))}")
+        if not (all(r["distributed_render"]["traces"] == tr_a for r in ranks)
+                and dr_eq >= 0.999 and dr_gap <= 1):
+            raise AssertionError("distributed_render differs from the "
+                                 "unsharded render")
+        if not (len(m_losses) == FIT_MESH_STEPS
+                and m_losses[-1] < m_losses[0]
+                and all(abs(x - y) <= STEP_TOL
+                        for x, y in zip(m_losses, fit_losses))):
+            raise AssertionError(f"the mesh fit's losses {m_losses} did not "
+                                 f"fall or differ from {fit_losses}")
+        d_g = max(float(np.abs(r0["row10"]["galb"]
+                               - w_alb.cpu().numpy()).max()),
+                  float(np.abs(r0["row10"]["gemi"]
+                               - w_emi.cpu().numpy()).max()))
+        if not (abs(r0["row10"]["loss"] - float(w_loss)) <= STEP_TOL
+                and d_g <= STEP_TOL):
+            raise AssertionError(f"the material step over the mesh differs "
+                                 f"from the unsharded one (gradients {d_g})")
+        for r in ranks[1:]:
+            if r["row10"]["loss"] != r0["row10"]["loss"]:
+                raise AssertionError("the ranks' losses differ")
+        if _build.build_kernels().build_seconds != 0.0:
+            raise AssertionError("a rank rebuilt the library")
+
+    main = {"megakernel_nee": launches["box"]["megakernel_nee"]
+            + launches["distributed_render"]["megakernel_nee"],
+            "megakernel_nee_tab": launches["sphere_grid"]["megakernel_nee_tab"],
+            "megakernel_guided": launches["guided"]["megakernel_guided"],
+            "megakernel_nee_mat": launches["row10"]["megakernel_nee_mat"],
+            "megakernel_vjp": launches["row10"]["megakernel_vjp"],
+            "megakernel_geom": launches["fit"]["megakernel_geom"]}
+    replaces = {"megakernel_nee": "megakernel.py:3370",
+                "megakernel_nee_tab": "megakernel.py:3370 (sphere_tab)",
+                "megakernel_guided": "megakernel.py:3241",
+                "megakernel_nee_mat": "megakernel_grad.py:1156",
+                "megakernel_vjp": "megakernel_grad.py:1195",
+                "megakernel_geom": "megakernel_geom.py:1686"}
+    sources = {"megakernel_guided": "megakernel_guided.cu",
+               "megakernel_vjp": "megakernel_grad.cu",
+               "megakernel_geom": "megakernel_geom.cu"}
+    return [(name + " (shard)", sources.get(name, "megakernel.cu"),
+             replaces[name], main[name], res[name]) for name in main]
+
 
 
 def main() -> int:
@@ -668,11 +1270,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cornell_1024x768x512.ppm")
         err = io.StringIO()
-        megakernel.LAUNCHES = 0
+        megakernel.LAUNCHES.clear()
         with contextlib.redirect_stderr(err):
             rc = cli_main(["render", "--width", "1024", "--height", "768",
                            "--spp", "512", "--estimator", "nee", "-o", out])
-        launches = megakernel.LAUNCHES
+        launches = megakernel.LAUNCHES["megakernel_nee"]
         log("[smoke] cli: " + err.getvalue().strip())
         if rc != 0:
             raise AssertionError(f"cli render returned {rc}")
@@ -700,12 +1302,11 @@ def main() -> int:
     fit_argv = ["fit", "--width", "1024", "--height", "768", "--spp", "512",
                 "--steps", "5", "--train", "emission,albedo", "--lr", FIT_LR]
     out, err = io.StringIO(), io.StringIO()
-    megakernel.LAUNCHES = mg.LAUNCHES_MAT = mg.LAUNCHES_VJP = 0
+    megakernel.LAUNCHES.clear()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli_main(fit_argv)
-    fit_launches = {"megakernel_nee": megakernel.LAUNCHES,
-                    "megakernel_nee_mat": mg.LAUNCHES_MAT,
-                    "megakernel_vjp": mg.LAUNCHES_VJP}
+    fit_launches = {k: megakernel.LAUNCHES[k] for k in (
+        "megakernel_nee", "megakernel_nee_mat", "megakernel_vjp")}
     for line in err.getvalue().strip().splitlines():
         log("[smoke] cli fit: " + line)
     if rc != 0:
@@ -768,14 +1369,14 @@ def main() -> int:
         sc = get_scene(name)
         cam = make_camera(aspect=width / height)
         cfg = RenderConfig(width=width, height=height, spp=spp, seed=seed)
-        before = megakernel.LAUNCHES_TAB
+        before = megakernel.LAUNCHES["megakernel_nee_tab"]
         outs, med = in_turns(
             {"kernel": lambda: megakernel.render_megakernel(sc, cam, cfg,
                                                             seed),
              "plain": lambda: megakernel.render_megakernel_plain(
                  sc, cam, cfg, seed)},
             ("plain", "kernel", "kernel", "plain", "plain", "kernel"))
-        if megakernel.LAUNCHES_TAB != before + 3:
+        if megakernel.LAUNCHES["megakernel_nee_tab"] != before + 3:
             raise AssertionError(f"{name} did not go through "
                                  "megakernel_nee_tab")
         for which, runs in outs.items():
@@ -815,9 +1416,9 @@ def main() -> int:
     phase("sphere golden cornell_spheres 64x48x16, kernel and plain version")
     golden_s = film.read_ppm(str(GOLDEN_SPH))
     scene_s = get_scene("cornell_spheres")
-    before = megakernel.LAUNCHES_TAB
+    before = megakernel.LAUNCHES["megakernel_nee_tab"]
     img, tr = megakernel.render_megakernel(scene_s, cam_g, cfg_g, 42)
-    if megakernel.LAUNCHES_TAB != before + 1:
+    if megakernel.LAUNCHES["megakernel_nee_tab"] != before + 1:
         raise AssertionError("cornell_spheres did not go through "
                              "megakernel_nee_tab")
     got = film.tonemap_u8(film.finalize(img / cfg_g.spp)).cpu().numpy()
@@ -835,11 +1436,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, f"{name}.ppm")
             err_ = io.StringIO()
-            megakernel.LAUNCHES_TAB = 0
+            megakernel.LAUNCHES.clear()
             with contextlib.redirect_stderr(err_):
                 rc = cli_main(["render", "--scene", name, "--width", "1024",
                                "--height", "768", "--spp", spp, "-o", out])
-            n_launch = megakernel.LAUNCHES_TAB
+            n_launch = megakernel.LAUNCHES["megakernel_nee_tab"]
             log("[smoke] cli: " + err_.getvalue().strip())
             if rc != 0:
                 raise AssertionError(f"cli render {name} returned {rc}")
@@ -896,18 +1497,19 @@ def main() -> int:
         cfg = RenderConfig(width=1024, height=768, spp=spp, seed=seed)
         n_pix = cfg.width * cfg.height
         s_start, s_stop = ragged_spans(n_pix, start_hi, len_hi, seed)
-        counter = ("LAUNCHES_TAB_BUDGETS" if megakernel.uses_sphere_table(sc)
-                   else "LAUNCHES_BUDGETS")
-        before = getattr(megakernel, counter)
+        counter = ("megakernel_nee_tab_budgets"
+                   if megakernel.uses_sphere_table(sc)
+                   else "megakernel_nee_budgets")
+        before = megakernel.LAUNCHES[counter]
         outs, med = in_turns(
             {"kernel": lambda: megakernel.render_megakernel_budgets(
                 sc, cam_f, cfg, seed, s_start, s_stop),
              "plain": lambda: megakernel.render_megakernel_budgets_plain(
                  sc, cam_f, cfg, seed, s_start, s_stop)},
             ("plain", "kernel", "kernel", "plain"))
-        if getattr(megakernel, counter) != before + 2:
+        if megakernel.LAUNCHES[counter] != before + 2:
             raise AssertionError(f"{name}: the budgets wrapper did not "
-                                 f"count 2 launches in {counter}")
+                                 f"count 2 launches of {counter}")
         for which, runs in outs.items():
             if not (torch.equal(runs[1][0], runs[0][0])
                     and torch.equal(runs[1][1], runs[0][1])):
@@ -942,11 +1544,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # tol 0: every pixel to 512 samples in 8 waves of 64.
         phase("cli render --adaptive-tol 0 --adaptive-wave 64 1024x768x512")
-        megakernel.LAUNCHES_BUDGETS = 0
+        megakernel.LAUNCHES.clear()
         text = cli_stderr(cli_main, base + [
             "--adaptive-tol", "0", "--adaptive-wave", "64",
             "-o", os.path.join(tmp, "tol0.png")])
-        n_launch = megakernel.LAUNCHES_BUDGETS
+        n_launch = megakernel.LAUNCHES["megakernel_nee_budgets"]
         waves = int(re.search(r"\[adaptive\] (\d+) waves", text).group(1))
         tol0_traces, _ = cli_traces(text)
         log(f"[smoke] adaptive tol 0: {waves} waves, {n_launch} launches of "
@@ -965,7 +1567,7 @@ def main() -> int:
                 spans.append((s_start.clone(), s_stop.clone()))
                 return real(sc, cam, cfg, seed, s_start, s_stop)
 
-            megakernel.LAUNCHES_BUDGETS = megakernel.LAUNCHES_TAB_BUDGETS = 0
+            megakernel.LAUNCHES.clear()
             adaptive.render_megakernel_budgets = keep
             try:
                 text_ = cli_stderr(cli_main, base + [
@@ -973,10 +1575,8 @@ def main() -> int:
                     "-o", os.path.join(tmp, f"{name}_adaptive.png")])
             finally:
                 adaptive.render_megakernel_budgets = real
-            launches_ = {
-                "megakernel_nee_budgets": megakernel.LAUNCHES_BUDGETS,
-                "megakernel_nee_tab_budgets":
-                    megakernel.LAUNCHES_TAB_BUDGETS}
+            launches_ = {k: megakernel.LAUNCHES[k] for k in (
+                "megakernel_nee_budgets", "megakernel_nee_tab_budgets")}
             m_ = re.search(r"\[adaptive\] (\d+) waves, (\d+) samples "
                            r"\((\d+)% .*spp range (\d+)-(\d+)", text_)
             n_waves = int(m_.group(1))
@@ -1010,11 +1610,11 @@ def main() -> int:
         phase("cli render --checkpoint --checkpoint-every 128 --preview "
               "1024x768x512")
         ck, pv = os.path.join(tmp, "r.ckpt"), os.path.join(tmp, "prev.png")
-        megakernel.LAUNCHES = 0
+        megakernel.LAUNCHES.clear()
         text = cli_stderr(cli_main, base + [
             "--checkpoint", ck, "--checkpoint-every", "128", "--preview", pv,
             "-o", os.path.join(tmp, "ck.png")])
-        ck_launches = megakernel.LAUNCHES
+        ck_launches = megakernel.LAUNCHES["megakernel_nee"]
         ck_traces, _ = cli_traces(text)
         preview = imageio.read_image(pv)
         cfg_u = RenderConfig(width=1024, height=768, spp=512, seed=0)
@@ -1058,17 +1658,14 @@ def main() -> int:
     from small_pathtracer_tpu_torch.core import vecmath as vm
     from small_pathtracer_tpu_torch.experiment import path_guiding as pg
 
-    lbn = megakernel.LAUNCHES_BY_NAME
+    lbn = megakernel.LAUNCHES
     alcove = get_scene("cornell_alcove_baffled")
     smallpt = get_scene("smallpt_original")
     est_kernel = {"cosine": "megakernel_cosine",
                   "nee_textbook": "megakernel_textbook"}
 
     def zero_counts():
-        megakernel.LAUNCHES = megakernel.LAUNCHES_TAB = 0
-        megakernel.LAUNCHES_BUDGETS = megakernel.LAUNCHES_TAB_BUDGETS = 0
-        for key in lbn:
-            lbn[key] = 0
+        lbn.clear()
 
     def kernel_name(sc, est, kind):
         tab = "_tab" if megakernel.uses_sphere_table(sc) else ""
@@ -1231,7 +1828,7 @@ def main() -> int:
         zero_counts()
         text = cli_stderr(cli_main, base + alc_args + [
             "--guided", "-o", os.path.join(tmp, "guided.png")])
-        counts = dict(lbn, megakernel_nee=megakernel.LAUNCHES)
+        counts = lbn.copy()
         mg_ = re.search(r"guide table trained: (\d+) guided voxels \(pre-pass "
                         r"([0-9.]+) s\)", text)
         g_rays, g_secs = cli_traces(text)
@@ -1371,6 +1968,7 @@ def main() -> int:
             main[name] = (n_l, ms, b)
 
     geo = geom_phases(card, cli_main)
+    shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"])
 
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
@@ -1414,6 +2012,9 @@ def main() -> int:
         entry("megakernel_geom", "megakernel_geom.cu", "megakernel_geom.py:1488",
               geo["launches"], geo["err"], geo["ms"], geo["plain_ms"],
               geo["bound"]),
+        *(entry(name, source, replaces, launch, r["err"], r["ms"],
+                r["plain_ms"], r["bound"])
+          for name, source, replaces, launch, r in shard),
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

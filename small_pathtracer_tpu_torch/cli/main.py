@@ -17,11 +17,22 @@ version on the CPU.
 One difference: ``--adaptive-tol 0`` runs the adaptive waves (the
 uniform image, wave by wave), where the JAX CLI takes 0 for a uniform
 render; leave the flag out for that.
+
+``--mesh SPxDP`` (``render``, and ``fit --train center,radius``) splits the
+pixels over SP ranks and the samples over DP ranks (``parallel/``): each
+rank launches the kernels on its shard and the sums cross ranks through
+``torch.distributed``. Launch SP * DP ranks with ``python -m
+torch.distributed.run --nproc-per-node N -m small_pathtracer_tpu_torch.cli
+...``, or run one process with ``--mesh 1x1``. ``--dist-backend`` is nccl
+on the card and gloo on the CPU by default; several ranks on one card need
+gloo (NCCL refuses two ranks on one device). Only rank 0 writes files and
+the summary lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -31,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ESTIMATORS, RenderConfig
 from ..camera.pinhole import make_camera
@@ -42,6 +54,9 @@ from ..experiment.path_guiding import (
 )
 from ..ops.megakernel import render_megakernel, render_megakernel_guided
 from ..ops import megakernel_geom
+from ..parallel.launcher import init_distributed
+from ..parallel.mesh import make_mesh
+from ..parallel.sharded import render_sharded
 from ..ops.megakernel_grad import (
     FIELDS, check_estimator, check_trainable, fit_megakernel,
 )
@@ -70,8 +85,42 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                         "image (config.py)")
 
 
-def _build(args):
-    device = resolve(args.device)
+def _add_mesh_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", default="",
+                   help="distributed mesh shape 'SPxDP' (e.g. 2x2) over the "
+                        "ranks of the process group; empty = one process")
+    p.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                   help="torch.distributed backend for --mesh (default: "
+                        "nccl on cuda, gloo on cpu)")
+
+
+@contextlib.contextmanager
+def _distributed(args):
+    """(mesh, device) for --mesh SPxDP, joining the process group first
+    (and leaving it at the end when this call joined it); (None, device)
+    without --mesh."""
+    if not args.mesh:
+        yield None, resolve(args.device)
+        return
+    try:
+        shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2:
+        raise SystemExit(f"--mesh takes SPxDP (e.g. 2x2), got {args.mesh!r}")
+    backend = args.dist_backend or (
+        "nccl" if resolve(args.device).type == "cuda" else "gloo")
+    joined = not dist.is_initialized()
+    device = init_distributed(backend, args.device)
+    try:
+        yield make_mesh(shape), device
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _build(args, device=None):
+    device = resolve(args.device) if device is None else device
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        estimator=args.estimator, seed=args.seed,
                        sphere_table=args.sphere_table)
@@ -122,19 +171,19 @@ def _write_aovs(prefix: str, aovs) -> None:
     np.savez(prefix + ".npz", **host)
 
 
-def _render_guided_cli(args, scene, cam, cfg):
+def _render_guided_cli(args, scene, cam, cfg, mesh=None):
     """render --guided: a cosine training pre-pass at 1/8 of the resolution
     (at least 16x16, seed + 1; the 10-unit voxel grid needs coverage, not
     pixels), its lobe table, then the guided render (online, in
-    checkpointed spans, or one launch). Returns (clamped linear image,
-    traces)."""
+    checkpointed or sharded spans, or one launch). Every rank of a mesh
+    trains the same table. Returns (clamped linear image, traces)."""
     if cfg.estimator not in ("cosine", "nee_textbook"):
         raise SystemExit(
             "--guided requires --estimator cosine or nee_textbook "
             "(C13-continuation estimators replace the bounce with the "
             "light sample, leaving nothing to guide)"
         )
-    if args.guide_online > 0 and (args.checkpoint or args.preview):
+    if args.guide_online > 0 and (args.checkpoint or args.preview or mesh):
         raise SystemExit(
             "--guide-online does not compose with "
             "--checkpoint/--mesh/--preview yet (the span schedule is "
@@ -147,20 +196,21 @@ def _render_guided_cli(args, scene, cam, cfg):
     guide = guide_lobes(train_guide(scene, cam, tcfg, args.guide_bounces,
                                     tcfg.seed))
     n_guided = int(guide[1].sum())
-    print(f"guide table trained: {n_guided} guided voxels (pre-pass "
-          f"{time.perf_counter() - t0:.6f} s)", file=sys.stderr)
+    if mesh is None or mesh.rank == 0:
+        print(f"guide table trained: {n_guided} guided voxels (pre-pass "
+              f"{time.perf_counter() - t0:.6f} s)", file=sys.stderr)
     if args.guide_online > 0:
         img, tr = render_guided_online(
             scene, cam, cfg, cfg.seed, args.guide_beta, args.guide_k,
             rounds=args.guide_online, train_spp=args.guide_train_spp,
             train_bounces=args.guide_bounces)
-    elif args.checkpoint or args.preview:
+    elif args.checkpoint or args.preview or mesh is not None:
         every = args.checkpoint_every
         if args.preview:
             every = (args.preview_every or args.checkpoint_every
                      or max(1, cfg.spp // 8))
         return render_with_checkpoints(
-            scene, cam, cfg, args.checkpoint, every,
+            scene, cam, cfg, args.checkpoint, every, mesh=mesh,
             preview_path=args.preview, guide=guide,
             guide_beta=args.guide_beta, guide_k=args.guide_k)
     else:
@@ -171,10 +221,16 @@ def _render_guided_cli(args, scene, cam, cfg):
 
 
 def cmd_render(args) -> int:
-    scene, cam, cfg = _build(args)
+    with _distributed(args) as (mesh, device):
+        return _render(args, mesh, device)
+
+
+def _render(args, mesh, device) -> int:
+    scene, cam, cfg = _build(args, device)
+    lead = mesh is None or mesh.rank == 0
     t0 = time.perf_counter()
     if args.adaptive_tol is not None:
-        if args.checkpoint or args.preview or args.guided:
+        if args.checkpoint or args.preview or args.guided or mesh:
             raise SystemExit(
                 "--adaptive-tol composes with --pallas only (not --mesh/"
                 "--checkpoint/--preview/--guided)"
@@ -196,19 +252,21 @@ def cmd_render(args) -> int:
                 torch.from_numpy(np.repeat(m[..., None], 3, axis=-1))
             ).numpy())
     elif args.guided:
-        img, traces = _render_guided_cli(args, scene, cam, cfg)
+        img, traces = _render_guided_cli(args, scene, cam, cfg, mesh)
     elif args.checkpoint or args.preview:
         every = args.checkpoint_every
         if args.preview:
             every = (args.preview_every or args.checkpoint_every
                      or max(1, cfg.spp // 8))
         img, traces = render_with_checkpoints(
-            scene, cam, cfg, args.checkpoint, every,
+            scene, cam, cfg, args.checkpoint, every, mesh=mesh,
             preview_path=args.preview,
         )
+    elif mesh is not None:
+        img, traces = render_sharded(scene, cam, cfg, mesh)
     else:
         img, traces = render(scene, cam, cfg)
-    if args.aov or args.denoise:
+    if lead and (args.aov or args.denoise):
         aovs = render_aovs(scene, cam, cfg,
                            spp=args.aov_spp if args.aov_spp > 0 else None)
         if args.denoise:
@@ -220,10 +278,15 @@ def cmd_render(args) -> int:
         raise RuntimeError("the render produced non-finite pixels")
     u8 = film.tonemap_u8(img).cpu().numpy()
     dt = time.perf_counter() - t0
+    if not lead:
+        return 0
     imageio.write_image(args.output, u8)
+    where = str(scene.device) + (
+        "" if mesh is None else f" mesh {mesh.n_sp}x{mesh.n_dp} "
+        f"({mesh.backend})")
     print(
         f"wrote {args.output}  {cfg.width}x{cfg.height}x{cfg.spp}spp "
-        f"on {scene.device}  traces={traces}  seconds={dt:.6f}  "
+        f"on {where}  traces={traces}  seconds={dt:.6f}  "
         f"{traces / dt / 1e6:.1f} Mrays/s",
         file=sys.stderr,
     )
@@ -279,13 +342,15 @@ def _read_target(path: str, cfg: RenderConfig, device) -> torch.Tensor:
     return target
 
 
-def _cmd_fit_geom(args, fields: tuple[str, ...]) -> int:
+def _cmd_fit_geom(args, fields: tuple[str, ...], mesh=None,
+                  device=None) -> int:
     """Sphere fitting through the geometry adjoint (the JAX CLI's ``fit
     --pallas --train center,...``): normalized-step descent on the spheres'
     fields, one image and one adjoint launch of megakernel_geom a step.
     Without ``--target`` the self-test: the target is the scene at seed + 1,
     then sphere ``--fd-sphere`` (or 0) is moved by (4, 0, -3) and its
-    radius scaled by 1.1."""
+    radius scaled by 1.1. With ``--mesh`` every step is sharded
+    (``fit_geom(mesh=)``); each rank renders the whole target."""
     bad = [f for f in fields if f not in megakernel_geom.FIELDS]
     if bad or args.optimizer != "sgd":
         raise SystemExit(
@@ -293,7 +358,8 @@ def _cmd_fit_geom(args, fields: tuple[str, ...]) -> int:
             "center/radius/albedo/emission "
             f"(got optimizer={args.optimizer}, fields={fields})"
         )
-    scene, cam, cfg = _build(args)
+    scene, cam, cfg = _build(args, device)
+    lead = mesh is None or mesh.rank == 0
     si = args.fd_sphere if args.fd_sphere >= 0 else None
     n_sph = scene.spheres.radius.shape[0]
     if n_sph == 0:
@@ -315,13 +381,15 @@ def _cmd_fit_geom(args, fields: tuple[str, ...]) -> int:
                                                    radius=radius))
     fitted, losses = megakernel_geom.fit_geom(
         scene, cam, cfg, target, sphere_idx=si, fields=fields,
-        steps=args.steps, lr=args.lr, seed=cfg.seed, log=sys.stderr,
+        steps=args.steps, lr=args.lr, seed=cfg.seed,
+        log=sys.stderr if lead else None, mesh=mesh,
     )
     out = _fit_result(losses[-1], args.steps)
     ri = si if si is not None else 0
     out["center"] = fitted.spheres.center[ri].tolist()
     out["radius"] = float(fitted.spheres.radius[ri])
-    print(json.dumps(out, allow_nan=False))
+    if lead:
+        print(json.dumps(out, allow_nan=False))
     return 0
 
 
@@ -335,7 +403,14 @@ def cmd_fit(args) -> int:
         raise SystemExit("--steps must be >= 1")
     fields = tuple(args.train.split(","))
     if {"center", "radius"} & set(fields):
-        return _cmd_fit_geom(args, fields)
+        with _distributed(args) as (mesh, device):
+            return _cmd_fit_geom(args, fields, mesh, device)
+    if args.mesh:
+        raise SystemExit(
+            "--mesh shards the sphere fit (--train center,radius,...) "
+            "only: the kernels' material fit takes no mesh (the JAX CLI's "
+            "fit --pallas ignores it), and the sharded autodiff fit is not "
+            "ported yet (ROADMAP.md queue 1, item 16)")
     bad = [f for f in fields if f not in FIELDS]
     if bad or args.optimizer != "sgd":
         raise SystemExit(
@@ -374,6 +449,7 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p_render = sub.add_parser("render", help="render an image")
     _add_render_args(p_render)
+    _add_mesh_args(p_render)
     p_render.add_argument("-o", "--output", default="image.ppm",
                           help="output image: ASCII PPM for .ppm, else PNG")
     p_render.add_argument(
@@ -449,6 +525,7 @@ def main(argv=None) -> int:
         "fit", help="inverse rendering: SGD on albedo/emission, or sphere "
                     "fitting with --train center,radius")
     _add_render_args(p_fit)
+    _add_mesh_args(p_fit)
     p_fit.add_argument("--target", default="", help="target PPM image")
     p_fit.add_argument("--steps", type=int, default=20)
     p_fit.add_argument("--lr", type=float, default=1.0)

@@ -47,6 +47,13 @@
 //   cosine continuation alone, or with textbook NEE (a probe at each live
 //   diffuse vertex before RR, its direct term with the throughput before
 //   the update, the next pickup of the light suppressed; no fold).
+// - Row 7 (`_build_render_sharded`, megakernel.py:3321, its `pallas_call`
+//   at :3370, under `render_pallas_sharded`) runs these same kernels on one
+//   rank's shard: the pixels [pix0, pix0 + n_pix_loc) and one sample range
+//   of the span (`lane_range` adds pix0; the path ids use the global
+//   pixel, so each sample is the unsharded sample bit for bit). The TPU
+//   kernel's `psum` inside `shard_map` becomes torch.distributed
+//   all-reduces around the launch (ops/megakernel.py).
 //
 // What bounds them: arithmetic and divergence, not bytes. A lane reads
 // nothing but its index, the scene (a few hundred bytes of kernel
@@ -188,13 +195,14 @@ extern "C" int spt_megakernel(int est, const float* rect_geom,
                               const float* light_f, int light_id,
                               const float* cam_f, unsigned seed, int width,
                               int height, int spp, int g, int per,
-                              unsigned s0, int rr_start_depth,
-                              int max_bounces, int fold, float* out_l,
+                              unsigned s0, int pix0, int n_pix_loc,
+                              int rr_start_depth, int max_bounces, int fold,
+                              float* out_l,
                               unsigned long long* traces, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g, per, s0,
-                   rr_start_depth, max_bounces) ||
+                   cam_f, seed, width, height, spp, g, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces) ||
       est < kNee || est > kTextbook) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -214,16 +222,17 @@ extern "C" int spt_megakernel_nee_mat(const float* rect_geom,
                                       const float* light_f, int light_id,
                                       const float* cam_f, unsigned seed,
                                       int width, int height, int spp, int g,
-                                      int per, unsigned s0,
-                                      int rr_start_depth, int max_bounces,
+                                      int per, unsigned s0, int pix0,
+                                      int n_pix_loc, int rr_start_depth,
+                                      int max_bounces,
                                       const float* alb, const float* emi,
                                       float* out_l,
                                       unsigned long long* traces,
                                       void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g, per, s0,
-                   rr_start_depth, max_bounces)) {
+                   cam_f, seed, width, height, spp, g, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   megakernel_nee_mat<<<grid_of(p), kBlock, 0,
@@ -244,7 +253,8 @@ extern "C" int spt_megakernel_tab(int est, const float* rect_geom,
                                   const float* light_f, int light_id,
                                   const float* cam_f, unsigned seed,
                                   int width, int height, int spp, int g,
-                                  int per, unsigned s0, int rr_start_depth,
+                                  int per, unsigned s0, int pix0,
+                                  int n_pix_loc, int rr_start_depth,
                                   int max_bounces, const float* sph,
                                   int n_spheres, const float* alb,
                                   const float* emi, const int* refl,
@@ -252,8 +262,8 @@ extern "C" int spt_megakernel_tab(int est, const float* rect_geom,
                                   void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g, per, s0,
-                   rr_start_depth, max_bounces) ||
+                   cam_f, seed, width, height, spp, g, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces) ||
       n_spheres < 0 || n_spheres > kMaxSpheres || est < kNee ||
       est > kTextbook) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -283,8 +293,8 @@ extern "C" int spt_megakernel_nee_budgets(
     void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, 1, 0, 0u, rr_start_depth,
-                   max_bounces)) {
+                   cam_f, seed, width, height, spp, 1, 0, 0u, 0,
+                   width * height, rr_start_depth, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   bake_materials(&p, rect_alb, rect_emi, n_rects, fold);
@@ -305,8 +315,8 @@ extern "C" int spt_megakernel_nee_tab_budgets(
     unsigned long long* traces, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, 1, 0, 0u, rr_start_depth,
-                   max_bounces) ||
+                   cam_f, seed, width, height, spp, 1, 0, 0u, 0,
+                   width * height, rr_start_depth, max_bounces) ||
       n_spheres < 0 || n_spheres > kMaxSpheres) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -47,7 +47,8 @@ struct Params {
   int width, height, spp;
   int g, per;
   uint32_t s0;
-  int n_lanes;
+  int pix0;     // the shard's first pixel (0 unsharded)
+  int n_lanes;  // n_pix_loc * g: the shard's pixels times the lane groups
   int rr_start_depth, max_bounces, fold;
 };
 
@@ -289,7 +290,10 @@ __device__ __forceinline__ V3 spawn_dir(const Params& p, float px, float py,
 }
 
 // The lane's pixel and sample range [s, s_stop) on the wrapper's layout:
-// lane i renders pixel i / g, samples s0 + (i % g) * per + [0, per).
+// lane i renders the shard's pixel row i / g, samples s0 + (i % g) * per +
+// [0, per). `pix` is that row, which indexes the shard's per-pixel arrays
+// (cotangents, pixel lobes); px, py and the path ids use the global pixel
+// pix0 + pix, so a sample's radiance does not depend on the shard.
 struct LaneRange {
   bool in_range;
   int pix;
@@ -303,10 +307,11 @@ __device__ __forceinline__ LaneRange lane_range(const Params& p) {
   r.in_range = lane < p.n_lanes;
   const int safe_lane = r.in_range ? lane : 0;
   r.pix = safe_lane / p.g;
+  const int gpix = p.pix0 + r.pix;
   const uint32_t grp = static_cast<uint32_t>(safe_lane % p.g);
-  r.px = static_cast<float>(r.pix % p.width);
-  r.py = static_cast<float>(r.pix / p.width);
-  r.pid_base = static_cast<uint32_t>(r.pix) * static_cast<uint32_t>(p.spp);
+  r.px = static_cast<float>(gpix % p.width);
+  r.py = static_cast<float>(gpix / p.width);
+  r.pid_base = static_cast<uint32_t>(gpix) * static_cast<uint32_t>(p.spp);
   r.s = p.s0 + grp * static_cast<uint32_t>(p.per);
   r.s_stop = r.s + static_cast<uint32_t>(p.per);
   return r;
@@ -335,15 +340,21 @@ __device__ __forceinline__ LaneRange lane_range_budgets(
 // rect_geom (n_rects rows of [k, lo0, lo1, hi0, hi1]), rect_axis,
 // light_f ([corner 3, edge_u 3, edge_v 3, unit normal 3, area]) and cam_f
 // ([origin 3, lower_left 3, horizontal 3, vertical 3]), all host memory.
-// Materials stay zero. Returns false on an argument the kernels do not take.
+// The lanes cover the shard's pixels [pix0, pix0 + n_pix_loc) (unsharded:
+// 0 and width * height), g lanes a pixel. Materials stay zero. Returns
+// false on an argument the kernels do not take.
 inline bool fill_params(Params* p, const float* rect_geom,
                         const int* rect_axis, int n_rects,
                         const float* light_f, int light_id,
                         const float* cam_f, unsigned seed, int width,
                         int height, int spp, int g, int per, unsigned s0,
-                        int rr_start_depth, int max_bounces) {
+                        int pix0, int n_pix_loc, int rr_start_depth,
+                        int max_bounces) {
   if (n_rects < 1 || n_rects > kMaxRects || light_id < 0 ||
-      light_id >= n_rects || width < 1 || height < 1 || g < 1 || per < 0) {
+      light_id >= n_rects || width < 1 || height < 1 || g < 1 || per < 0 ||
+      pix0 < 0 || n_pix_loc < 1 ||
+      static_cast<long long>(pix0) + n_pix_loc >
+          static_cast<long long>(width) * height) {
     return false;
   }
   *p = Params{};
@@ -378,7 +389,8 @@ inline bool fill_params(Params* p, const float* rect_geom,
   p->g = g;
   p->per = per;
   p->s0 = s0;
-  p->n_lanes = width * height * g;
+  p->pix0 = pix0;
+  p->n_lanes = n_pix_loc * g;
   p->rr_start_depth = rr_start_depth;
   p->max_bounces = max_bounces;
   return true;

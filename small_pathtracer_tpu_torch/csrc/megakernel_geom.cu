@@ -11,6 +11,12 @@
 // image-only launch of a fit step): the TPU kernel's pass A alone, which
 // is row 2's loop body (`tab_body<kNee>` of megakernel_lane.cuh, the NEE
 // fold on), so it is megakernel_nee_tab's image, counts and time.
+// Row 12 (`geom_train_step_sharded`, megakernel_geom.py:1636, its
+// `pallas_call` at :1686) runs both launches on one rank's shard lanes
+// (`lane_range` with pix0), the same lanes and seed for the two, so the
+// loss and the gradient share their paths; g_img holds the shard's pixel
+// rows only. The sums over the mesh are torch.distributed all-reduces in
+// ops/megakernel_geom.py.
 //
 // Algorithm (the TPU kernel's): per sample, pass A traces the path and
 // latches its radiance L and its depth D. Then for j = D..1 the lane
@@ -476,26 +482,29 @@ __global__ void __launch_bounds__(kBlock)
 // light and camera as fill_params (megakernel_common.cuh) reads them, in
 // host memory. On the device: sph (n_spheres, 4) float32 [cx, cy, cz, r];
 // alb, emi (n_rects + n_spheres, 3) float32 and refl (n_rects + n_spheres,)
-// int32, rects first; out_l (n_pix·g, 3) float32; counts 4 uint64, zeroed:
-// [extend, probe] of pass A, replayed bounces, VJP bounces (bk == 0: the
-// image-only launch, [extend, probe] only). With bk != 0 also g_img
-// (height, width, 3) float32; partials: scratch of n_partials floats, at
-// least ceil(n_pix·g / 128)·n_slots with n_slots = 6·(n_rects + n_spheres)
+// int32, rects first; out_l (n_pix_loc·g, 3) float32 for the shard's pixels
+// [pix0, pix0 + n_pix_loc) (unsharded: all of them); counts 4 uint64,
+// zeroed: [extend, probe] of pass A, replayed bounces, VJP bounces (bk == 0:
+// the image-only launch, [extend, probe] only). With bk != 0 also g_img
+// (n_pix_loc, 3) float32, the shard's cotangent rows; partials: scratch of
+// n_partials floats, at least ceil(n_pix_loc·g / 128)·n_slots with n_slots
+// = 6·(n_rects + n_spheres)
 // + 4·n_spheres; out: n_slots floats, d/d albedo (K, 3), d/d emission
 // (K, 3), d/d sphere rows (S, 4). 1 to kMaxGeomSpheres spheres. Launches on
 // `stream`; returns the first launch error.
 extern "C" int spt_megakernel_geom(
     const float* rect_geom, const int* rect_axis, int n_rects,
     const float* light_f, int light_id, const float* cam_f, unsigned seed,
-    int width, int height, int spp, int g, int per, unsigned s0,
-    int rr_start_depth, int max_bounces, const float* sph, int n_spheres,
+    int width, int height, int spp, int g, int per, unsigned s0, int pix0,
+    int n_pix_loc, int rr_start_depth, int max_bounces, const float* sph,
+    int n_spheres,
     const float* alb, const float* emi, const int* refl, int bk,
     const float* g_img, float* partials, long long n_partials, float* out,
     float* out_l, unsigned long long* counts, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g, per, s0,
-                   rr_start_depth, max_bounces) ||
+                   cam_f, seed, width, height, spp, g, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces) ||
       n_spheres < 1 || n_spheres > kMaxGeomSpheres) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,6 +6,12 @@
 // Given the per-pixel cotangent g of the radiance sum I (the forward's
 // image), it returns d(sum g·I)/d albedo and d(sum g·I)/d emission, both
 // (K, 3), pathwise (the same scope as autograd through the plain forward).
+// Row 10 (`material_train_step_sharded`, megakernel_grad.py:1083, its two
+// `pallas_call`s at :1156 and :1195) runs megakernel_nee_mat and this
+// kernel on one rank's shard lanes (`lane_range` with pix0): g_img holds
+// the shard's pixel rows only, indexed by the lane's row in the shard. The
+// sums over the mesh are torch.distributed all-reduces in
+// ops/megakernel_grad.py.
 //
 // Algorithm (the TPU kernel's): every (pixel, sample) path is replayed twice
 // from the counter RNG. Pass A recomputes the sample's radiance L; pass B
@@ -202,8 +208,10 @@ __global__ void __launch_bounds__(kBlock)
 // Host entry point with a plain C interface (loaded with ctypes). Geometry,
 // light and camera as fill_params (megakernel_common.cuh) reads them, in
 // host memory. On the device: alb, emi (n_rects, 3) float32; g_img
-// (height, width, 3) float32; partials: scratch of n_partials floats, at
-// least ceil(width·height·g / 128) · 6·n_rects; out: 6·n_rects floats,
+// (n_pix_loc, 3) float32, the cotangents of the shard's pixels [pix0,
+// pix0 + n_pix_loc) (unsharded: (height, width, 3)); partials: scratch of
+// n_partials floats, at least ceil(n_pix_loc·g / 128) · 6·n_rects; out:
+// 6·n_rects floats,
 // d/d albedo (n_rects, 3) then d/d emission (n_rects, 3). Launches both
 // kernels on `stream` and returns the first launch error (cudaError_t).
 extern "C" int spt_megakernel_vjp(const float* rect_geom, const int* rect_axis,
@@ -211,6 +219,7 @@ extern "C" int spt_megakernel_vjp(const float* rect_geom, const int* rect_axis,
                                   int light_id, const float* cam_f,
                                   unsigned seed, int width, int height,
                                   int spp, int g, int per, unsigned s0,
+                                  int pix0, int n_pix_loc,
                                   int rr_start_depth, int max_bounces,
                                   const float* alb, const float* emi,
                                   const float* g_img, float* partials,
@@ -218,8 +227,8 @@ extern "C" int spt_megakernel_vjp(const float* rect_geom, const int* rect_axis,
                                   void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g, per, s0,
-                   rr_start_depth, max_bounces)) {
+                   cam_f, seed, width, height, spp, g, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_blocks = grid_of(p);

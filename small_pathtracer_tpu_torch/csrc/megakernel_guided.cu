@@ -23,6 +23,11 @@
 //   lane reads its pixel's packed lobe from an (n_pix,) int32 device array
 //   at depth 1 and guides that vertex only (the JAX wrapper repeats the
 //   lobes per lane; the lane indexes by pixel instead).
+// - Row 6 (`_build_render_guided_sharded`, megakernel.py:3188, its
+//   `pallas_call` at :3241) runs megakernel_guided / _tab on one rank's
+//   shard lanes (`lane_range` with pix0, megakernel_common.cuh), the table
+//   copied to every rank; the image and trace sums over the mesh are
+//   torch.distributed all-reduces around the launch (ops/megakernel.py).
 //
 // What bounds them: as rows 1 and 2 (megakernel.cu), arithmetic and
 // divergence, not bytes. A guided vertex adds the lobe frame, a real power
@@ -140,13 +145,14 @@ extern "C" int spt_megakernel_guided(
     const int* rect_axis, const float* rect_alb, const float* rect_emi,
     int n_rects, const float* light_f, int light_id, const float* cam_f,
     unsigned seed, int width, int height, int spp, int g_lanes, int per,
-    unsigned s0, int rr_start_depth, int max_bounces, float* out_l,
-    unsigned long long* traces, void* stream) {
+    unsigned s0, int pix0, int n_pix_loc, int rr_start_depth,
+    int max_bounces, float* out_l, unsigned long long* traces,
+    void* stream) {
   Params p;
   GuideParams g;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g_lanes, per, s0,
-                   rr_start_depth, max_bounces) ||
+                   cam_f, seed, width, height, spp, g_lanes, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces) ||
       !guide_args(est, primary, table_len, p, beta, k, norm_k, inv_k1, k_int,
                   &g)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -168,15 +174,16 @@ extern "C" int spt_megakernel_guided_tab(
     float k, float norm_k, float inv_k1, int k_int, const float* rect_geom,
     const int* rect_axis, int n_rects, const float* light_f, int light_id,
     const float* cam_f, unsigned seed, int width, int height, int spp,
-    int g_lanes, int per, unsigned s0, int rr_start_depth, int max_bounces,
+    int g_lanes, int per, unsigned s0, int pix0, int n_pix_loc,
+    int rr_start_depth, int max_bounces,
     const float* sph, int n_spheres, const float* alb, const float* emi,
     const int* refl, float* out_l, unsigned long long* traces,
     void* stream) {
   Params p;
   GuideParams g;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, g_lanes, per, s0,
-                   rr_start_depth, max_bounces) ||
+                   cam_f, seed, width, height, spp, g_lanes, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces) ||
       !guide_args(est, primary, table_len, p, beta, k, norm_k, inv_k1, k_int,
                   &g) ||
       n_spheres < 0 || n_spheres > kMaxSpheres) {

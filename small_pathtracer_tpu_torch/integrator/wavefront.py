@@ -337,11 +337,12 @@ def regen_groups(cfg: RenderConfig) -> int:
     )
 
 
-def lane_layout(n_pix: int, g: int, per: int, s0: int, device):
+def lane_layout(n_pix: int, g: int, per: int, s0: int, device,
+                pix0: int = 0):
     """(pix, s_start, s_stop) of n_pix * g lanes: lane i renders pixel
-    i // g, samples s0 + (i % g) * per + [0, per)."""
+    pix0 + i // g, samples s0 + (i % g) * per + [0, per)."""
     lane = torch.arange(n_pix * g, dtype=torch.int64, device=device)
-    pix = torch.div(lane, g, rounding_mode="floor")
+    pix = pix0 + torch.div(lane, g, rounding_mode="floor")
     s_start = s0 + (lane % g) * per
     return pix, s_start, s_start + per
 

@@ -139,7 +139,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, i,  # width, height, spp
     ]
     depth = [i, i]  # rr_start_depth, max_bounces
-    launch = [*head, i, i, u, *depth]  # g, per, s0 between
+    # g, per, s0 between, then the shard's first pixel and pixel count
+    # (0 and width * height unsharded).
+    launch = [*head, i, i, u, i, i, *depth]
     # The budget kernels (row 3) take one lane a pixel: no g, per or s0.
     budget_launch = [*head, *depth]
     lib.spt_megakernel.restype = ctypes.c_int
@@ -150,7 +152,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i,  # n_rects
         *launch,
         i,  # fold
-        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -160,7 +162,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i,  # n_rects
         *launch,
         p, p,  # albedo, emission: (R, 3) f32 device
-        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -174,7 +176,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i,  # n_spheres
         p, p,  # albedo, emission: (R + S, 3) f32 device
         p,  # refl: (R + S,) i32 device
-        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -220,7 +222,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p,  # rect_alb, rect_emi: (R, 3) f32 host
         i,  # n_rects
         *launch,
-        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -234,7 +236,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i,  # n_spheres
         p, p,  # albedo, emission: (R + S, 3) f32 device
         p,  # refl: (R + S,) i32 device
-        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -244,7 +246,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i,  # n_rects
         *launch,
         p, p,  # albedo, emission: (R, 3) f32 device
-        p,  # g_img: (h, w, 3) f32 device
+        p,  # g_img: (n_pix_loc, 3) f32 device
         p,  # partials: f32 device scratch
         ctypes.c_longlong,  # its length in floats
         p,  # out: (2, R, 3) f32 device
@@ -260,11 +262,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p,  # albedo, emission: (R + S, 3) f32 device
         p,  # refl: (R + S,) i32 device
         i,  # bk: 0 the image-only launch, 1 the adjoint
-        p,  # g_img: (h, w, 3) f32 device, or null
+        p,  # g_img: (n_pix_loc, 3) f32 device, or null
         p,  # partials: f32 device scratch
         ctypes.c_longlong,  # its length in floats
         p,  # out: 6 (R + S) + 4 S f32 device
-        p,  # out_l: (n_pix * g, 3) f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # counts: (4,) u64 device
         p,  # cudaStream_t
     ]

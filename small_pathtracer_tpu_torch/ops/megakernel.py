@@ -21,12 +21,20 @@ port's counterpart of the JAX package's ``render_pallas`` /
   ``render_pallas_guided_primary``) guide the first diffuse vertex from one
   lobe a pixel: ``render_megakernel_guided_primary``. Both take the
   ``cosine`` and ``nee_textbook`` estimators.
+- ``render_megakernel_sharded`` (row 7, the JAX ``render_pallas_sharded``)
+  and ``render_megakernel_guided_sharded`` (row 6,
+  ``render_pallas_guided_sharded``) launch the same kernels on one rank's
+  shard of an (sp, dp) mesh (``parallel/mesh.py``): its pixel block and its
+  sample range. The image sums over dp and the traces over the mesh are
+  ``torch.distributed`` all-reduces around the launch.
 
 Lane layout of ``_build_render``: ``g = lane_groups(n_pix, n_s, 2^18,
 cfg.regen_groups)`` lanes per pixel, each walking ``n_s // g`` samples of the
 span [s0, s0 + n_s). Lane i renders pixel i // g; the per-lane radiance sums
 are reduced over g by the wrapper, so the kernel and its plain version share
-that reduction.
+that reduction. A shard's layout (``parallel/sharded.shard_layout``) is the
+same on its own pixels [pix0, pix0 + n_pix_loc) and samples, with g from the
+local counts; the unsharded layout is the shard (0, n_pix) of a 1x1 mesh.
 
 On a CUDA device a wrapper builds (once) and launches a kernel, or raises.
 On the CPU it runs the plain version, for every kernel: the eager
@@ -37,12 +45,12 @@ kernels of ``ops/megakernel_grad.py``.
 
 from __future__ import annotations
 
+import math
+from collections import Counter
 from typing import NamedTuple
 
 import numpy as np
 import torch
-
-import math
 
 from ..camera.pinhole import CameraParams, primary_rays
 from ..config import SPHERE_TABLE_AUTO_MIN, RenderConfig
@@ -52,24 +60,19 @@ from ..experiment.path_guiding import voxel_id
 from ..geometry.intersect import shade_info, trace
 from ..integrator import sampling
 from ..integrator.wavefront import (
-    Guide, check_materials, lane_groups, lane_layout, path_trace_regen,
+    Guide, check_materials, lane_groups, path_trace_regen,
+)
+from ..parallel.mesh import Mesh
+from ..parallel.sharded import (
+    ShardLayout, reduce_lanes, shard_layout, shard_lanes,
 )
 from ..scene.types import Scene, num_spheres, object_arrays
 from . import _build
 
-# Launches of each CUDA kernel in this process (the wrapper adds one per
-# launch of its kernel, and nowhere else): megakernel_nee,
-# megakernel_nee_tab, megakernel_nee_budgets, megakernel_nee_tab_budgets,
-# and the kernels of the cosine and nee_textbook estimators and of path
-# guiding by name in LAUNCHES_BY_NAME.
-LAUNCHES = 0
-LAUNCHES_TAB = 0
-LAUNCHES_BUDGETS = 0
-LAUNCHES_TAB_BUDGETS = 0
-LAUNCHES_BY_NAME = dict.fromkeys((
-    "megakernel_cosine", "megakernel_textbook", "megakernel_cosine_tab",
-    "megakernel_textbook_tab", "megakernel_guided", "megakernel_guided_tab",
-    "megakernel_guided_primary", "megakernel_guided_primary_tab"), 0)
+# Launches of each CUDA kernel in this process, by kernel name: the wrapper
+# adds one where it launches its kernel (``count``), and nowhere else. A
+# launch on a shard's lanes counts under its kernel's name as well.
+LAUNCHES: Counter = Counter()
 
 # The estimator codes of csrc/megakernel_lane.cuh (kNee, kCosine,
 # kTextbook), and each one's row 1 kernel.
@@ -82,18 +85,42 @@ MAX_RECTS = 32
 MAX_SPHERES = 4096  # kMaxSpheres in csrc/megakernel_common.cuh
 
 
-def _layout(cfg: RenderConfig, n_s: int):
+def full_layout(cfg: RenderConfig, n_s: int | None = None,
+                s0: int = 0) -> ShardLayout:
+    """The unsharded kernels' lanes for the span [s0, s0 + n_s) (all of spp
+    by default): every pixel, g = lane_groups(n_pix, n_s, 2^18)."""
+    n_s = cfg.spp if n_s is None else int(n_s)
     n_pix = cfg.width * cfg.height
     g = lane_groups(n_pix, n_s, TARGET_LANES, cfg.regen_groups)
-    return n_pix, g, n_s // g
+    return ShardLayout(0, n_pix, int(s0), g, n_s // g)
+
+
+def shard_of(cfg: RenderConfig, mesh: Mesh, s0: int = 0,
+             n_s: int | None = None, what: str = "n_s") -> ShardLayout:
+    """The kernels' lanes of ``mesh``'s coordinate for the span [s0, s0 +
+    n_s) (all of spp by default)."""
+    return shard_layout(cfg, cfg.spp if n_s is None else int(n_s), mesh,
+                        TARGET_LANES, s0, what)
 
 
 def _resolve(scene: Scene, device) -> torch.device:
     return resolve(scene.device if device is None else device)
 
 
-def _reduce(L: torch.Tensor, cfg: RenderConfig, n_pix: int, g: int):
-    return L.reshape(n_pix, g, 3).sum(dim=1).reshape(cfg.height, cfg.width, 3)
+def _image(L: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """(n_pix, 3) per-pixel sums as the (h, w, 3) image."""
+    return L.reshape(cfg.height, cfg.width, 3)
+
+
+def plain_lanes(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+                lay: ShardLayout, device, guide: Guide | None = None):
+    """The plain version of every render kernel on the lanes ``lay``: the
+    eager regenerating wavefront. Returns ((n_pix_loc, 3) radiance sums of
+    the lanes' pixels, traces (2,) int64 [extend, probe])."""
+    pix, s_start, s_stop = shard_lanes(lay, device)
+    L, traces = path_trace_regen(scene.to(device), cfg, int(seed),
+                                 cam.to(device), pix, s_start, s_stop, guide)
+    return reduce_lanes(L, lay), traces
 
 
 def render_megakernel_plain(scene: Scene, cam: CameraParams,
@@ -103,12 +130,9 @@ def render_megakernel_plain(scene: Scene, cam: CameraParams,
     kernel's lane layout. Returns ((h, w, 3) radiance sum over the span,
     traces (2,) int64 [extend, probe])."""
     device = _resolve(scene, device)
-    n_s = cfg.spp if n_s is None else int(n_s)
-    n_pix, g, per = _layout(cfg, n_s)
-    pix, s_start, s_stop = lane_layout(n_pix, g, per, int(s0), device)
-    L, traces = path_trace_regen(scene.to(device), cfg, int(seed),
-                                 cam.to(device), pix, s_start, s_stop)
-    return _reduce(L, cfg, n_pix, g), traces
+    L, traces = plain_lanes(scene, cam, cfg, seed, full_layout(cfg, n_s, s0),
+                            device)
+    return _image(L, cfg), traces
 
 
 class KernelGeometry(NamedTuple):
@@ -166,11 +190,12 @@ def _head_args(geom: KernelGeometry, cfg: RenderConfig, seed) -> tuple:
     )
 
 
-def launch_args(geom: KernelGeometry, cfg: RenderConfig, seed, g: int,
-                per: int, s0: int) -> tuple:
+def launch_args(geom: KernelGeometry, cfg: RenderConfig, seed,
+                lay: ShardLayout) -> tuple:
     """The arguments every kernel entry point takes after ``n_rects``: light,
-    camera and the launch settings."""
-    return (*_head_args(geom, cfg, seed), g, per, int(s0) & 0xFFFFFFFF,
+    camera and the launch settings of the lanes ``lay``."""
+    return (*_head_args(geom, cfg, seed), lay.g, lay.per,
+            lay.samp0 & 0xFFFFFFFF, lay.pix0, lay.n_pix_loc,
             cfg.rr_start_depth, cfg.max_bounces)
 
 
@@ -179,11 +204,6 @@ def _budget_args(geom: KernelGeometry, cfg: RenderConfig, seed) -> tuple:
     s0."""
     return (*_head_args(geom, cfg, seed), cfg.rr_start_depth,
             cfg.max_bounces)
-
-
-def check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def uses_sphere_table(scene: Scene) -> bool:
@@ -207,38 +227,52 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     if device.type == "cpu":
         return render_megakernel_plain(scene, cam, cfg, seed, s0, n_s,
                                        device)
-    if uses_sphere_table(scene):
-        return _render_tab(scene, cam, cfg, seed, s0, n_s, device)
-    geom = pack_geometry(scene, cam)
-    n_s = cfg.spp if n_s is None else int(n_s)
-    n_pix, g, per = _layout(cfg, n_s)
-    alb, emi, fold = _baked_materials(scene, geom)
+    L, traces = _launch_render(scene, cam, cfg, seed,
+                              full_layout(cfg, n_s, s0), device)
+    return _image(L, cfg), traces
 
+
+def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
+                  lay: ShardLayout, device):
+    """Launches row 2 of cfg.estimator (a scene with spheres or SPEC/REFR
+    objects) or row 1 on the lanes ``lay``. Returns ((n_pix_loc, 3) radiance sums, traces (2,)
+    int64 [extend, probe])."""
+    tab = uses_sphere_table(scene)
+    S = _check_spheres(scene) if tab else 0
+    geom = pack_geometry(scene, cam)
     lib = _build.build_kernels().lib
-    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
+                        device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spt_megakernel(
-            EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
-            geom.rect_axis.ctypes.data, alb.ctypes.data, emi.ctypes.data,
-            len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
-            fold, out_l.data_ptr(), traces.data_ptr(), stream,
-        )
-    _count(_EST_KERNEL[cfg.estimator], err)
-    return _reduce(out_l, cfg, n_pix, g), traces
+        if tab:
+            sph, alb, emi, refl = sphere_tables(scene, device)
+            err = lib.spt_megakernel_tab(
+                EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, len(geom.rect_axis),
+                *launch_args(geom, cfg, seed, lay), sph.data_ptr(), S,
+                alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        else:
+            alb, emi, fold = _baked_materials(scene, geom)
+            err = lib.spt_megakernel(
+                EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, alb.ctypes.data, emi.ctypes.data,
+                len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
+                fold, out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+    count(_EST_KERNEL[cfg.estimator] + ("_tab" if tab else ""), err)
+    return reduce_lanes(out_l, lay), traces
 
 
-def _count(name: str, err: int) -> None:
-    """Raises if the launch of kernel ``name`` failed, else counts it."""
-    global LAUNCHES, LAUNCHES_TAB
-    check_launch(err, name)
-    if name == "megakernel_nee":
-        LAUNCHES += 1
-    elif name == "megakernel_nee_tab":
-        LAUNCHES_TAB += 1
-    else:
-        LAUNCHES_BY_NAME[name] += 1
+def count(name: str, err: int) -> None:
+    """Raises if the launch of kernel ``name`` failed, else counts it in
+    LAUNCHES."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
 
 
 def _baked_materials(scene: Scene, geom: KernelGeometry):
@@ -269,29 +303,6 @@ def _check_spheres(scene: Scene) -> int:
             f"(64 KB of shared memory a block), got {S}"
         )
     return S
-
-
-def _render_tab(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
-                s0: int, n_s: int | None, device):
-    S = _check_spheres(scene)
-    geom = pack_geometry(scene, cam)
-    sph, alb, emi, refl = sphere_tables(scene, device)
-    n_s = cfg.spp if n_s is None else int(n_s)
-    n_pix, g, per = _layout(cfg, n_s)
-    lib = _build.build_kernels().lib
-    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
-    traces = torch.zeros(2, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spt_megakernel_tab(
-            EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
-            geom.rect_axis.ctypes.data, len(geom.rect_axis),
-            *launch_args(geom, cfg, seed, g, per, s0), sph.data_ptr(), S,
-            alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
-            out_l.data_ptr(), traces.data_ptr(), stream,
-        )
-    _count(_EST_KERNEL[cfg.estimator] + "_tab", err)
-    return _reduce(out_l, cfg, n_pix, g), traces
 
 
 def _spans(x, n_pix: int, device, dtype) -> torch.Tensor:
@@ -343,7 +354,6 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
     if device.type == "cpu":
         return render_megakernel_budgets_plain(scene, cam, cfg, seed,
                                                s_start, s_stop, device)
-    global LAUNCHES_BUDGETS, LAUNCHES_TAB_BUDGETS
     n_pix = cfg.width * cfg.height
     s_start = _spans(s_start, n_pix, device, torch.int32)
     s_stop = _spans(s_stop, n_pix, device, torch.int32)
@@ -373,12 +383,8 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
                 *head, fold, s_start.data_ptr(), s_stop.data_ptr(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    if tab:
-        check_launch(err, "megakernel_nee_tab_budgets")
-        LAUNCHES_TAB_BUDGETS += 1
-    else:
-        check_launch(err, "megakernel_nee_budgets")
-        LAUNCHES_BUDGETS += 1
+    count("megakernel_nee_tab_budgets" if tab else "megakernel_nee_budgets",
+          err)
     return out_l, traces
 
 
@@ -513,14 +519,21 @@ def render_megakernel_guided_plain(scene: Scene, cam: CameraParams,
     table. Returns ((h, w, 3) radiance sum over the span, traces (2,))."""
     check_guided(scene, cfg)
     device = _resolve(scene, device)
+    L, traces = plain_lanes(scene, cam, cfg, seed, full_layout(cfg, n_s, s0),
+                            device, _voxel_guide(guide, beta, k, device))
+    return _image(L, cfg), traces
+
+
+def _voxel_guide(guide, beta: float, k: float, device) -> Guide:
+    """Row 4's guide for the plain version: each diffuse vertex's lobe from
+    the packed voxel table, decoded as the kernel decodes it."""
     mu_tab, use_tab = oct_decode(guide_table(guide, device))
 
     def lobes(x, depth):
         vid = voxel_id(x)
         return mu_tab.index_select(0, vid), use_tab.index_select(0, vid)
 
-    return _guided_plain(scene, cam, cfg, seed, Guide(lobes, beta, k), s0,
-                         n_s, device)
+    return Guide(lobes, beta, k)
 
 
 def render_megakernel_guided_primary_plain(scene: Scene, cam: CameraParams,
@@ -533,26 +546,17 @@ def render_megakernel_guided_primary_plain(scene: Scene, cam: CameraParams,
     (``pixel_primary_lobes``) guiding depth 1 only."""
     check_guided(scene, cfg)
     device = _resolve(scene, device)
-    n_pix, g, _ = _layout(cfg, cfg.spp if n_s is None else int(n_s))
+    lay = full_layout(cfg, n_s, s0)
     pix_lobes = pixel_primary_lobes(scene, cam, cfg, guide, device)
-    lane = torch.arange(n_pix * g, dtype=torch.int64, device=device)
-    mu_l, use_l = oct_decode(pix_lobes.index_select(
-        0, torch.div(lane, g, rounding_mode="floor")))
+    pix, _, _ = shard_lanes(lay, device)
+    mu_l, use_l = oct_decode(pix_lobes.index_select(0, pix))
 
     def lobes(x, depth):
         return mu_l, use_l & (depth == 1)
 
-    return _guided_plain(scene, cam, cfg, seed, Guide(lobes, beta, k), s0,
-                         n_s, device)
-
-
-def _guided_plain(scene, cam, cfg, seed, guide: Guide, s0, n_s, device):
-    n_s = cfg.spp if n_s is None else int(n_s)
-    n_pix, g, per = _layout(cfg, n_s)
-    pix, s_start, s_stop = lane_layout(n_pix, g, per, int(s0), device)
-    L, traces = path_trace_regen(scene.to(device), cfg, int(seed),
-                                 cam.to(device), pix, s_start, s_stop, guide)
-    return _reduce(L, cfg, n_pix, g), traces
+    L, traces = plain_lanes(scene, cam, cfg, seed, lay, device,
+                            Guide(lobes, beta, k))
+    return _image(L, cfg), traces
 
 
 def render_megakernel_guided(scene: Scene, cam: CameraParams,
@@ -572,8 +576,10 @@ def render_megakernel_guided(scene: Scene, cam: CameraParams,
     if device.type == "cpu":
         return render_megakernel_guided_plain(scene, cam, cfg, seed, guide,
                                               beta, k, s0, n_s, device)
-    return _launch_guided(scene, cam, cfg, seed, guide_table(guide, device),
-                          0, beta, k, s0, n_s, device)
+    L, traces = _launch_guided(scene, cam, cfg, seed,
+                              guide_table(guide, device), 0, beta, k,
+                              full_layout(cfg, n_s, s0), device)
+    return _image(L, cfg), traces
 
 
 def render_megakernel_guided_primary(scene: Scene, cam: CameraParams,
@@ -592,24 +598,25 @@ def render_megakernel_guided_primary(scene: Scene, cam: CameraParams,
         return render_megakernel_guided_primary_plain(
             scene, cam, cfg, seed, guide, beta, k, s0, n_s, device)
     lobes = pixel_primary_lobes(scene, cam, cfg, guide, device)
-    return _launch_guided(scene, cam, cfg, seed, lobes, 1, beta, k, s0, n_s,
-                          device)
+    L, traces = _launch_guided(scene, cam, cfg, seed, lobes, 1, beta, k,
+                              full_layout(cfg, n_s, s0), device)
+    return _image(L, cfg), traces
 
 
 def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
-                   table: torch.Tensor, primary: int, beta: float, k: float,
-                   s0: int, n_s: int | None, device):
+                  table: torch.Tensor, primary: int, beta: float, k: float,
+                  lay: ShardLayout, device):
     """Launches row 4 (primary 0: ``table`` is the (V,) voxel table) or row
-    5 (primary 1: ``table`` is the (n_pix,) pixel lobes)."""
+    5 (primary 1: ``table`` is the (n_pix,) pixel lobes) on the lanes
+    ``lay``. Returns ((n_pix_loc, 3) radiance sums, traces (2,) int64)."""
     tab = uses_sphere_table(scene)
     geom = pack_geometry(scene, cam)
-    n_s = cfg.spp if n_s is None else int(n_s)
-    n_pix, g, per = _layout(cfg, n_s)
     table = table.to(device=device, dtype=torch.int32).contiguous()
     head = (EST_CODE[cfg.estimator], primary, table.data_ptr(),
             table.numel(), *_guide_consts(beta, k))
     lib = _build.build_kernels().lib
-    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
+                        device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -619,7 +626,7 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
             err = lib.spt_megakernel_guided_tab(
                 *head, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis),
-                *launch_args(geom, cfg, seed, g, per, s0), sph.data_ptr(), S,
+                *launch_args(geom, cfg, seed, lay), sph.data_ptr(), S,
                 alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
@@ -628,9 +635,82 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
             err = lib.spt_megakernel_guided(
                 *head, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, alb.ctypes.data, emi.ctypes.data,
-                len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
+                len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
     name = "megakernel_guided" + ("_primary" if primary else "")
-    _count(name + ("_tab" if tab else ""), err)
-    return _reduce(out_l, cfg, n_pix, g), traces
+    count(name + ("_tab" if tab else ""), err)
+    return reduce_lanes(out_l, lay), traces
+
+
+# ---------------------------------------------------------------------------
+# Rows 7 and 6: the render kernels on one rank's shard of an (sp, dp) mesh.
+
+def render_megakernel_sharded_plain(scene: Scene, cam: CameraParams,
+                                    cfg: RenderConfig, mesh: Mesh, seed,
+                                    s0: int = 0, n_s: int | None = None,
+                                    device=None):
+    """Row 7's plain version: the eager regenerating wavefront on the
+    shard's lanes, then the sums of ``render_megakernel_sharded``."""
+    device = _resolve(scene, device)
+    L, traces = plain_lanes(scene, cam, cfg, seed,
+                            shard_of(cfg, mesh, s0, n_s), device)
+    return mesh.sum_dp(L), mesh.sum_world(traces)
+
+
+def render_megakernel_sharded(scene: Scene, cam: CameraParams,
+                              cfg: RenderConfig, mesh: Mesh, seed,
+                              s0: int = 0, n_s: int | None = None,
+                              device=None):
+    """This rank's share of the render of sample indices [s0, s0 + n_s)
+    (all of spp by default), the JAX package's ``render_pallas_sharded``:
+    the pixels of its sp block, the samples of its dp range, through the
+    kernel ``render_megakernel`` picks (rows 1 and 2) on a CUDA device and
+    the plain version on the CPU. n_pix must split over sp and n_s over dp
+    (ValueError). Returns ((n_pix_loc, 3) radiance sums of the block,
+    summed over dp; traces (2,) int64 [extend, probe] summed over the
+    mesh)."""
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return render_megakernel_sharded_plain(scene, cam, cfg, mesh, seed,
+                                               s0, n_s, device)
+    L, traces = _launch_render(scene, cam, cfg, seed,
+                              shard_of(cfg, mesh, s0, n_s), device)
+    return mesh.sum_dp(L), mesh.sum_world(traces)
+
+
+def render_megakernel_guided_sharded_plain(scene: Scene, cam: CameraParams,
+                                           cfg: RenderConfig, mesh: Mesh,
+                                           seed, guide, beta: float = 0.5,
+                                           k: float = 8.0, s0: int = 0,
+                                           n_s: int | None = None,
+                                           device=None):
+    """Row 6's plain version: row 4's on the shard's lanes, then the sums
+    of ``render_megakernel_guided_sharded``."""
+    check_guided(scene, cfg)
+    device = _resolve(scene, device)
+    L, traces = plain_lanes(scene, cam, cfg, seed,
+                            shard_of(cfg, mesh, s0, n_s), device,
+                            _voxel_guide(guide, beta, k, device))
+    return mesh.sum_dp(L), mesh.sum_world(traces)
+
+
+def render_megakernel_guided_sharded(scene: Scene, cam: CameraParams,
+                                     cfg: RenderConfig, mesh: Mesh, seed,
+                                     guide, beta: float = 0.5, k: float = 8.0,
+                                     s0: int = 0, n_s: int | None = None,
+                                     device=None):
+    """The guided render on this rank's shard, the JAX package's
+    ``render_pallas_guided_sharded``: row 4's kernel (megakernel_guided,
+    ``_tab``) on the shard's lanes with the voxel table copied to every
+    rank, its plain version on the CPU. Refuses what row 4 refuses
+    (``check_guided``). Returns as ``render_megakernel_sharded``."""
+    check_guided(scene, cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return render_megakernel_guided_sharded_plain(
+            scene, cam, cfg, mesh, seed, guide, beta, k, s0, n_s, device)
+    L, traces = _launch_guided(scene, cam, cfg, seed,
+                              guide_table(guide, device), 0, beta, k,
+                              shard_of(cfg, mesh, s0, n_s), device)
+    return mesh.sum_dp(L), mesh.sum_world(traces)

@@ -15,6 +15,9 @@ light.
   ``loss_and_geom_grads`` and ``fit_geom``: the JAX package's
   ``loss_and_geom_grads`` and ``fit_pallas_geom`` on one card, the
   trust-region steps on the common-random-number loss.
+- ``geom_train_step_sharded`` (row 12): one training evaluation over an
+  (sp, dp) mesh, each rank running both launches on its shard's lanes
+  (``geom_run_shard``); ``fit_geom(mesh=)`` routes every step through it.
 - ``diff_step`` and ``bounce_vjp``: one bounce's continuous map (o, d,
   center, radius) -> (x, d', w) with every discrete choice fixed, and its
   pullback derived by hand in the formulas and order of the kernel's
@@ -47,20 +50,16 @@ from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
 from ..core import vecmath as vm
 from ..integrator.sampling import light_area_normal
-from ..integrator.wavefront import (
-    check_materials, lane_layout, path_trace_regen,
-)
+from ..integrator.wavefront import check_materials, path_trace_regen
+from ..parallel.mesh import Mesh
+from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
 from ..scene.types import DIFF, SPEC, Scene, num_spheres
 from . import _build
 from .megakernel import (
-    KernelGeometry, _layout, _reduce, _resolve, check_launch, launch_args,
-    pack_geometry, sphere_tables,
+    KernelGeometry, _image, _resolve, count, full_layout,
+    launch_args, pack_geometry, shard_of, sphere_tables,
 )
 from .megakernel_grad import material_grads_to_scene
-
-# Launches of megakernel_geom in this process (the wrapper adds one per
-# launch, and nowhere else).
-LAUNCHES_GEOM = 0
 
 # Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
 # per-block partial sums. The kernel keeps one row of gradient slots a warp
@@ -464,19 +463,37 @@ def geom_run_plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     gradients are zero without ``g_img``."""
     check_geom(scene, cfg)
     device = _resolve(scene, device)
+    img, *grads, traces = _plain(scene, cam, cfg, seed,
+                                 _rows(g_img, cfg, device), full_layout(cfg),
+                                 device)
+    return (_image(img, cfg), *grads, traces)
+
+
+def _rows(g_img, cfg: RenderConfig, device):
+    """The (h, w, 3) cotangent as (n_pix, 3) float32 rows, or None."""
+    if g_img is None:
+        return None
+    g = g_img.detach().to(device=device, dtype=torch.float32)
+    if tuple(g.shape) != (cfg.height, cfg.width, 3):
+        raise ValueError(f"g_img must be ({cfg.height}, {cfg.width}, 3)"
+                         f", got {tuple(g.shape)}")
+    return g.reshape(-1, 3)
+
+
+def _plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed, g_rows,
+           lay: ShardLayout, device):
+    """geom_run_plain on the lanes ``lay``, the cotangent rows g_rows
+    (n_pix_loc, 3) or None: ((n_pix_loc, 3) radiance sums, g_sph, g_alb,
+    g_emi, traces)."""
     sc, cm = scene.to(device), cam.to(device)
     leaves = pack_tables(sc)
-    n_pix, g, per = _layout(cfg, cfg.spp)
-    pix, s_start, s_stop = lane_layout(n_pix, g, per, 0, device)
+    pix, s_start, s_stop = shard_lanes(lay, device)
     n = pix.shape[0]
     grads = [torch.zeros_like(t) for t in leaves]
-    want = g_img is not None
+    want = g_rows is not None
     if want:
-        g_pix = g_img.detach().to(device=device, dtype=torch.float32)
-        if tuple(g_pix.shape) != (cfg.height, cfg.width, 3):
-            raise ValueError(f"g_img must be ({cfg.height}, {cfg.width}, 3)"
-                             f", got {tuple(g_pix.shape)}")
-        g_lane = g_pix.reshape(n_pix, 3).index_select(0, pix)
+        g_lane = g_rows.detach().to(device=device, dtype=torch.float32
+                                    ).index_select(0, pix - lay.pix0)
         chunk = _plain_chunk(num_spheres(sc), device)
     else:
         chunk = n
@@ -496,8 +513,7 @@ def geom_run_plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                         acc += p
         Ls.append(L.detach())
         traces += tr
-    img = _reduce(torch.cat(Ls), cfg, n_pix, g)
-    return (img, *grads, traces)
+    return (reduce_lanes(torch.cat(Ls), lay), *grads, traces)
 
 
 # ---------------------------------------------------------------------------
@@ -515,29 +531,32 @@ def _check_spheres(scene: Scene) -> int:
 
 
 def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
-            g_img, device, geometry: KernelGeometry | None):
-    global LAUNCHES_GEOM
+            g_rows, lay: ShardLayout, device,
+            geometry: KernelGeometry | None):
+    """One launch of megakernel_geom on the lanes ``lay``, the adjoint
+    under the (n_pix_loc, 3) cotangent rows g_rows, image-only for None:
+    ((n_pix_loc, 3) radiance sums, g_sph, g_alb, g_emi, counts (4,))."""
     S = _check_spheres(scene)
     geom = pack_geometry(scene, cam) if geometry is None else geometry
     R = len(geom.rect_axis)
     sph, alb, emi, refl = sphere_tables(scene, device)
     K = R + S
-    n_pix, g, per = _layout(cfg, cfg.spp)
     n_slots = 6 * K + 4 * S
-    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
+                        device=device)
     counts = torch.zeros(4, dtype=torch.int64, device=device)
     out = torch.zeros(n_slots, dtype=torch.float32, device=device)
-    if g_img is None:
+    if g_rows is None:
         bk, g_ptr, partials = 0, None, out[:0]
     else:
         bk = 1
-        g_img = g_img.detach().to(device=device,
-                                  dtype=torch.float32).contiguous()
-        if tuple(g_img.shape) != (cfg.height, cfg.width, 3):
-            raise ValueError(f"g_img must be ({cfg.height}, {cfg.width}, 3)"
-                             f", got {tuple(g_img.shape)}")
-        g_ptr = g_img.data_ptr()
-        n_blocks = -(-n_pix * g // KERNEL_BLOCK)
+        g_rows = g_rows.detach().to(device=device,
+                                    dtype=torch.float32).contiguous()
+        if tuple(g_rows.shape) != (lay.n_pix_loc, 3):
+            raise ValueError(f"expected ({lay.n_pix_loc}, 3) cotangent "
+                             f"rows, got {tuple(g_rows.shape)}")
+        g_ptr = g_rows.data_ptr()
+        n_blocks = -(-lay.n_pix_loc * lay.g // KERNEL_BLOCK)
         partials = torch.empty(n_blocks * n_slots, dtype=torch.float32,
                                device=device)
     lib = _build.build_kernels().lib
@@ -545,17 +564,16 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.spt_megakernel_geom(
             geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
-            *launch_args(geom, cfg, seed, g, per, 0), sph.data_ptr(), S,
+            *launch_args(geom, cfg, seed, lay), sph.data_ptr(), S,
             alb.data_ptr(), emi.data_ptr(), refl.data_ptr(), bk, g_ptr,
             partials.data_ptr(), partials.numel(), out.data_ptr(),
             out_l.data_ptr(), counts.data_ptr(), stream,
         )
-    check_launch(err, "megakernel_geom")
-    LAUNCHES_GEOM += 1
+    count("megakernel_geom", err)
     g_alb = out[:3 * K].reshape(K, 3)
     g_emi = out[3 * K:6 * K].reshape(K, 3)
     g_sph = out[6 * K:].reshape(S, 4)
-    return _reduce(out_l, cfg, n_pix, g), g_sph, g_alb, g_emi, counts
+    return reduce_lanes(out_l, lay), g_sph, g_alb, g_emi, counts
 
 
 def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
@@ -583,8 +601,10 @@ def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
         img, gs, ga, ge, counts = geom_run_plain(scene, cam, cfg, seed, g_img,
                                                  device)
     else:
-        img, gs, ga, ge, counts = _launch(scene, cam, cfg, seed, g_img,
-                                          device, geometry)
+        img, gs, ga, ge, counts = _launch(
+            scene, cam, cfg, seed, _rows(g_img, cfg, device),
+            full_layout(cfg), device, geometry)
+        img = _image(img, cfg)
     return (img, gs, ga, ge, counts) if with_counts else (img, gs, ga, ge)
 
 
@@ -646,14 +666,82 @@ def loss_and_geom_grads(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     return loss.detach(), g_sph, g_alb, g_emi
 
 
-def check_fit(fields, sphere_idx: int | None = None, mesh=None) -> None:
-    """fit_geom's refusals: a field outside FIELDS (ValueError), a
-    geometry field of one sphere (its boundary terms, item 16) and a mesh
-    (the sharded step, item 17)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded geometry train step (mesh=, queue 2 row 12) "
-            + _ITEM.format(17))
+def geom_run_shard_plain(scene: Scene, cam: CameraParams, cfg: RenderConfig,
+                         mesh: Mesh, seed, g_rows=None, device=None):
+    """The shard launch's plain version (see geom_run_shard); its counts
+    are (2,) [extend, probe]."""
+    check_geom(scene, cfg)
+    device = _resolve(scene, device)
+    return _plain(scene, cam, cfg, seed, g_rows,
+                  shard_of(cfg, mesh, what="spp"), device)
+
+
+def geom_run_shard(scene: Scene, cam: CameraParams, cfg: RenderConfig,
+                   mesh: Mesh, seed, g_rows=None, device=None,
+                   geometry: KernelGeometry | None = None):
+    """One launch of megakernel_geom on this rank's shard lanes, before any
+    collective: image-only with ``g_rows=None``, else the adjoint under the
+    cotangent rows g_rows (n_pix_loc, 3) of its pixel block. Both launches
+    of a step take the same lanes and seed, so they trace the same paths.
+    Returns ((n_pix_loc, 3) partial radiance sums over the shard's
+    samples, g_sph (S, 4), g_alb (K, 3), g_emi (K, 3) partials, counts:
+    (4,) on the card, (2,) on the CPU)."""
+    check_geom(scene, cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return geom_run_shard_plain(scene, cam, cfg, mesh, seed, g_rows,
+                                    device)
+    return _launch(scene, cam, cfg, seed, g_rows,
+                   shard_of(cfg, mesh, what="spp"), device, geometry)
+
+
+def geom_train_step_sharded(scene: Scene, cam: CameraParams,
+                            cfg: RenderConfig, mesh: Mesh, target,
+                            device=None):
+    """The JAX package's ``geom_train_step_sharded``: a geometry-training
+    evaluation over the mesh in which every rank (a) runs the image-only
+    launch on its shard's lanes, (b) sums the partial image over dp, (c)
+    takes its loss and cotangent from its own pixel rows of ``target``
+    (h, w, 3), and (d) replays the same lanes with the adjoint. The loss
+    sums over sp only (it is replicated along dp), the gradients over the
+    whole mesh.
+
+    Returns step(sph, alb, emi, seed) -> (loss (), img_loc (n_pix_loc, 3)
+    this rank's pixel rows of the radiance sum over spp, g_sph (S, 4),
+    g_alb (K, 3), g_emi (K, 3)) in the port's table layout
+    (``grads_to_scene``); loss and gradients are the same on every rank.
+    The JAX step's image output is the sp-sharded array whose local block
+    is img_loc."""
+    check_geom(scene, cfg)
+    device = _resolve(scene, device)
+    lay = shard_of(cfg, mesh, what="spp")
+    n_pix = cfg.width * cfg.height
+    tgt = torch.as_tensor(target, dtype=torch.float32, device=device)
+    tgt = tgt.reshape(n_pix, 3)[lay.pix0:lay.pix0 + lay.n_pix_loc]
+    geometry = pack_geometry(scene, cam) if device.type == "cuda" else None
+    spp_t = torch.tensor(float(cfg.spp), device=device)
+    n_t = torch.tensor(float(n_pix * 3), device=device)
+    inv_n = torch.tensor(2.0 / (n_pix * 3 * cfg.spp), device=device)
+
+    def step(sph, alb, emi, seed):
+        sc = scene_with_tables(scene, sph, alb, emi)
+        part = geom_run_shard(sc, cam, cfg, mesh, seed, None, device,
+                              geometry)[0]
+        img_loc = mesh.sum_dp(part)
+        diff = img_loc / spp_t - tgt
+        loss = mesh.sum_sp(torch.sum(diff * diff) / n_t)
+        _, g_sph, g_alb, g_emi, _ = geom_run_shard(
+            sc, cam, cfg, mesh, seed, diff * inv_n, device, geometry)
+        return (loss, img_loc, mesh.sum_world(g_sph), mesh.sum_world(g_alb),
+                mesh.sum_world(g_emi))
+
+    return step
+
+
+def check_fit(fields, sphere_idx: int | None = None) -> None:
+    """fit_geom's refusals: a field outside FIELDS (ValueError) and a
+    geometry field of one sphere (its boundary terms, item 16), with a
+    mesh or without."""
     bad = [f for f in fields if f not in FIELDS]
     if bad:
         raise ValueError(f"fields must be in {FIELDS}, got {bad}")
@@ -673,13 +761,19 @@ def fit_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
     launch a step. ``fields``: of center, radius, albedo, emission (the
     spheres'); ``sphere_idx`` masks the update to one sphere, which with a
     geometry field would add the edge-sampled boundary terms (item 16).
+    ``mesh`` (``parallel/mesh.py``) routes every step through
+    ``geom_train_step_sharded``: each rank renders its shard, the loss and
+    gradients are the whole image's on every rank, so every rank takes the
+    same steps.
 
     Returns (best scene, [losses]); losses[-1] describes the returned
     scene."""
-    check_fit(fields, sphere_idx, mesh)
+    check_fit(fields, sphere_idx)
     check_geom(scene, cfg)
     geometry = (pack_geometry(scene, cam) if scene.device.type == "cuda"
                 else None)
+    if mesh is not None:
+        sharded = geom_train_step_sharded(scene, cam, cfg, mesh, target)
     cap0_geo, cap0_mat = float(lr), min(float(lr), 0.1)
     cap_geo, cap_mat = cap0_geo, cap0_mat
     losses: list[float] = []
@@ -702,8 +796,11 @@ def fit_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
 
     for i in range(steps):
         t0 = time.perf_counter()
-        loss, g_sph, g_alb, g_emi = loss_and_geom_grads(
-            s, cam, cfg, seed, target, geometry=geometry)
+        if mesh is None:
+            loss, g_sph, g_alb, g_emi = loss_and_geom_grads(
+                s, cam, cfg, seed, target, geometry=geometry)
+        else:
+            loss, _, g_sph, g_alb, g_emi = sharded(*pack_tables(s), seed)
         loss = float(loss)  # waits for the step's kernels
         if loss > best_loss:
             s = best_s

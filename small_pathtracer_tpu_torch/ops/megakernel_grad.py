@@ -10,6 +10,9 @@ package's ``ops/megakernel_grad.py`` for ``nee``, rects and one rect light.
 - ``RenderMaterials``: the two as one ``torch.autograd.Function``.
 - ``loss_and_material_grads`` and ``fit_megakernel``: SGD on the tables, the
   counterparts of ``loss_and_material_grads`` and ``fit_pallas``.
+- ``material_train_step_sharded`` (row 10): one training evaluation over
+  an (sp, dp) mesh, each rank running both kernels on its shard's lanes
+  (``render_megakernel_mat_shard``, ``render_megakernel_vjp_shard``).
 
 The tables are in global object order (``pack_materials``): the rects, so
 K = 17 for ``cornell_box``. Scenes with spheres or SPEC/REFR objects and
@@ -29,19 +32,16 @@ import torch
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
+from ..parallel.mesh import Mesh
+from ..parallel.sharded import ShardLayout, reduce_lanes
 from ..scene.types import (
     DIFF, LightSampler, Rects, Scene, Spheres, num_spheres,
 )
 from . import _build
 from .megakernel import (
-    KernelGeometry, _layout, _reduce, _resolve, check_launch, launch_args,
-    pack_geometry, render_megakernel_plain,
+    KernelGeometry, _image, _resolve, count, full_layout,
+    launch_args, pack_geometry, plain_lanes, shard_of,
 )
-
-# Launches of each CUDA kernel in this process (each wrapper adds one per
-# launch of its kernel, and nowhere else).
-LAUNCHES_MAT = 0
-LAUNCHES_VJP = 0
 
 # Threads a block of the adjoint kernel (kBlock in csrc/megakernel_common.cuh):
 # it sizes the per-block partial sums.
@@ -120,10 +120,15 @@ def render_megakernel_mat_plain(scene: Scene, cam: CameraParams,
                                 device=None):
     """The runtime-material kernel's plain version: the eager forward with
     the tables put into the scene."""
-    return render_megakernel_plain(
-        unpack_materials(scene, albedo, emission), cam, cfg, seed, s0, n_s,
-        device,
-    )
+    device = _resolve(scene, device)
+    L, traces = _mat_plain(scene, cam, cfg, albedo, emission, seed,
+                           full_layout(cfg, n_s, s0), device)
+    return _image(L, cfg), traces
+
+
+def _mat_plain(scene, cam, cfg, albedo, emission, seed, lay, device):
+    return plain_lanes(unpack_materials(scene, albedo, emission), cam, cfg,
+                       seed, lay, device)
 
 
 def render_megakernel_mat(scene: Scene, cam: CameraParams,
@@ -141,25 +146,31 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
                                            seed, s0, n_s, device)
-    global LAUNCHES_MAT
+    L, traces = _launch_mat(scene, cam, cfg, albedo, emission, seed,
+                            full_layout(cfg, n_s, s0), device, geometry)
+    return _image(L, cfg), traces
+
+
+def _launch_mat(scene, cam, cfg, albedo, emission, seed, lay: ShardLayout,
+                device, geometry):
+    """megakernel_nee_mat on the lanes ``lay``: ((n_pix_loc, 3) radiance
+    sums, traces (2,) int64)."""
     geom = pack_geometry(scene, cam) if geometry is None else geometry
     alb, emi = _tables(albedo, emission, len(geom.rect_axis), device)
-    n_s = cfg.spp if n_s is None else int(n_s)
-    n_pix, g, per = _layout(cfg, n_s)
     lib = _build.build_kernels().lib
-    out_l = torch.empty((n_pix * g, 3), dtype=torch.float32, device=device)
+    out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
+                        device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.spt_megakernel_nee_mat(
             geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-            len(geom.rect_axis), *launch_args(geom, cfg, seed, g, per, s0),
+            len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
             alb.data_ptr(), emi.data_ptr(), out_l.data_ptr(),
             traces.data_ptr(), stream,
         )
-    check_launch(err, "megakernel_nee_mat")
-    LAUNCHES_MAT += 1
-    return _reduce(out_l, cfg, n_pix, g), traces
+    count("megakernel_nee_mat", err)
+    return reduce_lanes(out_l, lay), traces
 
 
 def render_megakernel_vjp_plain(scene: Scene, cam: CameraParams,
@@ -169,13 +180,21 @@ def render_megakernel_vjp_plain(scene: Scene, cam: CameraParams,
     through the plain forward, the tables as leaves. Returns (d/d albedo,
     d/d emission), each (K, 3)."""
     device = _resolve(scene, device)
+    g = g_img.detach().to(device=device, dtype=torch.float32)
+    return _vjp_plain(scene, cam, cfg, albedo, emission, seed,
+                      g.reshape(-1, 3), full_layout(cfg), device)
+
+
+def _vjp_plain(scene, cam, cfg, albedo, emission, seed, g_rows,
+               lay: ShardLayout, device):
+    """torch.autograd of sum(g_rows · I) through the plain forward on the
+    lanes ``lay``; g_rows is (n_pix_loc, 3)."""
     alb, emi = (t.requires_grad_() for t in _tables(
         albedo, emission, scene.rects.k.shape[0], device))
-    g = g_img.detach().to(device=device, dtype=torch.float32)
     with torch.enable_grad():
-        img, _ = render_megakernel_mat_plain(scene.to(device), cam, cfg, alb,
-                                             emi, seed, device=device)
-        return torch.autograd.grad(img, (alb, emi), grad_outputs=g)
+        L, _ = _mat_plain(scene.to(device), cam, cfg, alb, emi, seed, lay,
+                          device)
+        return torch.autograd.grad(L, (alb, emi), grad_outputs=g_rows)
 
 
 def render_megakernel_vjp(scene: Scene, cam: CameraParams,
@@ -192,18 +211,25 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
                                            seed, g_img, device)
-    global LAUNCHES_VJP
-    geom = pack_geometry(scene, cam) if geometry is None else geometry
-    R = len(geom.rect_axis)
-    alb, emi = _tables(albedo, emission, R, device)
-    g = g_img.detach().to(device=device, dtype=torch.float32).contiguous()
+    g = g_img.detach().to(device=device, dtype=torch.float32)
     if tuple(g.shape) != (cfg.height, cfg.width, 3):
         raise ValueError(
             f"g_img must be ({cfg.height}, {cfg.width}, 3), got "
             f"{tuple(g.shape)}"
         )
-    n_pix, groups, per = _layout(cfg, cfg.spp)
-    n_blocks = -(-n_pix * groups // KERNEL_BLOCK)
+    return _launch_vjp(scene, cam, cfg, albedo, emission, seed,
+                       g.reshape(-1, 3), full_layout(cfg), device, geometry)
+
+
+def _launch_vjp(scene, cam, cfg, albedo, emission, seed, g_rows,
+                lay: ShardLayout, device, geometry):
+    """megakernel_vjp (and its fixed-order reduction) on the lanes ``lay``
+    under the (n_pix_loc, 3) cotangent rows g_rows: (galb, gemi)."""
+    geom = pack_geometry(scene, cam) if geometry is None else geometry
+    R = len(geom.rect_axis)
+    alb, emi = _tables(albedo, emission, R, device)
+    g = g_rows.detach().to(device=device, dtype=torch.float32).contiguous()
+    n_blocks = -(-lay.n_pix_loc * lay.g // KERNEL_BLOCK)
     partials = torch.empty(n_blocks * 6 * R, dtype=torch.float32,
                            device=device)
     out = torch.empty((2, R, 3), dtype=torch.float32, device=device)
@@ -212,12 +238,11 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.spt_megakernel_vjp(
             geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
-            *launch_args(geom, cfg, seed, groups, per, 0),
+            *launch_args(geom, cfg, seed, lay),
             alb.data_ptr(), emi.data_ptr(), g.data_ptr(),
             partials.data_ptr(), partials.numel(), out.data_ptr(), stream,
         )
-    check_launch(err, "megakernel_vjp")
-    LAUNCHES_VJP += 1
+    count("megakernel_vjp", err)
     return out[0], out[1]
 
 
@@ -301,3 +326,108 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
             print(f"step {i}: loss {losses[-1]:.6f}  seconds "
                   f"{time.perf_counter() - t0:.6f}", file=log, flush=True)
     return unpack_materials(scene, alb, emi), losses
+
+
+# ---------------------------------------------------------------------------
+# Row 10: the material train step over an (sp, dp) mesh.
+
+def render_megakernel_mat_shard_plain(scene: Scene, cam: CameraParams,
+                                      cfg: RenderConfig, mesh: Mesh, albedo,
+                                      emission, seed, device=None):
+    """The shard forward's plain version (see render_megakernel_mat_shard)."""
+    device = _resolve(scene, device)
+    return _mat_plain(scene, cam, cfg, albedo, emission, seed,
+                      shard_of(cfg, mesh, what="spp"), device)
+
+
+def render_megakernel_mat_shard(scene: Scene, cam: CameraParams,
+                                cfg: RenderConfig, mesh: Mesh, albedo,
+                                emission, seed, device=None,
+                                geometry: KernelGeometry | None = None):
+    """This rank's own partial of the runtime-material forward over all of
+    spp: its pixel block's radiance sums over its dp sample range, before
+    any collective (megakernel_nee_mat on the shard's lanes on a CUDA
+    device). Returns ((n_pix_loc, 3) partial sums, traces (2,) int64 of
+    the shard)."""
+    check_trainable(scene)
+    check_estimator(cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return render_megakernel_mat_shard_plain(scene, cam, cfg, mesh,
+                                                 albedo, emission, seed,
+                                                 device)
+    return _launch_mat(scene, cam, cfg, albedo, emission, seed,
+                       shard_of(cfg, mesh, what="spp"), device, geometry)
+
+
+def render_megakernel_vjp_shard_plain(scene: Scene, cam: CameraParams,
+                                      cfg: RenderConfig, mesh: Mesh, albedo,
+                                      emission, seed, g_rows, device=None):
+    """The shard adjoint's plain version: torch.autograd through the shard
+    forward's plain version."""
+    device = _resolve(scene, device)
+    g = g_rows.detach().to(device=device, dtype=torch.float32)
+    return _vjp_plain(scene, cam, cfg, albedo, emission, seed, g,
+                      shard_of(cfg, mesh, what="spp"), device)
+
+
+def render_megakernel_vjp_shard(scene: Scene, cam: CameraParams,
+                                cfg: RenderConfig, mesh: Mesh, albedo,
+                                emission, seed, g_rows, device=None,
+                                geometry: KernelGeometry | None = None):
+    """This rank's own partial of the material adjoint: the cotangents of
+    sum(g_rows · I_loc) over its shard's lanes, where g_rows (n_pix_loc, 3)
+    holds the cotangents of its pixel block only (megakernel_vjp on a CUDA
+    device). Returns (galb, gemi) partials, each (K, 3)."""
+    check_trainable(scene)
+    check_estimator(cfg)
+    device = _resolve(scene, device)
+    if device.type == "cpu":
+        return render_megakernel_vjp_shard_plain(scene, cam, cfg, mesh,
+                                                 albedo, emission, seed,
+                                                 g_rows, device)
+    lay = shard_of(cfg, mesh, what="spp")
+    if tuple(g_rows.shape) != (lay.n_pix_loc, 3):
+        raise ValueError(f"g_rows must be ({lay.n_pix_loc}, 3), got "
+                         f"{tuple(g_rows.shape)}")
+    return _launch_vjp(scene, cam, cfg, albedo, emission, seed, g_rows, lay,
+                       device, geometry)
+
+
+def material_train_step_sharded(scene: Scene, cam: CameraParams,
+                                cfg: RenderConfig, mesh: Mesh, target,
+                                device=None):
+    """The JAX package's ``material_train_step_sharded``: a training
+    evaluation over the mesh in which every rank (a) renders its shard
+    through the runtime-material forward, (b) sums the partial image over
+    dp, (c) takes its loss and cotangent from its own pixel rows of
+    ``target`` (h, w, 3), and (d) runs the adjoint on the same lanes. The
+    local loss is already replicated along dp, so it sums over sp only;
+    the gradients sum over the whole mesh.
+
+    Returns step(albedo, emission, seed) -> (loss (), galb (K, 3),
+    gemi (K, 3)), the same on every rank."""
+    check_trainable(scene)
+    check_estimator(cfg)
+    device = _resolve(scene, device)
+    lay = shard_of(cfg, mesh, what="spp")
+    n_pix, spp = cfg.width * cfg.height, cfg.spp
+    tgt = torch.as_tensor(target, dtype=torch.float32, device=device)
+    tgt = tgt.reshape(n_pix, 3)[lay.pix0:lay.pix0 + lay.n_pix_loc]
+    geometry = pack_geometry(scene, cam) if device.type == "cuda" else None
+    spp_t = torch.tensor(float(spp), device=device)
+    n_t = torch.tensor(float(n_pix * 3), device=device)
+    inv_n = torch.tensor(2.0 / (n_pix * 3 * spp), device=device)
+
+    def step(albedo, emission, seed):
+        part, _ = render_megakernel_mat_shard(scene, cam, cfg, mesh, albedo,
+                                              emission, seed, device,
+                                              geometry)
+        diff = mesh.sum_dp(part) / spp_t - tgt
+        loss = mesh.sum_sp(torch.sum(diff * diff) / n_t)
+        galb, gemi = render_megakernel_vjp_shard(
+            scene, cam, cfg, mesh, albedo, emission, seed, diff * inv_n,
+            device, geometry)
+        return loss, mesh.sum_world(galb), mesh.sum_world(gemi)
+
+    return step

@@ -9,7 +9,15 @@ render's up to the order of float additions.
 
 Spans run through ``ops.megakernel.render_megakernel(..., s0, n_s)``, or
 ``render_megakernel_guided`` with a guide table: the render kernels on the
-card, their plain version on the CPU. The resume file
+card, their plain version on the CPU. With a mesh (``parallel/mesh.py``)
+each span is sharded (``render_megakernel_sharded``, or
+``render_megakernel_guided_sharded``), spans are a multiple of dp samples,
+and every rank gathers the span's whole image, so every rank holds the same
+state and saves it (each writer renames its own temporary file over the
+path); only rank 0 writes the preview. The mesh shape is not part of the
+fingerprint: the state is the whole image's sums, so a run on another
+mesh continues it when the samples done split over its dp; otherwise the
+spans left could not split either, and the run starts over. The resume file
 is an npz of the port's own: the JAX package does not read it, nor does the
 port read the JAX package's (their fingerprints hash different configs).
 """
@@ -30,6 +38,7 @@ from ..config import RenderConfig
 from ..core import film, imageio
 from ..ops.megakernel import (
     pack_guide_entries, render_megakernel, render_megakernel_guided,
+    render_megakernel_guided_sharded, render_megakernel_sharded,
 )
 from ..scene.types import Scene
 
@@ -114,17 +123,20 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
     is written there after each span, atomically, PPM or PNG by extension.
     With ``guide`` ((mu, use) from ``guide_lobes``) the spans are guided
     renders (``render_megakernel_guided`` with guide_beta and guide_k).
+    With ``mesh`` each span is this rank's share of a sharded render (spp
+    divisible by dp, ValueError otherwise; spans rounded down to a multiple
+    of dp samples, at least dp; a saved state whose samples done do not
+    split over dp is rendered again from the start), and every rank
+    returns the whole image.
 
     Returns (clamped linear (h, w, 3) image on the scene's device, total
     traces (extend + probe) as an int)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded checkpoint renders are not ported yet (ROADMAP.md "
-            "queue 1, item 17)")
     dev = scene.device
     n_pix = cfg.width * cfg.height
     fp = fingerprint(scene, cam, cfg, guide, guide_beta, guide_k)
     st = load_state(ckpt_path, fp) if ckpt_path else None
+    if st is not None and mesh is not None and st[1] % mesh.n_dp:
+        st = None  # saved by another mesh: the rest does not split over dp
     if st is not None:
         acc_np, spp_done, traces = st
         acc = torch.as_tensor(acc_np, device=dev).reshape(n_pix, 3)
@@ -133,12 +145,26 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
         spp_done, traces = 0, 0
 
     step = every_spp if every_spp > 0 else cfg.spp
+    if mesh is not None:
+        if cfg.spp % mesh.n_dp:
+            raise ValueError(
+                f"spp ({cfg.spp}) not divisible by dp={mesh.n_dp}")
+        step = max(mesh.n_dp, (step // mesh.n_dp) * mesh.n_dp)
     while spp_done < cfg.spp:
         n_s = min(step, cfg.spp - spp_done)
-        if guide is not None:
+        if guide is not None and mesh is not None:
+            L, tr = render_megakernel_guided_sharded(
+                scene, cam, cfg, mesh, cfg.seed, guide, guide_beta, guide_k,
+                spp_done, n_s)
+            L = mesh.gather_sp(L)
+        elif guide is not None:
             L, tr = render_megakernel_guided(scene, cam, cfg, cfg.seed, guide,
                                              guide_beta, guide_k, spp_done,
                                              n_s)
+        elif mesh is not None:
+            L, tr = render_megakernel_sharded(scene, cam, cfg, mesh, cfg.seed,
+                                              spp_done, n_s)
+            L = mesh.gather_sp(L)
         else:
             L, tr = render_megakernel(scene, cam, cfg, cfg.seed, spp_done,
                                       n_s)
@@ -147,7 +173,7 @@ def render_with_checkpoints(scene: Scene, cam: CameraParams,
         spp_done += n_s
         if ckpt_path:
             save_state(ckpt_path, acc.cpu().numpy(), spp_done, traces, fp)
-        if preview_path:
+        if preview_path and (mesh is None or mesh.rank == 0):
             _write_preview(preview_path, acc, spp_done, cfg)
 
     spp_t = torch.tensor(float(cfg.spp), device=dev)

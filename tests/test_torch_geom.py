@@ -30,6 +30,7 @@ from small_pathtracer_tpu_torch.core import vecmath as vm
 from small_pathtracer_tpu_torch.geometry.intersect import trace
 from small_pathtracer_tpu_torch.ops import _build, megakernel
 from small_pathtracer_tpu_torch.ops import megakernel_geom as mg
+from small_pathtracer_tpu_torch.parallel.mesh import Mesh
 
 # See tests/test_torch_core.py: single-threaded torch next to jaxlib.
 torch.set_num_threads(1)
@@ -458,8 +459,9 @@ def _glos(scene):
     (lambda s, c, f: mg.fit_geom(s, c, f, torch.zeros(3, 4, 3),
                                  sphere_idx=0, fields=("radius",)),
      NotImplementedError, "item 16"),
-    (lambda s, c, f: mg.fit_geom(s, c, f, torch.zeros(3, 4, 3), mesh=(2, 1)),
-     NotImplementedError, "item 17"),
+    (lambda s, c, f: mg.fit_geom(s, c, f, torch.zeros(3, 4, 3),
+                                 mesh=Mesh.single((1, 2))),
+     ValueError, "spp=1 % n_dp=2"),
     (lambda s, c, f: mg.geom_run(spt.get_scene("cornell_box", device="cpu"),
                                  c, f, 0), ValueError, "no spheres"),
     (lambda s, c, f: mg.geom_run(s._replace(light=s.light._replace(
@@ -498,6 +500,6 @@ def test_cuda_paths_raise_without_cuda(port):
 
 def test_cpu_wrappers_count_no_launch(port):
     scene, cam, cfg = port
-    before = mg.LAUNCHES_GEOM
+    before = dict(megakernel.LAUNCHES)
     mg.loss_and_geom_grads(scene, cam, cfg, SEED, torch.zeros((H, W, 3)))
-    assert mg.LAUNCHES_GEOM == before
+    assert dict(megakernel.LAUNCHES) == before

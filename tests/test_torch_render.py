@@ -127,6 +127,6 @@ def test_config_outside_slice_raises(field, value):
 
 def test_cpu_wrapper_counts_no_launch(port_box):
     scene, cam, cfg, _, _ = port_box
-    before = megakernel.LAUNCHES
+    before = dict(megakernel.LAUNCHES)
     megakernel.render_megakernel(scene, cam, cfg, SEED, 0, 1)
-    assert megakernel.LAUNCHES == before
+    assert dict(megakernel.LAUNCHES) == before

@@ -24,6 +24,7 @@ import small_pathtracer_tpu_torch as spt
 from small_pathtracer_tpu_torch.cli import main as cli_main
 from small_pathtracer_tpu_torch.convert import camera_from_jax, scene_from_jax
 from small_pathtracer_tpu_torch.core import film, imageio
+from small_pathtracer_tpu_torch.parallel.mesh import Mesh
 from small_pathtracer_tpu_torch.utils import checkpoint as ck
 from small_pathtracer_tpu_torch.utils.aov import render_aovs
 from small_pathtracer_tpu_torch.utils.denoise import denoise
@@ -174,13 +175,15 @@ def test_preview_written_atomically(tmp_path):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    ({"mesh": object()}, NotImplementedError, "item 17"),
+    ({"mesh": Mesh.single((1, 3))}, ValueError,
+     r"spp \(2\) not divisible by dp=3"),
     ({"guide": (torch.zeros(1620, 3), torch.zeros(1620, dtype=torch.bool))},
      ValueError, "cosine-continuation"),
 ], ids=["mesh", "guide"])
 def test_sharded_and_guided_spans_raise(kw, exc, match):
-    """Sharded spans are not ported (item 17); guided spans are, and refuse
-    the ``nee`` estimator as the guided kernels do."""
+    """Sharded spans need spp divisible by the mesh's dp, as in the JAX
+    package (tests/test_torch_parallel.py holds the sharded spans); guided
+    spans refuse the ``nee`` estimator as the guided kernels do."""
     scene, cam, cfg = _box(4, 4, 2)
     with pytest.raises(exc, match=match):
         ck.render_with_checkpoints(scene, cam, cfg, "", 0, **kw)
