@@ -30,10 +30,13 @@ spans); and each new kernel's own main path at 1024x768x512. Then the
 geometry adjoint ``megakernel_geom``: its image-only launch bit for bit
 against ``megakernel_nee_tab`` and the plain version, its adjoint against
 autograd through the plain version row by row and against itself (``cornell_spheres``
-and ``smallpt_original`` at 1024x768x4, ``sphere_grid`` at 256x192x4),
-``cli fit --train center,radius --scene cornell_spheres`` at 1024x768x512
-(5 steps: 1 + 2 launches a step, the best loss below the first, sphere 0
-nearer the truth) and the adjoint's event time at x512. Each path
+and ``smallpt_original`` at 1024x768x4, where some paths must outrun the
+adjoint's tape, ``sphere_grid`` at 256x192x4), ``cli fit --train
+center,radius --scene cornell_spheres`` at 1024x768x512 (5 steps: 1 + 2
+launches a step, the best loss below the first, sphere 0 nearer the truth)
+and the adjoint's event time and counters at x512. The adjoint kernels'
+registers, stack frames (their tapes) and spills are logged from ptxas,
+their times against the function's bound and their algorithm's. Each path
 runs with its kernels' launch counts set to 0 just before it and read just
 after, and fails unless its kernels launched. Every phase raises on
 failure, and the seconds each phase took are logged at the end. The second-to-last line of
@@ -291,16 +294,30 @@ def cli_traces(text: str) -> tuple[int, float]:
     return int(m.group(1)), float(m.group(2))
 
 
-def vjp_bound(traces, n_samples: int, n_pix: int, k: int):
-    """The adjoint traces every bounce of every sample twice, unfolded (the
-    forward's extend count), and updates the gradients once a bounce.
-    Bytes: the cotangent image and the tables in, the gradients out."""
+# Bytes of one tape entry of the adjoint kernels, written once and read
+# once a taped bounce: csrc/megakernel_grad.cu `VjpEntry` and
+# csrc/megakernel_geom.cu `GeomEntry` (the state before the bounce and
+# what its two queries found).
+VJP_ENTRY_BYTES, GEOM_ENTRY_BYTES = 48, 64
+
+
+def vjp_bound(traces, n_samples: int, n_pix: int, k: int,
+              algorithm: bool = False):
+    """megakernel_vjp. The function's bound: every bounce of every sample
+    traced once, unfolded (the forward's extend count: a folded bounce is
+    an extend too), and one gradient update a bounce. Bytes: the cotangent
+    image and the tables in, the gradients out. With ``algorithm`` this
+    kernel's bound: also its tape, an entry a bounce written once and read
+    once (the segment replays of paths longer than the tape, about 1e-5 of
+    the paths, left out)."""
     extend, _ = traces
-    per_pass = (extend * (query_ops(k) + FP_SHADE + FP_PROBE)
-                + n_samples * FP_SPAWN)
-    fp = 2 * per_pass + extend * FP_GRAD
-    it = 2 * (extend * INT_BOUNCE + n_samples * INT_SPAWN)
-    return bound(fp, it, n_pix * 12 + 4 * k * 3 * 4)
+    fp = (extend * (query_ops(k) + FP_SHADE + FP_PROBE + FP_GRAD)
+          + n_samples * FP_SPAWN)
+    it = extend * INT_BOUNCE + n_samples * INT_SPAWN
+    n_bytes = n_pix * 12 + 4 * k * 3 * 4
+    if algorithm:
+        n_bytes += 2 * extend * VJP_ENTRY_BYTES
+    return bound(fp, it, n_bytes)
 
 
 # The geometry adjoint (row 11) against autograd through its plain version,
@@ -322,25 +339,58 @@ FP_VJP = 100
 
 
 def geom_bound(counts, n_samples: int, n_pix: int, n_rects: int,
-               n_spheres: int, n_blocks: int, recompute: bool = False):
-    """megakernel_geom from its own counters [extend, probe, replayed, VJP].
-    The function's bound: the gradient needs pass A's bounces (a query with
-    the least shading each), pass A's probes at their least, one pullback a
-    bounce (FP_VJP, one a VJP bounce) and a spawn a sample. With
-    ``recompute`` this algorithm's bound instead: its replayed bounces and
-    each VJP bounce's own query too, and a spawn a backward sweep's bounce
-    (the replays' probes still left out). Bytes: the cotangent and the
-    image, the tables, the per-block partials out and in."""
-    extend, probe, replay, vjp = counts
-    bounces = extend + (replay + vjp if recompute else 0)
-    spawns = n_samples + (vjp if recompute else 0)
-    fp = (bounces * (query_ops(n_rects, n_spheres) + FP_SHADE_MIN)
-          + probe * (FP_PROBE + FP_NEE) + vjp * FP_VJP + spawns * FP_SPAWN)
-    it = bounces * (INT_DRAW + INT_WORD) + spawns * INT_SPAWN
+               n_spheres: int, n_blocks: int, algorithm: bool = False):
+    """megakernel_geom from its own counters [extend, probe, replayed, VJP,
+    paths longer than the tape]. The function's bound: the gradient needs
+    pass A's bounces (a query with the least shading each), pass A's probes
+    at their least, one pullback a bounce (FP_VJP, one a VJP bounce) and a
+    spawn a sample. Bytes: the cotangent and the image, the tables, the
+    per-block partials out and in. With ``algorithm`` this kernel's bound:
+    also its segment replays (a query and the least shading each, their
+    probes left out), each VJP bounce's shading (its queries come from the
+    tape), and the tape: an entry written a traced or replayed bounce and
+    read a VJP bounce."""
+    extend, probe, replay, vjp = counts[:4]
+    q = query_ops(n_rects, n_spheres)
+    fp = (extend * (q + FP_SHADE_MIN) + probe * (FP_PROBE + FP_NEE)
+          + vjp * FP_VJP + n_samples * FP_SPAWN)
+    it = extend * (INT_DRAW + INT_WORD) + n_samples * INT_SPAWN
     k = n_rects + n_spheres
     slots = 6 * k + 4 * n_spheres
-    return bound(fp, it, n_pix * 24 + k * 28 + n_spheres * 16
-                 + 2 * n_blocks * slots * 4)
+    n_bytes = (n_pix * 24 + k * 28 + n_spheres * 16
+               + 2 * n_blocks * slots * 4)
+    if algorithm:
+        fp += replay * (q + FP_SHADE_MIN) + vjp * FP_SHADE_MIN
+        it += (replay + vjp) * (INT_DRAW + INT_WORD)
+        n_bytes += (extend + replay + vjp) * GEOM_ENTRY_BYTES
+    return bound(fp, it, n_bytes)
+
+
+def ptxas_report(output: str, names: tuple) -> dict:
+    """From nvcc's ptxas -v output: {kernel: (registers, stack frame bytes
+    (its local memory: the tape), spill store bytes, spill load bytes)} for
+    each entry function whose mangled name holds one of ``names``."""
+    found, cur, entry, props = {}, None, None, None
+    for line in output.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            cur = next((n for n in names
+                        if re.search(rf"\d{n}(I|P|E|v|$)", entry)), None)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur and props == entry:
+            found[cur] = [None, *map(int, m.groups())]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in found:
+            found[cur][0] = int(m.group(1))
+            cur = None
+    return {k: tuple(v) for k, v in found.items()}
 
 
 def worst_row(kt: torch.Tensor, pt: torch.Tensor):
@@ -366,9 +416,11 @@ def geom_phases(card: str, cli_main) -> dict:
     from small_pathtracer_tpu_torch.ops import _build, megakernel
     from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
 
-    def parity(name, width, height, seed, g_seeds):
+    def parity(name, width, height, seed, g_seeds, long_paths=False):
         """Image-only parity, then the adjoint under the cotangent of each
-        of g_seeds; returns the first cotangent's numbers."""
+        of g_seeds; returns the first cotangent's numbers. With
+        ``long_paths`` some path must have outrun the tape, so the segment
+        replays ran."""
         sc = get_scene(name)
         cam = make_camera(aspect=width / height)
         cfg = RenderConfig(width=width, height=height, spp=4, seed=seed)
@@ -384,9 +436,10 @@ def geom_phases(card: str, cli_main) -> dict:
                                      "plain version differs from "
                                      "megakernel_nee_tab")
         return [adjoint(sc, cam, cfg, name, seed, g_seed, t_img, t_tr,
-                        med) for g_seed in g_seeds][0]
+                        med, long_paths) for g_seed in g_seeds][0]
 
-    def adjoint(sc, cam, cfg, name, seed, g_seed, t_img, t_tr, med):
+    def adjoint(sc, cam, cfg, name, seed, g_seed, t_img, t_tr, med,
+                long_paths):
         width, height = cfg.width, cfg.height
         n_pix = width * height
         g = torch.from_numpy(np.random.default_rng(g_seed).standard_normal(
@@ -406,6 +459,13 @@ def geom_phases(card: str, cli_main) -> dict:
             raise AssertionError(f"{name}: the adjoint's pass A differs from "
                                  "megakernel_nee_tab, or it ran a VJP bounce "
                                  "count other than the extends")
+        # Segment replays are O(D): fewer than the bounces traced.
+        if not int(counts[2]) < int(counts[0]):
+            raise AssertionError(f"{name}: {int(counts[2])} replayed bounces "
+                                 f"for {int(counts[0])} traced")
+        if long_paths and not int(counts[4]) > 0:
+            raise AssertionError(f"{name}: no path outran the tape, so the "
+                                 "segment replays did not run")
         torch.cuda.reset_peak_memory_stats()
         (_, p_sph, p_alb, p_emi, _), p_s = timed(
             lambda: mgeo.geom_run_plain(sc, cam, cfg, seed, g))
@@ -439,21 +499,23 @@ def geom_phases(card: str, cli_main) -> dict:
         log(f"[smoke] geom {name} {width}x{height}x4 seed {seed}: image-only "
             f"{med['kernel'] * 1e3:.3f} ms (plain {med['plain'] * 1e3:.3f} "
             f"ms) == megakernel_nee_tab, traces {t_tr.tolist()}; adjoint "
-            f"{ms:.3f} ms, counts {counts.tolist()}, three runs "
+            f"{ms:.3f} ms, counts {counts.tolist()} [extend, probe, "
+            f"replayed, VJP, paths longer than the tape], three runs "
             f"bit-identical; plain adjoint {p_s:.3f} s, peak memory "
             f"{peak / 2**30:.2f} GiB; bound {b[0]:.3f} ms ({b[1]}; the "
-            f"recompute algorithm's {b_alg[0]:.3f} ms)")
+            f"taped algorithm's {b_alg[0]:.3f} ms, {b_alg[1]})")
         return {"err": err_, "ms": ms, "plain_ms": p_s * 1e3, "bound": b}
 
     phase("geometry adjoint against megakernel_nee_tab and its plain "
           "version, cornell_spheres 1024x768x4")
-    res = {"cornell_spheres": parity("cornell_spheres", 1024, 768, 3, (3,))}
+    res = {"cornell_spheres": parity("cornell_spheres", 1024, 768, 3, (3,),
+                                     long_paths=True)}
     # The glass scene under two cotangents: grazing refraction puts the
     # sphere rows' largest rounding gap near its limit under seed 5.
     phase("geometry adjoint, smallpt_original 1024x768x4 (SPEC + REFR), "
           "cotangent seeds 3 and 5")
     res["smallpt_original"] = parity("smallpt_original", 1024, 768, 3,
-                                     (3, 5))
+                                     (3, 5), long_paths=True)
     phase("geometry adjoint, sphere_grid 256x192x4 (64 spheres)")
     res["sphere_grid"] = parity("sphere_grid", 256, 192, 3, (3,))
 
@@ -520,11 +582,139 @@ def geom_phases(card: str, cli_main) -> dict:
     log(f"[smoke] cornell_spheres 1024x768x512 seed 0: megakernel_geom "
         f"image-only {img_ms:.3f} ms (megakernel_nee_tab {tab_ms:.3f} ms, "
         f"ratio {img_ms / tab_ms:.3f}), adjoint {adj_ms:.3f} ms a launch, "
-        f"counts {counts} [extend, probe, replayed, VJP]; bound "
-        f"{b512[0]:.3f} ms ({b512[1]}; the recompute algorithm's "
-        f"{b512_alg[0]:.3f} ms)")
+        f"counts {counts} [extend, probe, replayed, VJP, paths longer than "
+        f"the tape]; bound {b512[0]:.3f} ms ({b512[1]}; the taped "
+        f"algorithm's {b512_alg[0]:.3f} ms, {b512_alg[1]})")
+    if not counts[2] < counts[0]:
+        raise AssertionError(f"{counts[2]} replayed bounces for {counts[0]} "
+                             "traced")
     res["cornell_spheres"]["launches"] = launches
     return res["cornell_spheres"]
+
+
+# The deep-path phase of the two adjoints: rr_start_depth = max_bounces =
+# DEEP_BOUNCES, past (kCkpt + 2)·kSeg bounces, so every path replays
+# segments from the last checkpoint (megakernel_tape.cuh); every albedo
+# DEEP_ALBEDO, so that no path ends on a black surface (the light) and
+# bounce 160 still carries 0.98^160 = 4% of a path's throughput.
+DEEP_BOUNCES, DEEP_ALBEDO = 200, 0.98
+
+
+def tape_sizes() -> tuple[int, int]:
+    """(kSeg, kCkpt) of csrc/megakernel_tape.cuh."""
+    text = (ROOT / CSRC / "megakernel_tape.cuh").read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", text)[1])
+                 for n in ("kSeg", "kCkpt"))
+
+
+def replayed_bounces(depth: int, k_seg: int, k_ckpt: int) -> int:
+    """The bounces the adjoints replay for a path of ``depth`` bounces
+    (megakernel_tape.cuh): each segment i below the last, from the spawn or
+    checkpoint min(i, kCkpt) to the segment's end."""
+    n_seg = -(-depth // k_seg)
+    return sum((i + 1 - min(i, k_ckpt)) * k_seg for i in range(n_seg - 1))
+
+
+def deep_phase() -> None:
+    """megakernel_vjp on cornell_box and the adjoint launch of
+    megakernel_geom on cornell_spheres with every path DEEP_BOUNCES long,
+    64x48x4: each against autograd through its plain version, three runs
+    bit-identical; the geometry adjoint's image and [extend, probe] against
+    megakernel_nee_tab and its counters against the tape's schedule."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+    from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
+
+    k_seg, k_ckpt = tape_sizes()
+    phase(f"deep paths: both adjoints at rr_start_depth = max_bounces = "
+          f"{DEEP_BOUNCES} (> (kCkpt + 2)·kSeg = {(k_ckpt + 2) * k_seg}), "
+          f"every albedo {DEEP_ALBEDO}, 64x48x4")
+    if not DEEP_BOUNCES > (k_ckpt + 2) * k_seg:
+        raise AssertionError("DEEP_BOUNCES does not reach the segments "
+                             "replayed from the last checkpoint")
+    width, height = 64, 48
+    n = width * height * 4
+    cam = make_camera(aspect=width / height)
+    cfg = RenderConfig(width=width, height=height, spp=4, seed=3,
+                       rr_start_depth=DEEP_BOUNCES, max_bounces=DEEP_BOUNCES)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (height, width, 3)).astype(np.float32)).to("cuda")
+
+    def three_runs(label, fn):
+        runs = [fn() for _ in range(3)]
+        for out in runs[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(out, runs[0])):
+                raise AssertionError(f"deep paths: {label} runs differ")
+        return runs[0]
+
+    box = get_scene("cornell_box")
+    alb, emi = mg.pack_materials(box)
+    alb = torch.full_like(alb, DEEP_ALBEDO)
+    _, traces = mg.render_megakernel_mat(box, cam, cfg, alb, emi, 3)
+    if int(traces[0]) != DEEP_BOUNCES * n:
+        raise AssertionError(f"deep paths: cornell_box traced "
+                             f"{int(traces[0])} bounces, not {DEEP_BOUNCES} "
+                             f"for each of {n} paths")
+    k_alb, k_emi = three_runs("megakernel_vjp", lambda: mg.render_megakernel_vjp(
+        box, cam, cfg, alb, emi, 3, g))
+    p_alb, p_emi = mg.render_megakernel_vjp_plain(box, cam, cfg, alb, emi, 3,
+                                                  g)
+    for label, kt, pt in (("albedo", k_alb, p_alb), ("emission", k_emi,
+                                                      p_emi)):
+        err, scale = float((kt - pt).abs().max()), float(pt.abs().max())
+        log(f"[smoke] deep paths, megakernel_vjp d/d {label}: max |kernel - "
+            f"plain| {err:.3e}, largest entry {scale:.3e}, ratio "
+            f"{err / scale:.3e} (limit {VJP_TOL:g})")
+        if not err <= VJP_TOL * scale:
+            raise AssertionError(f"deep paths: megakernel_vjp d/d {label} off "
+                                 f"by {err} > {VJP_TOL} x {scale}")
+
+    sph = get_scene("cornell_spheres")
+    t_sph, t_alb, t_emi = mgeo.pack_tables(sph)
+    sc = mgeo.scene_with_tables(sph, t_sph, torch.full_like(t_alb, DEEP_ALBEDO),
+                                t_emi)
+    t_img, t_tr = megakernel.render_megakernel(sc, cam, cfg, 3)
+    img, k_sph, k_alb, k_emi, counts = three_runs(
+        "megakernel_geom", lambda: mgeo.geom_run(sc, cam, cfg, 3, g,
+                                                 with_counts=True))
+    want = [DEEP_BOUNCES * n, int(t_tr[1]),
+            replayed_bounces(DEEP_BOUNCES, k_seg, k_ckpt) * n,
+            DEEP_BOUNCES * n, n]
+    log(f"[smoke] deep paths, megakernel_geom counts {counts.tolist()} "
+        f"[extend, probe, replayed, VJP, paths longer than the tape]; the "
+        f"schedule's {want}")
+    if not (torch.equal(img, t_img) and torch.equal(counts[:2], t_tr)
+            and counts.tolist() == want):
+        raise AssertionError("deep paths: megakernel_geom's image or "
+                             "counters differ from megakernel_nee_tab's or "
+                             "from the tape's schedule")
+    # The material rows, which read every taped entry, are held to autograd.
+    # The sphere rows are logged only: once the light reflects (DEEP_ALBEDO
+    # on every object), they differ from autograd by a few percent of their
+    # largest entry already at max_bounces 5, where no segment is replayed,
+    # and the parent's kernel without a tape gives this one's bits (PERF.md
+    # §7, ROADMAP queue 3). The sphere rows are held in the phases above.
+    _, p_sph, p_alb, p_emi, _ = mgeo.geom_run_plain(sc, cam, cfg, 3, g)
+    tol_mat, _ = GEOM_TOL["cornell_spheres"]
+    for label, kt, pt in (("albedo", k_alb, p_alb), ("emission", k_emi,
+                                                      p_emi),
+                          ("sphere rows", k_sph, p_sph)):
+        ratio, row, scale = worst_row(kt, pt)
+        log(f"[smoke] deep paths, megakernel_geom d/d {label}: worst row "
+            f"{row}: ratio {ratio:.3e} to its largest entry {scale:.3e}"
+            + ("" if label == "sphere rows" else f" (limit {tol_mat:g})"))
+        if label != "sphere rows" and not ratio <= tol_mat:
+            raise AssertionError(f"deep paths: megakernel_geom d/d {label} "
+                                 f"row {row} off by {ratio:.3e} > {tol_mat}")
+    cfg5 = RenderConfig(width=width, height=height, spp=4, seed=3,
+                        rr_start_depth=5, max_bounces=5)
+    k_sph = mgeo.geom_run(sc, cam, cfg5, 3, g)[1]
+    ratio, row, scale = worst_row(k_sph, mgeo.geom_run_plain(sc, cam, cfg5,
+                                                             3, g)[1])
+    log(f"[smoke] deep paths, megakernel_geom d/d sphere rows at "
+        f"max_bounces 5 (no segment replayed): worst row {row}: ratio "
+        f"{ratio:.3e} to its largest entry {scale:.3e}")
 
 
 # The sharded rows (6, 7, 10 and 12): the mesh of the per-shard phases and
@@ -1155,6 +1345,12 @@ def main() -> int:
     for line in built.build_output.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[smoke] ptxas: {line.strip()}")
+    adjoints = ptxas_report(built.build_output,
+                            ("megakernel_vjp", "megakernel_geom"))
+    for name, (regs, stack, st, ld) in adjoints.items():
+        log(f"[smoke] ptxas {name}: {regs} registers, {stack} bytes stack "
+            f"frame (local memory: the tape and checkpoints), spill stores "
+            f"{st} / loads {ld} bytes")
 
     # Phase 3: the baked kernel against the committed golden (rendered by
     # the JAX package on the CPU).
@@ -1261,9 +1457,12 @@ def main() -> int:
                                  f"{VJP_TOL} x {scale}")
     vjp_s, vjp_plain_s = med["kernel"], med["plain"]
     vjp_b = vjp_bound(traces_p, n_samp_p, n_pix_p, k_rects)
+    vjp_b_alg = vjp_bound(traces_p, n_samp_p, n_pix_p, k_rects, True)
     log(f"[smoke] adjoint 1024x768x4: kernel {vjp_s * 1e3:.3f} ms, plain "
         f"{vjp_plain_s * 1e3:.3f} ms, peak memory {peak / 2**30:.2f} GiB; "
-        f"three kernel runs bit-identical")
+        f"three kernel runs bit-identical; bound {vjp_b[0]:.3f} ms "
+        f"({vjp_b[1]}; this algorithm's {vjp_b_alg[0]:.3f} ms, "
+        f"{vjp_b_alg[1]})")
 
     # Phase 5: the render path, as a user calls it.
     phase("main path, cli render 1024x768x512")
@@ -1359,9 +1558,13 @@ def main() -> int:
     for name, ms in f_ms.items():
         share = (f", {ms / 1e3 / step_s:.1%} of a step"
                  if name != "megakernel_nee" else "")
+        alg = ""
+        if name == "megakernel_vjp":
+            b_alg = vjp_bound(tr_f, n_pix_f * 512, n_pix_f, k_rects, True)
+            alg = f"; this algorithm's {b_alg[0]:.3f} ms ({b_alg[1]})"
         log(f"[smoke] 1024x768x512 seed 0, traces {tr_f}: {name} {ms:.3f} ms"
             f" a launch{share}; bound {f_bounds[name][0]:.3f} ms "
-            f"({f_bounds[name][1]})")
+            f"({f_bounds[name][1]}){alg}")
 
     # Phase (d): the sphere-table kernel against its plain version, bit for
     # bit, in turns as in phase 4.
@@ -1968,6 +2171,7 @@ def main() -> int:
             main[name] = (n_l, ms, b)
 
     geo = geom_phases(card, cli_main)
+    deep_phase()
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"])
 
     PHASES.append(("end", time.perf_counter()))

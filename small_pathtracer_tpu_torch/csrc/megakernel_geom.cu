@@ -18,10 +18,13 @@
 // rows only. The sums over the mesh are torch.distributed all-reduces in
 // ops/megakernel_geom.py.
 //
-// Algorithm (the TPU kernel's): per sample, pass A traces the path and
-// latches its radiance L and its depth D. Then for j = D..1 the lane
-// replays bounces 1..j-1 and runs bounce j as a VJP bounce, carrying
-// λ = (dL/do, dL/dd) of the state after bounce j. A VJP bounce adds
+// Algorithm: per sample, pass A traces the path once, latches its radiance
+// L and its depth D, and tapes the state (o, d, T, A) before each bounce in
+// the lane's local memory (megakernel_tape.cuh: a segment of kSeg bounces a
+// buffer, checkpoints and segment replays for longer paths). Then the
+// sweep runs bounce j = D..1 once each from the tape as a VJP bounce,
+// carrying λ = (dL/do, dL/dd) of the state after bounce j. A VJP bounce
+// re-evaluates bounce j on the taped (o, d) and adds
 //   - the material terms of the material adjoint (megakernel_grad.cu):
 //     d/d albedo with the RR 1/p term split over the channels tied at p_max,
 //     and d/d emission, from T_j·S_{j+1} = (L − A_{j+1}) / (f_j·w_j);
@@ -32,42 +35,46 @@
 //     kernel; here the pullback is derived by hand, the same formulas in the
 //     same order as ops/megakernel_geom.py `bounce_vjp`, which the tests hold
 //     against torch.autograd branch by branch.
-// Replay costs D(D+1)/2 bounces a sample; every bounce is VJP'd once.
+// The TPU kernel has no lane-private memory, so it replays bounces 1..j-1
+// before each VJP bounce j: D(D+1)/2 bounces a sample. Here a sample costs
+// D traced bounces, D VJP bounces and, for D > kSeg only, about D replayed
+// bounces (counters: [extend, probe] of pass A, replayed, VJP, and the
+// paths longer than the tape).
+//
+// The VJP bounce takes what its two queries (the nearest hit and the NEE
+// probe) found from the tape (64 bytes an entry instead of 48) and shades
+// the bounce again without them: pass A's bounce bit for bit, and faster on
+// cornell_spheres than tracing the queries again on the taped (o, d)
+// (PERF.md).
 //
 // Design: one thread per lane on the forward's lane layout (blocks of 128).
 // Every bounce, of pass A, a replay or a VJP bounce, is `bounce` of
-// megakernel_lane.cuh, render_lane's own; the loop has one spawn site, and
-// the library is built with --fmad=false, so every replay retraces pass A
-// bit for bit and pass A's image and [extend, probe] counts are
+// megakernel_lane.cuh, render_lane's own, and the library is built with
+// --fmad=false, so pass A's image and [extend, probe] counts are
 // megakernel_nee_tab's (pass A leaves the NEE fold out: it changes
-// neither). A warp loops while any of its lanes is active, so all 32 lanes
-// meet once an iteration at `warp_accumulate`: the lanes that ran a VJP
-// bounce group by winner object, and each group's contributions are summed
-// by a fixed xor tree and added by lane 0 to the warp's row of gradient
-// slots in shared memory. The block sums its four rows in a fixed order
-// into one row of per-block partials and `reduce_partials` sums those rows
-// in a fixed order: the gradient has the same bits from run to run,
-// without per-thread columns (a column is 6K + 4S floats, 349 KB a block
-// for 64 spheres) and without atomics.
+// neither), and a replay or a VJP bounce retraces pass A. A lane traces one
+// segment while it sweeps the one before (two tape buffers). A warp loops
+// while any of its lanes is active, so all 32 lanes meet once an iteration
+// at `warp_accumulate`, which sums the VJP bounces' contributions by winner
+// object into the warp's row of gradient slots in shared memory in a fixed
+// order. The block sums its four rows in a fixed order into one row of
+// per-block partials and `reduce_partials` sums those rows in a fixed
+// order: the gradient has the same bits from run to run, without
+// per-thread columns and without atomics.
 //
 // What bounds it: operations. The gradient needs pass A's bounces (a
 // nearest-hit query and the shading each), its shadow probes, and one
-// pullback of a few hundred operations a bounce; this algorithm traces
-// D(D+1)/2 more bounces a sample in its replays (the counters report the
-// replayed and the VJP bounces). Bytes are the cotangent image, the tables
-// and the partials. The long tail of D (RR from depth 5, up to
-// max_bounces) holds a warp: one long path costs its whole warp the
-// quadratic replay. Left for later: checkpointing states every k bounces
-// (O(D·k) replay), a tape in local memory for short paths, and sorting
-// lanes by depth against the tail.
+// pullback of a few hundred operations a bounce; the algorithm adds each
+// VJP bounce's shading and the segment replays. Bytes are the cotangent
+// image, the tables, the partials and the tape (64 bytes a bounce, written
+// once and read once).
 
 #include "megakernel_lane.cuh"
+#include "megakernel_tape.cuh"
 
 namespace {
 
 constexpr int kMaxGeomSpheres = 1024;
-constexpr int kWarps = kBlock / 32;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float sgnf(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
@@ -105,7 +112,7 @@ struct Pullback {
 // The pullback of the bounce's continuous map (o, d, c, r) -> (x, d', w),
 // every discrete choice fixed by the primal b, under (lam_x, lam_d, sig_w):
 // ops/megakernel_geom.py `bounce_vjp`, per lane.
-__device__ __noinline__ Pullback bounce_vjp(const Params& p,
+__device__ __forceinline__ Pullback bounce_vjp(const Params& p,
                                             const SphereTab& tab,
                                             const Bounce& b, V3 o, V3 d,
                                             V3 lam_x, V3 lam_d, float sig_w) {
@@ -263,52 +270,6 @@ __device__ __noinline__ Pullback bounce_vjp(const Params& p,
   return out;
 }
 
-// The VJP bounce's contributions to one object's slots: albedo rgb,
-// emission rgb, and for a sphere (center, radius).
-struct Contrib {
-  int key;  // the winner's global id, -1 for none
-  float v[10];
-};
-
-// All 32 lanes of the warp call it. Lanes with the same key are summed by
-// a fixed xor tree (the other lanes add 0), one key at a time in the order
-// of their lowest lane, and lane 0 adds the sums to the warp's row:
-// albedo at 3·id, emission at 3K + 3·id, sphere s at 6K + 4s.
-__device__ __forceinline__ void warp_accumulate(const Contrib& ct, float* row,
-                                                int n_rects, int k_obj) {
-  unsigned pending = __ballot_sync(kFull, ct.key >= 0);
-  while (pending) {
-    const int src = __ffs(pending) - 1;
-    const int k0 = __shfl_sync(kFull, ct.key, src);
-    const bool mine = ct.key == k0;
-    const int nv = k0 >= n_rects ? 10 : 6;
-    float s[10];
-#pragma unroll
-    for (int i = 0; i < 10; ++i) {
-      s[i] = 0.0f;
-      if (i < nv) {
-        float x = mine ? ct.v[i] : 0.0f;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          x += __shfl_xor_sync(kFull, x, off);
-        }
-        s[i] = x;
-      }
-    }
-    if ((threadIdx.x & 31) == 0) {
-      for (int c = 0; c < 3; ++c) {
-        row[3 * k0 + c] += s[c];
-        row[3 * k_obj + 3 * k0 + c] += s[3 + c];
-      }
-      if (nv == 10) {
-        float* gs = row + 6 * k_obj + 4 * (k0 - n_rects);
-        for (int j = 0; j < 4; ++j) gs[j] += s[6 + j];
-      }
-    }
-    pending &= ~__ballot_sync(kFull, mine);
-  }
-}
-
 // The image-only launch (bk == 0): row 2's kernel body.
 __global__ void __launch_bounds__(kBlock)
     megakernel_geom_image(const __grid_constant__ Params p,
@@ -320,6 +281,12 @@ __global__ void __launch_bounds__(kBlock)
                           unsigned long long* __restrict__ counts) {
   tab_body<kNee>(p, sph, n_sph, alb, emi, refl, out_l, counts);
 }
+
+// A tape entry: the state before bounce j, and what its queries found.
+struct __align__(16) GeomEntry {
+  PathState st;
+  Queries q;
+};
 
 // The adjoint launch.
 __global__ void __launch_bounds__(kBlock)
@@ -348,105 +315,105 @@ __global__ void __launch_bounds__(kBlock)
   const V3 gc = lr.in_range ? ld3(g_img + 3 * lr.pix) : zero;
   const V3 cam_o = ld3(p.cam_o);
 
-  uint32_t s = lr.s, pid = 0;
-  V3 o = cam_o, d = zero, T = one;
-  V3 A = zero;   // this sample's emission partial sum
-  V3 L = zero;   // the lane's radiance sum over its samples (the image)
-  V3 LA = zero;  // pass A's radiance of the sample in the backward sweep
+  GeomEntry tape[2][kSeg];
+  PathState ck[kCkpt];
+  TapeCtl c;
+  tape_start(&c, lr.s, lr.in_range && lr.s < lr.s_stop);
+  PathState st;  // the producer's state before its next bounce
+  const auto spawn = [&] {
+    st = PathState{cam_o, spawn_dir(p, lr.px, lr.py, lr.pid_base + c.s), one,
+                   zero};
+  };
+  if (c.tracing) spawn();
+  V3 L = zero;  // the lane's radiance sum over its samples (the image)
   V3 lam_o = zero, lam_d = zero;
-  int depth = 0, jtgt = 0;
-  bool active = lr.in_range && s < lr.s_stop;
-  bool spawn = true, backward = false;
-  uint32_t n_ext = 0, n_prb = 0, n_rep = 0, n_vjp = 0;
+  uint32_t n_ext = 0, n_prb = 0, n_rep = 0, n_vjp = 0, n_long = 0;
 
-  while (__any_sync(kFull, active)) {
+  while (__any_sync(kFull, tape_active(c))) {
     Contrib ct;
     ct.key = -1;
-    if (active) {
-      if (spawn) {  // the one spawn site of every pass
-        pid = lr.pid_base + s;
-        o = cam_o;
-        d = spawn_dir(p, lr.px, lr.py, pid);
-        T = one;
-        A = zero;
-        depth = 0;
-        spawn = false;
-      }
-      depth += 1;
+    if (c.tracing) {  // pass A, or a segment replay
+      const int j = c.depth + 1;
       const Bounce b = bounce<TableMaterials, true, kNee>(
-          p, tab, mats, lf, o, d, pid, depth, lr.pix, NoGuide{});
-      const V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
-      const V3 A_new = add(A, pick);
-      const V3 T_new = mul(v3(T.x * b.f.x, T.y * b.f.y, T.z * b.f.z), b.w);
-      if (!backward) {  // pass A
+          p, tab, mats, lf, st.o, st.d, lr.pid_base + c.s, j, lr.pix,
+          NoGuide{});
+      GeomEntry& e = tape[c.pbuf][tape_slot(j)];
+      e.st = st;
+      e.q = Queries{b.id, b.t, b.success, b.t_safe};
+      const V3 pick = v3(st.T.x * b.emi.x, st.T.y * b.emi.y, st.T.z * b.emi.z);
+      const PathState next{
+          b.x, b.new_dir,
+          mul(v3(st.T.x * b.f.x, st.T.y * b.f.y, st.T.z * b.f.z), b.w),
+          add(st.A, pick)};
+      c.depth = j;
+      if (c.d_stop == 0) {  // pass A
+        tape_checkpoint(ck, j, st);
         L = add(L, pick);
         n_ext += 1;
         n_prb += (b.survive && b.diffuse) ? 1u : 0u;
-        if (b.survive && depth < p.max_bounces) {
-          o = b.x;
-          d = b.new_dir;
-          T = T_new;
-          A = A_new;
+        if (b.survive && j < p.max_bounces) {
+          st = next;
         } else {
-          LA = A_new;
-          jtgt = depth;
-          backward = true;
-          lam_o = zero;
-          lam_d = zero;
-          spawn = true;
+          n_long += j > kSeg ? 1u : 0u;
+          tape_end_pass_a(&c, next.A);
         }
-      } else if (depth < jtgt) {  // replay toward the target bounce
+      } else {
         n_rep += 1;
-        o = b.x;
-        d = b.new_dir;
-        T = T_new;
-        A = A_new;
-      } else {  // the VJP bounce j = jtgt
-        n_vjp += 1;
-        const V3 fw = mul(b.f, b.w);
-        const V3 TS = v3(fw.x != 0.0f ? (LA.x - A_new.x) / fw.x : 0.0f,
-                         fw.y != 0.0f ? (LA.y - A_new.y) / fw.y : 0.0f,
-                         fw.z != 0.0f ? (LA.z - A_new.z) / fw.z : 0.0f);
-        const float f_scale = b.inv_p * b.w;
-        const float s_ta = gc.x * TS.x * b.alb.x + gc.y * TS.y * b.alb.y +
-                           gc.z * TS.z * b.alb.z;
-        const float s_am =
-            b.rr_scaled ? s_ta * b.w * (-(b.inv_p * b.inv_p)) : 0.0f;
-        const float p_max = fmaxf(b.alb.x, fmaxf(b.alb.y, b.alb.z));
-        const float eq_x = b.alb.x == p_max ? 1.0f : 0.0f;
-        const float eq_y = b.alb.y == p_max ? 1.0f : 0.0f;
-        const float eq_z = b.alb.z == p_max ? 1.0f : 0.0f;
-        const float n_eq = eq_x + eq_y + eq_z;
-        const float am = s_am / (n_eq > 0.0f ? n_eq : 1.0f);
-        const Pullback pb = bounce_vjp(p, tab, b, o, d, lam_o, lam_d,
-                                       s_ta * b.inv_p);
-        ct.key = b.id;
-        ct.v[0] = gc.x * TS.x * f_scale + eq_x * am;
-        ct.v[1] = gc.y * TS.y * f_scale + eq_y * am;
-        ct.v[2] = gc.z * TS.z * f_scale + eq_z * am;
-        ct.v[3] = gc.x * T.x;
-        ct.v[4] = gc.y * T.y;
-        ct.v[5] = gc.z * T.z;
-        ct.v[6] = pb.g_c.x;
-        ct.v[7] = pb.g_c.y;
-        ct.v[8] = pb.g_c.z;
-        ct.v[9] = pb.g_r;
-        lam_o = pb.g_o;
-        lam_d = pb.g_d;
-        jtgt -= 1;
-        if (jtgt > 0) {
-          spawn = true;
-        } else {  // the next sample
-          backward = false;
-          s += 1;
-          if (s < lr.s_stop) {
-            spawn = true;
-          } else {
-            active = false;
-          }
+        if (j == c.d_stop) {
+          tape_end_replay(&c);
+        } else {
+          st = next;
         }
       }
     }
+    if (c.sweeping) {  // the VJP bounce j
+      const GeomEntry e = tape[c.sbuf][tape_slot(c.j)];
+      if (c.fresh) {
+        lam_o = zero;
+        lam_d = zero;
+      }
+      const V3 o = e.st.o, d = e.st.d, T = e.st.T;
+      const uint32_t pid = lr.pid_base + c.s_sw;
+      const Bounce b = bounce<TableMaterials, true, kNee, NoGuide, true>(
+          p, tab, mats, lf, o, d, pid, c.j, lr.pix, NoGuide{}, &e.q);
+      const V3 LA = c.LA_sw;
+      const V3 A_new = add(e.st.A, v3(T.x * b.emi.x, T.y * b.emi.y,
+                                      T.z * b.emi.z));
+      n_vjp += 1;
+      const V3 fw = mul(b.f, b.w);
+      const V3 TS = v3(fw.x != 0.0f ? (LA.x - A_new.x) / fw.x : 0.0f,
+                       fw.y != 0.0f ? (LA.y - A_new.y) / fw.y : 0.0f,
+                       fw.z != 0.0f ? (LA.z - A_new.z) / fw.z : 0.0f);
+      const float f_scale = b.inv_p * b.w;
+      const float s_ta = gc.x * TS.x * b.alb.x + gc.y * TS.y * b.alb.y +
+                         gc.z * TS.z * b.alb.z;
+      const float s_am =
+          b.rr_scaled ? s_ta * b.w * (-(b.inv_p * b.inv_p)) : 0.0f;
+      const float p_max = fmaxf(b.alb.x, fmaxf(b.alb.y, b.alb.z));
+      const float eq_x = b.alb.x == p_max ? 1.0f : 0.0f;
+      const float eq_y = b.alb.y == p_max ? 1.0f : 0.0f;
+      const float eq_z = b.alb.z == p_max ? 1.0f : 0.0f;
+      const float n_eq = eq_x + eq_y + eq_z;
+      const float am = s_am / (n_eq > 0.0f ? n_eq : 1.0f);
+      const Pullback pb = bounce_vjp(p, tab, b, o, d, lam_o, lam_d,
+                                     s_ta * b.inv_p);
+      ct.key = b.id;
+      ct.v[0] = gc.x * TS.x * f_scale + eq_x * am;
+      ct.v[1] = gc.y * TS.y * f_scale + eq_y * am;
+      ct.v[2] = gc.z * TS.z * f_scale + eq_z * am;
+      ct.v[3] = gc.x * T.x;
+      ct.v[4] = gc.y * T.y;
+      ct.v[5] = gc.z * T.z;
+      ct.v[6] = pb.g_c.x;
+      ct.v[7] = pb.g_c.y;
+      ct.v[8] = pb.g_c.z;
+      ct.v[9] = pb.g_r;
+      lam_o = pb.g_o;
+      lam_d = pb.g_d;
+      tape_swept(&c);
+    }
+    const int job = tape_handover(&c, lr.s_stop);
+    if (job == 2 || (job == 1 && !tape_restore(&c, ck, &st))) spawn();
     warp_accumulate(ct, my_row, p.n_rects, k_obj);
   }
 
@@ -456,24 +423,18 @@ __global__ void __launch_bounds__(kBlock)
     out_l[3 * lane + 1] = L.y;
     out_l[3 * lane + 2] = L.z;
   }
-  unsigned long long c4[4] = {n_ext, n_prb, n_rep, n_vjp};
+  unsigned long long c5[5] = {n_ext, n_prb, n_rep, n_vjp, n_long};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 5; ++i) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      c4[i] += __shfl_down_sync(kFull, c4[i], off);
+      c5[i] += __shfl_down_sync(kFull, c5[i], off);
     }
   }
   if ((threadIdx.x & 31) == 0) {
-    for (int i = 0; i < 4; ++i) atomicAdd(&counts[i], c4[i]);
+    for (int i = 0; i < 5; ++i) atomicAdd(&counts[i], c5[i]);
   }
-  // This block's sums: the warps' rows in a fixed order.
-  __syncthreads();
-  for (int sl = threadIdx.x; sl < n_slots; sl += kBlock) {
-    float v = rows[sl];
-    for (int w = 1; w < kWarps; ++w) v += rows[w * n_slots + sl];
-    partials[static_cast<size_t>(blockIdx.x) * n_slots + sl] = v;
-  }
+  block_partials(rows, n_slots, partials);
 }
 
 }  // namespace
@@ -483,9 +444,10 @@ __global__ void __launch_bounds__(kBlock)
 // host memory. On the device: sph (n_spheres, 4) float32 [cx, cy, cz, r];
 // alb, emi (n_rects + n_spheres, 3) float32 and refl (n_rects + n_spheres,)
 // int32, rects first; out_l (n_pix_loc·g, 3) float32 for the shard's pixels
-// [pix0, pix0 + n_pix_loc) (unsharded: all of them); counts 4 uint64,
-// zeroed: [extend, probe] of pass A, replayed bounces, VJP bounces (bk == 0:
-// the image-only launch, [extend, probe] only). With bk != 0 also g_img
+// [pix0, pix0 + n_pix_loc) (unsharded: all of them); counts 5 uint64,
+// zeroed: [extend, probe] of pass A, replayed bounces, VJP bounces, paths
+// longer than the tape (bk == 0: the image-only launch, [extend, probe]
+// only). With bk != 0 also g_img
 // (n_pix_loc, 3) float32, the shard's cotangent rows; partials: scratch of
 // n_partials floats, at least ceil(n_pix_loc·g / 128)·n_slots with n_slots
 // = 6·(n_rects + n_spheres)

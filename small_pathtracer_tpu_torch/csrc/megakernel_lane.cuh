@@ -3,10 +3,11 @@
 // come from, whether the scene has a sphere table, the estimator and the
 // guide source; `bounce`, its one bounce, which the geometry adjoint
 // (megakernel_geom.cu) traces too, so both compute every bounce with the
-// same expressions; `tab_body`, row 2's kernel body; the SPEC/REFR scatter;
-// path guiding's device functions (the voxel lookup, the octahedral
-// decode, the real power, the defensive mixture); and the host helpers the
-// entry points share.
+// same expressions (the adjoint's sweep takes the bounce's two queries
+// from its tape instead of tracing them again); `tab_body`, row 2's kernel
+// body; the SPEC/REFR scatter; path guiding's device functions (the voxel
+// lookup, the octahedral decode, the real power, the defensive mixture);
+// and the host helpers the entry points share.
 //
 // Numerics: see megakernel_common.cuh. Every expression below is the one
 // integrator/wavefront.py (the plain version) computes, in its order.
@@ -225,6 +226,7 @@ struct Bounce {
   V3 new_dir;
   float w;
   bool success;  // the NEE probe reached the light
+  float t_safe;  // its distance to the light where it did, else 1
   float w_nee;   // its weight (nee_textbook's direct term)
   bool ok_g;     // guided: the mixture sample carries
   float alpha, beta, wz;  // the cosine sample: fu·alpha + fv·beta + n·wz
@@ -232,17 +234,32 @@ struct Bounce {
   float coin;             // REFR's coin
 };
 
+// What a bounce's two queries found, as an earlier trace of the same
+// bounce taped them: the nearest hit, and the NEE probe's success and
+// t_safe.
+struct Queries {
+  int id;
+  float t;
+  bool success;
+  float t_safe;
+};
+
 // A bounce from (o, d) in two parts, in render_lane's order: the nearest
 // hit and its materials (`bounce_hit`), then, after the caller's emission
 // pickup, the hit point and normals, Russian roulette and the scatter of
 // the estimator kEst (and the guide on a diffuse hit; pix is the lane's
 // pixel, for row 5's lobes) for bounce `depth` of sample pid
-// (`bounce_scatter`). `bounce` runs both.
-template <class Mats, bool kTab>
+// (`bounce_scatter`). `bounce` runs both. With kTaped, the nearest hit and
+// the probe's result come from *taped instead of being traced.
+template <class Mats, bool kTab, bool kTaped = false>
 __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab,
                                            const Mats& mats, V3 o, V3 d,
-                                           Bounce* b) {
-  if constexpr (kTab) {
+                                           Bounce* b,
+                                           const Queries* taped = nullptr) {
+  if constexpr (kTaped) {
+    b->id = taped->id;
+    b->t = taped->t;
+  } else if constexpr (kTab) {
     b->t = nearest_tab(p, tab, o, d, &b->id);
   } else {
     b->t = nearest(p, o, d, &b->id);
@@ -255,13 +272,14 @@ __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab
   b->emi = mats.emission(b->id);
 }
 
-template <bool kTab, int kEst, class Guide>
+template <bool kTab, int kEst, class Guide, bool kTaped = false>
 __device__ __forceinline__ void bounce_scatter(const Params& p,
                                                const SphereTab& tab,
                                                const LightFrame& lf, V3 o,
                                                V3 d, uint32_t pid, int depth,
                                                int pix, const Guide& guide,
-                                               Bounce* bp) {
+                                               Bounce* bp,
+                                               const Queries* taped = nullptr) {
   Bounce& b = *bp;
   const int axis = b.axis;
   b.x = b.hit ? add(o, mul(d, b.t)) : v3(0.0f, 0.0f, 0.0f);
@@ -292,6 +310,7 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   b.f = mul(b.alb, b.inv_p);
 
   b.success = false;
+  b.t_safe = 1.0f;
   b.w_nee = 0.0f;
   b.ok_g = true;
   b.alpha = b.beta = b.wz = b.coin = 0.0f;
@@ -322,12 +341,16 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
       b.lp = add(add(lf.lc, mul(lf.leu, lu)), mul(lf.lev, lv));
       const V3 d_l = norm(sub(b.lp, b.x));
       float t_l;
-      if constexpr (kTab) {
+      if constexpr (kTaped) {
+        b.success = taped->success;
+        t_l = taped->t_safe;
+      } else if constexpr (kTab) {
         b.success = probe_light_tab(p, tab, b.x, d_l, &t_l);
       } else {
         b.success = probe_light(p, b.x, d_l, &t_l);
       }
       const float t_safe = b.success ? t_l : 1.0f;
+      b.t_safe = t_safe;
       b.w_nee = (fabsf(p.area * dot(d_l, lf.ln)) / (t_safe * t_safe)) *
                 (fabsf(dot(d_l, n)) * kInvPi);
       if constexpr (kEst == kNee) {
@@ -365,14 +388,16 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   }
 }
 
-template <class Mats, bool kTab, int kEst, class Guide>
+template <class Mats, bool kTab, int kEst, class Guide, bool kTaped = false>
 __device__ __forceinline__ Bounce bounce(const Params& p, const SphereTab& tab,
                                          const Mats& mats, const LightFrame& lf,
                                          V3 o, V3 d, uint32_t pid, int depth,
-                                         int pix, const Guide& guide) {
+                                         int pix, const Guide& guide,
+                                         const Queries* taped = nullptr) {
   Bounce b;
-  bounce_hit<Mats, kTab>(p, tab, mats, o, d, &b);
-  bounce_scatter<kTab, kEst>(p, tab, lf, o, d, pid, depth, pix, guide, &b);
+  bounce_hit<Mats, kTab, kTaped>(p, tab, mats, o, d, &b, taped);
+  bounce_scatter<kTab, kEst, Guide, kTaped>(p, tab, lf, o, d, pid, depth, pix,
+                                            guide, &b, taped);
   return b;
 }
 

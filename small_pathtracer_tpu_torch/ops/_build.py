@@ -267,6 +267,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_longlong,  # its length in floats
         p,  # out: 6 (R + S) + 4 S f32 device
         p,  # out_l: (n_pix_loc * g, 3) f32 device
-        p,  # counts: (4,) u64 device
+        p,  # counts: (5,) u64 device
         p,  # cudaStream_t
     ]

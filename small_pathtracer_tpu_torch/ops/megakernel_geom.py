@@ -7,10 +7,11 @@ light.
   (``csrc/megakernel_geom.cu``). The image-only launch (``g_img=None``)
   runs the TPU kernel's pass A alone, which is row 2's loop body: the
   image, counts and time of ``megakernel_nee_tab``. The adjoint launch
-  traces the same paths with the same bounce code and adds the pathwise
-  interior cotangents of every sphere's (center, radius) and every
-  object's (albedo, emission) under the per-pixel cotangent ``g_img`` of
-  the radiance sum.
+  traces the same paths with the same bounce code, tapes each bounce's
+  state in the lane's local memory and sweeps the bounces back once each,
+  adding the pathwise interior cotangents of every sphere's (center,
+  radius) and every object's (albedo, emission) under the per-pixel
+  cotangent ``g_img`` of the radiance sum.
 - ``RenderSpheres``: the two launches as one ``torch.autograd.Function``;
   ``loss_and_geom_grads`` and ``fit_geom``: the JAX package's
   ``loss_and_geom_grads`` and ``fit_pallas_geom`` on one card, the
@@ -66,6 +67,9 @@ from .megakernel_grad import material_grads_to_scene
 # in shared memory beside the sphere rows, which caps the sphere count.
 KERNEL_BLOCK = 128
 MAX_GEOM_SPHERES = 1024  # kMaxGeomSpheres in csrc/megakernel_geom.cu
+# The adjoint launch's counters: [extend, probe] of pass A, replayed
+# bounces, VJP bounces, paths longer than the tape.
+N_COUNTS = 5
 FIELDS = ("center", "radius", "albedo", "emission")
 
 _ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
@@ -535,7 +539,7 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
             geometry: KernelGeometry | None):
     """One launch of megakernel_geom on the lanes ``lay``, the adjoint
     under the (n_pix_loc, 3) cotangent rows g_rows, image-only for None:
-    ((n_pix_loc, 3) radiance sums, g_sph, g_alb, g_emi, counts (4,))."""
+    ((n_pix_loc, 3) radiance sums, g_sph, g_alb, g_emi, counts (5,))."""
     S = _check_spheres(scene)
     geom = pack_geometry(scene, cam) if geometry is None else geometry
     R = len(geom.rect_axis)
@@ -544,7 +548,7 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     n_slots = 6 * K + 4 * S
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
                         device=device)
-    counts = torch.zeros(4, dtype=torch.int64, device=device)
+    counts = torch.zeros(N_COUNTS, dtype=torch.int64, device=device)
     out = torch.zeros(n_slots, dtype=torch.float32, device=device)
     if g_rows is None:
         bk, g_ptr, partials = 0, None, out[:0]
@@ -592,9 +596,10 @@ def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
 
     Returns (img_sum (h, w, 3) radiance sum over spp, g_sph (S, 4)
     [cx, cy, cz, r], g_alb (K, 3), g_emi (K, 3)), and with ``with_counts``
-    the counters: on the card (4,) int64 [extend, probe, replayed bounces,
-    VJP bounces] (the first two pass A's, which are megakernel_nee_tab's);
-    on the CPU (2,) [extend, probe]."""
+    the counters: on the card (5,) int64 [extend, probe, replayed bounces,
+    VJP bounces, paths longer than the tape] (the first two pass A's, which
+    are megakernel_nee_tab's; the image-only launch counts the first two
+    only); on the CPU (2,) [extend, probe]."""
     check_geom(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
@@ -685,7 +690,7 @@ def geom_run_shard(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     of a step take the same lanes and seed, so they trace the same paths.
     Returns ((n_pix_loc, 3) partial radiance sums over the shard's
     samples, g_sph (S, 4), g_alb (K, 3), g_emi (K, 3) partials, counts:
-    (4,) on the card, (2,) on the CPU)."""
+    (5,) on the card, (2,) on the CPU)."""
     check_geom(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":

@@ -5,7 +5,8 @@ package's ``ops/megakernel_grad.py`` for ``nee``, rects and one rect light.
   emission tables (``csrc/megakernel.cu``, ``megakernel_nee_mat``), the
   counterpart of ``render_pallas_mat``. Equal tables give the image and
   trace counts of ``ops.megakernel.render_megakernel`` bit for bit.
-- ``render_megakernel_vjp``: the material adjoint by two-pass replay
+- ``render_megakernel_vjp``: the material adjoint, one trace a sample and
+  a sweep of its bounces back from a per-lane tape
   (``csrc/megakernel_grad.cu``), the counterpart of ``render_pallas_vjp``.
 - ``RenderMaterials``: the two as one ``torch.autograd.Function``.
 - ``loss_and_material_grads`` and ``fit_megakernel``: SGD on the tables, the
