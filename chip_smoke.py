@@ -27,6 +27,10 @@ nee_textbook`` at 1024x768x512 (one launch, its linear mean within 2% of
 the unguided render's, the pixel variance of both at x64), with
 ``--guide-online 4`` (4 launches) and with ``--checkpoint --preview`` (4
 spans); and each new kernel's own main path at 1024x768x512. Then the
+rect scan's tie rule through rows 1 and 4 on ``cornell_box`` at 256x192x4
+(a copy of a wall after it changes nothing, before it takes its place, a
+dark copy of the light before it hides the light), each launch bit for bit
+its plain version. Then the
 geometry adjoint ``megakernel_geom``: its image-only launch bit for bit
 against ``megakernel_nee_tab`` and the plain version, its adjoint against
 autograd through the plain version row by row and against itself (``cornell_spheres``
@@ -34,7 +38,11 @@ and ``smallpt_original`` at 1024x768x4, where some paths must outrun the
 adjoint's tape, ``sphere_grid`` at 256x192x4), ``cli fit --train
 center,radius --scene cornell_spheres`` at 1024x768x512 (5 steps: 1 + 2
 launches a step, the best loss below the first, sphere 0 nearer the truth)
-and the adjoint's event time and counters at x512. The adjoint kernels'
+and the adjoint's event time and counters at x512; both adjoints on
+200-bounce paths against autograd (every albedo 0.98; the geometry
+adjoint's sphere rows with the light black, and at 5 bounces with the
+cotangent zeroed on the pixels whose NEE probe re-hits the light from its
+own underside). The adjoint kernels'
 registers, stack frames (their tapes) and spills are logged from ptxas,
 their times against the function's bound and their algorithm's. Each path
 runs with its kernels' launch counts set to 0 just before it and read just
@@ -600,6 +608,40 @@ def geom_phases(card: str, cli_main) -> dict:
 DEEP_BOUNCES, DEEP_ALBEDO = 200, 0.98
 
 
+def self_hit_pixels(sc, cam, cfg, seed) -> torch.Tensor:
+    """(h, w) bool: the pixels of which some sample's NEE probe leaves a
+    point on the light's plane (within 1e-3) and meets the light, found by
+    spying on the plain version's probes (one chunk of every lane). Such a
+    probe starts one float below the plane, meets the light just past the
+    self-hit epsilon and weighs above 1e3 (tests/test_torch_geom.py
+    test_reflecting_light_gradients)."""
+    from small_pathtracer_tpu_torch.integrator import wavefront
+    from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+    from small_pathtracer_tpu_torch.ops.megakernel import full_layout
+    from small_pathtracer_tpu_torch.parallel.sharded import shard_lanes
+
+    lid = sc.light.light_obj_id
+    a, k = int(sc.rects.axis[lid]), sc.rects.k[lid]
+    pix = shard_lanes(full_layout(cfg), "cuda")[0]
+    flag = torch.zeros(pix.shape[0], dtype=torch.bool, device="cuda")
+    probe = wavefront._probe_light
+
+    def spy(scene, x, nl, u):
+        d_l, success, w = probe(scene, x, nl, u)
+        flag.logical_or_(success & ((x[:, a] - k).abs() < 1e-3))
+        return d_l, success, w
+
+    wavefront._probe_light = spy
+    try:
+        mgeo.geom_run_plain(sc, cam, cfg, seed)
+    finally:
+        wavefront._probe_light = probe
+    mask = torch.zeros(cfg.height * cfg.width, dtype=torch.bool,
+                       device="cuda")
+    mask[pix[flag]] = True
+    return mask.reshape(cfg.height, cfg.width)
+
+
 def tape_sizes() -> tuple[int, int]:
     """(kSeg, kCkpt) of csrc/megakernel_tape.cuh."""
     text = (ROOT / CSRC / "megakernel_tape.cuh").read_text()
@@ -689,32 +731,135 @@ def deep_phase() -> None:
         raise AssertionError("deep paths: megakernel_geom's image or "
                              "counters differ from megakernel_nee_tab's or "
                              "from the tape's schedule")
-    # The material rows, which read every taped entry, are held to autograd.
-    # The sphere rows are logged only: once the light reflects (DEEP_ALBEDO
-    # on every object), they differ from autograd by a few percent of their
-    # largest entry already at max_bounces 5, where no segment is replayed,
-    # and the parent's kernel without a tape gives this one's bits (PERF.md
-    # §7, ROADMAP queue 3). The sphere rows are held in the phases above.
-    _, p_sph, p_alb, p_emi, _ = mgeo.geom_run_plain(sc, cam, cfg, 3, g)
-    tol_mat, _ = GEOM_TOL["cornell_spheres"]
-    for label, kt, pt in (("albedo", k_alb, p_alb), ("emission", k_emi,
-                                                      p_emi),
-                          ("sphere rows", k_sph, p_sph)):
-        ratio, row, scale = worst_row(kt, pt)
-        log(f"[smoke] deep paths, megakernel_geom d/d {label}: worst row "
-            f"{row}: ratio {ratio:.3e} to its largest entry {scale:.3e}"
-            + ("" if label == "sphere rows" else f" (limit {tol_mat:g})"))
-        if label != "sphere rows" and not ratio <= tol_mat:
-            raise AssertionError(f"deep paths: megakernel_geom d/d {label} "
-                                 f"row {row} off by {ratio:.3e} > {tol_mat}")
+    # Every row against autograd through the plain version: the material
+    # rows at the phases' limit in every case. The sphere rows with the
+    # light black (no path scatters off it) at the phases' 1e-5. Once the
+    # light reflects, a probe from its own underside meets it just past
+    # the self-hit epsilon with a weight above 1e3, and such a lane's
+    # derivatives rest on rounding, which the kernel and autograd round in
+    # other orders (PERF.md §7). The witness: at max_bounces 5, with the
+    # cotangent zeroed on the pixels that hold such a probe, the sphere
+    # rows are held to 1e-5 again. Unmasked, and at 200 bounces, where
+    # every pixel holds one, they are logged only.
+    tol_mat, tol_sph = GEOM_TOL["cornell_spheres"]
+    lid = sph.light.light_obj_id
+    dark_alb = torch.full_like(t_alb, DEEP_ALBEDO)
+    dark_alb[lid] = 0.0
+    dark = mgeo.scene_with_tables(sph, t_sph, dark_alb, t_emi)
     cfg5 = RenderConfig(width=width, height=height, spp=4, seed=3,
                         rr_start_depth=5, max_bounces=5)
-    k_sph = mgeo.geom_run(sc, cam, cfg5, 3, g)[1]
-    ratio, row, scale = worst_row(k_sph, mgeo.geom_run_plain(sc, cam, cfg5,
-                                                             3, g)[1])
-    log(f"[smoke] deep paths, megakernel_geom d/d sphere rows at "
-        f"max_bounces 5 (no segment replayed): worst row {row}: ratio "
-        f"{ratio:.3e} to its largest entry {scale:.3e}")
+    hit, hit5 = (self_hit_pixels(sc, cam, c, 3) for c in (cfg, cfg5))
+    log(f"[smoke] deep paths: the pixels that hold a probe from the light's "
+        f"underside that meets it: {int(hit.sum())} of {hit.numel()} at "
+        f"{DEEP_BOUNCES} bounces, {int(hit5.sum())} at max_bounces 5")
+    g5 = g * ~hit5[..., None]
+    cases = [("", (k_sph, k_alb, k_emi),
+              mgeo.geom_run_plain(sc, cam, cfg, 3, g)[1:4], None)]
+    for label, sc_, cfg_, g_, tol in (
+            (" at max_bounces 5", sc, cfg5, g, None),
+            (" at max_bounces 5, the cotangent 0 on those pixels", sc, cfg5,
+             g5, tol_sph),
+            (" with the light black", dark, cfg, g, tol_sph)):
+        cases.append((label, mgeo.geom_run(sc_, cam, cfg_, 3, g_)[1:4],
+                      mgeo.geom_run_plain(sc_, cam, cfg_, 3, g_)[1:4], tol))
+    for label, k_tabs, p_tabs, tol in cases:
+        for name, kt, pt, lim in zip(("sphere rows", "albedo", "emission"),
+                                     k_tabs, p_tabs, (tol, tol_mat, tol_mat)):
+            ratio, row, scale = worst_row(kt, pt)
+            gate = "logged only" if lim is None else f"limit {lim:g}"
+            log(f"[smoke] deep paths{label}, megakernel_geom d/d {name}: "
+                f"worst row {row}: ratio {ratio:.3e} to its largest entry "
+                f"{scale:.3e} ({gate})")
+            if lim is not None and not ratio <= lim:
+                raise AssertionError(f"deep paths{label}: megakernel_geom "
+                                     f"d/d {name} row {row} off by "
+                                     f"{ratio:.3e} > {lim}")
+
+
+# The tie phase: the left wall of cornell_box, and the albedo of its copy.
+TIE_WALL, TIE_TINT = 2, (0.3, 0.6, 0.9)
+
+
+def tie_phase(guide) -> None:
+    """The rect scan's tie rule (the smallest (t, id) wins; a rect before
+    the light blocks it at t == t_light) through rows 1 and 4
+    (megakernel_nee; megakernel_guided, nee_textbook, with the guide table
+    of cornell_box) at 256x192x4 on cornell_box, each launch against its
+    plain version bit for bit: a copy of the left wall with another albedo
+    and a later id leaves image and traces as they were; the same copy with
+    an earlier id takes the wall's place (the image of the scene whose wall
+    has the copy's albedo); a zero-emission copy of the light before the
+    light's id blocks every probe and hides the light (an all-black
+    image). tests/test_torch_scan.py holds the plain version to the same on
+    the CPU."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.scene.types import insert_rect
+
+    phase("tie phase: rows 1 and 4 on cornell_box 256x192x4 with a copy of "
+          "a wall after and before it and a dark copy of the light")
+    box = get_scene("cornell_box")
+    cam = make_camera(aspect=256 / 192)
+    cfg = RenderConfig(width=256, height=192, spp=4, seed=4)
+    cfg_t = RenderConfig(width=256, height=192, spp=4, seed=4,
+                         estimator="nee_textbook")
+    renders = {
+        "megakernel_nee": lambda sc, plain: (
+            megakernel.render_megakernel_plain if plain
+            else megakernel.render_megakernel)(sc, cam, cfg, 4),
+        "megakernel_guided": lambda sc, plain: (
+            megakernel.render_megakernel_guided_plain if plain
+            else megakernel.render_megakernel_guided)(
+                sc, cam, cfg_t, 4, guide, GUIDE_BETA, GUIDE_K),
+    }
+    alb = box.rects.albedo.clone()
+    alb[TIE_WALL] = torch.tensor(TIE_TINT)
+    scenes = {
+        "as built": box,
+        "wall copy after": insert_rect(box, box.rects.k.shape[0], TIE_WALL,
+                                       TIE_TINT),
+        # Just before the wall: id 0 keeps its rect, whose materials a
+        # miss takes (the reference's C15).
+        "wall copy before": insert_rect(box, TIE_WALL, TIE_WALL, TIE_TINT),
+        "tinted wall": box._replace(rects=box.rects._replace(albedo=alb)),
+        "dark light copy before": insert_rect(
+            box, box.light.light_obj_id, box.light.light_obj_id,
+            emission=(0.0, 0.0, 0.0)),
+    }
+    for name, render in renders.items():
+        out = {}
+        for label, sc in scenes.items():
+            before = megakernel.LAUNCHES[name]
+            img, tr = render(sc, False)
+            p_img, p_tr = render(sc, True)
+            if megakernel.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"tie phase: {name} did not launch once "
+                                     f"on {label}")
+            if not (torch.equal(img, p_img) and torch.equal(tr, p_tr)):
+                raise AssertionError(f"tie phase: {name} on {label} differs "
+                                     "from its plain version")
+            out[label] = (img, tr)
+
+        def same(a, b):
+            return (torch.equal(out[a][0], out[b][0])
+                    and torch.equal(out[a][1], out[b][1]))
+        dark_img, dark_tr = out["dark light copy before"]
+        checks = {
+            "a later copy changes nothing": same("wall copy after",
+                                                 "as built"),
+            "an earlier copy takes the wall's place": (
+                same("wall copy before", "tinted wall")
+                and not same("tinted wall", "as built")),
+            "a dark copy before the light blocks every probe": (
+                not bool(dark_img.any()) and int(dark_tr[0]) > 0),
+        }
+        log(f"[smoke] tie phase {name}: every scene == plain version; "
+            + "; ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                        for k, v in checks.items())
+            + f"; traces as built {out['as built'][1].tolist()}, dark "
+            f"light {dark_tr.tolist()}")
+        if not all(checks.values()):
+            raise AssertionError(f"tie phase: {name} breaks a tie rule")
 
 
 # The sharded rows (6, 7, 10 and 12): the mesh of the per-shard phases and
@@ -2170,6 +2315,7 @@ def main() -> int:
             ms, b = x512(name, sc, est, "primary", guides[nm], tr.tolist())
             main[name] = (n_l, ms, b)
 
+    tie_phase(guides["cornell_box"])
     geo = geom_phases(card, cli_main)
     deep_phase()
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"])

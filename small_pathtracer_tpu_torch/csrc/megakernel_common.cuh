@@ -5,6 +5,15 @@
 // spawn, and the adjoints' fixed-order `reduce_partials`. The material
 // adjoint uses the rect-only scans (nearest, probe_light).
 //
+// The rect scans run over the rects grouped by axis (`AxisRect`, laid out
+// by fill_params): one loop a group, each an
+// instance of a template on the axis, so a rect test reads five floats
+// and does the TPU kernel's unrolled arithmetic (`_trace_unrolled`,
+// `_probe_unrolled`) instead of picking the ray's components by a runtime
+// axis. Each test keeps rect_t's expressions in rect_t's order, so every
+// t and hit point rounds as before; the winner is the smallest (t, id),
+// which is the in-order strict-< scan's (geometry/intersect.py).
+//
 // Numerics: the library is compiled with --fmad=false and IEEE division and
 // sqrt, with rsqrt written as 1/sqrtf, so each operation rounds as the eager
 // torch ops of integrator/wavefront.py do (the plain version).
@@ -28,17 +37,35 @@ constexpr uint32_t kDrawsPerBounce = 8;
 constexpr uint32_t kRR = 0, kLightU = 1, kLightV = 2, kScatterU = 3,
                    kScatterV = 4, kMixCoin = 5, kRefrCoin = 6;
 
+// A rect by object id: its axis and plane (the normal, the light's
+// distance), its baked materials (row 1; unused by the table kernels).
 struct Rect {
   int axis;
-  float k, lo0, lo1, hi0, hi1;
-  float alb[3];  // baked materials (row 1); unused by the table kernels
+  float k;
+  float alb[3];
   float emi[3];
 };
 
+// A rect in the scan order: its plane and bounds on its group's axis, and
+// its object id.
+struct AxisRect {
+  float k, lo0, lo1, hi0, hi1;
+  int id;
+};
+
+// The scan rows [begin, end) of one axis's rects, in id order; the rows
+// from split on have ids >= the light's (the light's own row is split).
+struct AxisGroup {
+  int begin, split, end;
+};
+
 struct Params {
-  Rect rects[kMaxRects];
+  Rect rects[kMaxRects];  // by object id
+  AxisRect scan[kMaxRects];  // grouped by axis
+  AxisGroup groups[3];
   int n_rects;
   int light_id;
+  int light_axis;  // the light's group; its row is groups[light_axis].split
   float lc[3], leu[3], lev[3];  // light corner and edges
   float ln[3];                  // light unit normal
   float area;                   // light area
@@ -154,21 +181,6 @@ __device__ __forceinline__ void sincos_2pi(float u, float* s, float* c) {
   *c = (qi == 0 || qi == 3) ? cb : -cb;
 }
 
-// Hit distance of rect r, or kMissT (geometry/intersect.intersect_rects).
-__device__ __forceinline__ float rect_t(const Rect& r, V3 o, V3 d, V3 inv,
-                                        bool ok_x, bool ok_y, bool ok_z) {
-  const int a = r.axis;
-  const int b = a == 0 ? 1 : 0;
-  const int c = a == 2 ? 1 : 2;
-  const float t = (r.k - comp(o, a)) * comp(inv, a);
-  const float p0 = comp(o, b) + t * comp(d, b);
-  const float p1 = comp(o, c) + t * comp(d, c);
-  const bool ok = a == 0 ? ok_x : (a == 1 ? ok_y : ok_z);
-  const bool valid = p0 >= r.lo0 && p0 <= r.hi0 && p1 >= r.lo1 &&
-                     p1 <= r.hi1 && t > kSelfHitEps && ok;
-  return valid ? t : kMissT;
-}
-
 struct RayPrep {
   V3 inv;
   bool ok_x, ok_y, ok_z;
@@ -184,39 +196,133 @@ __device__ __forceinline__ RayPrep prep(V3 d) {
   return r;
 }
 
-// Nearest hit: strict < scan in object order; a miss keeps id 0.
+template <int A>
+__device__ __forceinline__ float axis_comp(V3 v) {
+  if constexpr (A == 0) {
+    return v.x;
+  } else if constexpr (A == 1) {
+    return v.y;
+  } else {
+    return v.z;
+  }
+}
+
+// The ray's components that a test of a rect on axis A reads: o and 1/d
+// on A, o and d on the two others (b < c), and whether d is off A's plane.
+struct AxisRay {
+  float oa, ia, ob, db, oc, dc;
+  bool ok;
+};
+
+template <int A>
+__device__ __forceinline__ AxisRay axis_ray(V3 o, V3 d, const RayPrep& rp) {
+  constexpr int B = A == 0 ? 1 : 0;
+  constexpr int C = A == 2 ? 1 : 2;
+  const bool ok = A == 0 ? rp.ok_x : (A == 1 ? rp.ok_y : rp.ok_z);
+  return AxisRay{axis_comp<A>(o), axis_comp<A>(rp.inv), axis_comp<B>(o),
+                 axis_comp<B>(d), axis_comp<C>(o), axis_comp<C>(d), ok};
+}
+
+// geometry/intersect.intersect_rects for one rect of the ray's axis: its
+// distance *t, and whether the ray hits it (d off the plane is the
+// caller's test).
+__device__ __forceinline__ bool axis_hit(const AxisRect& r, const AxisRay& a,
+                                         float* t_out) {
+  const float t = (r.k - a.oa) * a.ia;
+  const float p0 = a.ob + t * a.db;
+  const float p1 = a.oc + t * a.dc;
+  *t_out = t;
+  return (p0 >= r.lo0) & (p0 <= r.hi0) & (p1 >= r.lo1) & (p1 <= r.hi1) &
+         (t > kSelfHitEps);
+}
+
+// The nearest hit among group A's rects, merged into (*t_best, *best) as
+// the smaller (t, id).
+template <int A>
+__device__ __forceinline__ void nearest_axis(const Params& p, V3 o, V3 d,
+                                             const RayPrep& rp, float* t_best,
+                                             int* best) {
+  const AxisRay ray = axis_ray<A>(o, d, rp);
+  if (!ray.ok) return;
+  float t_g = kMissT;
+  int i_g = -1;
+  for (int i = p.groups[A].begin; i < p.groups[A].end; ++i) {
+    float t;
+    if (axis_hit(p.scan[i], ray, &t) & (t < t_g)) {
+      t_g = t;
+      i_g = i;
+    }
+  }
+  if (i_g >= 0) {
+    const int id = p.scan[i_g].id;
+    if (t_g < *t_best || (t_g == *t_best && id < *best)) {
+      *t_best = t_g;
+      *best = id;
+    }
+  }
+}
+
+// Nearest hit: the in-order strict < scan's winner; a miss keeps id 0.
 __device__ __forceinline__ float nearest(const Params& p, V3 o, V3 d,
                                          int* id) {
   const RayPrep rp = prep(d);
   float t_best = kMissT;
   int best = 0;
-  for (int i = 0; i < p.n_rects; ++i) {
-    const float t = rect_t(p.rects[i], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
-    if (t < t_best) {
-      t_best = t;
-      best = i;
-    }
-  }
+  nearest_axis<0>(p, o, d, rp, &t_best, &best);
+  nearest_axis<1>(p, o, d, rp, &t_best, &best);
+  nearest_axis<2>(p, o, d, rp, &t_best, &best);
   *id = best;
   return t_best;
 }
 
-// Shadow probe toward the light: true iff the nearest hit is the light.
-// Unwinds the nearest-hit scan: the light wins iff it is hit, no earlier
-// object has t <= t_light and no later object has t < t_light.
+// Whether a row of [begin, end) is hit nearer than thr.
+__device__ __forceinline__ bool any_below(const Params& p, int begin, int end,
+                                          const AxisRay& ray, float thr) {
+  for (int i = begin; i < end; ++i) {
+    float t;
+    if (axis_hit(p.scan[i], ray, &t) & (t < thr)) return true;
+  }
+  return false;
+}
+
+// Whether a rect of group A blocks the light at t_l: one with a smaller id
+// at t <= t_l (t < t_up, the next float above t_l), one with a larger id
+// at t < t_l. The light's own row (t == t_l) does not.
+template <int A>
+__device__ __forceinline__ bool blocked_axis(const Params& p, V3 o, V3 d,
+                                             const RayPrep& rp, float t_l,
+                                             float t_up) {
+  const AxisRay ray = axis_ray<A>(o, d, rp);
+  if (!ray.ok) return false;
+  const AxisGroup g = p.groups[A];
+  return any_below(p, g.begin, g.split, ray, t_up) ||
+         any_below(p, g.split, g.end, ray, t_l);
+}
+
+template <int A>
+__device__ __forceinline__ float light_t(const Params& p, V3 o, V3 d,
+                                         const RayPrep& rp) {
+  const AxisRay ray = axis_ray<A>(o, d, rp);
+  float t;
+  const bool hit = axis_hit(p.scan[p.groups[A].split], ray, &t);
+  return hit && ray.ok ? t : kMissT;
+}
+
+// Shadow probe toward the light: true iff the nearest hit is the light,
+// i.e. the light is hit and no other rect has a smaller (t, id). Stops at
+// the first occluder.
 __device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
                                             float* t_light) {
   const RayPrep rp = prep(d);
-  const float t_l =
-      rect_t(p.rects[p.light_id], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
+  const float t_l = p.light_axis == 0   ? light_t<0>(p, o, d, rp)
+                    : p.light_axis == 1 ? light_t<1>(p, o, d, rp)
+                                        : light_t<2>(p, o, d, rp);
   *t_light = t_l;
   if (!(t_l < kMissT)) return false;
-  for (int i = 0; i < p.n_rects; ++i) {
-    if (i == p.light_id) continue;
-    const float t = rect_t(p.rects[i], o, d, rp.inv, rp.ok_x, rp.ok_y, rp.ok_z);
-    if (i < p.light_id ? t <= t_l : t < t_l) return false;
-  }
-  return true;
+  const float t_up = __int_as_float(__float_as_int(t_l) + 1);
+  return !blocked_axis<0>(p, o, d, rp, t_l, t_up) &&
+         !blocked_axis<1>(p, o, d, rp, t_l, t_up) &&
+         !blocked_axis<2>(p, o, d, rp, t_l, t_up);
 }
 
 // Hit distance of sphere s = [cx, cy, cz, r], or kMissT
@@ -364,13 +470,27 @@ inline bool fill_params(Params* p, const float* rect_geom,
     r.axis = rect_axis[i];
     if (r.axis < 0 || r.axis > 2) return false;
     r.k = row[0];
-    r.lo0 = row[1];
-    r.lo1 = row[2];
-    r.hi0 = row[3];
-    r.hi1 = row[4];
   }
   p->n_rects = n_rects;
   p->light_id = light_id;
+  p->light_axis = p->rects[light_id].axis;
+  // The scan order: the ids grouped by axis, each group in id order and
+  // split at its first id >= the light's (the light's own row in its
+  // group).
+  int n = 0;
+  for (int a = 0; a < 3; ++a) {
+    AxisGroup& g = p->groups[a];
+    g.begin = n;
+    g.split = -1;
+    for (int id = 0; id < n_rects; ++id) {
+      if (p->rects[id].axis != a) continue;
+      if (g.split < 0 && id >= light_id) g.split = n;
+      const float* row = rect_geom + 5 * id;
+      p->scan[n++] = AxisRect{row[0], row[1], row[2], row[3], row[4], id};
+    }
+    g.end = n;
+    if (g.split < 0) g.split = n;
+  }
   for (int c = 0; c < 3; ++c) {
     p->lc[c] = light_f[c];
     p->leu[c] = light_f[3 + c];

@@ -142,3 +142,23 @@ def object_arrays(scene: Scene):
     return (torch.cat([r.albedo, s.albedo]),
             torch.cat([r.emission, s.emission]),
             torch.cat([r.refl, s.refl]))
+
+
+def insert_rect(scene: Scene, pos: int, src: int, albedo=None,
+                emission=None) -> Scene:
+    """The scene with a copy of rect ``src`` inserted at id ``pos``, its
+    albedo or emission replaced where given; the light's id follows. The
+    copy ties with ``src`` on every ray, which the rect scans break by the
+    smaller id."""
+    new = {"albedo": albedo, "emission": emission}
+
+    def field(name, t):
+        row = t[src:src + 1].clone()
+        if new.get(name) is not None:
+            row[0] = torch.tensor(new[name], dtype=row.dtype)
+        return torch.cat([t[:pos], row, t[pos:]])
+
+    rects = Rects(*(field(n, t) for n, t in zip(Rects._fields, scene.rects)))
+    lid = scene.light.light_obj_id
+    return scene._replace(rects=rects, light=scene.light._replace(
+        light_obj_id=lid + (pos <= lid)))

@@ -14,6 +14,7 @@ adjoint calls reuse it."""
 
 import json
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,6 +29,7 @@ from small_pathtracer_tpu_torch.camera.pinhole import primary_rays
 from small_pathtracer_tpu_torch.cli import main as cli_main
 from small_pathtracer_tpu_torch.core import vecmath as vm
 from small_pathtracer_tpu_torch.geometry.intersect import trace
+from small_pathtracer_tpu_torch.integrator import wavefront
 from small_pathtracer_tpu_torch.ops import _build, megakernel
 from small_pathtracer_tpu_torch.ops import megakernel_geom as mg
 from small_pathtracer_tpu_torch.parallel.mesh import Mesh
@@ -113,7 +115,8 @@ def jax_side(port):
 LIGHT = mg.light_consts(spt.get_scene("cornell_spheres", device="cpu"))
 BRANCHES = ("rect_nee", "rect_cosine", "sphere_nee", "sphere_cosine",
             "spec", "refr_reflect", "refr_refract", "refr_inside",
-            "refr_inside_reflect", "miss")
+            "refr_inside_reflect", "miss", "rect_light_axis_nee",
+            "light_rect_below", "near_light_plane_nee")
 
 
 def _unit(x):
@@ -125,14 +128,37 @@ def _branch_inputs(case, n=128, seed=0):
     the branch ``case``: a rect (the z = 0 wall) or a sphere winner hit
     from outside (near root) or inside (far root), DIFF with NEE success
     or the cosine sample, SPEC, REFR reflecting or refracting (inside: a
-    mix of refraction and total internal reflection), or a miss."""
+    mix of refraction and total internal reflection), or a miss. The
+    light's cases: a rect winner on the light's axis (the floor, y = 0,
+    hit from above) with NEE success; the light rect itself hit from below
+    (sign -1; its probe meets the ceiling, so the cosine sample); NEE
+    success from wall points within 0.1 below the light's plane, where
+    the probe grazes the light (dl . ln near 0). A light whose albedo is
+    0.98 scatters like any DIFF rect: the albedo enters the pullback only
+    through sig_w."""
     r = np.random.default_rng(seed)
     c = r.uniform([25, 15, 40], [75, 50, 120], (n, 3))
     rad = r.uniform(6, 14, n)
     kind = np.full(n, mg.SPHERE)
     near = np.full(n, "inside" not in case)
     axis, k = np.zeros(n, np.int64), np.zeros(n)
-    if case.startswith("rect"):
+    if case == "rect_light_axis_nee":
+        kind[:], axis[:] = mg.RECT, 1
+        o = r.uniform([20, 30, 30], [80, 70, 150], (n, 3))
+        d = _unit(np.stack([r.uniform(-.3, .3, n), -np.ones(n),
+                            r.uniform(-.3, .3, n)], 1))
+    elif case == "light_rect_below":
+        kind[:], axis[:], k[:] = mg.RECT, 1, float(LIGHT.k)
+        o = r.uniform([35, 10, 65], [65, 60, 95], (n, 3))
+        d = _unit(np.stack([r.uniform(-.1, .1, n), np.ones(n),
+                            r.uniform(-.1, .1, n)], 1))
+    elif case == "near_light_plane_nee":
+        kind[:], axis[:], k[:] = mg.RECT, 0, 1.0
+        o = np.stack([r.uniform(20, 60, n), r.uniform(81.4, 81.5, n),
+                      r.uniform(40, 120, n)], 1)
+        d = _unit(np.stack([-np.ones(n), r.uniform(-1e-3, 1e-3, n),
+                            r.uniform(-.3, .3, n)], 1))
+    elif case.startswith("rect"):
         kind[:], axis[:] = mg.RECT, 2
         o = r.uniform([20, 10, 30], [80, 60, 150], (n, 3))
         d = _unit(np.stack([r.uniform(-.3, .3, n), r.uniform(-.3, .3, n),
@@ -165,7 +191,8 @@ def _branch_inputs(case, n=128, seed=0):
         sign=torch.ones(n), alpha=f32(np.cos(2 * np.pi * u1) * np.sqrt(u2)),
         beta=f32(np.sin(2 * np.pi * u1) * np.sqrt(u2)),
         wz=f32(np.sqrt(1 - u2)), lp=f32(lp),
-        success=torch.full((n,), "cosine" not in case),
+        success=torch.full((n,), "cosine" not in case
+                           and case != "light_rect_below"),
         coin=torch.full((n,), 0.0 if "reflect" in case else 0.999))
     o, d, c, rad = f32(o), f32(d), f32(c), f32(rad)
     with torch.no_grad():  # the primal's orientation
@@ -173,6 +200,8 @@ def _branch_inputs(case, n=128, seed=0):
         ng = torch.where((b.kind == mg.SPHERE)[:, None], vm.norm(x - c),
                          mg._onehot(b.axis, x))
     b = b._replace(sign=torch.where(vm.dot(ng, d) < 0.0, 1.0, -1.0))
+    if case == "light_rect_below":
+        assert bool((b.sign == -1.0).all())
     lam = (f32(r.normal(size=(n, 3))), f32(r.normal(size=(n, 3))),
            f32(r.normal(size=n)))
     return o, d, c, rad, b, lam
@@ -292,6 +321,80 @@ def test_loss_is_crn_and_matches_jax(port, jax_side):
                            axis=1)
     a, b = _geom_vec(g_sph), w_sph.reshape(-1)
     assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999
+
+
+ALBEDO = 0.98  # every object's, as chip_smoke.py's deep-path phase
+
+
+def _albedo_scene(jscene, light_albedo):
+    """The JAX scene with every albedo ALBEDO and the light's light_albedo."""
+    ra = jnp.full_like(jscene.rects.albedo, ALBEDO).at[
+        int(jscene.light.light_obj_id)].set(light_albedo)
+    return jscene._replace(
+        rects=jscene.rects._replace(albedo=ra),
+        spheres=jscene.spheres._replace(
+            albedo=jnp.full_like(jscene.spheres.albedo, ALBEDO)))
+
+
+def test_reflecting_light_gradients(port, jax_side, monkeypatch):
+    """Which side is off once the light reflects (every albedo 0.98,
+    ROADMAP queue 3). With the light black, the port's gradients (autograd
+    through the plain version) agree with the JAX kernel's on the stable
+    pixels as at the preset's albedos: the JAX program is the fixture's
+    (the material tables are runtime inputs; no new compile). With the
+    light at 0.98 too, the JAX kernel renders another image (a different
+    set of paths), so it cannot decide; on the port's own paths the NEE
+    probe from the light's underside succeeds in some lanes: the hit point
+    rounds one float below the light's plane, the probe meets the light
+    just past the self-hit epsilon (t < 3e-3), and its weight |A (dl . ln)|
+    / t^2 exceeds 1e3. Such a lane's radiance rests on that rounding (the
+    point lies on the plane in real arithmetic), and so do its derivatives,
+    which the kernel and autograd round in other orders (PERF.md §7)."""
+    scene_p, cam_p, cfg_p = port
+    cfg = JRenderConfig(width=W, height=H, spp=SPP, estimator="nee",
+                        max_bounces=BOUNCES, sphere_table="on")
+    jc = jmake_camera()
+    js = _albedo_scene(jax_side["scene"], 0.0)
+    n_programs = len(jgeom._CACHE)
+    img_j = np.asarray(jgeom.geom_run(js, jc, cfg, SEED, None,
+                                      interpret=True)[0])
+    sc = convert.scene_from_jax(js, device="cpu")
+    img_p = _port_image(sc, cam_p, cfg_p, SEED).numpy()
+    stable = np.abs(img_p - img_j).max(axis=-1) < 1e-5
+    assert stable.mean() > 0.95
+    g = jax_side["g_img"] * stable[..., None]
+    want = convert.geom_grads_from_jax(sc, *jgeom.geom_vjp(
+        js, jc, cfg, SEED, g, interpret=True))
+    assert len(jgeom._CACHE) == n_programs
+    got = mg.geom_vjp(sc, cam_p, cfg_p, SEED, torch.from_numpy(g))
+    # Measured: sphere rows 3.9e-3 (the JAX kernel's NEE distance at the
+    # sampler's plane, test_whole_image_grads_match_jax), materials 5.5e-7.
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.numpy().reshape(-1), b.numpy().reshape(-1)
+        assert np.abs(a - b).max() <= (1e-2 if i == 0 else 1e-5) * np.abs(
+            b).max(), (i, a, b)
+
+    seen = []
+    probe = wavefront._probe_light
+
+    def spy(scene, x, nl, u):
+        d_l, success, w = probe(scene, x, nl, u)
+        seen.append((x, success, trace(scene, x, d_l).t, w))
+        return d_l, success, w
+
+    monkeypatch.setattr(wavefront, "_probe_light", spy)
+    lit = convert.scene_from_jax(_albedo_scene(jax_side["scene"], ALBEDO),
+                                 device="cpu")
+    _port_image(lit, cam_p, cfg_p, SEED)
+    x, ok, t, w = (torch.cat(v) for v in zip(*seen))
+    L = lit.light.light_obj_id
+    a, k = int(lit.rects.axis[L]), lit.rects.k[L]
+    self_hit = ok & ((x[:, a] - k).abs() < 1e-3)
+    assert int(self_hit.sum()) > 0
+    below = k - x[self_hit, a]
+    assert bool(((below > 0) & (below <= 2 * torch.finfo().eps * k)).all())
+    assert bool(((t[self_hit] > 1e-3) & (t[self_hit] < 3e-3)).all())
+    assert float(w[self_hit].max()) > 1e3
 
 
 def test_grads_to_scene_matches_jax(port, jax_side):
