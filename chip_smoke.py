@@ -8,25 +8,35 @@ the forwards against the committed golden images), then drives the paths a
 user calls: ``cli render`` of the Cornell box (``nee``, 1024x768x512),
 ``cli fit`` (SGD on albedo and emission, 1024x768x512, 5 steps) and ``cli
 render`` of the sphere scenes ``sphere_grid`` (1024x768x512) and
-``sphere_grid_1024`` (1024x768, fewer samples). Then the per-pixel budget
-kernels (``megakernel_nee_budgets``, ``megakernel_nee_tab_budgets``) bit for
-bit against their plain version on ragged spans (``cornell_box``,
-``sphere_grid``, ``smallpt_original``), and the rest of ``cli render`` at
-1024x768x512: ``--adaptive-tol 0`` (it must count the uniform render's
-traces, one launch a wave), ``--adaptive-tol 0.01`` on ``cornell_box`` and
-``sphere_grid`` (waves, samples, card time a wave), ``--checkpoint`` with
+``sphere_grid_1024`` (1024x768, fewer samples); the sphere-table kernels
+scan the spheres through a tree, and row 2's counting instance gives that
+algorithm's bound beside the linear scan's. Then the per-pixel budget
+kernels (``megakernel_nee_budgets``, ``megakernel_nee_tab_budgets``, one
+lane a live pixel) bit for bit against their plain version on ragged spans
+where most pixels are empty (``cornell_box``, ``sphere_grid``,
+``smallpt_original``), and the rest of ``cli render`` at 1024x768x512:
+``--adaptive-tol 0`` (it must count the uniform render's traces, one launch
+a wave), ``--adaptive-tol 0.01`` on ``cornell_box`` and ``sphere_grid``
+(waves, samples; each wave's active share, card time and host time),
+``--checkpoint`` with
 ``--preview`` (the uniform render's traces and image) and ``--aov
 --denoise``. Then the ``cosine`` and ``nee_textbook`` estimators and path
 guiding: ``pow_pos`` against ``torch.pow``; ``train_guide`` twice (the same
 bits); the guided kernels (rows 4 and 5: ``megakernel_guided``,
 ``megakernel_guided_primary`` and their ``_tab`` twins) and the unguided
 ``megakernel_cosine`` / ``megakernel_textbook`` (and ``_tab``) bit for bit
-against their plain versions; an all-sentinel table against the unguided
-kernel; ``cli render --guided --scene cornell_alcove_baffled --estimator
+against their plain versions, the ``_tab`` kernels on ``smallpt_original``
+(their linear instances) and on ``sphere_grid`` with both estimators (their
+tree instances); an all-sentinel table against the unguided kernel; ``cli render --guided --scene cornell_alcove_baffled --estimator
 nee_textbook`` at 1024x768x512 (one launch, its linear mean within 2% of
 the unguided render's, the pixel variance of both at x64), with
 ``--guide-online 4`` (4 launches) and with ``--checkpoint --preview`` (4
 spans); and each new kernel's own main path at 1024x768x512. Then the
+sphere table's two scans through the tree (the query kernel
+``sphere_queries``) against the plain version's in-order scan on seeded
+grazing rays, rays in a sphere's tangent plane and rays leaving a sphere,
+on four sphere presets and on ``smallpt_original`` with the original
+smallpt's radius-1e5 walls. Then the
 rect scan's tie rule through rows 1 and 4 on ``cornell_box`` at 256x192x4
 (a copy of a wall after it changes nothing, before it takes its place, a
 dark copy of the light before it hides the light), each launch bit for bit
@@ -106,6 +116,13 @@ BYTES_PER_S = 3.35e12
 FP_RAY, FP_RECT, FP_SPHERE = 6, 12, 26
 FP_SHADE, FP_PROBE, FP_SPAWN, FP_GRAD = 162, 18, 35, 52
 INT_BOUNCE, INT_SPAWN = 5 * 16 + 6, 2 * 16 + 6
+# The sphere tree's work (csrc/megakernel_bvh.cuh), for this algorithm's
+# bound of the table kernels, counted from the source the same way: a
+# child's box test 32 (the padding, six face distances, the slab min/max
+# and the clamps), a row's test before the square root 22 (sphere_pre's 19
+# and the two rejects), a row past the rejects 16 (sphere_root and the
+# merge); the counting instance counts each in a launch.
+FP_NODE, FP_ROW, FP_ROOT = 32, 22, 16
 # The cosine and nee_textbook kernels and path guiding, counted the same way
 # from csrc/megakernel_lane.cuh (FP_SHADE = 162 is about the first three
 # plus the selects): every traced bounce's least shading (hit point,
@@ -240,7 +257,7 @@ def query_ops(n_rects: int, n_spheres: int = 0) -> int:
 
 def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
                   n_spheres: int = 0, span_bytes: int = 0, est: str = "nee",
-                  diffuse_only: bool = True):
+                  diffuse_only: bool = True, scan=None):
     """Forward kernels. nee: every counted probe follows one traced,
     unfolded bounce (query, shading, probe, five draws); the extends beyond
     it (RR deaths, folded bounces, SPEC/REFR bounces) are left out.
@@ -250,9 +267,15 @@ def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
     textbook probe the light sample, weight and direct term; the guided
     mixture is left out. So this is a lower bound. Bytes: the per-lane radiance and the counters out, the
     material tables (and, with spheres, the codes and sphere rows) in, and
-    the budget kernels' span bounds or the guide table (span_bytes) in."""
+    the budget kernels' span bounds or the guide table (span_bytes) in.
+
+    With spheres this is the linear scan's bound (every query tests every
+    sphere); ``scan`` (the counting instance's [node tests, rows tested,
+    rows at the square root] of the same launch) gives the tree's: its
+    counted sphere work, every query's, in place of the linear scan's, and
+    the tree's bytes."""
     extend, probe = traces
-    q = query_ops(n_rects, n_spheres)
+    q = query_ops(n_rects, 0 if scan is not None else n_spheres)
     if est == "nee":
         fp = probe * (q + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
         it = probe * INT_BOUNCE + n_samples * INT_SPAWN
@@ -268,16 +291,24 @@ def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
             it += probe * 2 * INT_DRAW
     k = n_rects + n_spheres
     tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
+    if scan is not None:
+        from small_pathtracer_tpu_torch.ops.megakernel import bvh_floats
+
+        nodes, rows, roots = scan
+        fp += nodes * FP_NODE + rows * FP_ROW + roots * FP_ROOT
+        tables += 4 * bvh_floats(n_spheres)
     return bound(fp, it, n_lanes * 12 + 16 + tables + span_bytes)
 
 
-def ragged_spans(n_pix: int, start_hi: int, len_hi: int, seed: int):
+def ragged_spans(n_pix: int, start_hi: int, len_hi: int, seed: int,
+                 empty: float = 0.1):
     """Seeded per-pixel spans: s_start in [0, start_hi), lengths in
-    [0, len_hi], about 10% of them empty. Returns int32 (s_start, s_stop)."""
+    [0, len_hi], about a share ``empty`` of them empty. Returns int32
+    (s_start, s_stop)."""
     r = np.random.default_rng(seed)
     s_start = r.integers(0, start_hi, n_pix)
     length = r.integers(0, len_hi + 1, n_pix)
-    length[r.random(n_pix) < 0.1] = 0
+    length[r.random(n_pix) < empty] = 0
     return s_start.astype(np.int32), (s_start + length).astype(np.int32)
 
 
@@ -377,7 +408,8 @@ def geom_bound(counts, n_samples: int, n_pix: int, n_rects: int,
 def ptxas_report(output: str, names: tuple) -> dict:
     """From nvcc's ptxas -v output: {kernel: (registers, stack frame bytes
     (its local memory: the tape), spill store bytes, spill load bytes)} for
-    each entry function whose mangled name holds one of ``names``."""
+    each entry function whose mangled name holds one of ``names``; a
+    template instance on one int (the sphere scan) as ``name<k>``."""
     found, cur, entry, props = {}, None, None, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -385,6 +417,9 @@ def ptxas_report(output: str, names: tuple) -> dict:
             entry = m.group(1)
             cur = next((n for n in names
                         if re.search(rf"\d{n}(I|P|E|v|$)", entry)), None)
+            inst = cur and re.search(rf"\d{cur}ILi(\d+)EE", entry)
+            if inst:
+                cur = f"{cur}<{inst.group(1)}>"
             continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -778,6 +813,124 @@ def deep_phase() -> None:
 
 # The tie phase: the left wall of cornell_box, and the albedo of its copy.
 TIE_WALL, TIE_TINT = 2, (0.3, 0.6, 0.9)
+
+
+# The original smallpt's spheres: radius-1e5 walls (over smallpt_original's
+# rect walls, so sphere-rect near ties), the two balls and the light ball.
+SMALLPT_WALLS = ((1e5 + 1, 40.8, 81.6, 1e5), (-1e5 + 99, 40.8, 81.6, 1e5),
+                 (50, 40.8, 1e5, 1e5), (50, 40.8, -1e5 + 170, 1e5),
+                 (50, 1e5, 81.6, 1e5), (50, -1e5 + 81.6, 81.6, 1e5),
+                 (27, 16.5, 47, 16.5), (73, 16.5, 78, 16.5),
+                 (50, 681.6 - .27, 81.6, 600))
+
+
+def grazing_rays(sph: np.ndarray, light, n: int, seed: int):
+    """Seeded rays (o, d), float32 (N, 3) numpy arrays: from inside the room
+    every way and toward light samples; tangent to a sphere within a few
+    ulps either side; in a sphere's tangent plane x_j = c_j +- r (its
+    box's face) with d_j = 0; and from points on a sphere inside its
+    self-hit epsilon (tests/test_torch_sphere_bvh.py keeps a copy)."""
+    r = np.random.default_rng(seed)
+    lo, hi = np.array([2.0, 1.0, 2.0]), np.array([98.0, 80.0, 168.0])
+    os_, ds = [], []
+    o = r.uniform(lo, hi, (n, 3))
+    lp = (light.corner.cpu().numpy() + r.random((n, 1))
+          * light.edge_u.cpu().numpy() + r.random((n, 1))
+          * light.edge_v.cpu().numpy())
+    os_ += [o, o]
+    ds += [r.standard_normal((n, 3)), lp - o]
+    k = r.integers(len(sph), size=n)
+    c, rad = sph[k, :3].astype(np.float64), np.abs(sph[k, 3:4]).astype(
+        np.float64)
+    d = r.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    u = np.cross(d, r.standard_normal((n, 3)))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    off = r.choice([-2.4e-7, -1.2e-7, 0.0, 1.2e-7, 2.4e-7], (n, 1))
+    os_.append(c + u * rad * (1.0 + off) - d * r.uniform(1.0, 60.0, (n, 1)))
+    ds.append(d)
+    j = r.integers(0, 3, n)
+    sgn = r.choice([-1.0, 1.0], n)
+    face = (c[np.arange(n), j] + sgn * rad[:, 0]).astype(np.float32)
+    step = r.choice([-1, 0, 1], n)
+    face = np.where(step > 0, np.nextafter(face, np.float32(np.inf)),
+                    np.where(step < 0, np.nextafter(face, np.float32(-np.inf)),
+                             face))
+    d = r.standard_normal((n, 3))
+    d[np.arange(n), j] = 0.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tp = c.copy()
+    tp[np.arange(n), j] = face
+    o4 = tp - d * r.uniform(2.0, 60.0, (n, 1))
+    o4[np.arange(n), j] = face
+    os_.append(o4)
+    ds.append(d)
+    nrm = r.standard_normal((n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    os_.append(c + nrm * rad * (1.0 + r.uniform(-2e-6, 2e-6, (n, 1))))
+    ds.append(r.standard_normal((n, 3)))
+    o = np.concatenate(os_).astype(np.float32)
+    d = np.concatenate(ds).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    keep = np.isfinite(d).all(1) & np.isfinite(o).all(1)
+    return o[keep], d[keep].astype(np.float32)
+
+
+def grazing_phase() -> dict:
+    """The sphere table's scans through the tree (the query kernel
+    ``sphere_queries``: nearest_tab and probe_light_tab) against the plain
+    version's in-order scan on the card, bit for bit: the nearest (t, id)
+    and the probe's success and t_light, on grazing and face rays."""
+    from small_pathtracer_tpu_torch import get_scene, make_camera
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.scene.types import Spheres
+
+    phase("grazing rays: the sphere scans against the plain version on "
+          "sphere_grid, sphere_grid_1024, cornell_spheres, smallpt_original "
+          "and smallpt_original with the original radius-1e5 walls (alone "
+          "and with sphere_grid's spheres)")
+    cam = make_camera()
+    out = {}
+    walls = np.asarray(SMALLPT_WALLS, np.float32)
+    grid = get_scene("sphere_grid")
+    grid = torch.cat([grid.spheres.center, grid.spheres.radius[:, None]],
+                     1).cpu().numpy()
+    for name in ("sphere_grid", "sphere_grid_1024", "cornell_spheres",
+                 "smallpt_original", "smallpt_walls", "smallpt_walls_grid"):
+        sc = get_scene("smallpt_original" if name.startswith("smallpt_walls")
+                       else name)
+        if name.startswith("smallpt_walls"):
+            rows = walls if name == "smallpt_walls" else np.concatenate(
+                [walls, grid])
+            t = torch.from_numpy(rows).cuda()
+            n = len(rows)
+            sp = sc.spheres
+            sc = sc._replace(spheres=Spheres(
+                center=t[:, :3], radius=t[:, 3],
+                albedo=sp.albedo[:1].repeat(n, 1),
+                emission=sp.emission[:1].repeat(n, 1),
+                refl=sp.refl[:1].repeat(n), gloss=sp.gloss[:1].repeat(n)))
+        sph = torch.cat([sc.spheres.center, sc.spheres.radius[:, None]],
+                        1).cpu().numpy()
+        o, d = (torch.from_numpy(a).cuda()
+                for a in grazing_rays(sph, sc.light, 20000, 21))
+        before = megakernel.LAUNCHES["sphere_queries"]
+        k = megakernel.sphere_queries(sc, cam, o, d)
+        torch.cuda.synchronize()
+        if megakernel.LAUNCHES["sphere_queries"] != before + 1:
+            raise AssertionError(f"{name}: the query kernel did not launch")
+        p = megakernel.sphere_queries_plain(sc, o, d)
+        same = [torch.equal(a, b) for a, b in zip(k, p)]
+        n_sph = int((k[1] >= sc.rects.k.shape[0]).sum())
+        log(f"[smoke] grazing {name}: {o.shape[0]} rays, {n_sph} nearest "
+            f"hits on spheres, {int(k[2].sum())} probes reach the light; "
+            f"kernel == plain [t, id, success, t_light]: {same}")
+        if not all(same):
+            bad = int(((k[0] != p[0]) | (k[1] != p[1])
+                       | (k[2] != p[2])).sum())
+            raise AssertionError(f"grazing {name}: {bad} rays differ")
+        out[name] = o.shape[0]
+    return out
 
 
 def tie_phase(guide) -> None:
@@ -1711,9 +1864,12 @@ def main() -> int:
             f" a launch{share}; bound {f_bounds[name][0]:.3f} ms "
             f"({f_bounds[name][1]}){alg}")
 
-    # Phase (d): the sphere-table kernel against its plain version, bit for
-    # bit, in turns as in phase 4.
-    def tab_parity(name, width, height, spp, seed):
+    # Phase (d): the sphere-table kernel (its spheres through the tree)
+    # against its plain version, bit for bit, in turns as in phase 4; and
+    # its counting instance, for the tree's bound beside the linear scan's.
+    def tab_parity(name, width, height, spp, seed,
+                   order=("plain", "kernel", "kernel", "plain", "plain",
+                          "kernel")):
         sc = get_scene(name)
         cam = make_camera(aspect=width / height)
         cfg = RenderConfig(width=width, height=height, spp=spp, seed=seed)
@@ -1723,8 +1879,9 @@ def main() -> int:
                                                             seed),
              "plain": lambda: megakernel.render_megakernel_plain(
                  sc, cam, cfg, seed)},
-            ("plain", "kernel", "kernel", "plain", "plain", "kernel"))
-        if megakernel.LAUNCHES["megakernel_nee_tab"] != before + 3:
+            order)
+        if (megakernel.LAUNCHES["megakernel_nee_tab"]
+                != before + order.count("kernel")):
             raise AssertionError(f"{name} did not go through "
                                  "megakernel_nee_tab")
         for which, runs in outs.items():
@@ -1741,14 +1898,39 @@ def main() -> int:
         if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
             raise AssertionError(f"{name}: kernel and plain version differ")
         n_pix = width * height
-        b = forward_bound(k_tr.tolist(), n_pix * spp, n_pix,
-                          sc.rects.k.shape[0], sc.spheres.radius.shape[0])
+        b_lin, b_tree, scan = tab_bounds(sc, cam, cfg, seed, k_img, k_tr)
+        log(f"[smoke] {name} {width}x{height}x{spp}: the tree's work "
+            f"[node tests, rows tested, rows at the square root] {scan}; "
+            f"bound: the linear scan's {b_lin[0]:.3f} ms ({b_lin[1]}), this "
+            f"algorithm's {b_tree[0]:.3f} ms ({b_tree[1]})")
         return {"img": k_img / spp, "err": err_, "ms": med["kernel"] * 1e3,
-                "plain_ms": med["plain"] * 1e3, "bound": b}
+                "plain_ms": med["plain"] * 1e3,
+                "bound": min(b_lin, b_tree)}
+
+    def tab_bounds(sc, cam, cfg, seed, k_img, k_tr):
+        """The linear scan's bound and the tree's (from the counting
+        instance, which must render megakernel_nee_tab's image and traces)
+        of one megakernel_nee_tab launch."""
+        c_img, counts = megakernel.render_megakernel_counted(sc, cam, cfg,
+                                                             seed)
+        counts = counts.tolist()
+        if not (torch.equal(c_img, k_img) and counts[:2] == k_tr.tolist()):
+            raise AssertionError("the counting instance differs from "
+                                 "megakernel_nee_tab")
+        n_pix = cfg.width * cfg.height
+        args = (counts[:2], n_pix * cfg.spp, n_pix, sc.rects.k.shape[0],
+                sc.spheres.radius.shape[0])
+        return (forward_bound(*args), forward_bound(*args, scan=counts[2:]),
+                counts[2:])
 
     phase("sphere-table kernel against its plain version, sphere_grid "
           "1024x768x4")
     tab = {"sphere_grid": tab_parity("sphere_grid", 1024, 768, 4, 4)}
+    phase("sphere-table kernel against its plain version, sphere_grid_256 "
+          "1024x768x4")
+    tab["sphere_grid_256"] = tab_parity(
+        "sphere_grid_256", 1024, 768, 4, 4,
+        ("plain", "kernel", "kernel", "plain"))
     phase("sphere-table kernel against its plain version, smallpt_original "
           "1024x768x4 (SPEC + REFR)")
     tab["smallpt_original"] = tab_parity("smallpt_original", 1024, 768, 4, 5)
@@ -1826,12 +2008,14 @@ def main() -> int:
     _, tr_g = megakernel.render_megakernel(scene_g, cam_f, cfg_f, 0)
     tab_ms = event_ms(lambda: megakernel.render_megakernel(
         scene_g, cam_f, cfg_f, 0), 3)
-    tab_b512 = forward_bound(tr_g.tolist(), n_pix_f * 512, n_pix_f,
-                             scene_g.rects.k.shape[0],
-                             scene_g.spheres.radius.shape[0])
+    img_g, _ = megakernel.render_megakernel(scene_g, cam_f, cfg_f, 0)
+    lin_512, tree_512, scan_512 = tab_bounds(scene_g, cam_f, cfg_f, 0, img_g,
+                                             tr_g)
     log(f"[smoke] sphere_grid 1024x768x512 seed 0, traces {tr_g.tolist()}: "
-        f"megakernel_nee_tab {tab_ms:.3f} ms a launch; bound "
-        f"{tab_b512[0]:.3f} ms ({tab_b512[1]})")
+        f"megakernel_nee_tab {tab_ms:.3f} ms a launch; the tree's work "
+        f"{scan_512}; bound: the linear scan's {lin_512[0]:.3f} ms "
+        f"({lin_512[1]}), this algorithm's {tree_512[0]:.3f} ms "
+        f"({tree_512[1]})")
     # Phases (g)-(l): per-pixel budgets (row 3) and the rest of cli render.
     from small_pathtracer_tpu_torch.core import imageio
     from small_pathtracer_tpu_torch.utils import adaptive, checkpoint
@@ -1839,12 +2023,14 @@ def main() -> int:
     from small_pathtracer_tpu_torch.utils.denoise import denoise
 
     def budgets_parity(name, spp, start_hi, len_hi, seed):
-        """A budget kernel against its plain version on ragged spans, bit
+        """A budget kernel against its plain version on ragged spans where
+        most pixels are empty (the kernel launches the live ones only), bit
         for bit, in turns (plain, kernel, kernel, plain)."""
         sc = get_scene(name)
         cfg = RenderConfig(width=1024, height=768, spp=spp, seed=seed)
         n_pix = cfg.width * cfg.height
-        s_start, s_stop = ragged_spans(n_pix, start_hi, len_hi, seed)
+        s_start, s_stop = ragged_spans(n_pix, start_hi, len_hi, seed,
+                                       empty=0.75)
         counter = ("megakernel_nee_tab_budgets"
                    if megakernel.uses_sphere_table(sc)
                    else "megakernel_nee_budgets")
@@ -1906,23 +2092,30 @@ def main() -> int:
             raise AssertionError("adaptive tol 0 differs from the uniform "
                                  "render")
 
-        # tol 0.01, with each wave's spans kept to time its kernel after.
+        # tol 0.01, with each wave's spans, live list and wall time kept,
+        # to time its kernel after (CUDA events around the launch alone).
         def adaptive_run(name):
-            spans = []
-            real = adaptive.render_megakernel_budgets
+            spans, stamps = [], []
+            real = adaptive.budget_waves
 
-            def keep(sc, cam, cfg, seed, s_start, s_stop):
-                spans.append((s_start.clone(), s_stop.clone()))
-                return real(sc, cam, cfg, seed, s_start, s_stop)
+            def keep(sc, cam, cfg):
+                wave_fn = real(sc, cam, cfg)
+
+                def wave(seed, s_start, s_stop, live):
+                    stamps.append(time.perf_counter())
+                    spans.append((s_start.clone(), s_stop.clone(),
+                                  live.clone()))
+                    return wave_fn(seed, s_start, s_stop, live)
+                return wave
 
             megakernel.LAUNCHES.clear()
-            adaptive.render_megakernel_budgets = keep
+            adaptive.budget_waves = keep
             try:
                 text_ = cli_stderr(cli_main, base + [
                     "--scene", name, "--adaptive-tol", "0.01",
                     "-o", os.path.join(tmp, f"{name}_adaptive.png")])
             finally:
-                adaptive.render_megakernel_budgets = real
+                adaptive.budget_waves = real
             launches_ = {k: megakernel.LAUNCHES[k] for k in (
                 "megakernel_nee_budgets", "megakernel_nee_tab_budgets")}
             m_ = re.search(r"\[adaptive\] (\d+) waves, (\d+) samples "
@@ -1937,17 +2130,24 @@ def main() -> int:
                 raise AssertionError(f"{name}: {launches_} launches for "
                                      f"{n_waves} waves")
             cfg = RenderConfig(width=1024, height=768, spp=512, seed=0)
-            wave_ms = [event_ms(lambda: megakernel.render_megakernel_budgets(
-                sc, cam_f, cfg, 0, a, b), 3) for a, b in spans]
-            active = [int((b > a).sum()) for a, b in spans]
+            wave_fn = real(sc, cam_f, cfg)
+            wave_ms = [event_ms(lambda: wave_fn(0, a, b, lv), 3)
+                       for a, b, lv in spans]
+            active = [lv.numel() / (1024 * 768) for _, _, lv in spans]
+            # A wave's wall time: from its call to the next wave's (its launch,
+            # the statistics and the host read); the last one's is left out.
+            wall_ms = [(t1 - t0) * 1e3 for t0, t1 in zip(stamps, stamps[1:])]
+            wall_ms.append(float("nan"))
             log(f"[smoke] adaptive {name} 1024x768x512 tol 0.01: {n_waves} "
                 f"waves ({launches_[kernel]} launches of {kernel}), "
                 f"{m_.group(2)} samples = {m_.group(3)}% of uniform, spp "
                 f"{m_.group(4)}-{m_.group(5)}, {rays} rays in {secs:.3f} s = "
                 f"{rays / secs / 1e6:.1f} Mrays/s on {card}")
-            log(f"[smoke] adaptive {name}: card ms a wave "
-                f"{[round(x, 3) for x in wave_ms]}, active pixels a wave "
-                f"{active}")
+            for i, (ms, share, wall) in enumerate(zip(wave_ms, active,
+                                                      wall_ms)):
+                log(f"[smoke] adaptive {name} wave {i + 1}: active "
+                    f"{share:.1%}, card {ms:.3f} ms, wall {wall:.3f} ms, "
+                    f"host {wall - ms:.3f} ms")
             return launches_[kernel]
 
         phase("cli render --adaptive-tol 0.01 cornell_box 1024x768x512")
@@ -2009,6 +2209,9 @@ def main() -> int:
     lbn = megakernel.LAUNCHES
     alcove = get_scene("cornell_alcove_baffled")
     smallpt = get_scene("smallpt_original")
+    # sphere_grid's 64 spheres take the table kernels' tree instances
+    # (kScanTree), smallpt_original's 9 their linear ones.
+    grid = get_scene("sphere_grid")
     est_kernel = {"cosine": "megakernel_cosine",
                   "nee_textbook": "megakernel_textbook"}
 
@@ -2046,8 +2249,12 @@ def main() -> int:
         """The kernel against its plain version at 1024x768x4, bit for bit:
         kernel, plain, kernel (the plain version takes 1-4 s a run)."""
         width, height = 1024, 768
+        # The guided entries refuse the JAX package's sphere_table modes on
+        # scenes it would render through its table (sphere_grid); "off" is
+        # the same kernel.
         cfg = RenderConfig(width=width, height=height, spp=4, estimator=est,
-                           seed=seed)
+                           seed=seed, sphere_table="auto" if kind ==
+                           "unguided" else "off")
         name = kernel_name(sc, est, kind)
         before = lbn[name]
         outs, med = in_turns(
@@ -2105,7 +2312,8 @@ def main() -> int:
     if not torch.equal(m1, m2):
         raise AssertionError("train_guide gave two different tables")
     guides = {"cornell_alcove_baffled": pg.guide_lobes(m1)}
-    for nm, sc in (("cornell_box", scene), ("smallpt_original", smallpt)):
+    for nm, sc in (("cornell_box", scene), ("smallpt_original", smallpt),
+                   ("sphere_grid", grid)):
         guides[nm] = pg.guide_lobes(pg.train_guide(sc, cam_f, tcfg, 8, 1))
     log(f"[smoke] train_guide: the same bits twice, {train_s:.4f} s; guided "
         "voxels " + ", ".join(f"{k} {int(g[1].sum())}"
@@ -2113,25 +2321,31 @@ def main() -> int:
 
     phase("row 4 against its plain version 1024x768x4: "
           "cornell_alcove_baffled nee_textbook, cornell_box cosine, "
-          "smallpt_original cosine")
+          "smallpt_original cosine, sphere_grid cosine and nee_textbook")
     par = {}  # kernel name -> its first parity run
-    for nm, sc, est in (("cornell_alcove_baffled", alcove, "nee_textbook"),
+    grid_runs = [("sphere_grid", grid, "cosine"),
+                 ("sphere_grid", grid, "nee_textbook")]
+    for nm, sc, est in [("cornell_alcove_baffled", alcove, "nee_textbook"),
                         ("cornell_box", scene, "cosine"),
-                        ("smallpt_original", smallpt, "cosine")):
+                        ("smallpt_original", smallpt, "cosine"),
+                        *grid_runs]:
         r = new_parity(f"row 4 {nm} {est}", sc, est, "voxel", guides[nm], 12)
         par.setdefault(r["name"], r)
     phase("row 5 against its plain version 1024x768x4: "
-          "cornell_alcove_baffled nee_textbook, smallpt_original cosine")
-    for nm, sc, est in (("cornell_alcove_baffled", alcove, "nee_textbook"),
-                        ("smallpt_original", smallpt, "cosine")):
+          "cornell_alcove_baffled nee_textbook, smallpt_original cosine, "
+          "sphere_grid cosine and nee_textbook")
+    for nm, sc, est in [("cornell_alcove_baffled", alcove, "nee_textbook"),
+                        ("smallpt_original", smallpt, "cosine"),
+                        *grid_runs]:
         r = new_parity(f"row 5 {nm} {est}", sc, est, "primary", guides[nm], 13)
         par.setdefault(r["name"], r)
     phase("unguided cosine and nee_textbook against their plain version "
-          "1024x768x4")
-    for nm, sc, est in (("cornell_box", scene, "cosine"),
+          "1024x768x4 (smallpt_original and sphere_grid both ways)")
+    for nm, sc, est in [("cornell_box", scene, "cosine"),
                         ("cornell_alcove_baffled", alcove, "nee_textbook"),
                         ("smallpt_original", smallpt, "cosine"),
-                        ("smallpt_original", smallpt, "nee_textbook")):
+                        ("smallpt_original", smallpt, "nee_textbook"),
+                        *grid_runs]:
         r = new_parity(f"unguided {nm} {est}", sc, est, "unguided", None, 14)
         par.setdefault(r["name"], r)
 
@@ -2141,9 +2355,9 @@ def main() -> int:
              torch.zeros(pg.N_VOXELS, dtype=torch.bool, device=device))
     for est in ("cosine", "nee_textbook"):
         for nm, sc in (("cornell_alcove_baffled", alcove),
-                       ("smallpt_original", smallpt)):
+                       ("smallpt_original", smallpt), ("sphere_grid", grid)):
             cfg = RenderConfig(width=1024, height=768, spp=4, estimator=est,
-                               seed=15)
+                               seed=15, sphere_table="off")
             u_img, u_tr = render_fn(sc, cfg, 15, "unguided", None)()
             for kind in ("voxel", "primary"):
                 g_img, g_tr = render_fn(sc, cfg, 15, kind, empty)()
@@ -2315,6 +2529,7 @@ def main() -> int:
             ms, b = x512(name, sc, est, "primary", guides[nm], tr.tolist())
             main[name] = (n_l, ms, b)
 
+    grazing_phase()
     tie_phase(guides["cornell_box"])
     geo = geom_phases(card, cli_main)
     deep_phase()

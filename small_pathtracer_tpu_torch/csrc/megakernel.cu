@@ -19,28 +19,32 @@
 //   Equal tables give a bit-identical image and trace counts.
 // - megakernel_nee_tab replaces `build_kernel(mat_refs=True,
 //   sphere_tab=True)` as `_build_render(use_tab=True)` builds it (the same
-//   `pallas_call`, megakernel.py:2670): spheres scanned from a runtime
-//   table after every rect, and the SPEC mirror and REFR glass branches.
-//   The sphere rows [cx, cy, cz, r] are copied once per block into shared
-//   memory (16 bytes a sphere, up to kMaxSpheres); in the scan every lane
-//   of a warp reads the same row, one broadcast. The (K, 3) material tables
-//   and the (K,) material codes stay in device memory: a lane reads its
-//   winner's row once a bounce, after the scan. The shadow probe stops at
-//   the first occluder. SPEC/REFR lanes skip the NEE probe (the TPU kernel
-//   computes and discards it: every draw is keyed by its counter, so
-//   skipping changes no bit), count no probe and are never folded. The
-//   TPU kernel's cluster pruning and lane swizzle work around lockstep TPU
-//   lanes and change no pixel; they are not carried over.
+//   `pallas_call`, megakernel.py:2670): spheres from a runtime table after
+//   every rect, and the SPEC mirror and REFR glass branches. The spheres
+//   are scanned through a bounding-volume hierarchy that the host builds
+//   at each launch (megakernel_bvh.cuh; up to kMaxSpheres rows, a table of
+//   at most kBvhLinearMax rows scanned in id order); each lane walks it
+//   alone, nearer child first, and gets the linear scan's (t, id) bit for
+//   bit. The tree, the sphere rows, the (K, 3) material tables and the
+//   (K,) material codes stay in device memory: a lane reads its winner's
+//   row once a bounce, after the scan. The shadow probe stops at the first
+//   occluder. SPEC/REFR lanes skip the NEE probe (the TPU kernel computes
+//   and discards it: every draw is keyed by its counter, so skipping
+//   changes no bit), count no probe and are never folded. The TPU kernel's
+//   cluster pruning and lane swizzle work around lockstep TPU lanes (a
+//   per-lane gather costs a TPU a scan of the table) and change no pixel;
+//   they are not carried over.
 // - megakernel_nee_budgets and megakernel_nee_tab_budgets replace
 //   `_build_render_budgets` (megakernel.py:2756, its `pallas_call` at
 //   :2783) as `render_pallas_budgets` builds it for the adaptive waves of
-//   utils/adaptive.py: rows 1 and 2 with per-pixel sample budgets. One lane
-//   renders one pixel's span [s_start, s_stop), read from two int32
-//   device arrays (lane_range_budgets); the TPU kernel's padded px, py and
-//   pid_base planes are derived from the lane index instead. Empty spans
-//   are born dead. In a late wave most lanes are dead and a warp with one
-//   live lane still runs the whole path: compacting the live pixels is
-//   left for a later change (ROADMAP queue 2, row 3).
+//   utils/adaptive.py: rows 1 and 2 with per-pixel sample budgets. The
+//   wrapper lists the pixels with a non-empty span (an int32 device array)
+//   and launches one lane for each: lane i renders pixel live[i]'s span
+//   [s_start, s_stop), read from two int32 device arrays
+//   (lane_range_budgets), and writes that pixel's row. The TPU kernel's
+//   padded px, py and pid_base planes are derived from the pixel instead.
+//   So a late wave, where most pixels have stopped, launches only its live
+//   pixels' lanes; each pixel is still summed by one lane in sample order.
 // - megakernel_cosine / megakernel_textbook and megakernel_cosine_tab /
 //   megakernel_textbook_tab are rows 1 and 2 (`build_kernel` with
 //   estimator "cosine" or "nee_textbook") with the same loop body: the
@@ -70,13 +74,13 @@
 //
 // Design: one thread per lane, blocks of 128, the ragged last block masked.
 // A lane derives its pixel and sample range [s_start, s_stop) from its index
-// (no input planes; the budget kernels read the span) and keeps the whole path state in registers across the
+// (no input planes; the budget kernels read the span) and keeps the whole
+// path state in registers across the
 // bounce loop; a lane whose path dies respawns at once with its next sample,
 // so a warp stays busy until its slowest lane runs out of samples. Trace
 // counts are 32-bit per thread, summed per warp, and added to two 64-bit
 // totals with one atomic per warp. Left for later: sorting or compacting
-// lanes against divergence, and a scene test cheaper than the linear scan
-// (a BVH over the spheres, ROADMAP item 21).
+// lanes against divergence.
 //
 // Numerics: see megakernel_common.cuh; the kernels match the eager plain
 // version exactly on the card. The NEE fold: a successful probe from a
@@ -92,7 +96,7 @@ namespace {
 __global__ void __launch_bounds__(kBlock)
     megakernel_nee(const __grid_constant__ Params p, float* __restrict__ out_l,
                    unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, false>(p, lane_range(p), BakedMaterials{p},
+  render_lane<BakedMaterials, kTabNone>(p, lane_range(p), BakedMaterials{p},
                                      SphereTab{}, p.fold != 0, out_l, traces);
 }
 
@@ -101,7 +105,7 @@ __global__ void __launch_bounds__(kBlock)
     megakernel_cosine(const __grid_constant__ Params p,
                       float* __restrict__ out_l,
                       unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, false, kCosine>(
+  render_lane<BakedMaterials, kTabNone, kCosine>(
       p, lane_range(p), BakedMaterials{p}, SphereTab{}, false, out_l, traces);
 }
 
@@ -109,20 +113,21 @@ __global__ void __launch_bounds__(kBlock)
     megakernel_textbook(const __grid_constant__ Params p,
                         float* __restrict__ out_l,
                         unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, false, kTextbook>(
+  render_lane<BakedMaterials, kTabNone, kTextbook>(
       p, lane_range(p), BakedMaterials{p}, SphereTab{}, false, out_l, traces);
 }
 
-// Row 3 on rect-only DIFF scenes: row 1 with one lane a pixel and its
-// span read from s_start / s_stop.
+// Row 3 on rect-only DIFF scenes: row 1 with one lane a live pixel and
+// its span read from s_start / s_stop.
 __global__ void __launch_bounds__(kBlock)
     megakernel_nee_budgets(const __grid_constant__ Params p,
+                           const int* __restrict__ live,
                            const int* __restrict__ s_start,
                            const int* __restrict__ s_stop,
                            float* __restrict__ out_l,
                            unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, false>(
-      p, lane_range_budgets(p, s_start, s_stop), BakedMaterials{p},
+  render_lane<BakedMaterials, kTabNone, kNee, NoGuide, true>(
+      p, lane_range_budgets(p, live, s_start, s_stop), BakedMaterials{p},
       SphereTab{}, p.fold != 0, out_l, traces);
 }
 
@@ -137,19 +142,27 @@ __global__ void __launch_bounds__(kBlock)
   load_tables(p, alb, emi, s_alb, s_emi);
   const TableMaterials mats{s_alb, s_emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, false>(p, lane_range(p), mats, SphereTab{},
+  render_lane<TableMaterials, kTabNone>(p, lane_range(p), mats, SphereTab{},
                                      fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
                                      out_l, traces);
 }
 
+// Each table kernel in two instances, the linear scan (kScanLinear: a
+// table that is one root leaf) and the tree (kScanTree); the entry point
+// picks by the root link. megakernel_nee_tab<kScanCount> is row 2's
+// counting instance: megakernel_nee_tab's image and traces, and the scans'
+// node tests, rows tested and rows at the square root (traces[2..4]) for
+// this algorithm's bound. No timed path launches it.
 #define SPT_TAB_KERNEL(name, est)                                          \
+  template <int kScan>                                                     \
   __global__ void __launch_bounds__(kBlock)                                \
       name(const __grid_constant__ Params p, const float4* __restrict__ sph, \
-           int n_sph, const float* __restrict__ alb,                       \
-           const float* __restrict__ emi, const int* __restrict__ refl,    \
-           float* __restrict__ out_l,                                      \
+           int n_sph, const float4* __restrict__ bvh, int root,            \
+           const float* __restrict__ alb, const float* __restrict__ emi,   \
+           const int* __restrict__ refl, float* __restrict__ out_l,        \
            unsigned long long* __restrict__ traces) {                      \
-    tab_body<est>(p, sph, n_sph, alb, emi, refl, out_l, traces);           \
+    tab_body<est, kScan>(p, sph, n_sph, bvh, root, alb, emi, refl, out_l,  \
+                         traces);                                          \
   }
 
 SPT_TAB_KERNEL(megakernel_nee_tab, kNee)
@@ -158,24 +171,55 @@ SPT_TAB_KERNEL(megakernel_textbook_tab, kTextbook)
 #undef SPT_TAB_KERNEL
 
 // Row 3 on scenes with spheres or SPEC/REFR objects: row 2 with one lane a
-// pixel and its span read from s_start / s_stop.
+// live pixel and its span read from s_start / s_stop.
+template <int kScan>
 __global__ void __launch_bounds__(kBlock)
     megakernel_nee_tab_budgets(const __grid_constant__ Params p,
                                const float4* __restrict__ sph, int n_sph,
+                               const float4* __restrict__ bvh, int root,
                                const float* __restrict__ alb,
                                const float* __restrict__ emi,
                                const int* __restrict__ refl,
+                               const int* __restrict__ live,
                                const int* __restrict__ s_start,
                                const int* __restrict__ s_stop,
                                float* __restrict__ out_l,
                                unsigned long long* __restrict__ traces) {
-  const float4* s_sph = load_spheres(sph, n_sph);
   const TableMaterials mats{alb, emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, true>(p, lane_range_budgets(p, s_start, s_stop),
-                                    mats, SphereTab{s_sph, n_sph, refl},
-                                    fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
-                                    out_l, traces);
+  render_lane<TableMaterials, kScan, kNee, NoGuide, true>(
+      p, lane_range_budgets(p, live, s_start, s_stop), mats,
+      sphere_tab(sph, n_sph, refl, bvh, root),
+      fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
+}
+
+// The sphere table's two scans on given rays, for the smoke run's checks
+// against the plain version (rays of its choosing: grazing, on faces,
+// ties): ray i's nearest hit (t, id) and its probe toward the light
+// (success, t_light).
+__global__ void __launch_bounds__(kBlock)
+    sphere_queries(const __grid_constant__ Params p,
+                   const float4* __restrict__ sph, int n_sph,
+                   const float4* __restrict__ bvh, int root,
+                   const float* __restrict__ o, const float* __restrict__ d,
+                   int n_rays, float* __restrict__ out_t,
+                   int* __restrict__ out_id, int* __restrict__ out_ok,
+                   float* __restrict__ out_tl) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n_rays) return;
+  const SphereTab tab = sphere_tab(sph, n_sph, nullptr, bvh, root);
+  const V3 oi = ld3(o + 3 * i), di = ld3(d + 3 * i);
+  int id;
+  float t_l;
+  if (root < 0) {
+    out_t[i] = nearest_tab<kScanLinear>(p, tab, oi, di, &id);
+    out_ok[i] = probe_light_tab<kScanLinear>(p, tab, oi, di, &t_l) ? 1 : 0;
+  } else {
+    out_t[i] = nearest_tab<kScanTree>(p, tab, oi, di, &id);
+    out_ok[i] = probe_light_tab<kScanTree>(p, tab, oi, di, &t_l) ? 1 : 0;
+  }
+  out_id[i] = id;
+  out_tl[i] = t_l;
 }
 
 }  // namespace
@@ -241,14 +285,28 @@ extern "C" int spt_megakernel_nee_mat(const float* rect_geom,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row 2, the sphere table, estimator est: sph is (n_spheres, 4) float32
-// [cx, cy, cz, r]
-// and alb, emi (n_rects + n_spheres, 3) float32 and refl
-// (n_rects + n_spheres,) int32 (DIFF 0, SPEC 1, REFR 2) are tables in
-// device memory, rects first. More than kMaxSpheres spheres are refused
-// (cudaErrorInvalidValue); above 48 KB of rows the kernel's dynamic shared
-// memory limit is raised first.
-extern "C" int spt_megakernel_tab(int est, const float* rect_geom,
+// The tree of a sphere table (megakernel_bvh.cuh), built on the host: sph
+// (n_spheres, 4) float32 [cx, cy, cz, r] in host memory; out n_out floats
+// of host memory, zeroed, at least bvh_floats(n_spheres) (8 n + 16 (n - 1)),
+// which the caller copies to the device for the table kernels' bvh. Returns
+// the root link (the table kernels' root), or kBvhError (int32 min) for a
+// table the kernels do not take or a short out.
+extern "C" int spt_sphere_bvh(const float* sph, int n_spheres, float* out,
+                              long long n_out) {
+  if (n_spheres < 0 || n_spheres > kMaxSpheres ||
+      n_out < static_cast<long long>(bvh_floats(n_spheres))) {
+    return kBvhError;
+  }
+  return build_sphere_bvh(sph, n_spheres, out);
+}
+
+// Row 2, the sphere table, estimator est (count: the counting instance of
+// kNee, traces of 5): sph is (n_spheres, 4) float32 [cx, cy, cz, r], bvh
+// the tree spt_sphere_bvh built for it (root its root link), alb, emi
+// (n_rects + n_spheres, 3) float32 and refl (n_rects + n_spheres,) int32
+// (DIFF 0, SPEC 1, REFR 2), all in device memory, rects first. More than
+// kMaxSpheres spheres are refused (cudaErrorInvalidValue).
+extern "C" int spt_megakernel_tab(int est, int count, const float* rect_geom,
                                   const int* rect_axis, int n_rects,
                                   const float* light_f, int light_id,
                                   const float* cam_f, unsigned seed,
@@ -256,51 +314,56 @@ extern "C" int spt_megakernel_tab(int est, const float* rect_geom,
                                   int per, unsigned s0, int pix0,
                                   int n_pix_loc, int rr_start_depth,
                                   int max_bounces, const float* sph,
-                                  int n_spheres, const float* alb,
-                                  const float* emi, const int* refl,
-                                  float* out_l, unsigned long long* traces,
-                                  void* stream) {
+                                  int n_spheres, const float* bvh, int root,
+                                  const float* alb, const float* emi,
+                                  const int* refl, float* out_l,
+                                  unsigned long long* traces, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
                    cam_f, seed, width, height, spp, g, per, s0, pix0,
                    n_pix_loc, rr_start_depth, max_bounces) ||
       n_spheres < 0 || n_spheres > kMaxSpheres || est < kNee ||
-      est > kTextbook) {
+      est > kTextbook || (count && est != kNee)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto kernel = est == kNee ? megakernel_nee_tab
-                      : est == kCosine ? megakernel_cosine_tab
-                                       : megakernel_textbook_tab;
-  cudaError_t err;
-  const int smem = sphere_smem(kernel, n_spheres, &err);
-  if (smem < 0) return static_cast<int>(err);
-  kernel<<<grid_of(p), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, reinterpret_cast<const float4*>(sph), n_spheres, alb, emi, refl,
-      out_l, traces);
+  const bool tree = root >= 0;
+  const auto kernel =
+      count            ? megakernel_nee_tab<kScanCount>
+      : est == kNee    ? (tree ? megakernel_nee_tab<kScanTree>
+                               : megakernel_nee_tab<kScanLinear>)
+      : est == kCosine ? (tree ? megakernel_cosine_tab<kScanTree>
+                               : megakernel_cosine_tab<kScanLinear>)
+                       : (tree ? megakernel_textbook_tab<kScanTree>
+                               : megakernel_textbook_tab<kScanLinear>);
+  kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, reinterpret_cast<const float4*>(sph), n_spheres,
+      reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, out_l,
+      traces);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row 3, per-pixel budgets: one lane a pixel (n_lanes = width * height),
-// rendering samples [s_start[i], s_stop[i]) of pixel i, from two
-// (width * height,) int32 device arrays; out_l is (width * height, 3).
-// Baked materials and the NEE fold as row 1.
+// Row 3, per-pixel budgets: one lane a live pixel, n_live lanes (1 to
+// width * height), lane i rendering samples [s_start[j], s_stop[j]) of
+// pixel j = live[i]; live (n_live,), s_start and s_stop (width * height,)
+// int32 device arrays. out_l is (width * height, 3), zeroed: the kernel
+// writes the live pixels' rows. Baked materials and the NEE fold as row 1.
 extern "C" int spt_megakernel_nee_budgets(
     const float* rect_geom, const int* rect_axis, const float* rect_alb,
     const float* rect_emi, int n_rects, const float* light_f, int light_id,
     const float* cam_f, unsigned seed, int width, int height, int spp,
-    int rr_start_depth, int max_bounces, int fold, const int* s_start,
-    const int* s_stop, float* out_l, unsigned long long* traces,
-    void* stream) {
+    int rr_start_depth, int max_bounces, int fold, const int* live,
+    int n_live, const int* s_start, const int* s_stop, float* out_l,
+    unsigned long long* traces, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, 1, 0, 0u, 0,
-                   width * height, rr_start_depth, max_bounces)) {
+                   cam_f, seed, width, height, spp, 1, 0, 0u, 0, n_live,
+                   rr_start_depth, max_bounces)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   bake_materials(&p, rect_alb, rect_emi, n_rects, fold);
   megakernel_nee_budgets<<<grid_of(p), kBlock, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-      p, s_start, s_stop, out_l, traces);
+      p, live, s_start, s_stop, out_l, traces);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -310,22 +373,50 @@ extern "C" int spt_megakernel_nee_tab_budgets(
     const float* rect_geom, const int* rect_axis, int n_rects,
     const float* light_f, int light_id, const float* cam_f, unsigned seed,
     int width, int height, int spp, int rr_start_depth, int max_bounces,
-    const float* sph, int n_spheres, const float* alb, const float* emi,
-    const int* refl, const int* s_start, const int* s_stop, float* out_l,
+    const float* sph, int n_spheres, const float* bvh, int root,
+    const float* alb, const float* emi, const int* refl, const int* live,
+    int n_live, const int* s_start, const int* s_stop, float* out_l,
     unsigned long long* traces, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, 1, 0, 0u, 0,
-                   width * height, rr_start_depth, max_bounces) ||
+                   cam_f, seed, width, height, spp, 1, 0, 0u, 0, n_live,
+                   rr_start_depth, max_bounces) ||
       n_spheres < 0 || n_spheres > kMaxSpheres) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err;
-  const int smem = sphere_smem(megakernel_nee_tab_budgets, n_spheres, &err);
-  if (smem < 0) return static_cast<int>(err);
-  megakernel_nee_tab_budgets<<<grid_of(p), kBlock, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      p, reinterpret_cast<const float4*>(sph), n_spheres, alb, emi, refl,
+  const auto kernel = root >= 0 ? megakernel_nee_tab_budgets<kScanTree>
+                                : megakernel_nee_tab_budgets<kScanLinear>;
+  kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, reinterpret_cast<const float4*>(sph), n_spheres,
+      reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, live,
       s_start, s_stop, out_l, traces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The smoke run's query kernel: the nearest hit and the probe of n_rays
+// rays o, d ((n_rays, 3) float32 device arrays) in the scene (rects as
+// fill_params reads them, the sphere table as spt_megakernel_tab); out_t,
+// out_tl (n_rays,) float32 and out_id, out_ok (n_rays,) int32 device
+// arrays.
+extern "C" int spt_sphere_queries(const float* rect_geom,
+                                  const int* rect_axis, int n_rects,
+                                  const float* light_f, int light_id,
+                                  const float* sph, int n_spheres,
+                                  const float* bvh, int root, const float* o,
+                                  const float* d, int n_rays, float* out_t,
+                                  int* out_id, int* out_ok, float* out_tl,
+                                  void* stream) {
+  const float cam_f[12] = {};
+  Params p;
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, 0u, 1, 1, 1, 1, 1, 0u, 0, 1, 5, 5) ||
+      n_spheres < 0 || n_spheres > kMaxSpheres || n_rays < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sphere_queries<<<(n_rays + kBlock - 1) / kBlock, kBlock, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      p, reinterpret_cast<const float4*>(sph), n_spheres,
+      reinterpret_cast<const float4*>(bvh), root, o, d, n_rays, out_t, out_id,
+      out_ok, out_tl);
   return static_cast<int>(cudaGetLastError());
 }

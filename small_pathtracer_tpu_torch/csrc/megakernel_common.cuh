@@ -1,9 +1,9 @@
 // Device functions shared by the forward megakernels (megakernel.cu) and
 // the adjoints (megakernel_grad.cu, megakernel_geom.cu): the scene
 // parameters, the murmur3 counter RNG, the polynomial sincos, the rect and
-// sphere tests, the nearest-hit scans, the shadow probes, the primary-ray
-// spawn, and the adjoints' fixed-order `reduce_partials`. The material
-// adjoint uses the rect-only scans (nearest, probe_light).
+// sphere tests, the rect scans (nearest, probe_light), the primary-ray
+// spawn, the lanes' pixel and sample ranges, and the adjoints' fixed-order
+// `reduce_partials`. The sphere table's scans are in megakernel_bvh.cuh.
 //
 // The rect scans run over the rects grouped by axis (`AxisRect`, laid out
 // by fill_params): one loop a group, each an
@@ -26,7 +26,7 @@
 namespace {
 
 constexpr int kMaxRects = 32;
-constexpr int kMaxSpheres = 4096;  // 64 KB of shared memory a block
+constexpr int kMaxSpheres = 4096;  // the sphere table's rows at most
 constexpr int kBlock = 128;
 constexpr float kMissT = 1e20f;
 constexpr float kSelfHitEps = 1e-3f;
@@ -264,8 +264,7 @@ __device__ __forceinline__ void nearest_axis(const Params& p, V3 o, V3 d,
 
 // Nearest hit: the in-order strict < scan's winner; a miss keeps id 0.
 __device__ __forceinline__ float nearest(const Params& p, V3 o, V3 d,
-                                         int* id) {
-  const RayPrep rp = prep(d);
+                                         const RayPrep& rp, int* id) {
   float t_best = kMissT;
   int best = 0;
   nearest_axis<0>(p, o, d, rp, &t_best, &best);
@@ -273,6 +272,11 @@ __device__ __forceinline__ float nearest(const Params& p, V3 o, V3 d,
   nearest_axis<2>(p, o, d, rp, &t_best, &best);
   *id = best;
   return t_best;
+}
+
+__device__ __forceinline__ float nearest(const Params& p, V3 o, V3 d,
+                                         int* id) {
+  return nearest(p, o, d, prep(d), id);
 }
 
 // Whether a row of [begin, end) is hit nearer than thr.
@@ -312,8 +316,8 @@ __device__ __forceinline__ float light_t(const Params& p, V3 o, V3 d,
 // i.e. the light is hit and no other rect has a smaller (t, id). Stops at
 // the first occluder.
 __device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
+                                            const RayPrep& rp,
                                             float* t_light) {
-  const RayPrep rp = prep(d);
   const float t_l = p.light_axis == 0   ? light_t<0>(p, o, d, rp)
                     : p.light_axis == 1 ? light_t<1>(p, o, d, rp)
                                         : light_t<2>(p, o, d, rp);
@@ -325,59 +329,40 @@ __device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
          !blocked_axis<2>(p, o, d, rp, t_l, t_up);
 }
 
+__device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
+                                            float* t_light) {
+  return probe_light(p, o, d, prep(d), t_light);
+}
+
 // Hit distance of sphere s = [cx, cy, cz, r], or kMissT
 // (geometry/intersect.intersect_spheres: the recentered quadratic, the near
-// root when it clears eps, else the far one).
-__device__ __forceinline__ float sphere_t(float4 s, V3 o, V3 d) {
+// root when it clears eps, else the far one), in two parts: `sphere_pre`
+// (b = op·d and m2 = |b d − op|², no square root), which the scans'
+// rejects read, and `sphere_root`.
+struct SpherePre {
+  float b, m2;
+};
+
+__device__ __forceinline__ SpherePre sphere_pre(float4 s, V3 o, V3 d) {
   const float opx = s.x - o.x, opy = s.y - o.y, opz = s.z - o.z;
   const float b = opx * d.x + opy * d.y + opz * d.z;
   const float mx = b * d.x - opx, my = b * d.y - opy, mz = b * d.z - opz;
-  const float m2 = mx * mx + my * my + mz * mz;
-  const float mlen = m2 > 0.0f ? sqrtf(m2) : 0.0f;
+  return SpherePre{b, mx * mx + my * my + mz * mz};
+}
+
+__device__ __forceinline__ float sphere_root(float4 s, SpherePre q) {
+  const float mlen = q.m2 > 0.0f ? sqrtf(q.m2) : 0.0f;
   const float det = (s.w - mlen) * (s.w + mlen);
   if (!(det > 0.0f)) return kMissT;
   const float sdet = sqrtf(det);
-  const float t_near = b - sdet;
+  const float t_near = q.b - sdet;
   const float eps = fmaxf(kSphereEps, kSphereEpsRel * s.w);
-  const float t = t_near > eps ? t_near : b + sdet;
+  const float t = t_near > eps ? t_near : q.b + sdet;
   return t > eps ? t : kMissT;
 }
 
-// The sphere table of megakernel_nee_tab: geometry rows in shared memory
-// and the material code of every object (rects, then spheres) in device
-// memory.
-struct SphereTab {
-  const float4* sph;  // (n,) [cx, cy, cz, r]
-  int n;
-  const int* refl;  // (n_rects + n,)
-};
-
-// Nearest hit over the rects, then the spheres (global id n_rects + i),
-// one strict < scan.
-__device__ __forceinline__ float nearest_tab(const Params& p,
-                                             const SphereTab& tab, V3 o,
-                                             V3 d, int* id) {
-  float t_best = nearest(p, o, d, id);
-  for (int i = 0; i < tab.n; ++i) {
-    const float t = sphere_t(tab.sph[i], o, d);
-    if (t < t_best) {
-      t_best = t;
-      *id = p.n_rects + i;
-    }
-  }
-  return t_best;
-}
-
-// probe_light with the spheres: they come after the light in the scan, so
-// one blocks it iff its t < t_light. Stops at the first occluder.
-__device__ __forceinline__ bool probe_light_tab(const Params& p,
-                                                const SphereTab& tab, V3 o,
-                                                V3 d, float* t_light) {
-  if (!probe_light(p, o, d, t_light)) return false;
-  for (int i = 0; i < tab.n; ++i) {
-    if (sphere_t(tab.sph[i], o, d) < *t_light) return false;
-  }
-  return true;
+__device__ __forceinline__ float sphere_t(float4 s, V3 o, V3 d) {
+  return sphere_root(s, sphere_pre(s, o, d));
 }
 
 // camera/pinhole.primary_rays_cfg: box-filter jitter at counters 0 and 1.
@@ -423,17 +408,19 @@ __device__ __forceinline__ LaneRange lane_range(const Params& p) {
   return r;
 }
 
-// Per-pixel budgets (the adaptive waves): lane i renders pixel i, samples
-// [s_start[i], s_stop[i]) read from two (n_pix,) int32 device arrays. The
-// wrapper launches n_lanes = n_pix (g = 1); a lane with an empty span is
-// born dead and counts nothing.
+// Per-pixel budgets (the adaptive waves): lane i renders pixel live[i],
+// samples [s_start[pix], s_stop[pix]) of the two (n_pix,) int32 device
+// arrays; render_lane (kPixRow) writes that pixel's row of out_l. The wrapper lists the
+// pixels with a non-empty span in `live` and launches n_lanes = its length
+// (g = 1), so no lane is born dead; the other rows of out_l stay as the
+// wrapper zeroed them.
 __device__ __forceinline__ LaneRange lane_range_budgets(
-    const Params& p, const int* __restrict__ s_start,
-    const int* __restrict__ s_stop) {
+    const Params& p, const int* __restrict__ live,
+    const int* __restrict__ s_start, const int* __restrict__ s_stop) {
   LaneRange r;
   const int lane = blockIdx.x * kBlock + threadIdx.x;
   r.in_range = lane < p.n_lanes;
-  r.pix = r.in_range ? lane : 0;
+  r.pix = r.in_range ? live[lane] : 0;
   r.px = static_cast<float>(r.pix % p.width);
   r.py = static_cast<float>(r.pix / p.width);
   r.pid_base = static_cast<uint32_t>(r.pix) * static_cast<uint32_t>(p.spp);

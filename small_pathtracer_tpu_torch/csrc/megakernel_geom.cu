@@ -112,6 +112,7 @@ struct Pullback {
 // The pullback of the bounce's continuous map (o, d, c, r) -> (x, d', w),
 // every discrete choice fixed by the primal b, under (lam_x, lam_d, sig_w):
 // ops/megakernel_geom.py `bounce_vjp`, per lane.
+template <int kScan>
 __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
                                             const SphereTab& tab,
                                             const Bounce& b, V3 o, V3 d,
@@ -224,7 +225,7 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
   Pullback out{zero, g_d, zero, 0.0f};
   float4 c4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (b.axis < 0) {
-    c4 = tab.sph[b.id - p.n_rects];
+    c4 = sphere_row<kScan>(tab, b.id - p.n_rects);
     const V3 v = sub(b.x, v3(c4.x, c4.y, c4.z));
     const V3 gv = norm_vjp(b.ng, rsqrt_ieee(dot(v, v)), g_ng);
     g_x = add(g_x, gv);
@@ -270,16 +271,20 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
   return out;
 }
 
-// The image-only launch (bk == 0): row 2's kernel body.
+// The image-only launch (bk == 0): row 2's kernel body. This kernel and the
+// adjoint come in a linear and a tree instance, as row 2's.
+template <int kScan>
 __global__ void __launch_bounds__(kBlock)
     megakernel_geom_image(const __grid_constant__ Params p,
                           const float4* __restrict__ sph, int n_sph,
+                          const float4* __restrict__ bvh, int root,
                           const float* __restrict__ alb,
                           const float* __restrict__ emi,
                           const int* __restrict__ refl,
                           float* __restrict__ out_l,
                           unsigned long long* __restrict__ counts) {
-  tab_body<kNee>(p, sph, n_sph, alb, emi, refl, out_l, counts);
+  tab_body<kNee, kScan>(p, sph, n_sph, bvh, root, alb, emi, refl, out_l,
+                        counts);
 }
 
 // A tape entry: the state before bounce j, and what its queries found.
@@ -289,26 +294,32 @@ struct __align__(16) GeomEntry {
 };
 
 // The adjoint launch.
+template <int kScan>
 __global__ void __launch_bounds__(kBlock)
     megakernel_geom(const __grid_constant__ Params p,
                     const float4* __restrict__ sph, int n_sph,
+                    const float4* __restrict__ bvh, int root,
                     const float* __restrict__ alb,
                     const float* __restrict__ emi,
                     const int* __restrict__ refl,
                     const float* __restrict__ g_img,
                     float* __restrict__ partials, float* __restrict__ out_l,
                     unsigned long long* __restrict__ counts) {
-  // Dynamic shared memory: the sphere rows, then a row of gradient slots a
-  // warp.
-  const float4* s_sph = load_spheres(sph, n_sph);
+  // Dynamic shared memory: a linear table's rows (its root leaf, two float4
+  // a row: staged_tab's copy, placed ahead of the slots, with one barrier
+  // for both), then a row of gradient slots a warp.
+  extern __shared__ float4 smem4[];
+  SphereTab tab = sphere_tab(sph, n_sph, refl, bvh, root);
+  const int n_staged = kScan == kScanLinear ? 2 * ((-1 - root) >> 16) : 0;
+  for (int i = threadIdx.x; i < n_staged; i += kBlock) smem4[i] = tab.rows[i];
+  if constexpr (kScan == kScanLinear) tab.rows = smem4;
+  float* rows = reinterpret_cast<float*>(smem4 + n_staged);
   const int k_obj = p.n_rects + n_sph;
   const int n_slots = 6 * k_obj + 4 * n_sph;
-  float* rows = reinterpret_cast<float*>(const_cast<float4*>(s_sph) + n_sph);
   for (int i = threadIdx.x; i < kWarps * n_slots; i += kBlock) rows[i] = 0.0f;
   __syncthreads();
   float* my_row = rows + (threadIdx.x >> 5) * n_slots;
   const TableMaterials mats{alb, emi};
-  const SphereTab tab{s_sph, n_sph, refl};
   const LaneRange lr = lane_range(p);
   const LightFrame lf = light_frame(p);
   const V3 zero = v3(0.0f, 0.0f, 0.0f), one = v3(1.0f, 1.0f, 1.0f);
@@ -334,7 +345,7 @@ __global__ void __launch_bounds__(kBlock)
     ct.key = -1;
     if (c.tracing) {  // pass A, or a segment replay
       const int j = c.depth + 1;
-      const Bounce b = bounce<TableMaterials, true, kNee>(
+      const Bounce b = bounce<TableMaterials, kScan, kNee>(
           p, tab, mats, lf, st.o, st.d, lr.pid_base + c.s, j, lr.pix,
           NoGuide{});
       GeomEntry& e = tape[c.pbuf][tape_slot(j)];
@@ -374,7 +385,7 @@ __global__ void __launch_bounds__(kBlock)
       }
       const V3 o = e.st.o, d = e.st.d, T = e.st.T;
       const uint32_t pid = lr.pid_base + c.s_sw;
-      const Bounce b = bounce<TableMaterials, true, kNee, NoGuide, true>(
+      const Bounce b = bounce<TableMaterials, kScan, kNee, NoGuide, true>(
           p, tab, mats, lf, o, d, pid, c.j, lr.pix, NoGuide{}, &e.q);
       const V3 LA = c.LA_sw;
       const V3 A_new = add(e.st.A, v3(T.x * b.emi.x, T.y * b.emi.y,
@@ -395,8 +406,8 @@ __global__ void __launch_bounds__(kBlock)
       const float eq_z = b.alb.z == p_max ? 1.0f : 0.0f;
       const float n_eq = eq_x + eq_y + eq_z;
       const float am = s_am / (n_eq > 0.0f ? n_eq : 1.0f);
-      const Pullback pb = bounce_vjp(p, tab, b, o, d, lam_o, lam_d,
-                                     s_ta * b.inv_p);
+      const Pullback pb = bounce_vjp<kScan>(p, tab, b, o, d, lam_o, lam_d,
+                                            s_ta * b.inv_p);
       ct.key = b.id;
       ct.v[0] = gc.x * TS.x * f_scale + eq_x * am;
       ct.v[1] = gc.y * TS.y * f_scale + eq_y * am;
@@ -441,7 +452,8 @@ __global__ void __launch_bounds__(kBlock)
 
 // Host entry point with a plain C interface (loaded with ctypes). Geometry,
 // light and camera as fill_params (megakernel_common.cuh) reads them, in
-// host memory. On the device: sph (n_spheres, 4) float32 [cx, cy, cz, r];
+// host memory. On the device: sph (n_spheres, 4) float32 [cx, cy, cz, r]
+// and its tree bvh (root its root link) as spt_megakernel_tab takes them;
 // alb, emi (n_rects + n_spheres, 3) float32 and refl (n_rects + n_spheres,)
 // int32, rects first; out_l (n_pix_loc·g, 3) float32 for the shard's pixels
 // [pix0, pix0 + n_pix_loc) (unsharded: all of them); counts 5 uint64,
@@ -459,8 +471,8 @@ extern "C" int spt_megakernel_geom(
     const float* light_f, int light_id, const float* cam_f, unsigned seed,
     int width, int height, int spp, int g, int per, unsigned s0, int pix0,
     int n_pix_loc, int rr_start_depth, int max_bounces, const float* sph,
-    int n_spheres,
-    const float* alb, const float* emi, const int* refl, int bk,
+    int n_spheres, const float* bvh, int root, const float* alb,
+    const float* emi, const int* refl, int bk,
     const float* g_img, float* partials, long long n_partials, float* out,
     float* out_l, unsigned long long* counts, void* stream) {
   Params p;
@@ -473,12 +485,14 @@ extern "C" int spt_megakernel_geom(
   const int n_blocks = grid_of(p);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* sph4 = reinterpret_cast<const float4*>(sph);
+  const float4* bvh4 = reinterpret_cast<const float4*>(bvh);
   cudaError_t err = cudaSuccess;
+  const bool tree = root >= 0;
   if (!bk) {
-    const int smem = sphere_smem(megakernel_geom_image, n_spheres, &err);
-    if (smem < 0) return static_cast<int>(err);
-    megakernel_geom_image<<<n_blocks, kBlock, smem, st>>>(
-        p, sph4, n_spheres, alb, emi, refl, out_l, counts);
+    const auto image = tree ? megakernel_geom_image<kScanTree>
+                            : megakernel_geom_image<kScanLinear>;
+    image<<<n_blocks, kBlock, 0, st>>>(
+        p, sph4, n_spheres, bvh4, root, alb, emi, refl, out_l, counts);
     return static_cast<int>(cudaGetLastError());
   }
   const int n_slots = 6 * (n_rects + n_spheres) + 4 * n_spheres;
@@ -486,16 +500,19 @@ extern "C" int spt_megakernel_geom(
       n_partials < static_cast<long long>(n_blocks) * n_slots) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem =
-      sizeof(float4) * n_spheres + sizeof(float) * kWarps * n_slots;
+  const size_t smem = sizeof(float) * kWarps * n_slots +
+                      (tree ? 0 : 2 * sizeof(float4) * n_spheres);
+  const auto adjoint =
+      tree ? megakernel_geom<kScanTree> : megakernel_geom<kScanLinear>;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(megakernel_geom,
+    err = cudaFuncSetAttribute(adjoint,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  megakernel_geom<<<n_blocks, kBlock, smem, st>>>(
-      p, sph4, n_spheres, alb, emi, refl, g_img, partials, out_l, counts);
+  adjoint<<<n_blocks, kBlock, smem, st>>>(
+      p, sph4, n_spheres, bvh4, root, alb, emi, refl, g_img, partials,
+      out_l, counts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials<<<n_slots, kReduceThreads, 0, st>>>(partials, n_blocks,

@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(kBlock)
                       float* __restrict__ out_l,
                       unsigned long long* __restrict__ traces) {
   __shared__ int s_tab[kNVoxels];
-  render_lane<BakedMaterials, false, kEst>(
+  render_lane<BakedMaterials, kTabNone, kEst>(
       p, lane_range(p), BakedMaterials{p}, SphereTab{}, false, out_l, traces,
       VoxelGuide{load_guide(table, s_tab), g});
 }
@@ -68,18 +68,20 @@ __global__ void __launch_bounds__(kBlock)
                               const int* __restrict__ lobes, GuideParams g,
                               float* __restrict__ out_l,
                               unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, false, kEst>(
+  render_lane<BakedMaterials, kTabNone, kEst>(
       p, lane_range(p), BakedMaterials{p}, SphereTab{}, false, out_l, traces,
       LaneGuide{lobes, g});
 }
 
-// The table variants: the sphere rows in dynamic shared memory, the
-// material tables in device memory, as megakernel_nee_tab.
-template <int kEst>
+// The table variants: the sphere rows, their tree and the material tables
+// in device memory, as megakernel_nee_tab (and like it in a linear and a
+// tree instance).
+template <int kEst, int kScan>
 __global__ void __launch_bounds__(kBlock)
     megakernel_guided_tab(const __grid_constant__ Params p,
                           const int* __restrict__ table, GuideParams g,
                           const float4* __restrict__ sph, int n_sph,
+                          const float4* __restrict__ bvh, int root,
                           const float* __restrict__ alb,
                           const float* __restrict__ emi,
                           const int* __restrict__ refl,
@@ -87,28 +89,27 @@ __global__ void __launch_bounds__(kBlock)
                           unsigned long long* __restrict__ traces) {
   __shared__ int s_tab[kNVoxels];
   const int* tab_g = load_guide(table, s_tab);
-  const float4* s_sph = load_spheres(sph, n_sph);
-  render_lane<TableMaterials, true, kEst>(
+  render_lane<TableMaterials, kScan, kEst>(
       p, lane_range(p), TableMaterials{alb, emi},
-      SphereTab{s_sph, n_sph, refl}, false, out_l, traces,
+      sphere_tab(sph, n_sph, refl, bvh, root), false, out_l, traces,
       VoxelGuide{tab_g, g});
 }
 
-template <int kEst>
+template <int kEst, int kScan>
 __global__ void __launch_bounds__(kBlock)
     megakernel_guided_primary_tab(const __grid_constant__ Params p,
                                   const int* __restrict__ lobes,
                                   GuideParams g,
                                   const float4* __restrict__ sph, int n_sph,
+                                  const float4* __restrict__ bvh, int root,
                                   const float* __restrict__ alb,
                                   const float* __restrict__ emi,
                                   const int* __restrict__ refl,
                                   float* __restrict__ out_l,
                                   unsigned long long* __restrict__ traces) {
-  const float4* s_sph = load_spheres(sph, n_sph);
-  render_lane<TableMaterials, true, kEst>(
+  render_lane<TableMaterials, kScan, kEst>(
       p, lane_range(p), TableMaterials{alb, emi},
-      SphereTab{s_sph, n_sph, refl}, false, out_l, traces,
+      sphere_tab(sph, n_sph, refl, bvh, root), false, out_l, traces,
       LaneGuide{lobes, g});
 }
 
@@ -176,9 +177,9 @@ extern "C" int spt_megakernel_guided_tab(
     const float* cam_f, unsigned seed, int width, int height, int spp,
     int g_lanes, int per, unsigned s0, int pix0, int n_pix_loc,
     int rr_start_depth, int max_bounces,
-    const float* sph, int n_spheres, const float* alb, const float* emi,
-    const int* refl, float* out_l, unsigned long long* traces,
-    void* stream) {
+    const float* sph, int n_spheres, const float* bvh, int root,
+    const float* alb, const float* emi, const int* refl, float* out_l,
+    unsigned long long* traces, void* stream) {
   Params p;
   GuideParams g;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
@@ -189,16 +190,23 @@ extern "C" int spt_megakernel_guided_tab(
       n_spheres < 0 || n_spheres > kMaxSpheres) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool tree = root >= 0;
   const auto kernel =
-      primary ? (est == kCosine ? megakernel_guided_primary_tab<kCosine>
-                                : megakernel_guided_primary_tab<kTextbook>)
-              : (est == kCosine ? megakernel_guided_tab<kCosine>
-                                : megakernel_guided_tab<kTextbook>);
-  cudaError_t err;
-  const int smem = sphere_smem(kernel, n_spheres, &err);
-  if (smem < 0) return static_cast<int>(err);
-  kernel<<<grid_of(p), kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, table, g, reinterpret_cast<const float4*>(sph), n_spheres, alb, emi,
-      refl, out_l, traces);
+      primary
+          ? (est == kCosine
+                 ? (tree ? megakernel_guided_primary_tab<kCosine, kScanTree>
+                         : megakernel_guided_primary_tab<kCosine, kScanLinear>)
+                 : (tree ? megakernel_guided_primary_tab<kTextbook, kScanTree>
+                         : megakernel_guided_primary_tab<kTextbook,
+                                                         kScanLinear>))
+          : (est == kCosine
+                 ? (tree ? megakernel_guided_tab<kCosine, kScanTree>
+                         : megakernel_guided_tab<kCosine, kScanLinear>)
+                 : (tree ? megakernel_guided_tab<kTextbook, kScanTree>
+                         : megakernel_guided_tab<kTextbook, kScanLinear>));
+  kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, table, g, reinterpret_cast<const float4*>(sph), n_spheres,
+      reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, out_l,
+      traces);
   return static_cast<int>(cudaGetLastError());
 }

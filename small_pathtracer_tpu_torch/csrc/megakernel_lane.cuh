@@ -5,7 +5,7 @@
 // (megakernel_geom.cu) traces too, so both compute every bounce with the
 // same expressions (the adjoint's sweep takes the bounce's two queries
 // from its tape instead of tracing them again); `tab_body`, row 2's kernel
-// body; the SPEC/REFR scatter; path guiding's device functions (the voxel
+// body (and its counting instance); the SPEC/REFR scatter; path guiding's device functions (the voxel
 // lookup, the octahedral decode, the real power, the defensive mixture);
 // and the host helpers the entry points share.
 //
@@ -14,7 +14,7 @@
 
 #pragma once
 
-#include "megakernel_common.cuh"
+#include "megakernel_bvh.cuh"
 
 namespace {
 
@@ -27,6 +27,11 @@ constexpr float kR0 = 0.04f, kOneMinusR0 = 0.96f;
 // continuation alone, and textbook NEE (a shadow probe's direct term, the
 // cosine continuation, the next pickup of the light suppressed).
 constexpr int kNee = 0, kCosine = 1, kTextbook = 2;
+
+// The kTab template argument of the loop body: no sphere table (rows 1, 8),
+// or the sphere table scanned as kScanLinear, kScanTree or kScanCount
+// (megakernel_bvh.cuh).
+constexpr int kTabNone = 0;
 
 // core/vecmath.reflect.
 __device__ __forceinline__ V3 reflect(V3 d, V3 n) {
@@ -251,7 +256,7 @@ struct Queries {
 // pixel, for row 5's lobes) for bounce `depth` of sample pid
 // (`bounce_scatter`). `bounce` runs both. With kTaped, the nearest hit and
 // the probe's result come from *taped instead of being traced.
-template <class Mats, bool kTab, bool kTaped = false>
+template <class Mats, int kTab, bool kTaped = false>
 __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab,
                                            const Mats& mats, V3 o, V3 d,
                                            Bounce* b,
@@ -260,7 +265,7 @@ __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab
     b->id = taped->id;
     b->t = taped->t;
   } else if constexpr (kTab) {
-    b->t = nearest_tab(p, tab, o, d, &b->id);
+    b->t = nearest_tab<kTab>(p, tab, o, d, &b->id);
   } else {
     b->t = nearest(p, o, d, &b->id);
   }
@@ -272,7 +277,7 @@ __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab
   b->emi = mats.emission(b->id);
 }
 
-template <bool kTab, int kEst, class Guide, bool kTaped = false>
+template <int kTab, int kEst, class Guide, bool kTaped = false>
 __device__ __forceinline__ void bounce_scatter(const Params& p,
                                                const SphereTab& tab,
                                                const LightFrame& lf, V3 o,
@@ -289,7 +294,7 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   if constexpr (kTab) {
     b.refl = tab.refl[b.id];
     if (axis < 0) {
-      const float4 c = tab.sph[b.id - p.n_rects];
+      const float4 c = sphere_row<kTab>(tab, b.id - p.n_rects);
       ng = norm(sub(b.x, v3(c.x, c.y, c.z)));
     }
   }
@@ -345,7 +350,8 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
         b.success = taped->success;
         t_l = taped->t_safe;
       } else if constexpr (kTab) {
-        b.success = probe_light_tab(p, tab, b.x, d_l, &t_l);
+        b.success =
+            probe_light_tab<kTab>(p, tab, b.x, d_l, &t_l);
       } else {
         b.success = probe_light(p, b.x, d_l, &t_l);
       }
@@ -388,7 +394,7 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   }
 }
 
-template <class Mats, bool kTab, int kEst, class Guide, bool kTaped = false>
+template <class Mats, int kTab, int kEst, class Guide, bool kTaped = false>
 __device__ __forceinline__ Bounce bounce(const Params& p, const SphereTab& tab,
                                          const Mats& mats, const LightFrame& lf,
                                          V3 o, V3 d, uint32_t pid, int depth,
@@ -402,15 +408,22 @@ __device__ __forceinline__ Bounce bounce(const Params& p, const SphereTab& tab,
 }
 
 // One lane's samples [lr.s, lr.s_stop) of pixel lr.pix; lr comes from the
-// kernel's lane source (lane_range or lane_range_budgets).
-template <class Mats, bool kTab, int kEst = kNee, class Guide = NoGuide>
+// kernel's lane source (lane_range or lane_range_budgets). The lane writes
+// row lr.pix of out_l with kPixRow (the budget kernels), else the row of
+// its index. traces: [extend, probe], and with kTab == kScanCount also the
+// scans' [node tests, rows tested, rows at the square root].
+template <class Mats, int kTab, int kEst = kNee, class Guide = NoGuide,
+          bool kPixRow = false>
 __device__ __forceinline__ void render_lane(const Params& p,
                                             const LaneRange& lr,
                                             const Mats& mats,
-                                            const SphereTab& tab, bool fold,
+                                            const SphereTab& tab_in, bool fold,
                                             float* __restrict__ out_l,
                                             unsigned long long* __restrict__ traces,
                                             const Guide& guide = Guide{}) {
+  ScanCounts cnt{0u, 0u, 0u};
+  SphereTab tab = staged_tab<kTab>(tab_in);
+  if constexpr (kTab == kScanCount) tab.cnt = &cnt;
   const V3 cam_o = ld3(p.cam_o);
   const LightFrame lf = light_frame(p);
   const V3 e_light = mats.emission(p.light_id);
@@ -498,10 +511,10 @@ __device__ __forceinline__ void render_lane(const Params& p,
   }
 
   if (lr.in_range) {
-    const int lane = blockIdx.x * kBlock + threadIdx.x;
-    out_l[3 * lane + 0] = L.x;
-    out_l[3 * lane + 1] = L.y;
-    out_l[3 * lane + 2] = L.z;
+    const int row = kPixRow ? lr.pix : blockIdx.x * kBlock + threadIdx.x;
+    out_l[3 * row + 0] = L.x;
+    out_l[3 * row + 1] = L.y;
+    out_l[3 * row + 2] = L.z;
   }
   unsigned long long ext = n_extend, prb = n_probe;
 #pragma unroll
@@ -513,35 +526,38 @@ __device__ __forceinline__ void render_lane(const Params& p,
     atomicAdd(&traces[0], ext);
     atomicAdd(&traces[1], prb);
   }
+  if constexpr (kTab == kScanCount) {
+    unsigned long long c3[3] = {cnt.nodes, cnt.rows, cnt.roots};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        c3[i] += __shfl_down_sync(0xFFFFFFFFu, c3[i], off);
+      }
+      if ((threadIdx.x & 31) == 0) atomicAdd(&traces[2 + i], c3[i]);
+    }
+  }
 }
 
-// Copies the sphere rows into the block's dynamic shared memory (every
-// thread must call it: it ends in a barrier) and returns them.
-__device__ __forceinline__ const float4* load_spheres(
-    const float4* __restrict__ sph, int n_sph) {
-  extern __shared__ float4 s_sph[];
-  for (int i = threadIdx.x; i < n_sph; i += kBlock) s_sph[i] = sph[i];
-  __syncthreads();
-  return s_sph;
-}
-
-// Row 2 (megakernel.cu) with estimator kEst, and the image-only launch of
-// the geometry adjoint (megakernel_geom.cu): the sphere rows (n_sph float4)
-// in dynamic shared memory, the material tables in device memory.
-template <int kEst>
+// Row 2 (megakernel.cu) with estimator kEst and scan kScan (its counting
+// instance: kScanCount, traces of 5), and the image-only launch of the
+// geometry adjoint (megakernel_geom.cu): the sphere rows, the tree (bvh,
+// root) and the material tables in device memory.
+template <int kEst, int kScan>
 __device__ __forceinline__ void tab_body(const Params& p,
                                          const float4* __restrict__ sph,
                                          int n_sph,
+                                         const float4* __restrict__ bvh,
+                                         int root,
                                          const float* __restrict__ alb,
                                          const float* __restrict__ emi,
                                          const int* __restrict__ refl,
                                          float* __restrict__ out_l,
                                          unsigned long long* __restrict__ traces) {
-  const float4* s_sph = load_spheres(sph, n_sph);
   const TableMaterials mats{alb, emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, true, kEst>(
-      p, lane_range(p), mats, SphereTab{s_sph, n_sph, refl},
+  render_lane<TableMaterials, kScan, kEst>(
+      p, lane_range(p), mats, sphere_tab(sph, n_sph, refl, bvh, root),
       kEst == kNee && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
 }
 
@@ -557,21 +573,6 @@ inline void bake_materials(Params* p, const float* rect_alb,
     }
   }
   p->fold = fold;
-}
-
-// Dynamic shared memory of n_spheres rows for a sphere-table kernel: raises
-// the kernel's limit above 48 KB. Returns the bytes, or -1 (and the error
-// in *err) when the attribute cannot be set.
-template <class Kernel>
-int sphere_smem(Kernel kernel, int n_spheres, cudaError_t* err) {
-  const int smem = n_spheres * static_cast<int>(sizeof(float4));
-  *err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    *err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (*err != cudaSuccess) return -1;
-  }
-  return smem;
 }
 
 }  // namespace

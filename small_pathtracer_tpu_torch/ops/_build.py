@@ -142,8 +142,31 @@ def _bind(lib: ctypes.CDLL) -> None:
     # g, per, s0 between, then the shard's first pixel and pixel count
     # (0 and width * height unsharded).
     launch = [*head, i, i, u, i, i, *depth]
-    # The budget kernels (row 3) take one lane a pixel: no g, per or s0.
+    # The budget kernels (row 3) take one lane a live pixel: no g, per or
+    # s0.
     budget_launch = [*head, *depth]
+    # A sphere table: its rows and its tree (spt_sphere_bvh's buffer and
+    # root link), then the material tables.
+    spheres = [
+        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
+        i,  # n_spheres
+        p,  # bvh: f32 device, spt_sphere_bvh's buffer
+        i,  # its root link
+        p, p,  # albedo, emission: (R + S, 3) f32 device
+        p,  # refl: (R + S,) i32 device
+    ]
+    live = [
+        p,  # live: (n_live,) i32 device, the pixels with a non-empty span
+        i,  # n_live
+        p, p,  # s_start, s_stop: (n_pix,) i32 device
+    ]
+    lib.spt_sphere_bvh.restype = ctypes.c_int
+    lib.spt_sphere_bvh.argtypes = [
+        p,  # sph: (S, 4) f32 host
+        i,  # n_spheres
+        p,  # out: f32 host, zeroed
+        ctypes.c_longlong,  # its length in floats
+    ]
     lib.spt_megakernel.restype = ctypes.c_int
     lib.spt_megakernel.argtypes = [
         i,  # estimator: 0 nee, 1 cosine, 2 nee_textbook
@@ -169,13 +192,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.spt_megakernel_tab.restype = ctypes.c_int
     lib.spt_megakernel_tab.argtypes = [
         i,  # estimator
+        i,  # count: the counting instance (nee), traces of 5
         *scene,
         i,  # n_rects
         *launch,
-        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
-        i,  # n_spheres
-        p, p,  # albedo, emission: (R + S, 3) f32 device
-        p,  # refl: (R + S,) i32 device
+        *spheres,
         p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
@@ -187,8 +208,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         i,  # n_rects
         *budget_launch,
         i,  # fold
-        p, p,  # s_start, s_stop: (n_pix,) i32 device
-        p,  # out_l: (n_pix, 3) f32 device
+        *live,
+        p,  # out_l: (n_pix, 3) f32 device, zeroed
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -197,12 +218,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         *scene,
         i,  # n_rects
         *budget_launch,
-        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
-        i,  # n_spheres
-        p, p,  # albedo, emission: (R + S, 3) f32 device
-        p,  # refl: (R + S,) i32 device
-        p, p,  # s_start, s_stop: (n_pix,) i32 device
-        p,  # out_l: (n_pix, 3) f32 device
+        *spheres,
+        *live,
+        p,  # out_l: (n_pix, 3) f32 device, zeroed
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
@@ -232,10 +250,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         *scene,
         i,  # n_rects
         *launch,
-        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
-        i,  # n_spheres
-        p, p,  # albedo, emission: (R + S, 3) f32 device
-        p,  # refl: (R + S,) i32 device
+        *spheres,
         p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
@@ -257,10 +272,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         *scene,
         i,  # n_rects
         *launch,
-        p,  # sph: (S, 4) f32 device [cx, cy, cz, r]
-        i,  # n_spheres
-        p, p,  # albedo, emission: (R + S, 3) f32 device
-        p,  # refl: (R + S,) i32 device
+        *spheres,
         i,  # bk: 0 the image-only launch, 1 the adjoint
         p,  # g_img: (n_pix_loc, 3) f32 device, or null
         p,  # partials: f32 device scratch
@@ -268,5 +280,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # out: 6 (R + S) + 4 S f32 device
         p,  # out_l: (n_pix_loc * g, 3) f32 device
         p,  # counts: (5,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_sphere_queries.restype = ctypes.c_int
+    lib.spt_sphere_queries.argtypes = [
+        *scene,
+        i,  # n_rects
+        p,  # light_f: 13 f32 host
+        i,  # light_id
+        *spheres[:4],
+        p, p,  # o, d: (N, 3) f32 device
+        i,  # N
+        p, p, p, p,  # t, id, ok, t_light: (N,) f32, i32, i32, f32 device
         p,  # cudaStream_t
     ]

@@ -6,14 +6,17 @@ port's counterpart of the JAX package's ``render_pallas`` /
   rect-only DIFF scenes, with the materials baked into its parameters.
 - ``megakernel_nee_tab`` (row 2, the JAX sphere-table kernel) renders every
   scene with spheres or SPEC/REFR objects: the sphere rows and the
-  material tables are device tensors.
+  material tables are device tensors, and the spheres are scanned through
+  a tree that ``sphere_bvh`` builds on the host at each launch
+  (``csrc/megakernel_bvh.cuh``).
 - ``megakernel_cosine`` / ``megakernel_textbook`` and their ``_tab``
   twins are rows 1 and 2 with the ``cosine`` and ``nee_textbook``
   estimators (``render_megakernel`` picks the kernel from cfg.estimator).
 - ``megakernel_nee_budgets`` and ``megakernel_nee_tab_budgets`` (row 3, the
   JAX ``render_pallas_budgets``) are rows 1 and 2 with per-pixel sample
   budgets: ``render_megakernel_budgets``, the unit of an adaptive wave
-  (``utils/adaptive.py``); ``nee`` only.
+  (``utils/adaptive.py``, through ``budget_waves``); ``nee`` only. They
+  launch one lane for each pixel with a non-empty span.
 - ``megakernel_guided`` and ``megakernel_guided_tab`` (row 4, the JAX
   ``render_pallas_guided``) guide every diffuse vertex from a voxel table of
   packed lobes: ``render_megakernel_guided``. ``megakernel_guided_primary``
@@ -57,7 +60,7 @@ from ..config import SPHERE_TABLE_AUTO_MIN, RenderConfig
 from ..core import vecmath as vm
 from ..device import resolve
 from ..experiment.path_guiding import voxel_id
-from ..geometry.intersect import shade_info, trace
+from ..geometry.intersect import intersect_rects, shade_info, trace
 from ..integrator import sampling
 from ..integrator.wavefront import (
     Guide, check_materials, lane_groups, path_trace_regen,
@@ -83,6 +86,7 @@ _EST_KERNEL = {"nee": "megakernel_nee", "cosine": "megakernel_cosine",
 TARGET_LANES = 1 << 18
 MAX_RECTS = 32
 MAX_SPHERES = 4096  # kMaxSpheres in csrc/megakernel_common.cuh
+BVH_ERROR = -(2 ** 31)  # kBvhError in csrc/megakernel_bvh.cuh
 
 
 def full_layout(cfg: RenderConfig, n_s: int | None = None,
@@ -238,7 +242,6 @@ def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     objects) or row 1 on the lanes ``lay``. Returns ((n_pix_loc, 3) radiance sums, traces (2,)
     int64 [extend, probe])."""
     tab = uses_sphere_table(scene)
-    S = _check_spheres(scene) if tab else 0
     geom = pack_geometry(scene, cam)
     lib = _build.build_kernels().lib
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
@@ -247,12 +250,11 @@ def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if tab:
-            sph, alb, emi, refl = sphere_tables(scene, device)
+            sa = sphere_args(lib, scene, device)
             err = lib.spt_megakernel_tab(
-                EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
+                EST_CODE[cfg.estimator], 0, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis),
-                *launch_args(geom, cfg, seed, lay), sph.data_ptr(), S,
-                alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
+                *launch_args(geom, cfg, seed, lay), *sa.args(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
         else:
@@ -299,10 +301,133 @@ def _check_spheres(scene: Scene) -> int:
     S = num_spheres(scene)
     if S > MAX_SPHERES:
         raise NotImplementedError(
-            f"the sphere-table kernel takes at most {MAX_SPHERES} spheres "
-            f"(64 KB of shared memory a block), got {S}"
+            f"the sphere-table kernels take at most {MAX_SPHERES} spheres, "
+            f"got {S}"
         )
     return S
+
+
+def bvh_floats(n: int) -> int:
+    """Floats of the tree of n sphere rows (bvh_floats in
+    csrc/megakernel_bvh.cuh): the rows, then at most n - 1 nodes."""
+    return 8 * n + 16 * max(n - 1, 0)
+
+
+def sphere_bvh(lib, sph: torch.Tensor, device):
+    """The tree over the (S, 4) sphere rows ``sph``, built on the host by
+    the kernel library's ``spt_sphere_bvh`` (csrc/megakernel_bvh.cuh):
+    (its buffer, a float32 tensor on ``device``, and its root link). It is
+    built anew at each launch: a fit moves the spheres every step."""
+    rows = np.ascontiguousarray(sph.detach().cpu().numpy(), dtype=np.float32)
+    n = rows.shape[0]
+    out = np.zeros(bvh_floats(n), np.float32)
+    root = lib.spt_sphere_bvh(rows.ctypes.data, n, out.ctypes.data, out.size)
+    if root == BVH_ERROR:
+        raise NotImplementedError(f"no sphere tree for {n} rows (at most "
+                                  f"{MAX_SPHERES})")
+    return torch.from_numpy(out).to(device), int(root)
+
+
+class SphereArgs(NamedTuple):
+    """A sphere table as the table kernels take it, on the device: the
+    rows, the tree (``sphere_bvh``) and the material tables."""
+
+    sph: torch.Tensor
+    bvh: torch.Tensor
+    root: int
+    alb: torch.Tensor
+    emi: torch.Tensor
+    refl: torch.Tensor
+
+    def args(self) -> tuple:
+        """The entry points' sphere arguments: sph, n_spheres, bvh, root,
+        albedo, emission, refl."""
+        return (self.sph.data_ptr(), self.sph.shape[0], self.bvh.data_ptr(),
+                self.root, self.alb.data_ptr(), self.emi.data_ptr(),
+                self.refl.data_ptr())
+
+
+def sphere_args(lib, scene: Scene, device) -> SphereArgs:
+    """``scene``'s sphere table and its tree for the table kernels."""
+    _check_spheres(scene)
+    sph, alb, emi, refl = sphere_tables(scene, device)
+    bvh, root = sphere_bvh(lib, sph, device)
+    return SphereArgs(sph, bvh, root, alb, emi, refl)
+
+
+def render_megakernel_counted(scene: Scene, cam: CameraParams,
+                              cfg: RenderConfig, seed, device=None):
+    """Row 2's counting instance (``megakernel_nee_tab<kScanCount>``,
+    counted as megakernel_nee_tab_count) on every pixel and all of spp,
+    for the bound of the tree's algorithm: the image
+    and traces of megakernel_nee_tab, and the scans' work. Returns ((h, w,
+    3) radiance sum, counts (5,) int64 [extend, probe, node tests, sphere
+    rows tested, rows that reached the square root]). The counts are the
+    card's algorithm's: there is no plain version, and the CPU raises."""
+    device = _resolve(scene, device)
+    if device.type == "cpu" or cfg.estimator != "nee":
+        raise NotImplementedError("the counting instance runs on a CUDA "
+                                  "device, estimator nee")
+    lay = full_layout(cfg)
+    geom = pack_geometry(scene, cam)
+    lib = _build.build_kernels().lib
+    out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
+                        device=device)
+    counts = torch.zeros(5, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.spt_megakernel_tab(
+            EST_CODE["nee"], 1, geom.rect_geom.ctypes.data,
+            geom.rect_axis.ctypes.data, len(geom.rect_axis),
+            *launch_args(geom, cfg, seed, lay),
+            *sphere_args(lib, scene, device).args(), out_l.data_ptr(),
+            counts.data_ptr(), stream,
+        )
+    count("megakernel_nee_tab_count", err)
+    return _image(reduce_lanes(out_l, lay), cfg), counts
+
+
+def sphere_queries_plain(scene: Scene, o: torch.Tensor, d: torch.Tensor):
+    """The plain version of the sphere table's two scans on rays (o, d)
+    (N, 3): the in-order strict-< scan's nearest hit (t, id), and the
+    probe toward the light: success iff that winner is the light, and the
+    light's t (MISS_T where the ray misses it)."""
+    h = trace(scene, o, d)
+    L = int(scene.light.light_obj_id)
+    t_l = intersect_rects(scene.rects, o, d)[:, L]
+    return h.t, h.obj_id.to(torch.int32), (h.hit & (h.obj_id == L)), t_l
+
+
+def sphere_queries(scene: Scene, cam: CameraParams, o: torch.Tensor,
+                   d: torch.Tensor):
+    """The sphere table's nearest-hit scan and light probe (nearest_tab,
+    probe_light_tab, through the tree) on rays (o, d) (N, 3) float32 on the
+    scene's device (the camera is packed, not read): the query kernel
+    ``sphere_queries`` on a CUDA device, ``sphere_queries_plain`` on the
+    CPU. Returns (t (N,), id (N,) int32, success (N,) bool, t_light
+    (N,))."""
+    device = scene.device
+    if device.type == "cpu":
+        return sphere_queries_plain(scene, o, d)
+    geom = pack_geometry(scene, cam)
+    lib = _build.build_kernels().lib
+    o = o.to(device=device, dtype=torch.float32).contiguous()
+    d = d.to(device=device, dtype=torch.float32).contiguous()
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    t_l = torch.empty_like(t)
+    ids = torch.empty(n, dtype=torch.int32, device=device)
+    ok = torch.empty_like(ids)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        sa = sphere_args(lib, scene, device)
+        err = lib.spt_sphere_queries(
+            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+            len(geom.rect_axis), geom.light_f.ctypes.data, geom.light_id,
+            *sa.args()[:4], o.data_ptr(), d.data_ptr(), n, t.data_ptr(),
+            ids.data_ptr(), ok.data_ptr(), t_l.data_ptr(), stream)
+    count("sphere_queries", err)
+    return t, ids, ok.bool(), t_l
 
 
 def _spans(x, n_pix: int, device, dtype) -> torch.Tensor:
@@ -315,20 +440,105 @@ def _spans(x, n_pix: int, device, dtype) -> torch.Tensor:
     return t
 
 
+def live_pixels(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """The indices of the True entries of the (n_pix,) bool ``mask``, in
+    order, as an (n,) int32 tensor on its device, where n is the number of
+    True entries (which the caller knows): a scatter of each pixel to its
+    place, with no host read."""
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    live = torch.empty(n + 1, dtype=torch.int32, device=mask.device)
+    live.scatter_(0, torch.where(mask, pos, n),
+                  torch.arange(mask.shape[0], dtype=torch.int32,
+                               device=mask.device))
+    return live[:n]
+
+
 def render_megakernel_budgets_plain(scene: Scene, cam: CameraParams,
                                     cfg: RenderConfig, seed, s_start, s_stop,
-                                    device=None):
+                                    device=None, live=None):
     """The budget kernels' plain version: the eager regenerating wavefront
-    with one lane a pixel, lane i rendering samples [s_start[i],
-    s_stop[i]). Returns ((n_pix, 3) radiance sum over each span, traces
+    with one lane a live pixel, lane i rendering samples [s_start[j],
+    s_stop[j]) of pixel j = live[i]; ``live`` (the pixels with a non-empty
+    span, in order) is computed from the spans when not given. Returns
+    ((n_pix, 3) radiance sum over each span, 0 outside ``live``, traces
     (2,) int64 [extend, probe])."""
     device = _resolve(scene, device)
     n_pix = cfg.width * cfg.height
-    pix = torch.arange(n_pix, dtype=torch.int64, device=device)
-    return path_trace_regen(
-        scene.to(device), cfg, int(seed), cam.to(device), pix,
-        _spans(s_start, n_pix, device, torch.int64),
-        _spans(s_stop, n_pix, device, torch.int64))
+    s_start = _spans(s_start, n_pix, device, torch.int64)
+    s_stop = _spans(s_stop, n_pix, device, torch.int64)
+    if live is None:
+        live = torch.nonzero(s_stop > s_start).flatten()
+    pix = live.to(device=device, dtype=torch.int64)
+    L = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    if pix.numel() == 0:
+        return L, torch.zeros(2, dtype=torch.int64, device=device)
+    L_live, traces = path_trace_regen(
+        scene.to(device), cfg, int(seed), cam.to(device), pix, s_start[pix],
+        s_stop[pix])
+    return L.index_copy_(0, pix, L_live), traces
+
+
+class _BudgetScene(NamedTuple):
+    """What the budget kernels take from a scene and camera, packed once
+    for every wave of an adaptive render: the library, the geometry, and
+    the sphere table (with its tree) or the baked materials."""
+
+    lib: object
+    geom: KernelGeometry
+    spheres: SphereArgs | None
+    baked: tuple | None  # (albedo, emission, fold)
+
+
+def _pack_budgets(scene: Scene, cam: CameraParams, device) -> _BudgetScene:
+    lib = _build.build_kernels().lib
+    geom = pack_geometry(scene, cam)
+    if uses_sphere_table(scene):
+        return _BudgetScene(lib, geom, sphere_args(lib, scene, device), None)
+    return _BudgetScene(lib, geom, None, _baked_materials(scene, geom))
+
+
+def _launch_budgets(pk: _BudgetScene, cfg: RenderConfig, seed,
+                    s_start: torch.Tensor, s_stop: torch.Tensor,
+                    live: torch.Tensor, device):
+    """One launch of a budget kernel over the pixels ``live`` ((n_live,)
+    int32, n_live >= 1) on ``device``. Returns ((n_pix, 3) radiance sums,
+    0 outside ``live``, traces (2,) int64)."""
+    n_pix = cfg.width * cfg.height
+    s_start = _spans(s_start, n_pix, device, torch.int32)
+    s_stop = _spans(s_stop, n_pix, device, torch.int32)
+    live = live.to(device=device, dtype=torch.int32).contiguous()
+    geom = pk.geom
+    head = _budget_args(geom, cfg, seed)
+    lanes = (live.data_ptr(), live.numel(), s_start.data_ptr(),
+             s_stop.data_ptr())
+    out_l = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    traces = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if pk.spheres is not None:
+            err = pk.lib.spt_megakernel_nee_tab_budgets(
+                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+                len(geom.rect_axis), *head, *pk.spheres.args(), *lanes,
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        else:
+            alb, emi, fold = pk.baked
+            err = pk.lib.spt_megakernel_nee_budgets(
+                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+                alb.ctypes.data, emi.ctypes.data, len(geom.rect_axis),
+                *head, fold, *lanes, out_l.data_ptr(), traces.data_ptr(),
+                stream,
+            )
+    count("megakernel_nee_tab_budgets" if pk.spheres is not None
+          else "megakernel_nee_budgets", err)
+    return out_l, traces
+
+
+def _check_budgets(cfg: RenderConfig) -> None:
+    if cfg.estimator != "nee":
+        raise NotImplementedError(
+            f"per-pixel budgets with estimator {cfg.estimator!r} are not "
+            "ported yet (ROADMAP.md queue 1, item 10)")
 
 
 def render_megakernel_budgets(scene: Scene, cam: CameraParams,
@@ -342,50 +552,45 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
     radiance is the same as in every other schedule.
 
     On a CUDA device this launches megakernel_nee_tab_budgets for a scene
-    with spheres or SPEC/REFR objects, megakernel_nee_budgets otherwise; on
-    the CPU it runs the plain version. Returns ((n_pix, 3) float32 radiance
-    sum over each span, traces (2,) int64 [extend, probe]). ``nee`` only:
-    the other estimators raise NotImplementedError on every device."""
-    if cfg.estimator != "nee":
-        raise NotImplementedError(
-            f"per-pixel budgets with estimator {cfg.estimator!r} are not "
-            "ported yet (ROADMAP.md queue 1, item 10)")
+    with spheres or SPEC/REFR objects, megakernel_nee_budgets otherwise,
+    one lane for each pixel with a non-empty span (none when every span is
+    empty); on the CPU it runs the plain version. Returns ((n_pix, 3)
+    float32 radiance sum over each span, traces (2,) int64 [extend,
+    probe]). ``nee`` only: the other estimators raise NotImplementedError
+    on every device."""
+    _check_budgets(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_budgets_plain(scene, cam, cfg, seed,
                                                s_start, s_stop, device)
     n_pix = cfg.width * cfg.height
-    s_start = _spans(s_start, n_pix, device, torch.int32)
-    s_stop = _spans(s_stop, n_pix, device, torch.int32)
-    tab = uses_sphere_table(scene)
-    S = _check_spheres(scene) if tab else 0
-    geom = pack_geometry(scene, cam)
-    head = _budget_args(geom, cfg, seed)
-    lib = _build.build_kernels().lib
-    out_l = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
-    traces = torch.zeros(2, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if tab:
-            sph, alb, emi, refl = sphere_tables(scene, device)
-            err = lib.spt_megakernel_nee_tab_budgets(
-                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-                len(geom.rect_axis), *head, sph.data_ptr(), S,
-                alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
-                s_start.data_ptr(), s_stop.data_ptr(), out_l.data_ptr(),
-                traces.data_ptr(), stream,
-            )
-        else:
-            alb, emi, fold = _baked_materials(scene, geom)
-            err = lib.spt_megakernel_nee_budgets(
-                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-                alb.ctypes.data, emi.ctypes.data, len(geom.rect_axis),
-                *head, fold, s_start.data_ptr(), s_stop.data_ptr(),
-                out_l.data_ptr(), traces.data_ptr(), stream,
-            )
-    count("megakernel_nee_tab_budgets" if tab else "megakernel_nee_budgets",
-          err)
-    return out_l, traces
+    a = _spans(s_start, n_pix, device, torch.int32)
+    b = _spans(s_stop, n_pix, device, torch.int32)
+    live = torch.nonzero(b > a).flatten()
+    if live.numel() == 0:
+        return (torch.zeros((n_pix, 3), dtype=torch.float32, device=device),
+                torch.zeros(2, dtype=torch.int64, device=device))
+    return _launch_budgets(_pack_budgets(scene, cam, device), cfg, seed, a,
+                           b, live, device)
+
+
+def budget_waves(scene: Scene, cam: CameraParams, cfg: RenderConfig):
+    """The waves of one adaptive render on the scene's device: packs the
+    scene for the budget kernels once (geometry, sphere table and its tree,
+    the library) and returns wave(seed, s_start, s_stop, live) ->
+    ((n_pix, 3) radiance sums, traces (2,) int64), which renders the spans
+    of the pixels ``live`` ((n_live,) int32, n_live >= 1: the pixels with a
+    non-empty span, in order; ``live_pixels``). The scene must not change
+    between waves. On the CPU a wave is the plain version."""
+    _check_budgets(cfg)
+    device = scene.device
+    if device.type == "cpu":
+        return lambda seed, s_start, s_stop, live: (
+            render_megakernel_budgets_plain(scene, cam, cfg, seed, s_start,
+                                            s_stop, device, live))
+    pk = _pack_budgets(scene, cam, device)
+    return lambda seed, s_start, s_stop, live: _launch_budgets(
+        pk, cfg, seed, s_start, s_stop, live, device)
 
 
 # ---------------------------------------------------------------------------
@@ -621,13 +826,11 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if tab:
-            S = _check_spheres(scene)
-            sph, alb, emi, refl = sphere_tables(scene, device)
             err = lib.spt_megakernel_guided_tab(
                 *head, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis),
-                *launch_args(geom, cfg, seed, lay), sph.data_ptr(), S,
-                alb.data_ptr(), emi.data_ptr(), refl.data_ptr(),
+                *launch_args(geom, cfg, seed, lay),
+                *sphere_args(lib, scene, device).args(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
         else:

@@ -58,7 +58,7 @@ from ..scene.types import DIFF, SPEC, Scene, num_spheres
 from . import _build
 from .megakernel import (
     KernelGeometry, _image, _resolve, count, full_layout,
-    launch_args, pack_geometry, shard_of, sphere_tables,
+    launch_args, pack_geometry, shard_of, sphere_args, sphere_tables,
 )
 from .megakernel_grad import material_grads_to_scene
 
@@ -528,8 +528,8 @@ def _check_spheres(scene: Scene) -> int:
     if S > MAX_GEOM_SPHERES:
         raise NotImplementedError(
             f"the geometry-adjoint kernel takes at most {MAX_GEOM_SPHERES} "
-            f"spheres (its per-warp gradient rows and the sphere rows share "
-            f"a block's shared memory), got {S}"
+            f"spheres (its per-warp gradient rows fill a block's shared "
+            f"memory), got {S}"
         )
     return S
 
@@ -543,7 +543,7 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     S = _check_spheres(scene)
     geom = pack_geometry(scene, cam) if geometry is None else geometry
     R = len(geom.rect_axis)
-    sph, alb, emi, refl = sphere_tables(scene, device)
+    lib = _build.build_kernels().lib
     K = R + S
     n_slots = 6 * K + 4 * S
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
@@ -563,13 +563,12 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
         n_blocks = -(-lay.n_pix_loc * lay.g // KERNEL_BLOCK)
         partials = torch.empty(n_blocks * n_slots, dtype=torch.float32,
                                device=device)
-    lib = _build.build_kernels().lib
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.spt_megakernel_geom(
             geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
-            *launch_args(geom, cfg, seed, lay), sph.data_ptr(), S,
-            alb.data_ptr(), emi.data_ptr(), refl.data_ptr(), bk, g_ptr,
+            *launch_args(geom, cfg, seed, lay),
+            *sphere_args(lib, scene, device).args(), bk, g_ptr,
             partials.data_ptr(), partials.numel(), out.data_ptr(),
             out_l.data_ptr(), counts.data_ptr(), stream,
         )

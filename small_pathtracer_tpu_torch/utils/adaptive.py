@@ -3,10 +3,12 @@ each pixel's running mean (the port of the JAX package's
 ``utils/adaptive.py``, rule for rule).
 
 The render runs in waves. A wave renders samples [n_i, n_i + wave) of every
-still-active pixel i through ``ops.megakernel.render_megakernel_budgets``:
-the budget kernels on the card, their plain version on the CPU. Every draw
-is a pure function of (seed, pixel, sample), so stopping changes which
-samples are rendered, never their values.
+still-active pixel i through ``ops.megakernel.budget_waves``: the budget
+kernels on the card, one lane for each active pixel (the list is made on
+the device from the active mask), their plain version on the CPU. The
+scene is packed for the kernels once a render. Every draw is a pure
+function of (seed, pixel, sample), so stopping changes which samples are
+rendered, never their values.
 
 - wave: ``max(8, spp // 8)`` by default, capped at spp; a pixel's budget in
   a wave is ``min(spp - n_i, wave)``.
@@ -17,7 +19,8 @@ samples are rendered, never their values.
 - tol = 0 never stops early: the uniform image, summed wave by wave.
 
 The statistics stay on the scene's device in float64; the host reads two
-numbers a wave (the active count and the samples so far), never the sums.
+numbers a wave (the active count, which sizes the next wave's launch, and
+the samples so far), never the sums.
 On the card every division is by a device tensor: CUDA torch turns a
 division by a Python number into a multiply by its reciprocal.
 """
@@ -30,7 +33,7 @@ import torch
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
-from ..ops.megakernel import render_megakernel_budgets
+from ..ops.megakernel import budget_waves, live_pixels
 from ..scene.types import Scene
 
 # Rec.709 luma weights, float32 values as in the JAX package.
@@ -77,12 +80,14 @@ def adaptive_render(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     active = torch.ones(n_pix, dtype=torch.bool, device=dev)
     traces = torch.zeros(2, dtype=torch.int64, device=dev)
     waves, n_active = 0, n_pix
+    render_wave = budget_waves(scene, cam, cfg)
 
     while n_active:
         budget = torch.where(active, torch.clamp(cfg.spp - n, max=wave), 0)
         s_start, s_stop = n, n + budget
-        L, tr = render_megakernel_budgets(scene, cam, cfg, cfg.seed,
-                                          s_start, s_stop)
+        # An active pixel has n < spp, so a non-empty span.
+        L, tr = render_wave(cfg.seed, s_start, s_stop,
+                            live_pixels(active, n_active))
         traces = traces + tr
         waves += 1
         # Pixels outside the wave rendered nothing: their L is 0.

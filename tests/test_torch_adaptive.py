@@ -221,13 +221,17 @@ def test_wave_schedule(monkeypatch, spp, wave, budgets):
     """The JAX rules for the wave size and each wave's budgets, read off
     the spans the sampler hands the budgets wrapper."""
     seen = []
-    real = adaptive.render_megakernel_budgets
+    real = adaptive.budget_waves
 
-    def spy(scene, cam, cfg, seed, s_start, s_stop):
-        seen.append(sorted(set((s_stop - s_start).tolist())))
-        return real(scene, cam, cfg, seed, s_start, s_stop)
+    def spy(scene, cam, cfg):
+        wave_fn = real(scene, cam, cfg)
 
-    monkeypatch.setattr(adaptive, "render_megakernel_budgets", spy)
+        def wave_spy(seed, s_start, s_stop, live):
+            seen.append(sorted(set((s_stop - s_start).tolist())))
+            return wave_fn(seed, s_start, s_stop, live)
+        return wave_spy
+
+    monkeypatch.setattr(adaptive, "budget_waves", spy)
     scene = spt.get_scene("cornell_box", device="cpu")
     cfg = spt.RenderConfig(width=3, height=2, spp=spp, seed=1)
     res = adaptive.adaptive_render(scene, spt.make_camera(device="cpu"),

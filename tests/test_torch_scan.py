@@ -1,6 +1,7 @@
 """The forward kernels' rect scan on the CPU: the layout the kernels scan
 (``fill_params`` in csrc/megakernel_common.cuh, compiled for the host with
-the C++ compiler against a small stand-in for ``cuda_runtime.h``), a plain
+the C++ compiler against tests/_cuda_host.py's stand-in for
+``cuda_runtime.h``), a plain
 torch copy of the device scan's winner rule over that layout, and the tie
 statements that chip_smoke.py's tie phase holds the kernels to, through
 the plain version.
@@ -15,9 +16,6 @@ geometry/intersect.py and the JAX package's jnp ``trace`` do. No Pallas,
 no JAX compile beyond eager jnp ops."""
 
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,39 +32,12 @@ from small_pathtracer_tpu_torch.geometry import intersect
 from small_pathtracer_tpu_torch.ops import megakernel
 from small_pathtracer_tpu_torch.scene.types import Scene, insert_rect
 
+from _cuda_host import build_host_lib
+
 # See tests/test_torch_core.py: single-threaded torch next to jaxlib.
 torch.set_num_threads(1)
 
 SCENES = ("cornell_box", "cornell_alcove_baffled", "cornell_alcove")
-CSRC = Path(megakernel.__file__).resolve().parent.parent / "csrc"
-
-# What megakernel_common.cuh needs of the CUDA runtime to compile its host
-# function fill_params with a host compiler.
-CUDA_STAND_IN = r"""
-#pragma once
-#include <math.h>
-#include <cstring>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __launch_bounds__(n)
-#define __shared__ static
-#define __restrict__
-struct Idx { int x; };
-static Idx threadIdx, blockIdx, blockDim;
-inline void __syncthreads() {}
-inline float __int_as_float(int i) {
-  float f;
-  std::memcpy(&f, &i, 4);
-  return f;
-}
-inline int __float_as_int(float f) {
-  int i;
-  std::memcpy(&i, &f, 4);
-  return i;
-}
-struct float4 { float x, y, z, w; };
-"""
 
 # fill_params on a scene's rects: the scan's ids, then each axis group's
 # [begin, split, end], then the light's group; 0 if fill_params refuses.
@@ -98,16 +69,8 @@ def fill_params(tmp_path_factory):
     (rect_geom (R, 5) float32, rect_axis (R,) int32, light_id) returning
     (scan ids (R,), groups (3, 3) [begin, split, end], the light's group).
     """
-    cxx = shutil.which("g++") or shutil.which("c++")
-    assert cxx, "a host C++ compiler is needed to build fill_params"
-    d = tmp_path_factory.mktemp("fill_params")
-    (d / "cuda_runtime.h").write_text(CUDA_STAND_IN)
-    (d / "layout.cpp").write_text(LAYOUT_SRC)
-    lib_path = d / "layout.so"
-    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
-                    f"-I{d}", f"-I{CSRC}", "-o", str(lib_path),
-                    str(d / "layout.cpp")], check=True)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build_host_lib(tmp_path_factory.mktemp("fill_params"), "layout",
+                         LAYOUT_SRC)
     lib.scan_layout.restype = ctypes.c_int
     lib.scan_layout.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -70,6 +70,16 @@ def _n_blocks(lay):
     return -(-lay.n_pix_loc * lay.g // mgeo.KERNEL_BLOCK)
 
 
+def _geom_call(lib):
+    """The one spt_megakernel_geom call (the sphere tree is built through
+    spt_sphere_bvh first)."""
+    calls = [c for c in lib.calls if c[0] != "spt_sphere_bvh"]
+    assert [c[0] for c in lib.calls] == ["spt_sphere_bvh",
+                                         "spt_megakernel_geom"]
+    (name, args), = calls
+    return name, args
+
+
 def test_geom_adjoint_launch_takes_any_depth(lib):
     for max_bounces in DEPTHS:
         lib.calls.clear()
@@ -82,16 +92,16 @@ def _check_geom_launch(lib, max_bounces):
     g_rows = torch.zeros((W * H, 3))
     out = mgeo._launch(sc, cam, cfg, 3, g_rows, lay, torch.device("cpu"),
                        None)
-    (name, args), = lib.calls
+    name, args = _geom_call(lib)
     n_launch = len(megakernel.launch_args(megakernel.pack_geometry(sc, cam),
                                           cfg, 3, lay))
     assert name == "spt_megakernel_geom"
     assert args[N_HEAD + n_launch - 1] == max_bounces
     R, S = sc.rects.k.shape[0], sc.spheres.radius.shape[0]
     n_slots = 6 * (R + S) + 4 * S
-    # After the launch settings: sph, S, alb, emi, refl, bk, g_img,
-    # partials, n_partials.
-    bk, n_partials = args[N_HEAD + n_launch + 5], args[N_HEAD + n_launch + 8]
+    # After the launch settings: sph, S, bvh, root, alb, emi, refl, bk,
+    # g_img, partials, n_partials.
+    bk, n_partials = args[N_HEAD + n_launch + 7], args[N_HEAD + n_launch + 10]
     assert bk == 1
     assert n_partials >= _n_blocks(lay) * n_slots
     counts = out[4]
@@ -102,10 +112,10 @@ def _check_geom_launch(lib, max_bounces):
 def test_geom_image_launch_passes_no_cotangent(lib):
     sc, cam, cfg, lay = _setup("cornell_spheres", 256)
     mgeo._launch(sc, cam, cfg, 3, None, lay, torch.device("cpu"), None)
-    (_, args), = lib.calls
+    _, args = _geom_call(lib)
     n_launch = len(megakernel.launch_args(megakernel.pack_geometry(sc, cam),
                                           cfg, 3, lay))
-    bk, g_ptr = args[N_HEAD + n_launch + 5], args[N_HEAD + n_launch + 6]
+    bk, g_ptr = args[N_HEAD + n_launch + 7], args[N_HEAD + n_launch + 8]
     assert bk == 0 and g_ptr is None
 
 
@@ -179,3 +189,25 @@ def test_ptxas_report_reads_the_adjoints():
     assert chip_smoke.ptxas_report(out, ("megakernel_vjp", "megakernel_geom")) \
         == {"megakernel_geom": (118, 1856, 8, 4),
             "megakernel_vjp": (87, 1920, 0, 0)}
+
+
+def test_ptxas_report_keys_scan_instances():
+    """The geometry adjoint's linear and tree instances (a template on the
+    sphere scan) are reported apart, as name<k>."""
+    out = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115megakernel_geomILi1EEEv6Params' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_115megakernel_geomILi1EEEv6Params",
+        "    2432 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 121 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115megakernel_geomILi2EEEv6Params' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_115megakernel_geomILi2EEEv6Params",
+        "    2560 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 118 registers, used 1 barriers",
+    ])
+    assert chip_smoke.ptxas_report(out, ("megakernel_geom",)) == {
+        "megakernel_geom<1>": (121, 2432, 0, 0),
+        "megakernel_geom<2>": (118, 2560, 0, 0)}

@@ -14,14 +14,30 @@ of PERF.md §6):
 
 - the forwards (rows 1-8): the image and traces at 1024x768x4 seed 3 and
   the traces at 1024x768x512 seed 0, and a launch's CUDA-event time at x512
-  (three launches after one warm-up);
+  (three launches after one warm-up); row 2 on ``sphere_grid`` with 2, 9,
+  16, 32, 64, 256 and 1024 spheres (``sphere_grid_N`` that is no preset:
+  the preset's grid cut to N) and its ``cosine`` / ``nee_textbook`` twins on
+  ``smallpt_original``;
+- row 3 on one wave with 74% of the pixels active (seeded; samples
+  [64, 128) of spp 512): its sums and traces and a launch's event time
+  (this checkout: the launch alone, through ``budget_waves``; the other:
+  ``render_megakernel_budgets`` three times in a row, whose host work
+  overlaps the previous launch); and ``adaptive``: ``adaptive_render`` at
+  ``--adaptive-tol 0.01`` (1024x768x512) of ``cornell_box`` and
+  ``sphere_grid``, its image, spp map and traces, the wall time of two
+  renders after a warm-up, and each wave's active share and event time;
 - the adjoints: ``megakernel_vjp`` on ``cornell_box`` and the adjoint
-  launch of ``megakernel_geom`` on ``cornell_spheres``, their gradient
+  launch of ``megakernel_geom`` on ``cornell_spheres`` (and on
+  ``smallpt_original``), their gradient
   tables at 1024x768x4 (seed 3, cotangent seeds 5 and 3, as chip_smoke.py)
   and a launch's event time at 1024x768x512 seed 0 (cotangent 1e-7; two
-  launches after one warm-up); ``megakernel_geom deep``, its tables on
+  launches after one warm-up; for ``megakernel_geom`` also the kernel's
+  own device time from torch.profiler, without the wrapper's host work); ``megakernel_geom deep``, its tables on
   ``cornell_spheres`` 64x48x4 with rr_start_depth = max_bounces = 200 and
-  every albedo 0.98;
+  every albedo 0.98; ``geom fit``, ``cli fit --train center,radius`` of
+  ``cornell_spheres`` at 1024x768x512 (5 steps, the main path: host work
+  and syncs included), each step's printed seconds and the stdout line's
+  sphere 0 and losses;
 - ``guided 4 ranks`` (row 6 end to end): ``cli render --guided --mesh 2x2``
   of the alcove at 1024x768x512 as chip_smoke.py's main path runs it, four
   gloo ranks on the one card (the checkout's ``launcher.spawn``): one
@@ -38,11 +54,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -65,15 +83,41 @@ CASES = {
                           "voxel"),
     "megakernel_guided_primary": ("5", "cornell_alcove_baffled",
                                   "nee_textbook", "primary"),
+    "megakernel_guided_tab": ("4", "smallpt_original", "cosine", "voxel"),
+    "megakernel_guided_primary_tab": ("5", "smallpt_original", "cosine",
+                                      "primary"),
+    "megakernel_guided_tab grid": ("4", "sphere_grid", "cosine", "voxel"),
+    "megakernel_guided_primary_tab grid": ("5", "sphere_grid", "cosine",
+                                           "primary"),
+    "megakernel_nee_tab 2x2": ("7", "sphere_grid", "nee", "sharded"),
     "megakernel_guided 2x2": ("6", "cornell_alcove_baffled",
                               "nee_textbook", "voxel sharded"),
     "megakernel_nee 2x2": ("7", "cornell_box", "nee", "sharded"),
     "megakernel_nee_mat": ("8", "cornell_box", "nee", "mat"),
     "megakernel_nee_budgets": ("3", "cornell_box", "nee", "budgets"),
     "megakernel_nee_tab": ("2", "sphere_grid", "nee", "unguided"),
+    "megakernel_nee_tab 2": ("2", "sphere_grid_2", "nee", "unguided"),
+    "megakernel_nee_tab 9": ("2", "sphere_grid_9", "nee", "unguided"),
+    "megakernel_nee_tab 16": ("2", "sphere_grid_16", "nee", "unguided"),
+    "megakernel_nee_tab 32": ("2", "sphere_grid_32", "nee", "unguided"),
+    "megakernel_nee_tab 256": ("2", "sphere_grid_256", "nee", "unguided"),
+    "megakernel_nee_tab 1024": ("2", "sphere_grid_1024", "nee", "unguided"),
+    "megakernel_cosine_tab": ("2", "smallpt_original", "cosine",
+                              "unguided"),
+    "megakernel_textbook_tab": ("2", "smallpt_original", "nee_textbook",
+                                "unguided"),
+    "megakernel_cosine_tab grid": ("2", "sphere_grid", "cosine", "unguided"),
+    "megakernel_textbook_tab grid": ("2", "sphere_grid", "nee_textbook",
+                                     "unguided"),
+    "budgets 74%": ("3", "cornell_box", "nee", "budgets74"),
+    "budgets 74% spheres": ("3", "sphere_grid", "nee", "budgets74"),
+    "adaptive cornell_box": ("3", "cornell_box", "nee", "adaptive"),
+    "adaptive sphere_grid": ("3", "sphere_grid", "nee", "adaptive"),
     "megakernel_vjp": ("9", "cornell_box", "nee", "vjp"),
     "megakernel_geom": ("11", "cornell_spheres", "nee", "geom"),
+    "megakernel_geom smallpt": ("11", "smallpt_original", "nee", "geom"),
     "megakernel_geom deep": ("11", "cornell_spheres", "nee", "geom deep"),
+    "geom fit": ("11", "cornell_spheres", "nee", "fit"),
     "guided 4 ranks": ("6", "cornell_alcove_baffled", "nee_textbook",
                        "mesh"),
 }
@@ -90,6 +134,24 @@ def event_ms(fn, n: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def device_ms(fn, n: int, kernel: str) -> float:
+    """The device time of the kernels whose name holds ``kernel`` in one
+    call of fn (torch.profiler, n calls after a warm-up): the launch alone,
+    without the host work that the event time holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) or
+                getattr(e, "cuda_time_total", 0)
+                for e in prof.key_averages() if kernel in e.key)
+    return total / 1e3 / n
 
 
 def _cotangent(seed: int, height: int, width: int) -> torch.Tensor:
@@ -135,6 +197,78 @@ def mesh_case(root: str) -> dict:
     return {"out": images, "ms": [1e3 * s for s in seconds]}
 
 
+def waves_case(sc, cam, name: str) -> dict:
+    """The ``adaptive`` case: (image, spp map, traces), two walls after a
+    warm-up, and each wave's (active share, event ms)."""
+    from small_pathtracer_tpu_torch import RenderConfig
+    from small_pathtracer_tpu_torch.ops import megakernel as mk
+    from small_pathtracer_tpu_torch.utils import adaptive
+
+    cfg = RenderConfig(width=1024, height=768, spp=512, seed=0)
+    spans = []
+    new = hasattr(adaptive, "budget_waves")
+    real = adaptive.budget_waves if new else adaptive.render_megakernel_budgets
+
+    def keep_new(sc_, cam_, cfg_):
+        fn = real(sc_, cam_, cfg_)
+
+        def wave(seed, a, b, live):
+            spans.append((a.clone(), b.clone()))
+            return fn(seed, a, b, live)
+        return wave
+
+    def keep_old(sc_, cam_, cfg_, seed, a, b):
+        spans.append((a.clone(), b.clone()))
+        return real(sc_, cam_, cfg_, seed, a, b)
+
+    setattr(adaptive, "budget_waves" if new else "render_megakernel_budgets",
+            keep_new if new else keep_old)
+    try:
+        res = adaptive.adaptive_render(sc, cam, cfg, tol=0.01)
+    finally:
+        setattr(adaptive, "budget_waves" if new
+                else "render_megakernel_budgets", real)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adaptive.adaptive_render(sc, cam, cfg, tol=0.01)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    waves = []
+    wave_fn = adaptive.budget_waves(sc, cam, cfg) if new else None
+    for a, b in spans:
+        live = torch.nonzero(b > a).flatten().to(torch.int32)
+        fn = ((lambda: wave_fn(0, a, b, live)) if new else
+              (lambda: mk.render_megakernel_budgets(sc, cam, cfg, 0, a, b)))
+        waves.append((live.numel() / (1024 * 768), event_ms(fn, 3)))
+    return {"out": [res.image, res.spp_map,
+                    torch.tensor(res.traces, dtype=torch.int64)],
+            "ms": walls, "waves": waves}
+
+
+def fit_case() -> dict:
+    """The ``geom fit`` case: the CLI's geometry fit in this process; the
+    losses and sphere 0 (from stderr and the stdout line) and each step's
+    seconds."""
+    from small_pathtracer_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(["fit", "--scene", "cornell_spheres", "--width", "1024",
+                       "--height", "768", "--spp", "512", "--steps", "5",
+                       "--train", "center,radius"])
+    if rc != 0:
+        raise SystemExit(f"cli fit returned {rc}")
+    steps = re.findall(r"loss (\S+).*?seconds (\S+)", err.getvalue())
+    fit = json.loads(out.getvalue().strip().splitlines()[-1])
+    return {"out": [torch.tensor([float(a) for a, _ in steps],
+                                 dtype=torch.float64),
+                    torch.tensor([*fit["center"], fit["radius"]],
+                                 dtype=torch.float64)],
+            "ms": [1e3 * float(b) for _, b in steps]}
+
+
 def worker(root: str, out: str, cases: list[str]) -> None:
     """In the checkout at ``root``: every case's outputs and times, saved to
     ``out``."""
@@ -153,10 +287,18 @@ def worker(root: str, out: str, cases: list[str]) -> None:
     coords = [(i, j) for i in range(2) for j in range(2)]
     g512 = torch.full((768, 1024, 3), 1e-7, device="cuda")
 
+    def scene(name):
+        if name not in scenes:
+            from small_pathtracer_tpu_torch.scene import presets
+            if name in presets.PRESETS:
+                scenes[name] = get_scene(name)
+            else:  # sphere_grid_N: the preset's grid cut to N spheres
+                scenes[name] = presets.sphere_grid(int(name.split("_")[-1]))
+        return scenes[name]
+
     def call(case, cfg, seed):
         _, name, est, kind = CASES[case]
-        if name not in scenes:
-            scenes[name] = get_scene(name)
+        scene(name)
         sc = scenes[name]
         if kind.startswith(("voxel", "primary")) and name not in guides:
             guides[name] = pg.guide_lobes(pg.train_guide(
@@ -191,18 +333,34 @@ def worker(root: str, out: str, cases: list[str]) -> None:
         s_start = torch.zeros(n_pix, dtype=torch.int32, device="cuda")
         s_stop = torch.full((n_pix,), cfg.spp, dtype=torch.int32,
                             device="cuda")
+        if kind == "budgets74":
+            act = torch.from_numpy(
+                np.random.default_rng(74).random(n_pix) < 0.74).cuda()
+            s_start = torch.full_like(s_start, 64)
+            s_stop = torch.where(act, 128, 64).to(torch.int32)
+            if hasattr(mk, "budget_waves"):
+                wave_fn = mk.budget_waves(sc, cam, cfg)
+                live = torch.nonzero(act).flatten().to(torch.int32)
+                return lambda: wave_fn(seed, s_start, s_stop, live)
         return lambda: mk.render_megakernel_budgets(sc, cam, cfg, seed,
                                                     s_start, s_stop)
 
     res = {}
     for case in cases:
         _, name, est, kind = CASES[case]
+        # The guided kernels refuse the JAX sphere_table modes; "off" is
+        # the same kernel.
+        table = "off" if kind.startswith(("voxel", "primary")) else "auto"
         cfg4 = RenderConfig(width=1024, height=768, spp=4, estimator=est,
-                            seed=3)
+                            seed=3, sphere_table=table)
         cfg512 = RenderConfig(width=1024, height=768, spp=512,
-                              estimator=est, seed=0)
+                              estimator=est, seed=0, sphere_table=table)
         if kind == "mesh":
             res[case] = mesh_case(root)
+        elif kind == "adaptive":
+            res[case] = waves_case(scene(name), cam, name)
+        elif kind == "fit":
+            res[case] = fit_case()
         elif kind == "vjp":
             sc = get_scene(name)
             alb, emi = mg.pack_materials(sc)
@@ -213,13 +371,15 @@ def worker(root: str, out: str, cases: list[str]) -> None:
                 "ms": event_ms(lambda: mg.render_megakernel_vjp(
                     sc, cam, cfg512, alb, emi, 0, g512, geometry=geom), 2)}
         elif kind == "geom":
-            sc = get_scene(name)
+            sc = scene(name)
             geom = mk.pack_geometry(sc, cam)
+            run = (lambda: mgeo.geom_run(sc, cam, cfg512, 0, g512,
+                                         geometry=geom))
             res[case] = {
                 "out": list(mgeo.geom_vjp(sc, cam, cfg4, 3,
                                           _cotangent(3, 768, 1024))),
-                "ms": event_ms(lambda: mgeo.geom_run(
-                    sc, cam, cfg512, 0, g512, geometry=geom), 2)}
+                "ms": event_ms(run, 2),
+                "device_ms": device_ms(run, 2, "megakernel_geom")}
         elif kind == "geom deep":
             sc = get_scene(name)
             t_sph, t_alb, t_emi = mgeo.pack_tables(sc)
@@ -273,6 +433,10 @@ def main() -> int:
             if ms is not None:
                 ms = ms if isinstance(ms, list) else [ms]
                 times.append(f"{name} " + "/".join(f"{m:.3f}" for m in ms))
+        dev = [f"{name} {res[case]['device_ms']:.3f}" for name, res in runs
+               if "device_ms" in res[case]]
+        if dev:
+            times.append("kernel alone (profiler) " + ", ".join(dev))
         outs = "; ".join(
             f"{name} [" + ", ".join(gap(a, b) for a, b in zip(
                 res[case]["out"], ref[case]["out"])) + "]"
@@ -281,6 +445,12 @@ def main() -> int:
               + (", ".join(times) or "not timed")
               + f"; outputs against this checkout's first run: {outs}",
               flush=True)
+        for name, res in runs:
+            if "waves" in res[case]:
+                print(f"  {name} waves [active share, event ms]: "
+                      + ", ".join(f"[{a:.3f}, {m:.3f}]"
+                                  for a, m in res[case]["waves"]),
+                      flush=True)
     return 0
 
 
