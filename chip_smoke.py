@@ -52,7 +52,15 @@ and the adjoint's event time and counters at x512; both adjoints on
 200-bounce paths against autograd (every albedo 0.98; the geometry
 adjoint's sphere rows with the light black, and at 5 bounces with the
 cotangent zeroed on the pixels whose NEE probe re-hits the light from its
-own underside). The adjoint kernels'
+own underside). Then material training grown to sphere scenes, SPEC/REFR
+and the ``cosine`` and ``nee_textbook`` estimators: row 8's new instances
+bit for bit against their plain version and the render, row 9's against
+autograd through its plain version (and on 200-bounce paths), row 10's on
+each shard, the main path ``cli fit --scene smallpt_original --estimator
+cosine --train emission,albedo`` at 1024x768x512 (5 steps, the loss must
+fall) and a short fit of every other instance, with their x512 times; the
+sharded main path also takes one step of that fit over the mesh. The
+adjoint kernels'
 registers, stack frames (their tapes) and spills are logged from ptxas,
 their times against the function's bound and their algorithm's. Each path
 runs with its kernels' launch counts set to 0 just before it and read just
@@ -337,23 +345,83 @@ def cli_traces(text: str) -> tuple[int, float]:
 # once a taped bounce: csrc/megakernel_grad.cu `VjpEntry` and
 # csrc/megakernel_geom.cu `GeomEntry` (the state before the bounce and
 # what its two queries found).
+# Rows 8, 9 and 10 grown to sphere scenes, SPEC/REFR and the cosine and
+# nee_textbook estimators: each new instance (the name its wrapper counts
+# its launches under: ``mat_kernel_name``, ``vjp_kernel_name``), its source
+# under CSRC and the TPU kernel it replaces. The ``_tab`` instances of row
+# 8 are row 2's table kernels launched with the runtime tables; those of
+# row 9 are a linear and a tree instance each, counted together.
+MAT_KERNELS = (
+    ("megakernel_cosine_mat", "megakernel.cu",
+     "megakernel_grad.py:980 (estimator cosine)"),
+    ("megakernel_textbook_mat", "megakernel.cu",
+     "megakernel_grad.py:980 (estimator nee_textbook)"),
+    ("megakernel_nee_mat_tab", "megakernel.cu",
+     "megakernel_grad.py:980 (spheres, SPEC/REFR)"),
+    ("megakernel_cosine_mat_tab", "megakernel.cu",
+     "megakernel_grad.py:980 (spheres, SPEC/REFR, cosine)"),
+    ("megakernel_textbook_mat_tab", "megakernel.cu",
+     "megakernel_grad.py:980 (spheres, SPEC/REFR, nee_textbook)"),
+    ("megakernel_vjp_cosine", "megakernel_grad.cu",
+     "megakernel_grad.py:1049 (estimator cosine)"),
+    ("megakernel_vjp_textbook", "megakernel_grad.cu",
+     "megakernel_grad.py:1049 (estimator nee_textbook)"),
+    ("megakernel_vjp_tab", "megakernel_grad.cu",
+     "megakernel_grad.py:1049 (spheres, SPEC/REFR)"),
+    ("megakernel_vjp_cosine_tab", "megakernel_grad.cu",
+     "megakernel_grad.py:1049 (spheres, SPEC/REFR, cosine)"),
+    ("megakernel_vjp_textbook_tab", "megakernel_grad.cu",
+     "megakernel_grad.py:1049 (spheres, SPEC/REFR, nee_textbook)"),
+)
+# The material fit's main path on sphere scenes: ``cli fit --scene
+# smallpt_original --estimator cosine --train emission,albedo`` at
+# 1024x768x512, MAT_STEPS steps at the CLI's default learning rate (on the
+# CPU its loss falls at 64x48x32 and diverges at 32x24x32: the gradient's
+# noise shrinks with the samples). Then a 2-step fit for each other
+# instance (emission only: nee_textbook's light-albedo row is knife-edge
+# 1/t^2 noise, which makes an albedo step diverge), and sphere_grid's for
+# the tree instances.
+MAT_MAIN = ("smallpt_original", "cosine")
+MAT_STEPS = 5
+MAT_FITS = (("smallpt_original", "nee"), ("smallpt_original", "nee_textbook"),
+            ("cornell_box", "cosine"), ("cornell_box", "nee_textbook"),
+            ("sphere_grid", "nee_textbook"))
+
+
 VJP_ENTRY_BYTES, GEOM_ENTRY_BYTES = 48, 64
 
 
 def vjp_bound(traces, n_samples: int, n_pix: int, k: int,
-              algorithm: bool = False):
+              algorithm: bool = False, n_spheres: int = 0,
+              est: str = "nee", diffuse_only: bool = True):
     """megakernel_vjp. The function's bound: every bounce of every sample
     traced once, unfolded (the forward's extend count: a folded bounce is
-    an extend too), and one gradient update a bounce. Bytes: the cotangent
-    image and the tables in, the gradients out. With ``algorithm`` this
-    kernel's bound: also its tape, an entry a bounce written once and read
-    once (the segment replays of paths longer than the tape, about 1e-5 of
-    the paths, left out)."""
-    extend, _ = traces
-    fp = (extend * (query_ops(k) + FP_SHADE + FP_PROBE + FP_GRAD)
-          + n_samples * FP_SPAWN)
-    it = extend * INT_BOUNCE + n_samples * INT_SPAWN
-    n_bytes = n_pix * 12 + 4 * k * 3 * 4
+    an extend too), and one gradient update a bounce. nee: each bounce a
+    query, the shading and a probe; cosine and nee_textbook: each a query
+    with the least shading, the cosine sample at the diffuse bounces and
+    each textbook probe's light sample, weight and direct term, as
+    ``forward_bound``. The queries are the linear scan's (n_spheres of the
+    k objects are spheres). Bytes: the cotangent image and the tables in,
+    the gradients out. With ``algorithm`` this kernel's bound: also its
+    tape, an entry a bounce written once and read once (the segment replays
+    of paths longer than the tape, about 1e-5 of the paths, left out)."""
+    extend, probe = traces
+    q = query_ops(k - n_spheres, n_spheres)
+    if est == "nee":
+        fp = extend * (q + FP_SHADE + FP_PROBE + FP_GRAD) + n_samples * FP_SPAWN
+        it = extend * INT_BOUNCE + n_samples * INT_SPAWN
+    else:
+        diffuse = probe if est == "nee_textbook" else (
+            extend if diffuse_only else 0)
+        fp = (extend * (q + FP_SHADE_MIN + FP_GRAD) + diffuse * FP_COS_SAMPLE
+              + n_samples * FP_SPAWN)
+        it = (extend * (INT_DRAW + INT_WORD) + diffuse * 2 * INT_DRAW
+              + n_samples * INT_SPAWN)
+        if est == "nee_textbook":
+            fp += probe * (FP_PROBE + FP_NEE + FP_DIRECT)
+            it += probe * 2 * INT_DRAW
+    n_bytes = n_pix * 12 + 4 * k * 3 * 4 + (
+        k * 4 + n_spheres * 16 if n_spheres else 0)
     if algorithm:
         n_bytes += 2 * extend * VJP_ENTRY_BYTES
     return bound(fp, it, n_bytes)
@@ -409,7 +477,8 @@ def ptxas_report(output: str, names: tuple) -> dict:
     """From nvcc's ptxas -v output: {kernel: (registers, stack frame bytes
     (its local memory: the tape), spill store bytes, spill load bytes)} for
     each entry function whose mangled name holds one of ``names``; a
-    template instance on one int (the sphere scan) as ``name<k>``."""
+    template instance on ints (the sphere scan, the estimator) as
+    ``name<k>`` or ``name<k,e>``."""
     found, cur, entry, props = {}, None, None, None
     for line in output.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -417,9 +486,9 @@ def ptxas_report(output: str, names: tuple) -> dict:
             entry = m.group(1)
             cur = next((n for n in names
                         if re.search(rf"\d{n}(I|P|E|v|$)", entry)), None)
-            inst = cur and re.search(rf"\d{cur}ILi(\d+)EE", entry)
+            inst = cur and re.search(rf"\d{cur}I((?:Li\d+E)+)E", entry)
             if inst:
-                cur = f"{cur}<{inst.group(1)}>"
+                cur = f"{cur}<{','.join(re.findall(r'Li(\d+)E', inst.group(1)))}>"
             continue
         m = re.search(r"Function properties for (\S+)", line)
         if m:
@@ -1075,24 +1144,31 @@ def mesh_rank(paths: list, mat_step: bool) -> dict:
         "u8": film.tonemap_u8(img).cpu().numpy(),
         "seconds": time.perf_counter() - t0}
     if mat_step:
-        target = _mat_target(sc, cam, cfg)
         mesh = make_mesh(SHARD_MESH)
-        step = mg.material_train_step_sharded(sc, cam, cfg, mesh, target)
-        alb, emi = mg.pack_materials(sc)
-        megakernel.LAUNCHES.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, galb, gemi = step(alb, emi, 0)
-        torch.cuda.synchronize()
-        out["row10"] = {"rc": 0, "launches": dict(megakernel.LAUNCHES),
-                        "loss": float(loss), "galb": galb.cpu().numpy(),
-                        "gemi": gemi.cpu().numpy(),
-                        "seconds": time.perf_counter() - t0}
+        for label, sc_, cfg_ in (
+                ("row10", sc, cfg),
+                ("row10_tab", get_scene(MAT_MAIN[0]), RenderConfig(
+                    width=1024, height=768, spp=512, seed=0,
+                    estimator=MAT_MAIN[1]))):
+            target = _mat_target(sc_, cam, cfg_)
+            step = mg.material_train_step_sharded(sc_, cam, cfg_, mesh,
+                                                  target)
+            alb, emi = mg.pack_materials(sc_)
+            megakernel.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, galb, gemi = step(alb, emi, 0)
+            torch.cuda.synchronize()
+            out[label] = {"rc": 0, "launches": dict(megakernel.LAUNCHES),
+                          "loss": float(loss), "galb": galb.cpu().numpy(),
+                          "gemi": gemi.cpu().numpy(),
+                          "seconds": time.perf_counter() - t0}
     return out
 
 
 def _mat_target(sc, cam, cfg):
-    """cli fit's self-test target: the scene with emission x1.5 at seed 1."""
+    """cli fit's self-test target: the scene with its rects' emission x1.5
+    at seed 1."""
     from small_pathtracer_tpu_torch.ops import megakernel
 
     bright = sc._replace(rects=sc.rects._replace(
@@ -1100,7 +1176,7 @@ def _mat_target(sc, cam, cfg):
     return megakernel.render_megakernel(bright, cam, cfg, 1)[0] / cfg.spp
 
 
-def shard_phases(card: str, cli_main, guide_alcove) -> list:
+def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
     """Rows 7, 6, 10 and 12 on a shard's lanes: each coordinate of a 2x2
     mesh (``Mesh.single``, one process) at 1024x768x4 against its plain
     version (forward launches bit for bit, adjoint partials to rows 9 and
@@ -1110,8 +1186,11 @@ def shard_phases(card: str, cli_main, guide_alcove) -> list:
     --mesh 2x2`` (``cornell_box``, ``sphere_grid``, ``--guided`` alcove),
     ``distributed_render`` of ``cornell_box``, one
     ``material_train_step_sharded`` step and ``cli fit --train
-    center,radius --mesh 2x2`` (2 steps), all at 1024x768x512. Returns the
-    ``kernels`` entries of the four rows."""
+    center,radius --mesh 2x2`` (2 steps), all at 1024x768x512, and one
+    ``material_train_step_sharded`` step of the material fit's main path
+    (MAT_MAIN) over the mesh. Returns the ``kernels`` entries of the four
+    rows; ``mat_shard`` holds row 10's per-shard numbers for that main
+    path's two kernels (``mat_phases``)."""
     from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
     from small_pathtracer_tpu_torch.core import film
     from small_pathtracer_tpu_torch.ops import _build, megakernel
@@ -1512,7 +1591,7 @@ def shard_phases(card: str, cli_main, guide_alcove) -> list:
                                          f"{v['rc']}")
         launches = {}
         for label in ("box", "sphere_grid", "guided", "fit",
-                      "distributed_render", "row10"):
+                      "distributed_render", "row10", "row10_tab"):
             tot = {}
             for r in ranks:
                 for k, n in r[label]["launches"].items():
@@ -1595,6 +1674,29 @@ def shard_phases(card: str, cli_main, guide_alcove) -> list:
                 raise AssertionError("the ranks' losses differ")
         if _build.build_kernels().build_seconds != 0.0:
             raise AssertionError("a rank rebuilt the library")
+        # The material fit's main path (MAT_MAIN) as one step over the mesh.
+        m_sc = get_scene(MAT_MAIN[0])
+        m_cfg = RenderConfig(width=width, height=height, spp=512, seed=0,
+                             estimator=MAT_MAIN[1])
+        m_loss, m_alb, m_emi = mg.loss_and_material_grads(
+            m_sc, cam, m_cfg, 0, _mat_target(m_sc, cam, m_cfg))
+        rt = r0["row10_tab"]
+        m_dg = max(float(np.abs(rt[k] - w.cpu().numpy()).max())
+                   / max(1.0, float(w.abs().max()))
+                   for k, w in (("galb", m_alb), ("gemi", m_emi)))
+        tab_launch = {n: launches["row10_tab"].get(n, 0) for n in mat_shard}
+        log(f"[smoke] mesh row10_tab ({MAT_MAIN[0]} {MAT_MAIN[1]}): loss "
+            f"{rt['loss']:.9f} (unsharded {float(m_loss):.9f}), gradients "
+            f"within {m_dg:.3e} of max(1, the largest entry) (limit "
+            f"{STEP_TOL:g}); launches over the ranks {tab_launch}")
+        if not (abs(rt["loss"] - float(m_loss)) <= STEP_TOL
+                * max(1.0, abs(float(m_loss))) and m_dg <= STEP_TOL):
+            raise AssertionError("the material step on the sphere scene over "
+                                 "the mesh differs from the unsharded one")
+        if any(r["row10_tab"]["loss"] != rt["loss"] for r in ranks[1:]):
+            raise AssertionError("the ranks' losses differ (row10_tab)")
+        if any(n != MESH_RANKS for n in tab_launch.values()):
+            raise AssertionError(f"the sharded step launched {tab_launch}")
 
     main = {"megakernel_nee": launches["box"]["megakernel_nee"]
             + launches["distributed_render"]["megakernel_nee"],
@@ -1612,9 +1714,364 @@ def shard_phases(card: str, cli_main, guide_alcove) -> list:
     sources = {"megakernel_guided": "megakernel_guided.cu",
                "megakernel_vjp": "megakernel_grad.cu",
                "megakernel_geom": "megakernel_geom.cu"}
+    for name, r in mat_shard.items():
+        main[name] = tab_launch[name]
+        res[name] = r
+        replaces[name] = (("megakernel_grad.py:1195" if "vjp" in name
+                           else "megakernel_grad.py:1156")
+                          + " (spheres, SPEC/REFR, " + MAT_MAIN[1] + ")")
+        if "vjp" in name:
+            sources[name] = "megakernel_grad.cu"
     return [(name + " (shard)", sources.get(name, "megakernel.cu"),
              replaces[name], main[name], res[name]) for name in main]
 
+
+
+def mat_phases(card: str, cli_main) -> tuple[list, dict]:
+    """Rows 8, 9 and 10 grown (MAT_KERNELS): row 8's new instances bit for
+    bit against their plain version and the render at 1024x768x4 (on
+    ``cornell_box``; on ``smallpt_original``, the linear scan, and
+    ``sphere_grid``, the tree), row 9's against autograd through its plain
+    version (``cornell_box`` at 1024x768x4, the sphere scenes at 256x192x4:
+    autograd keeps every bounce's temporaries) and against itself, and on
+    200-bounce paths through the tape's checkpoints; row 10's on each
+    coordinate of a 2x2 mesh at 256x192x4; the main path ``cli fit``
+    (MAT_MAIN, MAT_STEPS steps) and a 2-step fit of each other instance
+    (MAT_FITS) at 1024x768x512, launches counted; and each instance's x512
+    event time (row 8: three launches in a row, row 9: two, after the
+    launch that reads the traces; ms and plain_ms in the entries: medians
+    of three wrapper calls and one at the parity shapes). Returns (the ``kernels`` entries, row 10's per-shard numbers
+    for ``shard_phases``)."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+
+    lbn = megakernel.LAUNCHES
+    scenes = {n: get_scene(n) for n in ("cornell_box", "smallpt_original",
+                                        "sphere_grid")}
+    cam = make_camera(aspect=4 / 3)
+    light_black = {}
+
+    def sizes(sc):
+        return sc.rects.k.shape[0], sc.spheres.radius.shape[0]
+
+    def cfg_of(width, height, spp, est, seed, **kw):
+        return RenderConfig(width=width, height=height, spp=spp, seed=seed,
+                            estimator=est, **kw)
+
+    def f_bound(sc, tr, n_samples, n_lanes, est):
+        R, S = sizes(sc)
+        return forward_bound(tr, n_samples, n_lanes, R, S, 0, est,
+                             not megakernel.uses_sphere_table(sc))
+
+    def v_bound(sc, tr, n_samples, n_pix, est):
+        R, S = sizes(sc)
+        return vjp_bound(tr, n_samples, n_pix, R + S, False, S, est,
+                         not megakernel.uses_sphere_table(sc))
+
+    def g_of(height, width, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (height, width, 3)).astype(np.float32)).to("cuda")
+
+    def held(label, kt, pt, light):
+        """A table of the kernel within VJP_TOL of autograd's largest entry,
+        and so are its rows other than the light's (nee_textbook's light
+        albedo row is knife-edge 1/t^2 noise that dominates its scale).
+        Returns |kernel - plain| / the largest entry."""
+        ratio = 0.0
+        keep = torch.arange(kt.shape[0], device=kt.device) != light
+        for k_, p_ in ((kt, pt), (kt[keep], pt[keep])):
+            err = float((k_ - p_).abs().max())
+            scale = float(p_.abs().max())
+            if not err <= VJP_TOL * scale:
+                raise AssertionError(f"{label}: {err} > {VJP_TOL} x {scale}")
+            ratio = max(ratio, err / scale)
+        return ratio
+
+    par = {}  # name -> its reported parity run (linear or rect instance)
+    cases = [("cornell_box", "cosine"), ("cornell_box", "nee_textbook")] + [
+        (n, e) for n in ("smallpt_original", "sphere_grid")
+        for e in ("nee", "cosine", "nee_textbook")]
+    phase("row 8 grown: the runtime-material forward of cosine and "
+          "nee_textbook on cornell_box, of nee, cosine and nee_textbook on "
+          "smallpt_original and sphere_grid, 1024x768x4, against its plain "
+          "version and the render, bit for bit")
+    width, height = 1024, 768
+    n_pix = width * height
+    for nm, est in cases:
+        sc = scenes[nm]
+        cfg = cfg_of(width, height, 4, est, 16)
+        alb, emi = mg.pack_materials(sc)
+        name = mg.mat_kernel_name(sc, cfg)
+        before = lbn[name]
+        outs, med = in_turns(
+            {"kernel": lambda: mg.render_megakernel_mat(sc, cam, cfg, alb,
+                                                        emi, 16),
+             "plain": lambda: mg.render_megakernel_mat_plain(
+                 sc, cam, cfg, alb, emi, 16)},
+            ("kernel", "kernel", "plain", "kernel"))
+        if lbn[name] != before + 3:
+            raise AssertionError(f"row 8 {nm} {est}: {name} did not count 3 "
+                                 "launches")
+        (k_img, k_tr), (k2_img, k2_tr), _ = outs["kernel"]
+        p_img, p_tr = outs["plain"][0]
+        r_img, r_tr = megakernel.render_megakernel(sc, cam, cfg, 16)
+        err = float((k_img - p_img).abs().max())
+        b = f_bound(sc, k_tr.tolist(), n_pix * 4, n_pix, est)
+        log(f"[smoke] row 8 {nm} {est} {width}x{height}x4: {name} "
+            f"{med['kernel'] * 1e3:.3f} ms traces {k_tr.tolist()}; plain "
+            f"{med['plain'] * 1e3:.3f} ms traces {p_tr.tolist()}; max |img "
+            f"diff| {err:.3e}; == the render: "
+            f"{torch.equal(k_img, r_img) and torch.equal(k_tr, r_tr)}; "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        if not all(torch.equal(a, b_) for a, b_ in (
+                (k_img, k2_img), (k_tr, k2_tr), (k_img, p_img), (k_tr, p_tr),
+                (k_img, r_img), (k_tr, r_tr))):
+            raise AssertionError(f"row 8 {nm} {est}: the kernel, its plain "
+                                 "version and the render differ")
+        if nm != "sphere_grid":
+            par[name] = {"err": err, "ms": med["kernel"] * 1e3,
+                         "plain_ms": med["plain"] * 1e3, "bound": b}
+
+    phase("row 9 grown: the material adjoint of cosine and nee_textbook on "
+          "cornell_box at 1024x768x4, of nee, cosine and nee_textbook on "
+          "smallpt_original (linear) and sphere_grid (tree) at 256x192x4, "
+          "against autograd through its plain version and against itself")
+    for nm, est in cases:
+        sc = scenes[nm]
+        width, height = (1024, 768) if nm == "cornell_box" else (256, 192)
+        n_pix = width * height
+        cam_v = make_camera(aspect=width / height)
+        cfg = cfg_of(width, height, 4, est, 17)
+        alb, emi = mg.pack_materials(sc)
+        g = g_of(height, width, 5)
+        name = mg.vjp_kernel_name(sc, cfg)
+        before = lbn[name]
+        torch.cuda.reset_peak_memory_stats()
+        outs, med = in_turns(
+            {"kernel": lambda: mg.render_megakernel_vjp(sc, cam_v, cfg, alb,
+                                                        emi, 17, g),
+             "plain": lambda: mg.render_megakernel_vjp_plain(
+                 sc, cam_v, cfg, alb, emi, 17, g)},
+            ("kernel", "kernel", "plain", "kernel"))
+        peak = torch.cuda.max_memory_allocated()
+        if lbn[name] != before + 3:
+            raise AssertionError(f"row 9 {nm} {est}: {name} did not count 3 "
+                                 "launches")
+        (ka, ke), (ka2, ke2), _ = outs["kernel"]
+        if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
+            raise AssertionError(f"row 9 {nm} {est}: kernel runs differ")
+        pa, pe = outs["plain"][0]
+        light = int(sc.light.light_obj_id)
+        r_a = held(f"row 9 {nm} {est} d/d albedo", ka, pa, light)
+        r_e = held(f"row 9 {nm} {est} d/d emission", ke, pe, light)
+        tr = megakernel.render_megakernel(sc, cam_v, cfg, 17)[1].tolist()
+        b = v_bound(sc, tr, n_pix * 4, n_pix, est)
+        err = max(float((ka - pa).abs().max()), float((ke - pe).abs().max()))
+        log(f"[smoke] row 9 {nm} {est} {width}x{height}x4: {name} "
+            f"{med['kernel'] * 1e3:.3f} ms, plain {med['plain'] * 1e3:.3f} ms"
+            f" (peak memory {peak / 2**30:.2f} GiB); d/d albedo within "
+            f"{r_a:.3e}, d/d emission within {r_e:.3e} of the largest entry "
+            f"(limit {VJP_TOL:g}); two runs bit-identical; traces {tr}, "
+            f"bound {b[0]:.3f} ms ({b[1]})")
+        if nm != "sphere_grid":
+            par[name] = {"err": err, "ms": med["kernel"] * 1e3,
+                         "plain_ms": med["plain"] * 1e3, "bound": b}
+
+    phase(f"row 9 grown on deep paths: smallpt_original cosine and "
+          f"nee_textbook, rr_start_depth = max_bounces = {DEEP_BOUNCES}, "
+          f"every albedo {DEEP_ALBEDO} but the light's (black), 64x48x4")
+    sp = scenes["smallpt_original"]
+    L = int(sp.light.light_obj_id)
+    r_alb = torch.full_like(sp.rects.albedo, DEEP_ALBEDO)
+    r_alb[L] = 0.0
+    deep = sp._replace(
+        rects=sp.rects._replace(albedo=r_alb),
+        spheres=sp.spheres._replace(
+            albedo=torch.full_like(sp.spheres.albedo, DEEP_ALBEDO)))
+    cam_d = make_camera(aspect=64 / 48)
+    g = g_of(48, 64, 5)
+    for est in ("cosine", "nee_textbook"):
+        cfg = cfg_of(64, 48, 4, est, 3, rr_start_depth=DEEP_BOUNCES,
+                     max_bounces=DEEP_BOUNCES)
+        alb, emi = mg.pack_materials(deep)
+        ka, ke = mg.render_megakernel_vjp(deep, cam_d, cfg, alb, emi, 3, g)
+        ka2, ke2 = mg.render_megakernel_vjp(deep, cam_d, cfg, alb, emi, 3, g)
+        pa, pe = mg.render_megakernel_vjp_plain(deep, cam_d, cfg, alb, emi,
+                                                3, g)
+        if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
+            raise AssertionError(f"deep row 9 {est}: kernel runs differ")
+        r_a = held(f"deep row 9 {est} d/d albedo", ka, pa, L)
+        r_e = held(f"deep row 9 {est} d/d emission", ke, pe, L)
+        tr = megakernel.render_megakernel(deep, cam_d, cfg, 3)[1].tolist()
+        per = tr[0] / (64 * 48 * 4)
+        log(f"[smoke] deep row 9 {est}: traces {tr} ({per:.1f} bounces a "
+            f"sample); d/d albedo within {r_a:.3e}, d/d "
+            f"emission within {r_e:.3e} of autograd's largest entry; runs "
+            "bit-identical")
+
+    phase(f"row 10 grown per shard: {MAT_MAIN[0]} {MAT_MAIN[1]} 256x192x4, "
+          f"mesh {SHARD_MESH}: forward partials bit for bit, adjoint "
+          "partials against autograd, the sums against the unsharded kernels")
+    width, height = 256, 192
+    n_pix = width * height
+    cam_s = make_camera(aspect=width / height)
+    sc = scenes[MAT_MAIN[0]]
+    cfg = cfg_of(width, height, 4, MAT_MAIN[1], 18)
+    alb, emi = mg.pack_materials(sc)
+    g = g_of(height, width, 6).reshape(n_pix, 3)
+    coords = [(i, j) for i in range(SHARD_MESH[0])
+              for j in range(SHARD_MESH[1])]
+    n_loc = n_pix // SHARD_MESH[0]
+    shard = {"fwd": [0.0, 0.0, 0.0], "vjp": [0.0, 0.0, 0.0]}
+    tr_sum, ga_sum, ge_sum = 0, 0, 0
+    for c in coords:
+        m = Mesh.single(SHARD_MESH, c)
+        g_c = g[c[0] * n_loc:(c[0] + 1) * n_loc]
+        outs, med = in_turns(
+            {"kernel": lambda: mg.render_megakernel_mat_shard(
+                sc, cam_s, cfg, m, alb, emi, 18),
+             "plain": lambda: mg.render_megakernel_mat_shard_plain(
+                 sc, cam_s, cfg, m, alb, emi, 18)},
+            ("kernel", "kernel", "plain", "kernel"))
+        (k1, t1), (k2, t2), _ = outs["kernel"]
+        if not all(torch.equal(a, b_) for a, b_ in (
+                (k1, k2), (t1, t2), (k1, outs["plain"][0][0]),
+                (t1, outs["plain"][0][1]))):
+            raise AssertionError(f"row 10 forward {c}: kernel and plain "
+                                 "version differ")
+        tr_sum = tr_sum + t1
+        shard["fwd"][1] += med["kernel"]
+        shard["fwd"][2] += med["plain"]
+        outs, med = in_turns(
+            {"kernel": lambda: mg.render_megakernel_vjp_shard(
+                sc, cam_s, cfg, m, alb, emi, 18, g_c),
+             "plain": lambda: mg.render_megakernel_vjp_shard_plain(
+                 sc, cam_s, cfg, m, alb, emi, 18, g_c)},
+            ("kernel", "kernel", "plain", "kernel"))
+        (ka, ke), (ka2, ke2), _ = outs["kernel"]
+        if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
+            raise AssertionError(f"row 10 adjoint {c}: kernel runs differ")
+        pa, pe = outs["plain"][0]
+        L = int(sc.light.light_obj_id)
+        held(f"row 10 adjoint {c} d/d albedo", ka, pa, L)
+        held(f"row 10 adjoint {c} d/d emission", ke, pe, L)
+        shard["vjp"][0] = max(shard["vjp"][0], float((ka - pa).abs().max()),
+                              float((ke - pe).abs().max()))
+        shard["vjp"][1] += med["kernel"]
+        shard["vjp"][2] += med["plain"]
+        ga_sum, ge_sum = ga_sum + ka, ge_sum + ke
+    want_tr = mg.render_megakernel_mat(sc, cam_s, cfg, alb, emi, 18)[1]
+    wa, we = mg.render_megakernel_vjp(sc, cam_s, cfg, alb, emi, 18,
+                                      g.reshape(height, width, 3))
+    d_sum = max(float((ga_sum - wa).abs().max()) / float(wa.abs().max()),
+                float((ge_sum - we).abs().max()) / float(we.abs().max()))
+    log(f"[smoke] row 10 {MAT_MAIN[0]} {MAT_MAIN[1]} per shard: forward == "
+        f"plain bit for bit, adjoint within {VJP_TOL:g} of autograd on every "
+        f"coordinate; kernel {shard['fwd'][1] * 1e3:.3f} / "
+        f"{shard['vjp'][1] * 1e3:.3f} ms, plain {shard['fwd'][2] * 1e3:.3f} / "
+        f"{shard['vjp'][2] * 1e3:.3f} ms (forward / adjoint, sums of the "
+        f"coordinates' medians); traces summed {tr_sum.tolist()} (unsharded "
+        f"{want_tr.tolist()}), adjoint partials summed within {d_sum:.3e} of "
+        "the unsharded kernel's largest entry")
+    if not (torch.equal(tr_sum, want_tr) and d_sum <= SHARD_RTOL):
+        raise AssertionError("row 10: the shards' sums differ from the "
+                             "unsharded kernels")
+    lanes = sum(lay.n_pix_loc * lay.g for lay in (
+        megakernel.shard_of(cfg, Mesh.single(SHARD_MESH, c), what="spp")
+        for c in coords))
+    mat_shard = {
+        mg.mat_kernel_name(sc, cfg): {
+            "err": 0.0, "ms": shard["fwd"][1] * 1e3,
+            "plain_ms": shard["fwd"][2] * 1e3,
+            "bound": f_bound(sc, want_tr.tolist(), n_pix * 4, lanes,
+                             MAT_MAIN[1])},
+        mg.vjp_kernel_name(sc, cfg): {
+            "err": shard["vjp"][0], "ms": shard["vjp"][1] * 1e3,
+            "plain_ms": shard["vjp"][2] * 1e3,
+            "bound": v_bound(sc, want_tr.tolist(), n_pix * 4, n_pix,
+                             MAT_MAIN[1])}}
+
+    main_launch = {}
+    base = ["fit", "--width", "1024", "--height", "768", "--spp", "512"]
+    for i, (nm, est) in enumerate((MAT_MAIN, *MAT_FITS)):
+        steps = MAT_STEPS if i == 0 else 2
+        train = "emission,albedo" if i == 0 else "emission"
+        phase(f"{'main path' if i == 0 else 'path'}: cli fit --scene {nm} "
+              f"--estimator {est} --train {train} 1024x768x512, {steps} "
+              "steps")
+        sc = scenes[nm]
+        cfg = cfg_of(1024, 768, 512, est, 0)
+        out, err_io = io.StringIO(), io.StringIO()
+        lbn.clear()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(
+                err_io):
+            rc = cli_main([*base, "--scene", nm, "--estimator", est,
+                           "--steps", str(steps), "--train", train])
+        counts = dict(lbn)
+        text = err_io.getvalue()
+        for line in text.strip().splitlines():
+            log(f"[smoke] cli fit {nm} {est}: {line}")
+        if rc != 0:
+            raise AssertionError(f"cli fit {nm} {est} returned {rc}")
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        losses = [float(x) for x in re.findall(r"loss (\S+)", text)]
+        secs = [float(x) for x in re.findall(r"seconds (\S+)", text)]
+        m_name, v_name = mg.mat_kernel_name(sc, cfg), mg.vjp_kernel_name(
+            sc, cfg)
+        target_kernel = ("megakernel_" + {"nee": "nee", "cosine": "cosine",
+                                           "nee_textbook": "textbook"}[est]
+                         + ("_tab" if megakernel.uses_sphere_table(sc)
+                            else ""))
+        log(f"[smoke] {'main path ' if i == 0 else ''}cli fit {nm} {est}: "
+            f"launches {counts}; losses {losses}; light emission "
+            f"{res['light_emission']}; {float(np.median(secs[1:])):.4f} s a "
+            f"step (median of steps 1-{steps - 1}) on {card}")
+        if not (len(losses) == steps and np.all(np.isfinite(losses))):
+            raise AssertionError(f"cli fit {nm} {est}: losses {losses}")
+        if i == 0 and not losses[-1] < losses[0]:
+            raise AssertionError(f"the main path's loss did not fall: "
+                                 f"{losses}")
+        if counts != {m_name: steps, v_name: steps, target_kernel: 1}:
+            raise AssertionError(f"cli fit {nm} {est} launched {counts}")
+        if nm != "sphere_grid":
+            main_launch[m_name] = counts[m_name]
+            main_launch[v_name] = counts[v_name]
+
+    phase("rows 8 and 9 grown at 1024x768x512 seed 0: CUDA-event times of "
+          "each new instance (smallpt_original: linear; sphere_grid: tree)")
+    g = torch.full((768, 1024, 3), 1e-7, device="cuda")
+    n_pix = 1024 * 768
+    for nm, est in cases:
+        sc = scenes[nm]
+        cfg = cfg_of(1024, 768, 512, est, 0)
+        alb, emi = mg.pack_materials(sc)
+        geom = megakernel.pack_geometry(sc, cam)
+        tr = mg.render_megakernel_mat(sc, cam, cfg, alb, emi, 0,
+                                      geometry=geom)[1].tolist()
+        ms_m = event_ms(lambda: mg.render_megakernel_mat(
+            sc, cam, cfg, alb, emi, 0, geometry=geom), 3)
+        ms_v = event_ms(lambda: mg.render_megakernel_vjp(
+            sc, cam, cfg, alb, emi, 0, g, geometry=geom), 2)
+        b_m = f_bound(sc, tr, n_pix * 512, n_pix, est)
+        b_v = v_bound(sc, tr, n_pix * 512, n_pix, est)
+        log(f"[smoke] {nm} {est} 1024x768x512 seed 0, traces {tr}: "
+            f"{mg.mat_kernel_name(sc, cfg)} {ms_m:.3f} ms (bound "
+            f"{b_m[0]:.3f} ms, {b_m[1]}), {mg.vjp_kernel_name(sc, cfg)} "
+            f"{ms_v:.3f} ms (bound {b_v[0]:.3f} ms, {b_v[1]}) a launch "
+            f"(CUDA events) on {card}")
+
+    def entry(name, source, replaces):
+        r = par[name]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": "small_pathtracer_tpu/ops/" + replaces,
+                "launches": main_launch[name], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None}
+
+    return [entry(*k) for k in MAT_KERNELS], mat_shard
 
 
 def main() -> int:
@@ -2533,7 +2990,9 @@ def main() -> int:
     tie_phase(guides["cornell_box"])
     geo = geom_phases(card, cli_main)
     deep_phase()
-    shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"])
+    mat_entries, mat_shard = mat_phases(card, cli_main)
+    shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
+                         mat_shard)
 
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
@@ -2580,6 +3039,7 @@ def main() -> int:
         *(entry(name, source, replaces, launch, r["err"], r["ms"],
                 r["plain_ms"], r["bound"])
           for name, source, replaces, launch, r in shard),
+        *mat_entries,
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -58,7 +58,7 @@ from ..parallel.launcher import init_distributed
 from ..parallel.mesh import make_mesh
 from ..parallel.sharded import render_sharded
 from ..ops.megakernel_grad import (
-    FIELDS, check_estimator, check_trainable, fit_megakernel,
+    FIELDS, check_trainable, fit_megakernel,
 )
 from ..scene.presets import PRESETS, get_scene
 from ..utils.adaptive import adaptive_render
@@ -398,7 +398,8 @@ def cmd_fit(args) -> int:
     tables (the JAX CLI's ``fit --pallas``), or, when ``--train`` names
     center or radius, sphere fitting through the geometry adjoint
     (``_cmd_fit_geom``). Without ``--target`` the material fit's target is
-    the scene rendered with emission x1.5 at seed + 1."""
+    the scene rendered with its rects' emission x1.5 at seed + 1, as the
+    JAX CLI builds it; the printed ``light_emission`` is the light rect's."""
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
     fields = tuple(args.train.split(","))
@@ -419,7 +420,6 @@ def cmd_fit(args) -> int:
         )
     scene, cam, cfg = _build(args)
     check_trainable(scene)
-    check_estimator(cfg)
     if args.target:
         target = _read_target(args.target, cfg, scene.device)
     else:

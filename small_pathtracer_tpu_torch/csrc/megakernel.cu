@@ -10,13 +10,17 @@
 //   `_build_render` builds it for `render_pallas` / `render_pallas_span`
 //   (baked scene, no material refs, NEE fold on). Materials sit in the
 //   kernel parameters beside the geometry. Rects and DIFF only.
-// - megakernel_nee_mat replaces `build_kernel(mat_refs=True)` as
+// - megakernel_nee_mat, megakernel_cosine_mat and megakernel_textbook_mat
+//   replace `build_kernel(mat_refs=True)` as
 //   small_pathtracer_tpu/ops/megakernel_grad.py: `_build_fwd_mat` builds it
-//   for `render_pallas_mat`: the albedo and emission (K, 3) tables are
-//   runtime inputs in device memory, copied into shared memory once per
-//   block, so a training step changes them without a host copy. The NEE
-//   fold is decided in the kernel from the light's row of the table.
-//   Equal tables give a bit-identical image and trace counts.
+//   for `render_pallas_mat` on rect-only DIFF scenes: the albedo and
+//   emission (K, 3) tables are runtime inputs in device memory, copied into
+//   shared memory once per block, so a training step changes them without
+//   a host copy. The NEE fold is decided in the kernel from the light's row
+//   of the table. Equal tables give a bit-identical image and trace counts.
+//   On scenes with spheres or SPEC/REFR objects, `render_pallas_mat` is
+//   row 2's table kernel with the runtime tables (below), which reads its
+//   tables from device memory already.
 // - megakernel_nee_tab replaces `build_kernel(mat_refs=True,
 //   sphere_tab=True)` as `_build_render(use_tab=True)` builds it (the same
 //   `pallas_call`, megakernel.py:2670): spheres from a runtime table after
@@ -131,21 +135,37 @@ __global__ void __launch_bounds__(kBlock)
       SphereTab{}, p.fold != 0, out_l, traces);
 }
 
-__global__ void __launch_bounds__(kBlock)
-    megakernel_nee_mat(const __grid_constant__ Params p,
-                       const float* __restrict__ alb,
-                       const float* __restrict__ emi,
-                       float* __restrict__ out_l,
-                       unsigned long long* __restrict__ traces) {
+// Row 8 on rect-only DIFF scenes, estimator kEst: the tables copied into
+// shared memory once a block; the NEE fold (kNee only) decided from the
+// light's row.
+template <int kEst>
+__device__ __forceinline__ void mat_body(const Params& p,
+                                         const float* __restrict__ alb,
+                                         const float* __restrict__ emi,
+                                         float* __restrict__ out_l,
+                                         unsigned long long* __restrict__ traces) {
   __shared__ float s_alb[3 * kMaxRects];
   __shared__ float s_emi[3 * kMaxRects];
   load_tables(p, alb, emi, s_alb, s_emi);
   const TableMaterials mats{s_alb, s_emi};
   const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, kTabNone>(p, lane_range(p), mats, SphereTab{},
-                                     fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f,
-                                     out_l, traces);
+  render_lane<TableMaterials, kTabNone, kEst>(
+      p, lane_range(p), mats, SphereTab{},
+      kEst == kNee && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
 }
+
+#define SPT_MAT_KERNEL(name, est)                                          \
+  __global__ void __launch_bounds__(kBlock)                                \
+      name(const __grid_constant__ Params p, const float* __restrict__ alb, \
+           const float* __restrict__ emi, float* __restrict__ out_l,       \
+           unsigned long long* __restrict__ traces) {                      \
+    mat_body<est>(p, alb, emi, out_l, traces);                             \
+  }
+
+SPT_MAT_KERNEL(megakernel_nee_mat, kNee)
+SPT_MAT_KERNEL(megakernel_cosine_mat, kCosine)
+SPT_MAT_KERNEL(megakernel_textbook_mat, kTextbook)
+#undef SPT_MAT_KERNEL
 
 // Each table kernel in two instances, the linear scan (kScanLinear: a
 // table that is one root leaf) and the tree (kScanTree); the entry point
@@ -259,29 +279,33 @@ extern "C" int spt_megakernel(int est, const float* rect_geom,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Row 8, runtime materials: alb, emi are (n_rects, 3) float32 tables in
-// device memory, read by the kernel (no host copy).
-extern "C" int spt_megakernel_nee_mat(const float* rect_geom,
-                                      const int* rect_axis, int n_rects,
-                                      const float* light_f, int light_id,
-                                      const float* cam_f, unsigned seed,
-                                      int width, int height, int spp, int g,
-                                      int per, unsigned s0, int pix0,
-                                      int n_pix_loc, int rr_start_depth,
-                                      int max_bounces,
-                                      const float* alb, const float* emi,
-                                      float* out_l,
-                                      unsigned long long* traces,
-                                      void* stream) {
+// Row 8 on rect-only DIFF scenes, runtime materials, estimator est (kNee,
+// kCosine, kTextbook): alb, emi are (n_rects, 3) float32 tables in device
+// memory, read by the kernel (no host copy). On scenes with spheres or
+// SPEC/REFR objects row 8 is row 2's kernel (spt_megakernel_tab) with the
+// runtime tables.
+extern "C" int spt_megakernel_mat(int est, const float* rect_geom,
+                                  const int* rect_axis, int n_rects,
+                                  const float* light_f, int light_id,
+                                  const float* cam_f, unsigned seed,
+                                  int width, int height, int spp, int g,
+                                  int per, unsigned s0, int pix0,
+                                  int n_pix_loc, int rr_start_depth,
+                                  int max_bounces, const float* alb,
+                                  const float* emi, float* out_l,
+                                  unsigned long long* traces, void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
                    cam_f, seed, width, height, spp, g, per, s0, pix0,
-                   n_pix_loc, rr_start_depth, max_bounces)) {
+                   n_pix_loc, rr_start_depth, max_bounces) ||
+      est < kNee || est > kTextbook) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  megakernel_nee_mat<<<grid_of(p), kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(p, alb, emi, out_l,
-                                                            traces);
+  const auto kernel = est == kNee      ? megakernel_nee_mat
+                      : est == kCosine ? megakernel_cosine_mat
+                                       : megakernel_textbook_mat;
+  kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, alb, emi, out_l, traces);
   return static_cast<int>(cudaGetLastError());
 }
 

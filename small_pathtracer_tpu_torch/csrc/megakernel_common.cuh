@@ -98,8 +98,9 @@ __device__ __forceinline__ float comp(V3 a, int i) { return i == 0 ? a.x : (i ==
 __device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
 
 // Where a lane reads its materials: the kernel parameters (baked scene,
-// row 1) or (K, 3) tables, which rows 8 and 9 copy into shared memory and
-// the sphere-table kernel (row 2) reads from device memory.
+// row 1) or (K, 3) tables, which rows 8 and 9 copy into shared memory on
+// rect-only scenes and the sphere-table kernels (row 2, and rows 8 and 9 on
+// sphere scenes) read from device memory.
 struct BakedMaterials {
   const Params& p;
   __device__ __forceinline__ V3 albedo(int id) const { return ld3(p.rects[id].alb); }

@@ -1,46 +1,65 @@
-// Material adjoint of the runtime-material megakernel, `nee` estimator,
-// axis-aligned rects with one parallelogram light.
+// Material adjoint of the runtime-material megakernels: the `nee`, `cosine`
+// and `nee_textbook` estimators, axis-aligned rects and spheres (the
+// runtime sphere table, at most kMaxGradSpheres rows) with DIFF, SPEC and
+// REFR materials and one parallelogram light.
 //
 // Replaces the Pallas TPU kernel of small_pathtracer_tpu/ops/megakernel_grad.py:
 // `build_grad_kernel`, as `_build_vjp` builds it for `render_pallas_vjp`.
 // Given the per-pixel cotangent g of the radiance sum I (the forward's
 // image), it returns d(sum g·I)/d albedo and d(sum g·I)/d emission, both
-// (K, 3), pathwise (the same scope as autograd through the plain forward).
-// Row 10 (`material_train_step_sharded`, megakernel_grad.py:1083, its two
-// `pallas_call`s at :1156 and :1195) runs megakernel_nee_mat and this
-// kernel on one rank's shard lanes (`lane_range` with pix0): g_img holds
-// the shard's pixel rows only, indexed by the lane's row in the shard. The
-// sums over the mesh are torch.distributed all-reduces in
-// ops/megakernel_grad.py.
+// (K, 3) in global object order (rects, then spheres), pathwise (the same
+// scope as autograd through the plain forward). Row 10
+// (`material_train_step_sharded`, megakernel_grad.py:1083, its two
+// `pallas_call`s at :1156 and :1195) runs the forward and this kernel on
+// one rank's shard lanes (`lane_range` with pix0): g_img holds the shard's
+// pixel rows only, indexed by the lane's row in the shard. The sums over
+// the mesh are torch.distributed all-reduces in ops/megakernel_grad.py.
 //
-// Algorithm: every (pixel, sample) path is traced once. Each bounce tapes,
-// in the lane's local memory (megakernel_tape.cuh), what the gradient
-// formulas read: the hit object, the emission partial sum A_{j+1} (this
-// bounce's pickup included), the prefix throughput T_j, f_j·w_j (f_j =
-// albedo·inv_p is the bounce's throughput factor, w_j its NEE weight),
-// inv_p, w_j, and the RR flags. When the path ends its radiance L is known,
-// and the sweep recovers the suffix factor as T_j·S_{j+1} = (L − A_{j+1}) /
-// (f_j·w_j), 0 where that is 0. Per bounce on the hit object:
+// Algorithm: every (pixel, sample) path is traced once, each bounce by
+// `bounce_hit` / `bounce_scatter` of megakernel_lane.cuh, the forward's own
+// (row 8 is render_lane on rect scenes and row 2's table kernels on sphere
+// scenes; the library is built with --fmad=false, so the paths are the
+// forward's bit for bit). Each bounce tapes, in the lane's local memory
+// (megakernel_tape.cuh), what the gradient formulas read: the hit object,
+// the emission partial sum A_{j+1} (this bounce's pickup and, for
+// nee_textbook, its direct term included), the prefix throughput T_j,
+// inv_p, the weight w_j, nee_textbook's direct-term weight (the NEE weight
+// where the probe reached the light, else 0), and flags: RR's scaling, the
+// channels tied at p_max, and whether the pickup counted (nee_textbook
+// drops the light's pickup after a diffuse bounce whose probe already
+// counted it). When the path ends its radiance L is known, and the sweep
+// recovers the suffix factor as T_j·S_{j+1} = (L − A_{j+1}) / (f_j·w_j),
+// f_j = albedo·inv_p, 0 where that is 0. Per bounce on the hit object:
 //   d/d albedo_c += g_c·TS_c·inv_p·w, plus the RR 1/p term
 //                   −inv_p²·w·Σ_c g_c·TS_c·albedo_c split evenly over the
-//                   channels equal to p_max (autograd's amax rule);
-//   d/d emission_c += g_c·T_c.
-// The TPU kernel traces each path twice instead (pass A for L, pass B for
-// the terms) and keeps a column of accumulators a thread.
+//                   channels equal to p_max (autograd's amax rule), plus
+//                   nee_textbook's direct term g_c·gate·T_c·e_light,c;
+//   d/d emission_c += g_c·T_c where the pickup counted;
+// and nee_textbook's direct term adds g_c·gate·T_c·albedo_c to the light's
+// emission row. SPEC and REFR bounces enter through w (1, or REFR's
+// Fresnel weight re/P or (1 − re)/(1 − P) by its coin, 1 on total internal
+// reflection) and fire no probe; `cosine` has w = 1 at every diffuse
+// bounce. The TPU kernel traces each path twice instead (pass A for L,
+// pass B for the terms) and keeps a column of accumulators a thread.
 //
 // Design: one thread per lane on the forward's lane layout (blocks of 128);
-// a lane reads its pixel's cotangent g_img[pix] directly. The tables are
-// copied into shared memory once per block. A lane traces one segment of a
-// path while it sweeps the one before (two tape buffers of kSeg bounces);
-// paths longer than kSeg replay their earlier segments from checkpoints,
-// bit for bit (one bounce body, the library's --fmad=false build). The
-// warp loops while any lane is active and meets once an iteration at
-// `warp_accumulate`, which adds the sweep's contributions by object into
-// the warp's row of 6·K slots in shared memory in a fixed order; the block
-// sums its four rows in a fixed order into one row of per-block partials,
-// and `reduce_partials` sums the rows in a fixed order. The result is
-// bit-identical from run to run, without atomics; shared memory is the
-// tables and kWarps·6·K floats.
+// a lane reads its pixel's cotangent g_img[pix] directly. On rect scenes
+// (kTab = kTabNone) the tables are copied into shared memory once per
+// block; on sphere scenes they stay in device memory, as in row 2, and a
+// linear table's rows are staged in shared memory as row 11 stages them.
+// A lane traces one segment of a path while it sweeps the one before (two
+// tape buffers of kSeg bounces); paths longer than kSeg replay their
+// earlier segments from checkpoints, bit for bit. The warp loops while any
+// lane is active and meets once an iteration at `warp_accumulate`, which
+// adds the sweep's contributions by object into the warp's row of 6·K
+// slots in shared memory in a fixed order. nee_textbook's light-emission
+// terms go to one object for every lane: each lane sums them in its own
+// registers, and the warp adds the 32 sums by a fixed xor tree once, after
+// its loop. The block sums its four rows in a fixed order into one row of
+// per-block partials, and `reduce_partials` sums the rows in a fixed order.
+// The result is bit-identical from run to run, without atomics; dynamic
+// shared memory is the staged tables or rows and kWarps·6·K floats, which
+// caps the sphere count at kMaxGradSpheres (~100 KB a block there).
 //
 // What bounds it: operations, about one forward's (one trace, no NEE fold),
 // plus the sweep's gradient arithmetic and the warp sums. Bytes are small:
@@ -48,52 +67,86 @@
 // partials, and the tape (48 bytes a bounce, written and read once).
 // Left for later: the NEE fold in the trace.
 
-#include "megakernel_common.cuh"
+#include "megakernel_lane.cuh"
 #include "megakernel_tape.cuh"
 
 namespace {
 
-// A tape entry: what the sweep reads of bounce j. `code` holds the hit
-// object (low 8 bits), RR's scaling (bit 8) and the channels tied at p_max
-// (bits 9-11).
+constexpr int kMaxGradSpheres = 1024;
+
+// `code` of a tape entry: the hit object (low 16 bits), RR's scaling, the
+// channels tied at p_max, and whether the bounce's pickup counted.
+constexpr int kIdMask = 0xFFFF;
+constexpr int kRrBit = 1 << 16, kTieX = 1 << 17, kTieY = 1 << 18,
+              kTieZ = 1 << 19, kEmitBit = 1 << 20;
+
 struct __align__(16) VjpEntry {
   int code;
-  V3 A_new, T, fw;
-  float inv_p, w;
+  V3 A_new, T;
+  float inv_p, w, gate;
 };
 
+// The path state before a bounce, and nee_textbook's flag: the bounce
+// before it was diffuse, so its probe counted the light.
+struct VjpState {
+  V3 o, d, T, A;
+  bool suppress;
+};
+
+template <int kTab, int kEst>
 __global__ void __launch_bounds__(kBlock)
     megakernel_vjp(const __grid_constant__ Params p,
+                   const float4* __restrict__ sph, int n_sph,
+                   const float4* __restrict__ bvh, int root,
                    const float* __restrict__ alb,
                    const float* __restrict__ emi,
+                   const int* __restrict__ refl,
                    const float* __restrict__ g_img,
                    float* __restrict__ partials) {
-  // Dynamic shared memory: the tables, then a row of 6K gradient slots a
+  // Dynamic shared memory: the rect scene's tables or a linear sphere
+  // table's rows (two float4 a row), then a row of 6K gradient slots a
   // warp (albedo, then emission).
-  extern __shared__ float smem[];
-  float* s_alb = smem;
-  float* s_emi = smem + 3 * kMaxRects;
-  float* rows = smem + 6 * kMaxRects;
-  const int n_slots = 6 * p.n_rects;
+  extern __shared__ float4 smem4[];
+  const int k_obj = p.n_rects + n_sph;
+  const int n_slots = 6 * k_obj;
+  SphereTab tab = sphere_tab(sph, n_sph, refl, bvh, root);
+  int n_head = 0;
+  float* s_tab = reinterpret_cast<float*>(smem4);
+  if constexpr (kTab == kTabNone) {
+    n_head = (6 * p.n_rects + 3) / 4;
+    for (int i = threadIdx.x; i < 3 * p.n_rects; i += kBlock) {
+      s_tab[i] = alb[i];
+      s_tab[3 * p.n_rects + i] = emi[i];
+    }
+  } else if constexpr (kTab == kScanLinear) {
+    n_head = 2 * ((-1 - root) >> 16);
+    for (int i = threadIdx.x; i < n_head; i += kBlock) smem4[i] = tab.rows[i];
+    tab.rows = smem4;
+  }
+  float* rows = reinterpret_cast<float*>(smem4 + n_head);
   for (int i = threadIdx.x; i < kWarps * n_slots; i += kBlock) rows[i] = 0.0f;
-  load_tables(p, alb, emi, s_alb, s_emi);
+  __syncthreads();
   float* my_row = rows + (threadIdx.x >> 5) * n_slots;
-  const TableMaterials mats{s_alb, s_emi};
+  const TableMaterials mats =
+      kTab == kTabNone ? TableMaterials{s_tab, s_tab + 3 * p.n_rects}
+                       : TableMaterials{alb, emi};
 
   const LaneRange lr = lane_range(p);
+  const LightFrame lf = light_frame(p);
   const V3 zero = v3(0.0f, 0.0f, 0.0f), one = v3(1.0f, 1.0f, 1.0f);
   const V3 gc = lr.in_range ? ld3(g_img + 3 * lr.pix) : zero;
   const V3 cam_o = ld3(p.cam_o);
-  const V3 lc = ld3(p.lc), leu = ld3(p.leu), lev = ld3(p.lev), ln = ld3(p.ln);
+  const V3 e_light = mats.emission(p.light_id);
+  V3 g_le = zero;  // nee_textbook: this lane's light-emission terms
 
   VjpEntry tape[2][kSeg];
-  PathState ck[kCkpt];
+  VjpState ck[kCkpt];
   TapeCtl c;
   tape_start(&c, lr.s, lr.in_range && lr.s < lr.s_stop);
-  PathState st;  // the producer's state before its next bounce
+  VjpState st;  // the producer's state before its next bounce
   const auto spawn = [&] {
-    st = PathState{cam_o, spawn_dir(p, lr.px, lr.py, lr.pid_base + c.s), one,
-                   zero};
+    st = VjpState{cam_o, spawn_dir(p, lr.px, lr.py, lr.pid_base + c.s), one,
+                  zero, false};
   };
   if (c.tracing) spawn();
 
@@ -102,74 +155,56 @@ __global__ void __launch_bounds__(kBlock)
     ct.key = -1;
     if (c.tracing) {  // pass A, or a segment replay
       const int depth = c.depth + 1;
-      const uint32_t pid = lr.pid_base + c.s;
-      const V3 o = st.o, d = st.d, T = st.T;
-      int id;
-      const float t_hit = nearest(p, o, d, &id);
-      const bool hit = t_hit < kMissT;
-      const int axis = p.rects[id].axis;
-      const V3 alb_h = mats.albedo(id);
-      const V3 emi_h = mats.emission(id);
-      const V3 A_new =
-          add(st.A, v3(T.x * emi_h.x, T.y * emi_h.y, T.z * emi_h.z));
-      const V3 x = hit ? add(o, mul(d, t_hit)) : v3(0.0f, 0.0f, 0.0f);
-      const V3 ng = v3(axis == 0 ? 1.0f : 0.0f, axis == 1 ? 1.0f : 0.0f,
-                       axis == 2 ? 1.0f : 0.0f);
-      const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
-
-      const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
-      const float u_rr = uniform(p.seed, pid, ctr + kRR);
-
-      const float p_max = fmaxf(alb_h.x, fmaxf(alb_h.y, alb_h.z));
-      const bool rr_active = depth > p.rr_start_depth || p_max <= 0.0f;
-      const bool survive = rr_active ? u_rr < p_max : true;
-      const bool rr_scaled = rr_active && p_max > 0.0f;
-      const float inv_p =
-          rr_scaled ? 1.0f / (p_max > 0.0f ? p_max : 1.0f) : 1.0f;
-      const V3 f = mul(alb_h, inv_p);
-
-      const float u1 = uniform(p.seed, pid, ctr + kScatterU);
-      const float u2 = uniform(p.seed, pid, ctr + kScatterV);
-      float sr1, cr1;
-      sincos_2pi(u1, &sr1, &cr1);
-      const float r2s = sqrtf(u2);
-      const V3 a =
-          fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-      const V3 fu = norm(cross(a, n));
-      const V3 fv = cross(n, fu);
-      const V3 cos_dir = norm(add(add(mul(fu, cr1 * r2s), mul(fv, sr1 * r2s)),
-                                  mul(n, sqrtf(1.0f - u2))));
-
-      const float lu = uniform(p.seed, pid, ctr + kLightU);
-      const float lv = uniform(p.seed, pid, ctr + kLightV);
-      const V3 lp = add(add(lc, mul(leu, lu)), mul(lev, lv));
-      const V3 d_l = norm(sub(lp, x));
-      float t_l;
-      const bool success = probe_light(p, x, d_l, &t_l);
-      const float t_safe = success ? t_l : 1.0f;
-      const float w_nee = (fabsf(p.area * dot(d_l, ln)) / (t_safe * t_safe)) *
-                          (fabsf(dot(d_l, n)) * kInvPi);
-      const V3 new_dir = success ? d_l : cos_dir;
-      const float w = success ? w_nee : 1.0f;
+      const V3 T = st.T;
+      Bounce b;
+      bounce_hit<TableMaterials, kTab>(p, tab, mats, st.o, st.d, &b);
+      // render_lane's pickup, direct term and sum, in its order.
+      V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
+      bool counted = true;
+      if constexpr (kEst == kTextbook) {
+        if (st.suppress && b.hit && b.id == p.light_id) {
+          pick = zero;
+          counted = false;
+        }
+      }
+      bounce_scatter<kTab, kEst>(p, tab, lf, st.o, st.d, lr.pid_base + c.s,
+                                 depth, lr.pix, NoGuide{}, &b);
+      V3 A_new;
+      float gate = 0.0f;
+      if constexpr (kEst == kTextbook) {
+        V3 direct = zero;
+        if (b.success) {
+          gate = b.w_nee;
+          direct = v3(((b.w_nee * T.x) * b.alb.x) * e_light.x,
+                      ((b.w_nee * T.y) * b.alb.y) * e_light.y,
+                      ((b.w_nee * T.z) * b.alb.z) * e_light.z);
+        }
+        A_new = add(st.A, add(pick, direct));
+      } else {
+        A_new = add(st.A, pick);
+      }
+      const float p_max = fmaxf(b.alb.x, fmaxf(b.alb.y, b.alb.z));
 
       VjpEntry& e = tape[c.pbuf][tape_slot(depth)];
-      e.code = id | (rr_scaled ? 1 << 8 : 0) |
-               (alb_h.x == p_max ? 1 << 9 : 0) |
-               (alb_h.y == p_max ? 1 << 10 : 0) |
-               (alb_h.z == p_max ? 1 << 11 : 0);
+      e.code = b.id | (b.rr_scaled ? kRrBit : 0) |
+               (b.alb.x == p_max ? kTieX : 0) |
+               (b.alb.y == p_max ? kTieY : 0) |
+               (b.alb.z == p_max ? kTieZ : 0) | (counted ? kEmitBit : 0);
       e.A_new = A_new;
       e.T = T;
-      e.fw = mul(f, w);
-      e.inv_p = inv_p;
-      e.w = w;
+      e.inv_p = b.inv_p;
+      e.w = b.w;
+      e.gate = gate;
 
-      const PathState next{x, new_dir,
-                           mul(v3(T.x * f.x, T.y * f.y, T.z * f.z), w),
-                           A_new};
+      // A path that goes on was alive after this bounce, so the next
+      // pickup is suppressed exactly when this bounce was diffuse.
+      const VjpState next{b.x, b.new_dir,
+                          mul(v3(T.x * b.f.x, T.y * b.f.y, T.z * b.f.z), b.w),
+                          A_new, kEst == kTextbook && b.diffuse};
       c.depth = depth;
       if (c.d_stop == 0) {  // pass A
         tape_checkpoint(ck, depth, st);
-        if (survive && depth < p.max_bounces) {
+        if (b.survive && depth < p.max_bounces) {
           st = next;
         } else {
           tape_end_pass_a(&c, A_new);
@@ -182,53 +217,92 @@ __global__ void __launch_bounds__(kBlock)
     }
     if (c.sweeping) {  // bounce j's terms
       const VjpEntry e = tape[c.sbuf][tape_slot(c.j)];
-      const int id = e.code & 0xFF;
+      const int id = e.code & kIdMask;
       const V3 alb_h = mats.albedo(id);
-      const V3 LA = c.LA_sw, A_new = e.A_new, T = e.T, fw = e.fw;
+      const V3 LA = c.LA_sw, A_new = e.A_new, T = e.T;
       const float inv_p = e.inv_p, w = e.w;
+      const V3 fw = mul(mul(alb_h, inv_p), w);
       // T_j·S_{j+1} per channel by the guarded tail divide.
       const V3 TS = v3(fw.x != 0.0f ? (LA.x - A_new.x) / fw.x : 0.0f,
                        fw.y != 0.0f ? (LA.y - A_new.y) / fw.y : 0.0f,
                        fw.z != 0.0f ? (LA.z - A_new.z) / fw.z : 0.0f);
       const float f_scale = inv_p * w;
       const float s_am =
-          (e.code & (1 << 8))
+          (e.code & kRrBit)
               ? (gc.x * TS.x * alb_h.x + gc.y * TS.y * alb_h.y +
                  gc.z * TS.z * alb_h.z) *
                     w * (-(inv_p * inv_p))
               : 0.0f;
-      const float eq_x = (e.code & (1 << 9)) ? 1.0f : 0.0f;
-      const float eq_y = (e.code & (1 << 10)) ? 1.0f : 0.0f;
-      const float eq_z = (e.code & (1 << 11)) ? 1.0f : 0.0f;
+      const float eq_x = (e.code & kTieX) ? 1.0f : 0.0f;
+      const float eq_y = (e.code & kTieY) ? 1.0f : 0.0f;
+      const float eq_z = (e.code & kTieZ) ? 1.0f : 0.0f;
       const float n_eq = eq_x + eq_y + eq_z;
       const float am = s_am / (n_eq > 0.0f ? n_eq : 1.0f);
+      const float emit_f = (e.code & kEmitBit) ? 1.0f : 0.0f;
       ct.key = id;
       ct.v[0] = gc.x * TS.x * f_scale + eq_x * am;
       ct.v[1] = gc.y * TS.y * f_scale + eq_y * am;
       ct.v[2] = gc.z * TS.z * f_scale + eq_z * am;
-      ct.v[3] = gc.x * T.x;
-      ct.v[4] = gc.y * T.y;
-      ct.v[5] = gc.z * T.z;
+      ct.v[3] = gc.x * T.x * emit_f;
+      ct.v[4] = gc.y * T.y * emit_f;
+      ct.v[5] = gc.z * T.z * emit_f;
+      if constexpr (kEst == kTextbook) {
+        const float gate = e.gate;
+        ct.v[0] += gc.x * gate * T.x * e_light.x;
+        ct.v[1] += gc.y * gate * T.y * e_light.y;
+        ct.v[2] += gc.z * gate * T.z * e_light.z;
+        g_le = add(g_le, v3(gc.x * gate * T.x * alb_h.x,
+                            gc.y * gate * T.y * alb_h.y,
+                            gc.z * gate * T.z * alb_h.z));
+      }
       tape_swept(&c);
     }
     const int job = tape_handover(&c, lr.s_stop);
     if (job == 2 || (job == 1 && !tape_restore(&c, ck, &st))) spawn();
-    warp_accumulate(ct, my_row, p.n_rects, p.n_rects);
+    // No key is a sphere's geometry row here: the threshold is K.
+    warp_accumulate(ct, my_row, k_obj, k_obj);
+  }
+  if constexpr (kEst == kTextbook) {
+    float s3[3] = {g_le.x, g_le.y, g_le.z};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s3[i] += __shfl_xor_sync(kFull, s3[i], off);
+      }
+    }
+    if ((threadIdx.x & 31) == 0) {
+      for (int i = 0; i < 3; ++i) my_row[3 * k_obj + 3 * p.light_id + i] += s3[i];
+    }
+    __syncwarp();
   }
   block_partials(rows, n_slots, partials);
+}
+
+// The kernel of estimator est (kNee, kCosine, kTextbook) and scan kTab.
+template <int kTab>
+auto vjp_kernel(int est) {
+  return est == kNee      ? megakernel_vjp<kTab, kNee>
+         : est == kCosine ? megakernel_vjp<kTab, kCosine>
+                          : megakernel_vjp<kTab, kTextbook>;
 }
 
 }  // namespace
 
 // Host entry point with a plain C interface (loaded with ctypes). Geometry,
 // light and camera as fill_params (megakernel_common.cuh) reads them, in
-// host memory. On the device: alb, emi (n_rects, 3) float32; g_img
-// (n_pix_loc, 3) float32, the cotangents of the shard's pixels [pix0,
-// pix0 + n_pix_loc) (unsharded: (height, width, 3)); partials: scratch of
-// n_partials floats, at least ceil(n_pix_loc·g / 128) · 6·n_rects; out:
-// 6·n_rects floats,
-// d/d albedo (n_rects, 3) then d/d emission (n_rects, 3). Launches both
-// kernels on `stream` and returns the first launch error (cudaError_t).
+// host memory. On the device: alb, emi (K, 3) float32, K = n_rects +
+// n_spheres, rects first; g_img (n_pix_loc, 3) float32, the cotangents of
+// the shard's pixels [pix0, pix0 + n_pix_loc) (unsharded: (height, width,
+// 3)); partials: scratch of n_partials floats, at least ceil(n_pix_loc·g /
+// 128) · 6·K; out: 6·K floats, d/d albedo (K, 3) then d/d emission (K, 3).
+// Then the estimator est (0 nee, 1 cosine, 2 nee_textbook) and the scene's
+// kind: tab 0 for rect-only DIFF scenes (row 1's and row 8's scan; sph,
+// bvh and refl unused, n_spheres 0), else the sphere table as
+// spt_megakernel_tab takes it: sph (n_spheres, 4) float32 [cx, cy, cz, r],
+// its tree bvh with root link root, and refl (K,) int32, 0 to
+// kMaxGradSpheres spheres. Launches both kernels on `stream` and returns
+// the first launch error (cudaError_t).
 extern "C" int spt_megakernel_vjp(const float* rect_geom, const int* rect_axis,
                                   int n_rects, const float* light_f,
                                   int light_id, const float* cam_f,
@@ -238,23 +312,43 @@ extern "C" int spt_megakernel_vjp(const float* rect_geom, const int* rect_axis,
                                   int rr_start_depth, int max_bounces,
                                   const float* alb, const float* emi,
                                   const float* g_img, float* partials,
-                                  long long n_partials, float* out,
+                                  long long n_partials, float* out, int est,
+                                  int tab, const float* sph, int n_spheres,
+                                  const float* bvh, int root, const int* refl,
                                   void* stream) {
   Params p;
   if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
                    cam_f, seed, width, height, spp, g, per, s0, pix0,
-                   n_pix_loc, rr_start_depth, max_bounces)) {
+                   n_pix_loc, rr_start_depth, max_bounces) ||
+      est < kNee || est > kTextbook || n_spheres < 0 ||
+      n_spheres > kMaxGradSpheres || (!tab && n_spheres != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_blocks = grid_of(p);
-  const int n_slots = 6 * n_rects;
+  const int n_slots = 6 * (n_rects + n_spheres);
   if (n_partials < static_cast<long long>(n_blocks) * n_slots) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * (6 * kMaxRects + kWarps * n_slots);
+  const bool tree = root >= 0;
+  const int n_head = !tab ? (6 * n_rects + 3) / 4 : (tree ? 0 : 2 * n_spheres);
+  const size_t smem =
+      sizeof(float4) * n_head + sizeof(float) * kWarps * n_slots;
+  const auto kernel = !tab  ? vjp_kernel<kTabNone>(est)
+                      : tree ? vjp_kernel<kScanTree>(est)
+                             : vjp_kernel<kScanLinear>(est);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  megakernel_vjp<<<n_blocks, kBlock, smem, st>>>(p, alb, emi, g_img, partials);
-  const cudaError_t err = cudaGetLastError();
+  kernel<<<n_blocks, kBlock, smem, st>>>(
+      p, reinterpret_cast<const float4*>(sph), n_spheres,
+      reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, g_img,
+      partials);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials<<<n_slots, kReduceThreads, 0, st>>>(partials, n_blocks,
                                                       n_slots, out);

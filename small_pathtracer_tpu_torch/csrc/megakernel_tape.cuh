@@ -24,7 +24,7 @@
 // every max_bounces is taken. The library's --fmad=false build makes a
 // replay retrace pass A bit for bit.
 //
-// Storage a lane (local memory): 2·kSeg entries and kCkpt PathStates. A
+// Storage a lane (local memory): 2·kSeg entries and kCkpt states. A
 // path of depth D writes and reads D entries once each; the checkpoints only
 // paths longer than kSeg touch.
 
@@ -93,9 +93,11 @@ __device__ __forceinline__ bool tape_active(const TapeCtl& c) {
 }
 
 // pass A's bounce j carried state `st` (before it): keeps it as a
-// checkpoint when it opens a segment 1..kCkpt.
-__device__ __forceinline__ void tape_checkpoint(PathState* ck, int j,
-                                                const PathState& st) {
+// checkpoint when it opens a segment 1..kCkpt. State: PathState, or a
+// kernel's own state that holds more than it.
+template <class State>
+__device__ __forceinline__ void tape_checkpoint(State* ck, int j,
+                                                const State& st) {
   const int i = (j - 1) / kSeg;
   if (j > 1 && tape_slot(j) == 0 && i <= kCkpt) ck[i - 1] = st;
 }
@@ -119,8 +121,9 @@ __device__ __forceinline__ void tape_end_replay(TapeCtl* c) {
 // (its depth is the bounces before that state): the spawn for segment 0,
 // else checkpoint min(seg, kCkpt). Returns false for segment 0, where the
 // caller spawns.
-__device__ __forceinline__ bool tape_restore(TapeCtl* c, const PathState* ck,
-                                             PathState* st) {
+template <class State>
+__device__ __forceinline__ bool tape_restore(TapeCtl* c, const State* ck,
+                                             State* st) {
   const int sg = c->seg - 1;
   c->seg = sg;
   c->d_stop = (sg + 1) * kSeg;

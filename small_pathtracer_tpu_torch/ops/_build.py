@@ -179,8 +179,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
-    lib.spt_megakernel_nee_mat.restype = ctypes.c_int
-    lib.spt_megakernel_nee_mat.argtypes = [
+    lib.spt_megakernel_mat.restype = ctypes.c_int
+    lib.spt_megakernel_mat.argtypes = [
+        i,  # estimator: 0 nee, 1 cosine, 2 nee_textbook
         *scene,
         i,  # n_rects
         *launch,
@@ -260,11 +261,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         *scene,
         i,  # n_rects
         *launch,
-        p, p,  # albedo, emission: (R, 3) f32 device
+        p, p,  # albedo, emission: (K, 3) f32 device, K = R + S
         p,  # g_img: (n_pix_loc, 3) f32 device
         p,  # partials: f32 device scratch
         ctypes.c_longlong,  # its length in floats
-        p,  # out: (2, R, 3) f32 device
+        p,  # out: (2, K, 3) f32 device
+        i,  # estimator: 0 nee, 1 cosine, 2 nee_textbook
+        i,  # tab: 0 a rect-only DIFF scene, 1 the sphere table
+        *spheres[:4],  # sph, n_spheres, bvh, root (unused with tab 0)
+        p,  # refl: (K,) i32 device (unused with tab 0)
         p,  # cudaStream_t
     ]
     lib.spt_megakernel_geom.restype = ctypes.c_int

@@ -60,7 +60,9 @@ from .megakernel import (
     KernelGeometry, _image, _resolve, count, full_layout,
     launch_args, pack_geometry, shard_of, sphere_args, sphere_tables,
 )
-from .megakernel_grad import material_grads_to_scene
+from .megakernel_grad import (
+    material_grads_to_scene, plain_chunk, unpack_materials,
+)
 
 # Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
 # per-block partial sums. The kernel keeps one row of gradient slots a warp
@@ -109,31 +111,23 @@ def pack_tables(scene: Scene):
 
 def scene_with_tables(scene: Scene, sph, alb, emi) -> Scene:
     """Inverse of pack_tables: the tables put back into the scene (the
-    tensors themselves, so gradients flow to them)."""
-    R, S = scene.rects.k.shape[0], num_spheres(scene)
-    for t, shape in ((sph, (S, 4)), (alb, (R + S, 3)), (emi, (R + S, 3))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"expected a {shape} table, got {tuple(t.shape)}")
-    return scene._replace(
-        rects=scene.rects._replace(albedo=alb[:R], emission=emi[:R]),
-        spheres=scene.spheres._replace(center=sph[:, :3], radius=sph[:, 3],
-                                       albedo=alb[R:], emission=emi[R:]),
-    )
+    tensors themselves, so gradients flow to them; the materials through
+    ``unpack_materials``)."""
+    S = num_spheres(scene)
+    if tuple(sph.shape) != (S, 4):
+        raise ValueError(f"expected a {(S, 4)} table, got {tuple(sph.shape)}")
+    sc = unpack_materials(scene, alb, emi)
+    return sc._replace(spheres=sc.spheres._replace(center=sph[:, :3],
+                                                   radius=sph[:, 3]))
 
 
 def grads_to_scene(scene: Scene, g_sph, g_alb, g_emi) -> Scene:
     """The kernel's gradient tables as a scene-shaped tuple of gradients
     (zeros for every other leaf), the counterpart of the JAX package's
     ``grads_to_scene``."""
-    R = scene.rects.k.shape[0]
-    zero = material_grads_to_scene(scene, torch.zeros_like(scene.rects.albedo),
-                                   torch.zeros_like(scene.rects.emission))
-    return zero._replace(
-        rects=zero.rects._replace(albedo=g_alb[:R], emission=g_emi[:R]),
-        spheres=zero.spheres._replace(center=g_sph[:, :3],
-                                      radius=g_sph[:, 3], albedo=g_alb[R:],
-                                      emission=g_emi[R:]),
-    )
+    zero = material_grads_to_scene(scene, g_alb, g_emi)
+    return zero._replace(spheres=zero.spheres._replace(center=g_sph[:, :3],
+                                                       radius=g_sph[:, 3]))
 
 
 # ---------------------------------------------------------------------------
@@ -446,21 +440,12 @@ def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
 # ---------------------------------------------------------------------------
 # The plain version.
 
-def _plain_chunk(n_spheres: int, device) -> int:
-    """Lanes of one autograd chunk: the eager loop keeps every bounce's
-    (N, S) intersection temporaries for the backward, so bound the lanes by
-    the sphere count on the card; the CPU runs one chunk."""
-    if device.type == "cpu":
-        return 1 << 62
-    return max(4096, (1 << 21) // (16 + n_spheres))
-
-
 def geom_run_plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                    g_img=None, device=None):
     """The kernel's plain version: the eager regenerating forward on the
     kernel's lane layout and, with ``g_img``, torch.autograd of
     sum(g_img * img_sum) through it, the sphere rows and material tables as
-    leaves. With ``g_img`` the lanes run in chunks (``_plain_chunk``: one
+    leaves. With ``g_img`` the lanes run in chunks (``plain_chunk``: one
     on the CPU, a bounded number on the card), their gradients summed:
     exact up to summation order. Returns (img_sum (h, w, 3), g_sph (S, 4), g_alb
     (K, 3), g_emi (K, 3), traces (2,) int64 [extend, probe]); the
@@ -498,7 +483,7 @@ def _plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed, g_rows,
     if want:
         g_lane = g_rows.detach().to(device=device, dtype=torch.float32
                                     ).index_select(0, pix - lay.pix0)
-        chunk = _plain_chunk(num_spheres(sc), device)
+        chunk = plain_chunk(num_spheres(sc), device)
     else:
         chunk = n
     Ls, traces = [], torch.zeros(2, dtype=torch.int64, device=device)

@@ -1,13 +1,21 @@
 """Material training on the kernels: the port's counterpart of the JAX
-package's ``ops/megakernel_grad.py`` for ``nee``, rects and one rect light.
+package's ``ops/megakernel_grad.py`` for the ``nee``, ``cosine`` and
+``nee_textbook`` estimators, rects and spheres with DIFF, SPEC and REFR
+materials, and one rect light.
 
 - ``render_megakernel_mat``: the forward with runtime (K, 3) albedo and
-  emission tables (``csrc/megakernel.cu``, ``megakernel_nee_mat``), the
-  counterpart of ``render_pallas_mat``. Equal tables give the image and
-  trace counts of ``ops.megakernel.render_megakernel`` bit for bit.
+  emission tables, the counterpart of ``render_pallas_mat``: on rect-only
+  DIFF scenes ``megakernel_nee_mat`` / ``_cosine_mat`` / ``_textbook_mat``
+  (``csrc/megakernel.cu``), on scenes with spheres or SPEC/REFR objects row
+  2's table kernel of the estimator with the runtime tables (counted as
+  ``megakernel_{nee,cosine,textbook}_mat_tab``: ``mat_kernel_name``).
+  Equal tables give the image and trace counts of
+  ``ops.megakernel.render_megakernel`` bit for bit.
 - ``render_megakernel_vjp``: the material adjoint, one trace a sample and
   a sweep of its bounces back from a per-lane tape
-  (``csrc/megakernel_grad.cu``), the counterpart of ``render_pallas_vjp``.
+  (``csrc/megakernel_grad.cu``: ``megakernel_vjp``, its estimator and scan
+  instances named by ``vjp_kernel_name``), the counterpart of
+  ``render_pallas_vjp``.
 - ``RenderMaterials``: the two as one ``torch.autograd.Function``.
 - ``loss_and_material_grads`` and ``fit_megakernel``: SGD on the tables, the
   counterparts of ``loss_and_material_grads`` and ``fit_pallas``.
@@ -15,14 +23,14 @@ package's ``ops/megakernel_grad.py`` for ``nee``, rects and one rect light.
   an (sp, dp) mesh, each rank running both kernels on its shard's lanes
   (``render_megakernel_mat_shard``, ``render_megakernel_vjp_shard``).
 
-The tables are in global object order (``pack_materials``): the rects, so
-K = 17 for ``cornell_box``. Scenes with spheres or SPEC/REFR objects and
-estimators other than ``nee`` are refused on every device
-(``check_trainable``, ``check_estimator``): the kernels of rows 8 and 9
-know rects, DIFF and ``nee`` only. On a CUDA device each wrapper launches its
-kernel or raises. On the CPU it runs the plain version: the eager forward
-(``render_megakernel_plain``) with the tables put into the scene and, for
-the adjoint, ``torch.autograd`` through it.
+The tables are in global object order (``pack_materials``): the rects, then
+the spheres, so K = R + S (17 for ``cornell_box``, 7 + 2 for
+``smallpt_original``). The estimators are those ``RenderConfig`` takes (the
+others wait for item 10). GLOS objects and more than ``MAX_GRAD_SPHERES``
+spheres are refused on every device (``check_trainable``). On a CUDA device
+each wrapper launches its kernel or raises. On the CPU it runs the plain
+version: the eager forward (``render_megakernel_plain``) with the tables
+put into the scene and, for the adjoint, ``torch.autograd`` through it.
 """
 
 from __future__ import annotations
@@ -33,59 +41,79 @@ import torch
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
+from ..integrator.wavefront import check_materials, path_trace_regen
 from ..parallel.mesh import Mesh
-from ..parallel.sharded import ShardLayout, reduce_lanes
-from ..scene.types import (
-    DIFF, LightSampler, Rects, Scene, Spheres, num_spheres,
-)
+from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
+from ..scene.types import LightSampler, Rects, Scene, Spheres, num_spheres
 from . import _build
 from .megakernel import (
-    KernelGeometry, _image, _resolve, count, full_layout,
-    launch_args, pack_geometry, plain_lanes, shard_of,
+    EST_CODE, KernelGeometry, SphereArgs, _image, _resolve, count,
+    full_layout, launch_args, pack_geometry, plain_lanes, shard_of,
+    sphere_args, sphere_tables, uses_sphere_table,
 )
 
 # Threads a block of the adjoint kernel (kBlock in csrc/megakernel_common.cuh):
 # it sizes the per-block partial sums.
 KERNEL_BLOCK = 128
+# The adjoint keeps a row of 6·K gradient slots a warp in shared memory,
+# which caps the sphere count (kMaxGradSpheres in csrc/megakernel_grad.cu).
+MAX_GRAD_SPHERES = 1024
 FIELDS = ("albedo", "emission")
+_EST_NAME = {"nee": "nee", "cosine": "cosine", "nee_textbook": "textbook"}
 
 
 def check_trainable(scene: Scene) -> None:
-    """Raises NotImplementedError for a scene outside rows 8 and 9 (spheres
-    or SPEC/REFR objects), on every device, so the CPU never trains a scene
-    that the card refuses."""
-    if num_spheres(scene) or bool((scene.rects.refl != DIFF).any()):
+    """Raises NotImplementedError for a scene outside rows 8 and 9, on every
+    device, so the CPU never trains a scene that the card refuses: GLOS
+    objects (item 11; no forward kernel renders them), and more spheres
+    than the adjoint's shared-memory rows hold (ROADMAP.md queue 2, row
+    9)."""
+    check_materials(scene)
+    S = num_spheres(scene)
+    if S > MAX_GRAD_SPHERES:
         raise NotImplementedError(
-            "material training on scenes with spheres or SPEC/REFR objects "
-            "is not ported yet (ROADMAP.md queue 1, item 23)"
-        )
+            f"material training takes at most {MAX_GRAD_SPHERES} spheres "
+            "(the adjoint kernel's per-warp gradient rows fill a block's "
+            f"shared memory; ROADMAP.md queue 2, row 9), got {S}")
 
 
-def check_estimator(cfg: RenderConfig) -> None:
-    """Raises NotImplementedError for an estimator other than ``nee``, on
-    every device: rows 8 and 9 trace the ``nee`` estimator only."""
-    if cfg.estimator != "nee":
-        raise NotImplementedError(
-            f"material training with estimator {cfg.estimator!r} is not "
-            "ported yet (ROADMAP.md queue 1, item 10)")
+def mat_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
+    """The name under which row 8 counts its launches on ``scene``: the
+    rect kernel megakernel_{nee,cosine,textbook}_mat, or row 2's table
+    kernel of the estimator launched with the runtime tables (``_tab``)."""
+    tab = "_tab" if uses_sphere_table(scene) else ""
+    return f"megakernel_{_EST_NAME[cfg.estimator]}_mat{tab}"
+
+
+def vjp_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
+    """The name under which row 9 counts its launches on ``scene``:
+    megakernel_vjp (``nee``), megakernel_vjp_cosine or
+    megakernel_vjp_textbook, with ``_tab`` for the sphere-table instances
+    (linear and tree counted together)."""
+    est = "" if cfg.estimator == "nee" else "_" + _EST_NAME[cfg.estimator]
+    tab = "_tab" if uses_sphere_table(scene) else ""
+    return f"megakernel_vjp{est}{tab}"
 
 
 def pack_materials(scene: Scene):
     """The scene's materials as (K, 3) float32 tables in global object order
-    (this slice's scenes hold rects only)."""
-    r = scene.rects
-    return (r.albedo.to(torch.float32).reshape(-1, 3).clone(),
-            r.emission.to(torch.float32).reshape(-1, 3).clone())
+    (rects, then spheres: ``sphere_tables``), copies on its device."""
+    _, alb, emi, _ = sphere_tables(scene, scene.device)
+    return alb.clone(), emi.clone()
 
 
 def unpack_materials(scene: Scene, alb, emi) -> Scene:
-    """Inverse of pack_materials: the tables put back into the scene."""
-    R = scene.rects.k.shape[0]
+    """Inverse of pack_materials: the tables put back into the scene (the
+    tensors themselves, so gradients flow to them)."""
+    R, S = scene.rects.k.shape[0], num_spheres(scene)
     for t in (alb, emi):
-        if tuple(t.shape) != (R, 3):
-            raise ValueError(f"expected a ({R}, 3) table, got {tuple(t.shape)}")
-    return scene._replace(rects=scene.rects._replace(albedo=alb,
-                                                     emission=emi))
+        if tuple(t.shape) != (R + S, 3):
+            raise ValueError(f"expected a ({R + S}, 3) table, got "
+                             f"{tuple(t.shape)}")
+    return scene._replace(
+        rects=scene.rects._replace(albedo=alb[:R], emission=emi[:R]),
+        spheres=scene.spheres._replace(albedo=alb[R:], emission=emi[R:]),
+    )
 
 
 def material_grads_to_scene(scene: Scene, galb, gemi) -> Scene:
@@ -103,16 +131,25 @@ def material_grads_to_scene(scene: Scene, galb, gemi) -> Scene:
     return unpack_materials(zero, galb, gemi)
 
 
-def _tables(albedo, emission, n_rects: int, device):
+def _tables(albedo, emission, k: int, device):
     out = []
     for t in (albedo, emission):
         t = t.detach().to(device=device, dtype=torch.float32).contiguous()
-        if tuple(t.shape) != (n_rects, 3):
-            raise ValueError(
-                f"expected a ({n_rects}, 3) table, got {tuple(t.shape)}"
-            )
+        if tuple(t.shape) != (k, 3):
+            raise ValueError(f"expected a ({k}, 3) table, got "
+                             f"{tuple(t.shape)}")
         out.append(t)
     return out
+
+
+def _n_objects(scene: Scene) -> int:
+    return scene.rects.k.shape[0] + num_spheres(scene)
+
+
+def _table_args(lib, scene: Scene, alb, emi, device) -> SphereArgs:
+    """The scene's sphere table and its tree for the table kernels, with
+    the runtime material tables in place of the scene's."""
+    return sphere_args(lib, scene, device)._replace(alb=alb, emi=emi)
 
 
 def render_megakernel_mat_plain(scene: Scene, cam: CameraParams,
@@ -138,11 +175,10 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
                           geometry: KernelGeometry | None = None):
     """Render the scene's geometry with the (K, 3) ``albedo`` and
     ``emission`` tables over sample indices [s0, s0 + n_s). ``geometry``
-    (``pack_geometry(scene, cam)``) saves the host copy of the geometry per
+    (``pack_geometry(scene, cam)``) saves the host copy of the rects per
     call; the tables never leave the device. Returns ((h, w, 3) radiance sum
     over the span, traces (2,) int64 [extend, probe])."""
     check_trainable(scene)
-    check_estimator(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
@@ -154,23 +190,33 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
 
 def _launch_mat(scene, cam, cfg, albedo, emission, seed, lay: ShardLayout,
                 device, geometry):
-    """megakernel_nee_mat on the lanes ``lay``: ((n_pix_loc, 3) radiance
-    sums, traces (2,) int64)."""
+    """Row 8 on the lanes ``lay`` (``mat_kernel_name``): ((n_pix_loc, 3)
+    radiance sums, traces (2,) int64)."""
     geom = pack_geometry(scene, cam) if geometry is None else geometry
-    alb, emi = _tables(albedo, emission, len(geom.rect_axis), device)
+    alb, emi = _tables(albedo, emission, _n_objects(scene), device)
     lib = _build.build_kernels().lib
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
                         device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
+    est = EST_CODE[cfg.estimator]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spt_megakernel_nee_mat(
-            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-            len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
-            alb.data_ptr(), emi.data_ptr(), out_l.data_ptr(),
-            traces.data_ptr(), stream,
-        )
-    count("megakernel_nee_mat", err)
+        if uses_sphere_table(scene):
+            sa = _table_args(lib, scene, alb, emi, device)
+            err = lib.spt_megakernel_tab(
+                est, 0, geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, len(geom.rect_axis),
+                *launch_args(geom, cfg, seed, lay), *sa.args(),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        else:
+            err = lib.spt_megakernel_mat(
+                est, geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+                len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
+                alb.data_ptr(), emi.data_ptr(), out_l.data_ptr(),
+                traces.data_ptr(), stream,
+            )
+    count(mat_kernel_name(scene, cfg), err)
     return reduce_lanes(out_l, lay), traces
 
 
@@ -186,16 +232,39 @@ def render_megakernel_vjp_plain(scene: Scene, cam: CameraParams,
                       g.reshape(-1, 3), full_layout(cfg), device)
 
 
+def plain_chunk(n_spheres: int, device) -> int:
+    """Lanes of one autograd chunk of the adjoints' plain versions: the
+    eager loop keeps every bounce's (N, S) intersection temporaries for the
+    backward, so bound the lanes by the sphere count on the card; the CPU
+    runs one chunk."""
+    if device.type == "cpu":
+        return 1 << 62
+    return max(4096, (1 << 21) // (16 + n_spheres))
+
+
 def _vjp_plain(scene, cam, cfg, albedo, emission, seed, g_rows,
                lay: ShardLayout, device):
     """torch.autograd of sum(g_rows · I) through the plain forward on the
-    lanes ``lay``; g_rows is (n_pix_loc, 3)."""
-    alb, emi = (t.requires_grad_() for t in _tables(
-        albedo, emission, scene.rects.k.shape[0], device))
-    with torch.enable_grad():
-        L, _ = _mat_plain(scene.to(device), cam, cfg, alb, emi, seed, lay,
-                          device)
-        return torch.autograd.grad(L, (alb, emi), grad_outputs=g_rows)
+    lanes ``lay``, the tables as leaves; g_rows is (n_pix_loc, 3). The
+    lanes run in chunks (``plain_chunk``: one on the CPU), their gradients
+    summed: exact up to summation order."""
+    sc, cm = scene.to(device), cam.to(device)
+    leaves = _tables(albedo, emission, _n_objects(sc), device)
+    pix, s_start, s_stop = shard_lanes(lay, device)
+    g_lane = g_rows.detach().to(device=device, dtype=torch.float32
+                                ).index_select(0, pix - lay.pix0)
+    grads = [torch.zeros_like(t) for t in leaves]
+    chunk = plain_chunk(num_spheres(sc), device)
+    for a in range(0, pix.shape[0], chunk):
+        z = slice(a, a + chunk)
+        with torch.enable_grad():
+            lv = [t.detach().requires_grad_() for t in leaves]
+            L, _ = path_trace_regen(unpack_materials(sc, *lv), cfg, int(seed),
+                                    cm, pix[z], s_start[z], s_stop[z])
+            parts = torch.autograd.grad(L, lv, grad_outputs=g_lane[z])
+        for acc, p in zip(grads, parts):
+            acc += p
+    return tuple(grads)
 
 
 def render_megakernel_vjp(scene: Scene, cam: CameraParams,
@@ -207,7 +276,6 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     d/d emission), each (K, 3), pathwise. The CUDA kernel on a CUDA device,
     the plain version on the CPU."""
     check_trainable(scene)
-    check_estimator(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
@@ -224,26 +292,34 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
 
 def _launch_vjp(scene, cam, cfg, albedo, emission, seed, g_rows,
                 lay: ShardLayout, device, geometry):
-    """megakernel_vjp (and its fixed-order reduction) on the lanes ``lay``
-    under the (n_pix_loc, 3) cotangent rows g_rows: (galb, gemi)."""
+    """Row 9 (``vjp_kernel_name``) and its fixed-order reduction on the
+    lanes ``lay`` under the (n_pix_loc, 3) cotangent rows g_rows: (galb,
+    gemi)."""
     geom = pack_geometry(scene, cam) if geometry is None else geometry
-    R = len(geom.rect_axis)
-    alb, emi = _tables(albedo, emission, R, device)
+    K = _n_objects(scene)
+    alb, emi = _tables(albedo, emission, K, device)
     g = g_rows.detach().to(device=device, dtype=torch.float32).contiguous()
     n_blocks = -(-lay.n_pix_loc * lay.g // KERNEL_BLOCK)
-    partials = torch.empty(n_blocks * 6 * R, dtype=torch.float32,
+    partials = torch.empty(n_blocks * 6 * K, dtype=torch.float32,
                            device=device)
-    out = torch.empty((2, R, 3), dtype=torch.float32, device=device)
+    out = torch.empty((2, K, 3), dtype=torch.float32, device=device)
     lib = _build.build_kernels().lib
+    tab = uses_sphere_table(scene)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        if tab:
+            sa = _table_args(lib, scene, alb, emi, device)
+            spheres = (*sa.args()[:4], sa.refl.data_ptr())
+        else:
+            spheres = (None, 0, None, 0, None)
         err = lib.spt_megakernel_vjp(
-            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
-            *launch_args(geom, cfg, seed, lay),
+            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+            len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
             alb.data_ptr(), emi.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), partials.numel(), out.data_ptr(), stream,
+            partials.data_ptr(), partials.numel(), out.data_ptr(),
+            EST_CODE[cfg.estimator], int(tab), *spheres, stream,
         )
-    count("megakernel_vjp", err)
+    count(vjp_kernel_name(scene, cfg), err)
     return out[0], out[1]
 
 
@@ -299,7 +375,6 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 
     Returns (optimized scene, list of per-step losses)."""
     check_trainable(scene)
-    check_estimator(cfg)
     if checkpoint or checkpoint_every:
         raise NotImplementedError(
             "fit checkpoints are not ported yet (ROADMAP.md queue 1, item "
@@ -347,11 +422,9 @@ def render_megakernel_mat_shard(scene: Scene, cam: CameraParams,
                                 geometry: KernelGeometry | None = None):
     """This rank's own partial of the runtime-material forward over all of
     spp: its pixel block's radiance sums over its dp sample range, before
-    any collective (megakernel_nee_mat on the shard's lanes on a CUDA
-    device). Returns ((n_pix_loc, 3) partial sums, traces (2,) int64 of
-    the shard)."""
+    any collective (row 8 on the shard's lanes on a CUDA device). Returns
+    ((n_pix_loc, 3) partial sums, traces (2,) int64 of the shard)."""
     check_trainable(scene)
-    check_estimator(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_shard_plain(scene, cam, cfg, mesh,
@@ -378,10 +451,9 @@ def render_megakernel_vjp_shard(scene: Scene, cam: CameraParams,
                                 geometry: KernelGeometry | None = None):
     """This rank's own partial of the material adjoint: the cotangents of
     sum(g_rows · I_loc) over its shard's lanes, where g_rows (n_pix_loc, 3)
-    holds the cotangents of its pixel block only (megakernel_vjp on a CUDA
+    holds the cotangents of its pixel block only (row 9 on a CUDA
     device). Returns (galb, gemi) partials, each (K, 3)."""
     check_trainable(scene)
-    check_estimator(cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_shard_plain(scene, cam, cfg, mesh,
@@ -409,7 +481,6 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
     Returns step(albedo, emission, seed) -> (loss (), galb (K, 3),
     gemi (K, 3)), the same on every rank."""
     check_trainable(scene)
-    check_estimator(cfg)
     device = _resolve(scene, device)
     lay = shard_of(cfg, mesh, what="spp")
     n_pix, spp = cfg.width * cfg.height, cfg.spp

@@ -323,8 +323,8 @@ def _refuse(call, exc, match):
 
 def test_refusals(cam, table):
     """nee with a guide (ValueError, cosine-continuation), mis (item 10),
-    the sphere_grid family and sphere_table on (sphere_table mode), per-pixel
-    budgets and training with another estimator than nee (item 10)."""
+    the sphere_grid family and sphere_table on (sphere_table mode), and
+    per-pixel budgets with another estimator than nee (item 10)."""
     box = spt.get_scene("cornell_box", device="cpu")
     grid = spt.get_scene("sphere_grid", device="cpu")
     sp = spt.get_scene("smallpt_original", device="cpu")
@@ -347,9 +347,20 @@ def test_refusals(cam, table):
     _refuse(lambda: mk.render_megakernel_budgets(
         box, cam[1], cos, 0, np.zeros(16), np.ones(16)),
         NotImplementedError, "item 10")
-    _refuse(lambda: mg.fit_megakernel(box, cam[1], cos,
-                                      torch.zeros(4, 4, 3), steps=1),
-            NotImplementedError, "item 10")
+
+
+def test_fit_takes_cosine(cam):
+    """Training takes the cosine estimator (rows 8 and 9 trace it): one
+    fit step on the box toward twice its own image gives a finite loss and
+    raises the light's emission."""
+    box = spt.get_scene("cornell_box", device="cpu")
+    cos = spt.RenderConfig(width=8, height=8, spp=2, estimator="cosine")
+    img, _ = mk.render_megakernel(box, cam[1], cos, 0)
+    fitted, losses = mg.fit_megakernel(box, cam[1], cos, img, steps=1)
+    assert len(losses) == 1 and losses[0] > 0.0
+    light = int(box.light.light_obj_id)
+    assert bool((fitted.rects.emission[light]
+                 > box.rects.emission[light]).all())
 
 
 def test_cli_render_guided(tmp_path, capsys, monkeypatch):

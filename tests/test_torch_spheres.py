@@ -2,8 +2,8 @@
 nearest hit and shading over rects and spheres, the SPEC and REFR scatter,
 the sphere-table kernel's plain version against the Pallas table kernel
 (interpret mode), the ``cornell_spheres`` golden, the presets, the
-``sphere_table`` values, and the refusal of sphere scenes by the training
-path."""
+``sphere_table`` values, and the training path's entry points on sphere
+scenes."""
 
 from pathlib import Path
 from typing import NamedTuple
@@ -397,11 +397,26 @@ def _training_calls(scene, cam, cfg):
                                   "render_megakernel_vjp", "RenderMaterials",
                                   "fit_megakernel"])
 @pytest.mark.parametrize("name", ["sphere_grid", "smallpt_original"])
-def test_training_refuses_sphere_scenes(name, call):
-    """Rows 8 and 9 know rects and DIFF only: every training entry point
-    refuses a sphere or SPEC/REFR scene on every device, the CPU too."""
+def test_training_takes_sphere_scenes(name, call):
+    """Every training entry point takes a sphere or SPEC/REFR scene (rows 8
+    and 9 trace the sphere table and the mirror and glass branches): on the
+    CPU the plain versions, finite results of the tables' (K, 3) shape, and
+    the forward with the scene's own tables is the render's, bit for
+    bit."""
     scene = spt.get_scene(name, device="cpu")
     cam = spt.make_camera(device="cpu")
     cfg = spt.RenderConfig(width=4, height=4, spp=1, seed=SEED)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 23"):
-        _training_calls(scene, cam, cfg)[call]()
+    K = scene.rects.k.shape[0] + scene.spheres.radius.shape[0]
+    out = _training_calls(scene, cam, cfg)[call]()
+    if call == "render_megakernel_mat":
+        assert all(torch.equal(a, b) for a, b in zip(
+            out, megakernel.render_megakernel(scene, cam, cfg, SEED)))
+    elif call == "render_megakernel_vjp":
+        assert all(t.shape == (K, 3) for t in out)
+        assert all(bool(torch.isfinite(t).all()) for t in out)
+    elif call == "RenderMaterials":
+        assert out.shape == (4, 4, 3) and bool(torch.isfinite(out).all())
+    else:
+        fitted, losses = out
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        assert mg.pack_materials(fitted)[0].shape == (K, 3)
