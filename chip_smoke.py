@@ -59,7 +59,17 @@ autograd through its plain version (and on 200-bounce paths), row 10's on
 each shard, the main path ``cli fit --scene smallpt_original --estimator
 cosine --train emission,albedo`` at 1024x768x512 (5 steps, the loss must
 fall) and a short fit of every other instance, with their x512 times; the
-sharded main path also takes one step of that fit over the mesh. The
+sharded main path also takes one step of that fit over the mesh. Then the
+other estimators in rows 1-7 (``est_phases``): ``uniform``,
+``uniform_corrected``, ``mixture``, ``mis`` and ``nee`` / ``mixture``
+with ``glibc_overflow`` through rows 1 and 2, every estimator but ``nee``
+through row 3, and guided ``mis`` through rows 4 and 5, each instance bit
+for bit against its plain version at 1024x768x4; ``cli render
+--estimator mis`` (this slice's main path) and every other case at
+1024x768x512, adaptive, checkpointed, ``--mesh 1x1``, per-shard and
+``--guided`` paths with their launches counted, each instance's x512
+event time and bound, and guiding's clamped MSE (guided against
+unguided ``mis`` on ``cornell_alcove_baffled``). The
 adjoint kernels'
 registers, stack frames (their tapes) and spills are logged from ptxas,
 their times against the function's bound and their algorithm's. Each path
@@ -144,6 +154,11 @@ FP_NODE, FP_ROW, FP_ROOT = 32, 22, 16
 # twin's plus the guide's bytes, still a lower bound.
 FP_SHADE_MIN, FP_COS_SAMPLE, FP_NEE, FP_DIRECT = 33, 83, 41, 12
 INT_DRAW, INT_WORD = 16, 6
+# mis's balance weights, counted from csrc/megakernel_lane.cuh as FP_SHADE:
+# at each probe p_bsdf 7, |cos_l| 6, p_light 4, the weight 3 and the
+# continuation's pdf 7 (the pickup's weight, on light hits only, is left
+# out: a lower bound).
+FP_MIS = 27
 # Path guiding's smoke runs: the CLI's defaults (beta 0.6, k 8, the
 # pre-pass at 1/8 of 1024x768 with 16 samples, 8 bounces, seed + 1) and the
 # agreement of a guided and an unguided render's linear means (the
@@ -266,14 +281,18 @@ def query_ops(n_rects: int, n_spheres: int = 0) -> int:
 def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
                   n_spheres: int = 0, span_bytes: int = 0, est: str = "nee",
                   diffuse_only: bool = True, scan=None):
-    """Forward kernels. nee: every counted probe follows one traced,
-    unfolded bounce (query, shading, probe, five draws); the extends beyond
-    it (RR deaths, folded bounces, SPEC/REFR bounces) are left out.
-    cosine and nee_textbook: every extend is a query with the least
-    shading; the diffuse bounces (nee_textbook: its probes; cosine: every
-    extend when ``diffuse_only``, else none) add the cosine sample, each
-    textbook probe the light sample, weight and direct term; the guided
-    mixture is left out. So this is a lower bound. Bytes: the per-lane radiance and the counters out, the
+    """Forward kernels. nee (and its glibc instance): every counted probe
+    follows one traced, unfolded bounce (query, shading, probe, five
+    draws); the extends beyond it (RR deaths, folded bounces, SPEC/REFR
+    bounces) are left out. mixture: the same, and the extends beyond two a
+    probe (its bounce and the folded one after it) each a query with the
+    least shading. cosine, uniform, uniform_corrected, nee_textbook and
+    mis: every extend is a query with the least shading; the diffuse
+    bounces (nee_textbook, mis: its probes; the others: every extend when
+    ``diffuse_only``, else none) add the hemisphere sample, each textbook
+    or mis probe the light sample, weight and direct term, each mis probe
+    its balance weights (FP_MIS); the guided mixture is left out. So this
+    is a lower bound. Bytes: the per-lane radiance and the counters out, the
     material tables (and, with spheres, the codes and sphere rows) in, and
     the budget kernels' span bounds or the guide table (span_bytes) in.
 
@@ -284,18 +303,23 @@ def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
     the tree's bytes."""
     extend, probe = traces
     q = query_ops(n_rects, 0 if scan is not None else n_spheres)
-    if est == "nee":
+    direct = est in ("nee_textbook", "mis")
+    if est in ("nee", "mixture"):
         fp = probe * (q + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
         it = probe * INT_BOUNCE + n_samples * INT_SPAWN
+        if est == "mixture":
+            rest = max(extend - 2 * probe, 0)
+            fp += rest * (q + FP_SHADE_MIN)
+            it += rest * (INT_DRAW + INT_WORD)
     else:
-        diffuse = probe if est == "nee_textbook" else (
-            extend if diffuse_only else 0)
+        diffuse = probe if direct else (extend if diffuse_only else 0)
         fp = (extend * (q + FP_SHADE_MIN) + diffuse * FP_COS_SAMPLE
               + n_samples * FP_SPAWN)
         it = (extend * (INT_DRAW + INT_WORD) + diffuse * 2 * INT_DRAW
               + n_samples * INT_SPAWN)
-        if est == "nee_textbook":
-            fp += probe * (FP_PROBE + FP_NEE + FP_DIRECT)
+        if direct:
+            fp += probe * (FP_PROBE + FP_NEE + FP_DIRECT
+                           + (FP_MIS if est == "mis" else 0))
             it += probe * 2 * INT_DRAW
     k = n_rects + n_spheres
     tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
@@ -2074,6 +2098,471 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
     return [entry(*k) for k in MAT_KERNELS], mat_shard
 
 
+# ROADMAP item 10's forward half: rows 1 and 2 with the other estimators and
+# light_sample_mode='glibc_overflow' (csrc/megakernel_est.cu), row 3 with
+# every estimator but nee (csrc/megakernel_budgets.cu), rows 4 and 5 with
+# mis (csrc/megakernel_guided.cu), rows 6 and 7 through them. Each case:
+# its label and RenderConfig fields; the kernels count their launches under
+# megakernel.kernel_name / guided_kernel_name.
+EST_CASES = {
+    "uniform": {"estimator": "uniform"},
+    "uniform_corrected": {"estimator": "uniform_corrected"},
+    "mixture": {"estimator": "mixture", "mixture_q": 0.5},
+    "mis": {"estimator": "mis"},
+    "nee_glibc": {"estimator": "nee", "light_sample_mode": "glibc_overflow"},
+    "mixture_glibc": {"estimator": "mixture",
+                      "light_sample_mode": "glibc_overflow"},
+}
+BUDGET_CASES = {"cosine": {"estimator": "cosine"},
+                "nee_textbook": {"estimator": "nee_textbook"}, **EST_CASES}
+# Guiding's own metric (tests/test_path_guiding.py): the clamped MSE of
+# guided and unguided mis at equal spp against a high-spp unguided mis
+# render, over seeds.
+MSE_SPPS, MSE_SEEDS, MSE_REF_SPP, MSE_REF_SEED = (16, 64), (0, 1, 2, 3), 4096, 100
+
+
+def est_argv(fields: dict) -> list[str]:
+    """cli render flags of a case's RenderConfig fields."""
+    argv = ["--estimator", fields["estimator"]]
+    if "mixture_q" in fields:
+        argv += ["--mixture-q", str(fields["mixture_q"])]
+    if "light_sample_mode" in fields:
+        argv += ["--light-sample-mode", fields["light_sample_mode"]]
+    return argv
+
+
+def est_phases(card: str, cli_main) -> list:
+    """ROADMAP item 10's forward half (EST_CASES, BUDGET_CASES, guided mis):
+    each new instance bit for bit against its plain version (kernel, plain,
+    kernel) at 1024x768x4: rows 1 and 2 on ``cornell_box``,
+    ``smallpt_original`` (the linear scan) and ``sphere_grid`` (the tree),
+    row 3 on ragged spans (75% empty) of the same scenes, rows 4 and 5 with
+    mis on ``cornell_alcove_baffled``, ``smallpt_original`` and
+    ``sphere_grid`` (sphere_table off), and an all-sentinel table against
+    unguided mis; then the paths at 1024x768x512 with the launch counts
+    cleared before each and read after: ``cli render --estimator mis`` (the
+    main path) and each other case on ``cornell_box`` and ``sphere_grid``,
+    ``--adaptive-tol 0.01 --estimator mis`` and ``--adaptive-tol 0
+    --adaptive-wave 256`` of each budget case (the uniform render's
+    traces; then each kernel's event time with every span x512), mis's
+    checkpointed spans and ``--mesh 1x1``, rows 7 and 6 with
+    mis on each shard of a 2x2 mesh against the unsharded kernel,
+    ``--guided --estimator mis`` (alcove, ``smallpt_original``) and row 5
+    through its wrapper; each instance's x512 event time and bound; and
+    guiding's clamped-MSE ratio. Returns the ``kernels`` entries."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.core import film
+    from small_pathtracer_tpu_torch.experiment import path_guiding as pg
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+    from small_pathtracer_tpu_torch.utils import checkpoint
+
+    lbn = megakernel.LAUNCHES
+    width, height = 1024, 768
+    n_pix = width * height
+    cam = make_camera(aspect=width / height)
+    sc_of = {n: get_scene(n) for n in ("cornell_box", "smallpt_original",
+                                       "sphere_grid",
+                                       "cornell_alcove_baffled")}
+    base = ["render", "--width", "1024", "--height", "768", "--spp", "512"]
+
+    def cfg_of(fields, spp, seed, **kw):
+        return RenderConfig(width=width, height=height, spp=spp, seed=seed,
+                            **fields, **kw)
+
+    def f_bound(sc, tr, n_samples, n_lanes, est, extra_bytes=0):
+        return forward_bound(tr, n_samples, n_lanes, sc.rects.k.shape[0],
+                             sc.spheres.radius.shape[0], extra_bytes, est,
+                             not megakernel.uses_sphere_table(sc))
+
+    def parity(label, name, kernel_fn, plain_fn, bound_fn):
+        """kernel, plain, kernel: the kernel runs bit-identical, the plain
+        version's equal bit for bit, two launches counted under name."""
+        before = lbn[name]
+        outs, med = in_turns({"kernel": kernel_fn, "plain": plain_fn},
+                             ("kernel", "plain", "kernel"))
+        if lbn[name] != before + 2:
+            raise AssertionError(f"{label}: {name} did not count 2 launches")
+        (k_img, k_tr), (k2_img, k2_tr) = outs["kernel"]
+        p_img, p_tr = outs["plain"][0]
+        if not (torch.equal(k_img, k2_img) and torch.equal(k_tr, k2_tr)):
+            raise AssertionError(f"{label}: kernel runs differ")
+        err_ = float((k_img - p_img).abs().max())
+        b = bound_fn(k_tr.tolist())
+        log(f"[smoke] {label}: {name} {med['kernel'] * 1e3:.3f} ms traces "
+            f"{k_tr.tolist()}; plain {med['plain'] * 1e3:.3f} ms traces "
+            f"{p_tr.tolist()}; max |diff| {err_:.3e}; bound {b[0]:.3f} ms "
+            f"({b[1]})")
+        if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
+            raise AssertionError(f"{label}: kernel and plain version differ")
+        return {"err": err_, "ms": med["kernel"] * 1e3,
+                "plain_ms": med["plain"] * 1e3, "bound": b}
+
+    par = {}  # kernel name -> its reported parity run
+    phase("rows 1 and 2 with the item 10 estimators against their plain "
+          "version 1024x768x4: cornell_box, smallpt_original (linear), "
+          "sphere_grid (tree)")
+    for label, fields in EST_CASES.items():
+        for nm in ("cornell_box", "smallpt_original", "sphere_grid"):
+            sc = sc_of[nm]
+            cfg = cfg_of(fields, 4, 21)
+            name = megakernel.kernel_name(sc, cfg)
+            r = parity(
+                f"{label} {nm} 1024x768x4 seed 21", name,
+                lambda: megakernel.render_megakernel(sc, cam, cfg, 21),
+                lambda: megakernel.render_megakernel_plain(sc, cam, cfg, 21),
+                lambda tr: f_bound(sc, tr, n_pix * 4, n_pix,
+                                   fields["estimator"]))
+            par.setdefault(name, r)
+
+    phase("row 3 with every estimator but nee against its plain version, "
+          "1024x768 ragged spans: cornell_box, sphere_grid (tree), "
+          "smallpt_original (linear)")
+    for label, fields in BUDGET_CASES.items():
+        for i, nm in enumerate(("cornell_box", "sphere_grid",
+                                "smallpt_original")):
+            sc = sc_of[nm]
+            cfg = cfg_of(fields, 64, 22 + i)
+            a, b_ = ragged_spans(n_pix, 4, 3, 22 + i, empty=0.75)
+            name = megakernel.kernel_name(sc, cfg, "_budgets")
+            n_samples = int((b_ - a).sum())
+            r = parity(
+                f"budgets {label} {nm} spans [0,4) + [0,3]", name,
+                lambda: megakernel.render_megakernel_budgets(
+                    sc, cam, cfg, 22 + i, a, b_),
+                lambda: megakernel.render_megakernel_budgets_plain(
+                    sc, cam, cfg, 22 + i, a, b_),
+                lambda tr: f_bound(sc, tr, n_samples, n_pix,
+                                   fields["estimator"], 2 * 4 * n_pix))
+            par.setdefault(name, r)
+
+    phase("train_guide at the CLI's pre-pass size on cornell_alcove_baffled, "
+          "smallpt_original, sphere_grid")
+    tcfg = RenderConfig(width=128, height=96, spp=16, seed=1)
+    guides = {nm: pg.guide_lobes(pg.train_guide(sc_of[nm], cam, tcfg, 8, 1))
+              for nm in ("cornell_alcove_baffled", "smallpt_original",
+                         "sphere_grid")}
+    mis = EST_CASES["mis"]
+
+    def guided_fn(primary, plain=False):
+        if primary:
+            return (megakernel.render_megakernel_guided_primary_plain
+                    if plain else megakernel.render_megakernel_guided_primary)
+        return (megakernel.render_megakernel_guided_plain if plain
+                else megakernel.render_megakernel_guided)
+
+    def guide_bytes(primary):
+        return (n_pix if primary else pg.N_VOXELS) * 4
+
+    phase("rows 4 and 5 with mis against their plain version 1024x768x4: "
+          "cornell_alcove_baffled, smallpt_original (linear), sphere_grid "
+          "(tree); an all-sentinel table against unguided mis")
+    empty = (torch.zeros((pg.N_VOXELS, 3), device="cuda"),
+             torch.zeros(pg.N_VOXELS, dtype=torch.bool, device="cuda"))
+    for nm, g in guides.items():
+        sc = sc_of[nm]
+        cfg = cfg_of(mis, 4, 23, sphere_table="off")
+        for primary in (0, 1):
+            name = megakernel.guided_kernel_name(sc, cfg, primary)
+            r = parity(
+                f"row {4 + primary} mis {nm} 1024x768x4 seed 23", name,
+                lambda: guided_fn(primary)(sc, cam, cfg, 23, g, GUIDE_BETA,
+                                           GUIDE_K),
+                lambda: guided_fn(primary, True)(sc, cam, cfg, 23, g,
+                                                 GUIDE_BETA, GUIDE_K),
+                lambda tr: f_bound(sc, tr, n_pix * 4, n_pix, "mis",
+                                   guide_bytes(primary)))
+            par.setdefault(name, r)
+            u = megakernel.render_megakernel(sc, cam, cfg, 23)
+            e = guided_fn(primary)(sc, cam, cfg, 23, empty, GUIDE_BETA,
+                                   GUIDE_K)
+            if not (torch.equal(u[0], e[0]) and torch.equal(u[1], e[1])):
+                raise AssertionError(f"empty table row {4 + primary} {nm}: "
+                                     "guided mis differs from unguided mis")
+        log(f"[smoke] empty table {nm} mis: rows 4 and 5 equal the unguided "
+            "mis kernel bit for bit")
+
+    main_launch = {}  # kernel name -> launches in its path's run
+
+    def run_path(label, argv, name, n_expect=1):
+        """A cli render at 1024x768x512 with the counts cleared before it:
+        it must launch name n_expect times and nothing else. Returns
+        (traces, seconds, stderr)."""
+        lbn.clear()
+        with tempfile.TemporaryDirectory() as tmp:
+            text = cli_stderr(cli_main, base + argv + [
+                "-o", os.path.join(tmp, "out.ppm")])
+        counts = dict(lbn)
+        if counts != {name: n_expect}:
+            raise AssertionError(f"{label} launched {counts}, expected "
+                                 f"{name} x{n_expect}")
+        main_launch.setdefault(name, n_expect)
+        rays, secs = cli_traces(text)
+        return rays, secs, text
+
+    def x512(label, name, fn, sc, est, extra_bytes=0):
+        """Three launches in a row (CUDA events) after the one that reads the
+        traces; logs and returns (ms, traces, bound)."""
+        tr = fn()[1].tolist()
+        ms = event_ms(fn, 3)
+        b = f_bound(sc, tr, n_pix * 512, n_pix, est, extra_bytes)
+        log(f"[smoke] {label} 1024x768x512 seed 0: {name} {ms:.3f} ms a "
+            f"launch (CUDA events), traces {tr}; bound {b[0]:.3f} ms "
+            f"({b[1]}) on {card}")
+        return ms, tr, b
+
+    phase("main path, cli render --estimator mis 1024x768x512")
+    box = sc_of["cornell_box"]
+    cfg_mis = cfg_of(mis, 512, 0)
+    rays, secs, _ = run_path("cli render --estimator mis", est_argv(mis),
+                             "megakernel_mis")
+    ms, tr, _ = x512("mis cornell_box", "megakernel_mis",
+                     lambda: megakernel.render_megakernel(box, cam, cfg_mis,
+                                                          0), box, "mis")
+    if sum(tr) != rays:
+        raise AssertionError("cli render's traces differ from the wrapper's")
+    log(f"[smoke] main path cli render --estimator mis: 1 launch of "
+        f"megakernel_mis, {rays} rays in {secs:.3f} s = "
+        f"{rays / secs / 1e6:.1f} Mrays/s wall on {card}; kernel {ms:.3f} ms"
+        f" = {rays / ms / 1e3:.1f} Mrays/s")
+
+    phase("rows 1 and 2 at 1024x768x512: cli render of every item 10 case on "
+          "cornell_box and sphere_grid, and each one's event time")
+    uniform_tr = {}  # (label, scene) -> x512 traces
+    for label, fields in BUDGET_CASES.items():
+        for nm in ("cornell_box", "sphere_grid"):
+            sc = sc_of[nm]
+            cfg = cfg_of(fields, 512, 0)
+            name = megakernel.kernel_name(sc, cfg)
+            fn = (lambda: megakernel.render_megakernel(sc, cam, cfg, 0))
+            if label in EST_CASES and not (label == "mis"
+                                           and nm == "cornell_box"):
+                rays, _, _ = run_path(f"cli render {nm} {label}",
+                                      est_argv(fields) + ["--scene", nm],
+                                      name)
+                ms, tr, _ = x512(f"{label} {nm}", name, fn, sc,
+                                 fields["estimator"])
+                if sum(tr) != rays:
+                    raise AssertionError(f"{label} {nm}: cli traces differ")
+            else:
+                tr = fn()[1].tolist()
+            uniform_tr[(label, nm)] = tr
+
+    phase("row 3 at 1024x768x512: cli render --adaptive-tol 0.01 --estimator "
+          "mis, and --adaptive-tol 0 --adaptive-wave 256 of every budget "
+          "case on cornell_box and sphere_grid, and each one's event time "
+          "with every span x512")
+    lbn.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        text = cli_stderr(cli_main, base + est_argv(mis) + [
+            "--adaptive-tol", "0.01", "-o", os.path.join(tmp, "a.png")])
+    counts = dict(lbn)
+    m_ = re.search(r"\[adaptive\] (\d+) waves, (\d+) samples \((\d+)% ",
+                   text)
+    n_waves = int(m_.group(1))
+    if counts != {"megakernel_mis_budgets": n_waves}:
+        raise AssertionError(f"adaptive mis launched {counts} for {n_waves} "
+                             "waves")
+    main_launch["megakernel_mis_budgets"] = n_waves
+    rays, secs = cli_traces(text)
+    log(f"[smoke] adaptive mis cornell_box tol 0.01: {n_waves} waves = "
+        f"{n_waves} launches of megakernel_mis_budgets, {m_.group(2)} samples "
+        f"= {m_.group(3)}% of uniform, {rays} rays in {secs:.3f} s = "
+        f"{rays / secs / 1e6:.1f} Mrays/s")
+    for label, fields in BUDGET_CASES.items():
+        for nm in ("cornell_box", "sphere_grid"):
+            sc = sc_of[nm]
+            name = megakernel.kernel_name(sc, cfg_of(fields, 512, 0),
+                                          "_budgets")
+            rays, _, _ = run_path(
+                f"adaptive tol 0 {label} {nm}", est_argv(fields) + [
+                    "--scene", nm, "--adaptive-tol", "0", "--adaptive-wave",
+                    "256"], name, 2)
+            if rays != sum(uniform_tr[(label, nm)]):
+                raise AssertionError(f"adaptive tol 0 {label} {nm}: traces "
+                                     f"{rays}, uniform "
+                                     f"{sum(uniform_tr[(label, nm)])}")
+            # The launch alone with every pixel's span all of x512 (the
+            # wave function packs the scene once), against the render.
+            wave = megakernel.budget_waves(sc, cam, cfg_of(fields, 512, 0))
+            a0 = torch.zeros(n_pix, dtype=torch.int32, device="cuda")
+            b0 = torch.full((n_pix,), 512, dtype=torch.int32, device="cuda")
+            live = torch.arange(n_pix, dtype=torch.int32, device="cuda")
+            _, tr, _ = x512(f"budgets {label} {nm}, every span x512", name,
+                            lambda: wave(0, a0, b0, live), sc,
+                            fields["estimator"], 2 * 4 * n_pix)
+            if tr != uniform_tr[(label, nm)]:
+                raise AssertionError(f"budgets {label} {nm}: full spans' "
+                                     f"traces {tr}, the render's "
+                                     f"{uniform_tr[(label, nm)]}")
+        log(f"[smoke] adaptive tol 0 {label}: 2 launches of each budget "
+            "kernel, the uniform render's traces")
+
+    phase("mis spans and shards at 1024x768x512: --checkpoint "
+          "--checkpoint-every 128 --preview, --mesh 1x1 (nccl); rows 7 and 6 "
+          "with mis on each shard of a 2x2 mesh at 1024x768x4")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, pv = os.path.join(tmp, "r.ckpt"), os.path.join(tmp, "p.png")
+        a, b_ = os.path.join(tmp, "a.ppm"), os.path.join(tmp, "b.ppm")
+        lbn.clear()
+        text = cli_stderr(cli_main, base + est_argv(mis) + [
+            "--checkpoint", ck, "--checkpoint-every", "128", "--preview", pv,
+            "-o", os.path.join(tmp, "ck.png")])
+        n_ck = lbn["megakernel_mis"]
+        ck_rays, _ = cli_traces(text)
+        img_ck, _ = checkpoint.render_with_checkpoints(box, cam, cfg_mis, "",
+                                                       128)
+        img_u = film.finalize(megakernel.render_megakernel(
+            box, cam, cfg_mis, 0)[0] / torch.tensor(512.0, device="cuda"))
+        ck_err = float((img_ck - img_u).abs().max())
+        log(f"[smoke] mis checkpoint: {n_ck} span launches of "
+            f"megakernel_mis, traces {ck_rays} (one launch "
+            f"{sum(uniform_tr[('mis', 'cornell_box')])}), max |span image - "
+            f"one-launch image| {ck_err:.3e}")
+        if not (n_ck == 4 and ck_rays == sum(uniform_tr[("mis",
+                                                         "cornell_box")])
+                and ck_err <= 1e-5):
+            raise AssertionError("mis's checkpointed render differs")
+        lbn.clear()
+        cli_stderr(cli_main, base + est_argv(mis) + ["-o", a])
+        cli_stderr(cli_main, base + est_argv(mis) + [
+            "--mesh", "1x1", "--dist-backend", "nccl", "-o", b_])
+        same = Path(a).read_bytes() == Path(b_).read_bytes()
+        log(f"[smoke] mis --mesh 1x1 (nccl): launches {dict(lbn)}, output "
+            f"bytes equal to cli render's: {same}")
+        if not (same and dict(lbn) == {"megakernel_mis": 2}):
+            raise AssertionError("mis --mesh 1x1 differs from cli render")
+    coords = [(i, j) for i in range(2) for j in range(2)]
+    cfg4 = cfg_of(mis, 4, 24, sphere_table="off")
+    alc = sc_of["cornell_alcove_baffled"]
+    g_alc = guides["cornell_alcove_baffled"]
+    for label, name, fn, want in (
+            ("row 7 mis cornell_box", "megakernel_mis",
+             lambda m: megakernel.render_megakernel_sharded(box, cam, cfg4, m,
+                                                            24),
+             lambda: megakernel.render_megakernel(box, cam, cfg4, 24)),
+            ("row 6 mis cornell_alcove_baffled", "megakernel_guided_mis",
+             lambda m: megakernel.render_megakernel_guided_sharded(
+                 alc, cam, cfg4, m, 24, g_alc, GUIDE_BETA, GUIDE_K),
+             lambda: megakernel.render_megakernel_guided(
+                 alc, cam, cfg4, 24, g_alc, GUIDE_BETA, GUIDE_K))):
+        lbn.clear()
+        parts = {c: fn(Mesh.single((2, 2), c)) for c in coords}
+        n_sh = lbn[name]
+        img = torch.cat([parts[(i, 0)][0] + parts[(i, 1)][0]
+                         for i in range(2)]).reshape(height, width, 3)
+        tr = sum(v[1] for v in parts.values())
+        w_img, w_tr = want()
+        err_ = float((img - w_img).abs().max())
+        log(f"[smoke] {label} 2x2 shards: {n_sh} launches of {name}, traces "
+            f"{tr.tolist()} (unsharded {w_tr.tolist()}), max |sum - "
+            f"unsharded| {err_:.3e}")
+        if not (n_sh == 4 and torch.equal(tr, w_tr) and torch.allclose(
+                img, w_img, rtol=SHARD_RTOL, atol=SHARD_ATOL)):
+            raise AssertionError(f"{label}: the shards' sum differs")
+
+    phase("guided mis at 1024x768x512: cli render --guided --estimator mis "
+          "(cornell_alcove_baffled, smallpt_original), row 5 through its "
+          "wrapper, event times")
+    for nm in ("cornell_alcove_baffled", "smallpt_original"):
+        sc = sc_of[nm]
+        cfg = cfg_of(mis, 512, 0)
+        name = megakernel.guided_kernel_name(sc, cfg)
+        rays, secs, text = run_path(f"cli render --guided {nm} mis",
+                                    est_argv(mis) + ["--scene", nm,
+                                                     "--guided"], name)
+        g = guides[nm]
+        ms, tr, _ = x512(f"guided mis {nm}", name, lambda: guided_fn(0)(
+            sc, cam, cfg, 0, g, GUIDE_BETA, GUIDE_K), sc, "mis",
+            guide_bytes(0))
+        if sum(tr) != rays:
+            raise AssertionError(f"guided mis {nm}: the CLI's table differs "
+                                 "from train_guide's")
+        log(f"[smoke] cli render --guided {nm} mis: 1 launch of {name}, "
+            f"{rays} rays in {secs:.3f} s = {rays / secs / 1e6:.1f} Mrays/s")
+        lbn.clear()
+        p_name = megakernel.guided_kernel_name(sc, cfg, 1)
+        fn = (lambda: guided_fn(1)(sc, cam, cfg, 0, g, GUIDE_BETA, GUIDE_K))
+        img, _ = fn()
+        if dict(lbn) != {p_name: 1} or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{p_name}: launches {dict(lbn)} or a "
+                                 "non-finite image")
+        main_launch[p_name] = 1
+        x512(f"guided primary mis {nm}", p_name, fn, sc, "mis",
+             guide_bytes(1))
+
+    phase(f"guiding's clamped MSE, cornell_alcove_baffled mis 1024x768: "
+          f"guided and unguided at {MSE_SPPS} spp, seeds {MSE_SEEDS}, against "
+          f"unguided mis at {MSE_REF_SPP} spp")
+
+    def clamped(img, spp):
+        return torch.clamp(img / torch.tensor(float(spp), device="cuda"),
+                           0.0, 1.0)
+
+    ref = clamped(megakernel.render_megakernel(
+        alc, cam, cfg_of(mis, MSE_REF_SPP, MSE_REF_SEED), MSE_REF_SEED)[0],
+        MSE_REF_SPP)
+    for spp in MSE_SPPS:
+        mse = {"guided": [], "unguided": []}
+        for seed in MSE_SEEDS:
+            cfg = cfg_of(mis, spp, seed)
+            for kind, img in (
+                    ("guided", megakernel.render_megakernel_guided(
+                        alc, cam, cfg, seed, g_alc, GUIDE_BETA, GUIDE_K)[0]),
+                    ("unguided", megakernel.render_megakernel(
+                        alc, cam, cfg, seed)[0])):
+                mse[kind].append(float(
+                    ((clamped(img, spp) - ref) ** 2).double().mean()))
+        ratio = np.mean(mse["unguided"]) / np.mean(mse["guided"])
+        log(f"[smoke] clamped MSE at {spp} spp against {MSE_REF_SPP} spp: "
+            f"guided {np.mean(mse['guided']):.6e} {mse['guided']}, unguided "
+            f"{np.mean(mse['unguided']):.6e} {mse['unguided']}; unguided / "
+            f"guided {ratio:.4f} (the JAX package's TPU-era claim: 1.40)")
+    # Equal time: MSE falls as 1 / spp, so the ratio at equal card time is
+    # the equal-spp ratio times the unguided kernel's time over the guided
+    # one's (x512 event times; the guide's pre-pass left out).
+    cfg = cfg_of(mis, 512, 0)
+    t_g = event_ms(lambda: megakernel.render_megakernel_guided(
+        alc, cam, cfg, 0, g_alc, GUIDE_BETA, GUIDE_K), 3)
+    t_u = event_ms(lambda: megakernel.render_megakernel(alc, cam, cfg, 0), 3)
+    log(f"[smoke] cornell_alcove_baffled mis 1024x768x512: guided "
+        f"{t_g:.3f} ms, unguided {t_u:.3f} ms (CUDA events) on {card}; the "
+        f"{MSE_SPPS[-1]}-spp ratio at equal card time "
+        f"{ratio * t_u / t_g:.4f}")
+
+    def entry(name, source, replaces):
+        r = par[name]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": "small_pathtracer_tpu/ops/" + replaces,
+                "launches": main_launch[name], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None}
+
+    out = []
+    for label, fields in BUDGET_CASES.items():
+        est = fields["estimator"]
+        for nm, src, what in (("cornell_box", "megakernel_est.cu", ""),
+                              ("sphere_grid", "megakernel_est.cu",
+                               "sphere_tab, ")):
+            cfg = cfg_of(fields, 4, 0)
+            if label in EST_CASES:
+                out.append(entry(megakernel.kernel_name(sc_of[nm], cfg), src,
+                                 f"megakernel.py:1203 ({what}{label}, call "
+                                 ":2670)"))
+            out.append(entry(megakernel.kernel_name(sc_of[nm], cfg,
+                                                    "_budgets"),
+                             "megakernel_budgets.cu",
+                             f"megakernel.py:2783 ({what}{label})"))
+    for nm, what in (("cornell_alcove_baffled", ""),
+                     ("smallpt_original", "sphere scenes, ")):
+        for primary, site in ((0, "2972"), (1, "3111")):
+            out.append(entry(megakernel.guided_kernel_name(
+                sc_of[nm], cfg_mis, primary), "megakernel_guided.cu",
+                f"megakernel.py:{site} ({what}mis)"))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the smoke run needs a GPU")
@@ -2991,6 +3480,7 @@ def main() -> int:
     geo = geom_phases(card, cli_main)
     deep_phase()
     mat_entries, mat_shard = mat_phases(card, cli_main)
+    est_entries = est_phases(card, cli_main)
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
                          mat_shard)
 
@@ -3022,11 +3512,12 @@ def main() -> int:
               "megakernel.py:1203 (sphere_tab, call :2670)", tab_launches,
               tab["sphere_grid"]["err"], tab["sphere_grid"]["ms"],
               tab["sphere_grid"]["plain_ms"], tab["sphere_grid"]["bound"]),
-        entry("megakernel_nee_budgets", "megakernel.cu", "megakernel.py:2783",
+        entry("megakernel_nee_budgets", "megakernel_budgets.cu",
+              "megakernel.py:2783",
               adaptive_launches["cornell_box"], bud["cornell_box"]["err"],
               bud["cornell_box"]["ms"], bud["cornell_box"]["plain_ms"],
               bud["cornell_box"]["bound"]),
-        entry("megakernel_nee_tab_budgets", "megakernel.cu",
+        entry("megakernel_nee_tab_budgets", "megakernel_budgets.cu",
               "megakernel.py:2783", adaptive_launches["sphere_grid"],
               bud["sphere_grid"]["err"], bud["sphere_grid"]["ms"],
               bud["sphere_grid"]["plain_ms"], bud["sphere_grid"]["bound"]),
@@ -3040,6 +3531,7 @@ def main() -> int:
                 r["plain_ms"], r["bound"])
           for name, source, replaces, launch, r in shard),
         *mat_entries,
+        *est_entries,
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -52,7 +52,9 @@ from ..integrator.wavefront import render
 from ..experiment.path_guiding import (
     guide_lobes, render_guided_online, train_guide,
 )
-from ..ops.megakernel import render_megakernel, render_megakernel_guided
+from ..ops.megakernel import (
+    GUIDED_ESTIMATORS, render_megakernel, render_megakernel_guided,
+)
 from ..ops import megakernel_geom
 from ..parallel.launcher import init_distributed
 from ..parallel.mesh import make_mesh
@@ -73,7 +75,17 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)
     p.add_argument("--spp", type=int, default=16)
-    p.add_argument("--estimator", default="nee", choices=ESTIMATORS)
+    p.add_argument("--estimator", default="nee", choices=ESTIMATORS,
+                   help="uniform | uniform_corrected | cosine | nee | "
+                        "mixture | nee_textbook (unbiased shadow-ray NEE) "
+                        "| mis (balance-heuristic MIS over light + BSDF "
+                        "sampling)")
+    p.add_argument("--mixture-q", type=float, default=0.5,
+                   help="NEE probability of --estimator mixture")
+    p.add_argument("--light-sample-mode", default="intended",
+                   choices=["intended", "glibc_overflow"],
+                   help="glibc_overflow: the reference's Linux light "
+                        "sampler (nee and mixture only)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernel) or cpu (eager)")
@@ -122,8 +134,9 @@ def _distributed(args):
 def _build(args, device=None):
     device = resolve(args.device) if device is None else device
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       estimator=args.estimator, seed=args.seed,
-                       sphere_table=args.sphere_table)
+                       estimator=args.estimator, mixture_q=args.mixture_q,
+                       light_sample_mode=args.light_sample_mode,
+                       seed=args.seed, sphere_table=args.sphere_table)
     scene = get_scene(args.scene, device=device)
     cam = make_camera(aspect=args.width / args.height, device=device)
     return scene, cam, cfg
@@ -177,9 +190,9 @@ def _render_guided_cli(args, scene, cam, cfg, mesh=None):
     pixels), its lobe table, then the guided render (online, in
     checkpointed or sharded spans, or one launch). Every rank of a mesh
     trains the same table. Returns (clamped linear image, traces)."""
-    if cfg.estimator not in ("cosine", "nee_textbook"):
+    if cfg.estimator not in GUIDED_ESTIMATORS:
         raise SystemExit(
-            "--guided requires --estimator cosine or nee_textbook "
+            "--guided requires --estimator cosine, nee_textbook, or mis "
             "(C13-continuation estimators replace the bounce with the "
             "light sample, leaving nothing to guide)"
         )
@@ -419,7 +432,7 @@ def cmd_fit(args) -> int:
             f"optimizer={args.optimizer}, fields={fields})"
         )
     scene, cam, cfg = _build(args)
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     if args.target:
         target = _read_target(args.target, cfg, scene.device)
     else:
@@ -483,8 +496,8 @@ def main(argv=None) -> int:
         "--guided", action="store_true",
         help="voxel path guiding (experiment/path_guiding.py): train a lobe "
              "table with a short pre-pass, then importance-sample the guided "
-             "mixture through the guided kernel; estimator must be cosine "
-             "or nee_textbook")
+             "mixture through the guided kernel; estimator must be cosine, "
+             "nee_textbook or mis")
     p_render.add_argument(
         "--guide-beta", type=float, default=0.6,
         help="guided-mixture lobe probability in guided voxels")

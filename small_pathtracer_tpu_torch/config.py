@@ -2,10 +2,14 @@
 
 The field set and defaults are the JAX package's, minus ``use_pallas``: the
 device of the scene tensors decides the path (``integrator.wavefront.
-render_counts``). The port runs the ``nee``, ``cosine`` and ``nee_textbook``
-estimators with the hash sampler, the box filter and the pinhole camera on
-the regenerating schedule; every other value of a field raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+render_counts``). The port renders all seven estimators, with
+``mixture_q`` and both light-sample modes (``glibc_overflow`` applies to
+``nee`` and ``mixture`` only, as in the JAX package), with the hash
+sampler, the box filter and the pinhole camera on the regenerating
+schedule; every other value of a field raises NotImplementedError naming
+the ROADMAP.md item that ports it. Training takes fewer estimators than
+rendering: its entry points refuse the others themselves
+(``ops/megakernel_grad.py``, ``ops/megakernel_geom.py``).
 
 ``sphere_table`` takes the JAX package's five values and changes nothing:
 on the card every scene with spheres (or SPEC/REFR objects) runs through
@@ -31,9 +35,6 @@ ESTIMATORS = (
     "nee_textbook",
     "mis",
 )
-
-# The estimators the port renders; the others wait for ROADMAP item 10.
-PORTED_ESTIMATORS = ("nee", "cosine", "nee_textbook")
 
 # The JAX package's "auto" sphere_table threshold: its guided kernels refuse
 # the scenes it would route through the sphere table (ops/megakernel.py
@@ -70,17 +71,9 @@ class RenderConfig:
             raise ValueError(
                 f"unknown estimator {self.estimator!r}; one of {ESTIMATORS}"
             )
-        if self.estimator not in PORTED_ESTIMATORS:
-            raise NotImplementedError(
-                f"estimator {self.estimator!r} " + _LATER.format(10)
-            )
         if self.light_sample_mode not in ("intended", "glibc_overflow"):
             raise ValueError(
                 f"unknown light_sample_mode {self.light_sample_mode!r}"
-            )
-        if self.light_sample_mode != "intended":
-            raise NotImplementedError(
-                "light_sample_mode='glibc_overflow' " + _LATER.format(10)
             )
         if self.light_select not in ("power", "uniform"):
             raise ValueError(f"unknown light_select {self.light_select!r}")

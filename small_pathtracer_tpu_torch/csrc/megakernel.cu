@@ -38,17 +38,8 @@
 //   cluster pruning and lane swizzle work around lockstep TPU lanes (a
 //   per-lane gather costs a TPU a scan of the table) and change no pixel;
 //   they are not carried over.
-// - megakernel_nee_budgets and megakernel_nee_tab_budgets replace
-//   `_build_render_budgets` (megakernel.py:2756, its `pallas_call` at
-//   :2783) as `render_pallas_budgets` builds it for the adaptive waves of
-//   utils/adaptive.py: rows 1 and 2 with per-pixel sample budgets. The
-//   wrapper lists the pixels with a non-empty span (an int32 device array)
-//   and launches one lane for each: lane i renders pixel live[i]'s span
-//   [s_start, s_stop), read from two int32 device arrays
-//   (lane_range_budgets), and writes that pixel's row. The TPU kernel's
-//   padded px, py and pid_base planes are derived from the pixel instead.
-//   So a late wave, where most pixels have stopped, launches only its live
-//   pixels' lanes; each pixel is still summed by one lane in sample order.
+// - Row 3, the per-pixel budget kernels of every estimator, is in
+//   megakernel_budgets.cu.
 // - megakernel_cosine / megakernel_textbook and megakernel_cosine_tab /
 //   megakernel_textbook_tab are rows 1 and 2 (`build_kernel` with
 //   estimator "cosine" or "nee_textbook") with the same loop body: the
@@ -121,20 +112,6 @@ __global__ void __launch_bounds__(kBlock)
       p, lane_range(p), BakedMaterials{p}, SphereTab{}, false, out_l, traces);
 }
 
-// Row 3 on rect-only DIFF scenes: row 1 with one lane a live pixel and
-// its span read from s_start / s_stop.
-__global__ void __launch_bounds__(kBlock)
-    megakernel_nee_budgets(const __grid_constant__ Params p,
-                           const int* __restrict__ live,
-                           const int* __restrict__ s_start,
-                           const int* __restrict__ s_stop,
-                           float* __restrict__ out_l,
-                           unsigned long long* __restrict__ traces) {
-  render_lane<BakedMaterials, kTabNone, kNee, NoGuide, true>(
-      p, lane_range_budgets(p, live, s_start, s_stop), BakedMaterials{p},
-      SphereTab{}, p.fold != 0, out_l, traces);
-}
-
 // Row 8 on rect-only DIFF scenes, estimator kEst: the tables copied into
 // shared memory once a block; the NEE fold (kNee only) decided from the
 // light's row.
@@ -189,29 +166,6 @@ SPT_TAB_KERNEL(megakernel_nee_tab, kNee)
 SPT_TAB_KERNEL(megakernel_cosine_tab, kCosine)
 SPT_TAB_KERNEL(megakernel_textbook_tab, kTextbook)
 #undef SPT_TAB_KERNEL
-
-// Row 3 on scenes with spheres or SPEC/REFR objects: row 2 with one lane a
-// live pixel and its span read from s_start / s_stop.
-template <int kScan>
-__global__ void __launch_bounds__(kBlock)
-    megakernel_nee_tab_budgets(const __grid_constant__ Params p,
-                               const float4* __restrict__ sph, int n_sph,
-                               const float4* __restrict__ bvh, int root,
-                               const float* __restrict__ alb,
-                               const float* __restrict__ emi,
-                               const int* __restrict__ refl,
-                               const int* __restrict__ live,
-                               const int* __restrict__ s_start,
-                               const int* __restrict__ s_stop,
-                               float* __restrict__ out_l,
-                               unsigned long long* __restrict__ traces) {
-  const TableMaterials mats{alb, emi};
-  const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, kScan, kNee, NoGuide, true>(
-      p, lane_range_budgets(p, live, s_start, s_stop), mats,
-      sphere_tab(sph, n_sph, refl, bvh, root),
-      fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
-}
 
 // The sphere table's two scans on given rays, for the smoke run's checks
 // against the plain version (rays of its choosing: grazing, on faces,
@@ -363,57 +317,6 @@ extern "C" int spt_megakernel_tab(int est, int count, const float* rect_geom,
       p, reinterpret_cast<const float4*>(sph), n_spheres,
       reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, out_l,
       traces);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Row 3, per-pixel budgets: one lane a live pixel, n_live lanes (1 to
-// width * height), lane i rendering samples [s_start[j], s_stop[j]) of
-// pixel j = live[i]; live (n_live,), s_start and s_stop (width * height,)
-// int32 device arrays. out_l is (width * height, 3), zeroed: the kernel
-// writes the live pixels' rows. Baked materials and the NEE fold as row 1.
-extern "C" int spt_megakernel_nee_budgets(
-    const float* rect_geom, const int* rect_axis, const float* rect_alb,
-    const float* rect_emi, int n_rects, const float* light_f, int light_id,
-    const float* cam_f, unsigned seed, int width, int height, int spp,
-    int rr_start_depth, int max_bounces, int fold, const int* live,
-    int n_live, const int* s_start, const int* s_stop, float* out_l,
-    unsigned long long* traces, void* stream) {
-  Params p;
-  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, 1, 0, 0u, 0, n_live,
-                   rr_start_depth, max_bounces)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  bake_materials(&p, rect_alb, rect_emi, n_rects, fold);
-  megakernel_nee_budgets<<<grid_of(p), kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      p, live, s_start, s_stop, out_l, traces);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Row 3 with the sphere table: the tables as row 2, the lanes as
-// spt_megakernel_nee_budgets.
-extern "C" int spt_megakernel_nee_tab_budgets(
-    const float* rect_geom, const int* rect_axis, int n_rects,
-    const float* light_f, int light_id, const float* cam_f, unsigned seed,
-    int width, int height, int spp, int rr_start_depth, int max_bounces,
-    const float* sph, int n_spheres, const float* bvh, int root,
-    const float* alb, const float* emi, const int* refl, const int* live,
-    int n_live, const int* s_start, const int* s_stop, float* out_l,
-    unsigned long long* traces, void* stream) {
-  Params p;
-  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
-                   cam_f, seed, width, height, spp, 1, 0, 0u, 0, n_live,
-                   rr_start_depth, max_bounces) ||
-      n_spheres < 0 || n_spheres > kMaxSpheres) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto kernel = root >= 0 ? megakernel_nee_tab_budgets<kScanTree>
-                                : megakernel_nee_tab_budgets<kScanLinear>;
-  kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, reinterpret_cast<const float4*>(sph), n_spheres,
-      reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, live,
-      s_start, s_stop, out_l, traces);
   return static_cast<int>(cudaGetLastError());
 }
 

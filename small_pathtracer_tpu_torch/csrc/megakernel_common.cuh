@@ -20,6 +20,7 @@
 
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,6 +78,11 @@ struct Params {
   int pix0;     // the shard's first pixel (0 unsharded)
   int n_lanes;  // n_pix_loc * g: the shard's pixels times the lane groups
   int rr_start_depth, max_bounces, fold;
+  // The estimators of rows 1-5 (megakernel_lane.cuh): the mixture's NEE
+  // probability (the entry points set it), and the light's unit edge
+  // directions, along which glibc's wrapped offsets move (fill_params).
+  float mixture_q;
+  float leu_hat[3], lev_hat[3];
 };
 
 struct V3 {
@@ -490,6 +496,15 @@ inline bool fill_params(Params* p, const float* rect_geom,
     p->cam_v[c] = cam_f[9 + c];
   }
   p->area = light_f[12];
+  // integrator/sampling.glibc_edge_dirs: each edge over its magnitude.
+  const float mu = sqrtf(p->leu[0] * p->leu[0] + p->leu[1] * p->leu[1] +
+                         p->leu[2] * p->leu[2]);
+  const float mv = sqrtf(p->lev[0] * p->lev[0] + p->lev[1] * p->lev[1] +
+                         p->lev[2] * p->lev[2]);
+  for (int c = 0; c < 3; ++c) {
+    p->leu_hat[c] = p->leu[c] / mu;
+    p->lev_hat[c] = p->lev[c] / mv;
+  }
   p->seed = seed;
   p->width = width;
   p->height = height;

@@ -1,7 +1,12 @@
 // Path guiding in the fused path tracer: rows 4 and 5 of the port's kernel
 // table, the loop body of megakernel.cu (`render_lane`,
-// megakernel_lane.cuh) with a guide source, for the `cosine` and
-// `nee_textbook` estimators (a template parameter each kernel takes).
+// megakernel_lane.cuh) with a guide source, for the `cosine`,
+// `nee_textbook` and `mis` estimators (a template parameter each kernel
+// takes). Under `mis` both balance weights take the guided mixture's pdf
+// as the BSDF strategy's density: at the shadow direction, and for the
+// continuation the lane carries (the TPU kernel's :2106-2119, :2369-2375);
+// at an unguided vertex the mixture's pdf is the cosine pdf bit for bit,
+// so an all-sentinel table renders the unguided `mis` kernel's image.
 //
 // - megakernel_guided<kEst> (baked rect scenes) and megakernel_guided_tab
 //   (the sphere table, SPEC/REFR) replace the Pallas TPU kernel of
@@ -119,7 +124,8 @@ __global__ void __launch_bounds__(kBlock)
 bool guide_args(int est, int primary, int table_len, const Params& p,
                 float beta, float k, float norm_k, float inv_k1, int k_int,
                 GuideParams* g) {
-  if ((est != kCosine && est != kTextbook) || (primary != 0 && primary != 1) ||
+  if ((est != kCosine && est != kTextbook && est != kMis) ||
+      (primary != 0 && primary != 1) ||
       table_len != (primary ? p.width * p.height : kNVoxels) || k_int < 0 ||
       k_int > 64) {
     return false;
@@ -128,10 +134,27 @@ bool guide_args(int est, int primary, int table_len, const Params& p,
   return true;
 }
 
+// The kernels of estimator kEst, by guide source (primary) and scan.
+template <int kEst>
+decltype(&megakernel_guided<kCosine>) guided_kernel(int primary) {
+  return primary ? megakernel_guided_primary<kEst> : megakernel_guided<kEst>;
+}
+
+template <int kEst>
+decltype(&megakernel_guided_tab<kCosine, kScanLinear>) guided_tab_kernel(
+    int primary, bool tree) {
+  if (primary) {
+    return tree ? megakernel_guided_primary_tab<kEst, kScanTree>
+                : megakernel_guided_primary_tab<kEst, kScanLinear>;
+  }
+  return tree ? megakernel_guided_tab<kEst, kScanTree>
+              : megakernel_guided_tab<kEst, kScanLinear>;
+}
+
 }  // namespace
 
 // Host entry points with a plain C interface (loaded with ctypes), as in
-// megakernel.cu. est: kCosine or kTextbook. primary 0: table is the
+// megakernel.cu. est: kCosine, kTextbook or kMis. primary 0: table is the
 // (kNVoxels,) int32 voxel table (row 4); primary 1: the (width * height,)
 // int32 packed lobes of the pixels (row 5); both in device memory, entries
 // packed as ops/megakernel.pack_guide_entries packs them. beta, k, norm_k =
@@ -159,11 +182,9 @@ extern "C" int spt_megakernel_guided(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   bake_materials(&p, rect_alb, rect_emi, n_rects, 0);
-  const auto kernel =
-      primary ? (est == kCosine ? megakernel_guided_primary<kCosine>
-                                : megakernel_guided_primary<kTextbook>)
-              : (est == kCosine ? megakernel_guided<kCosine>
-                                : megakernel_guided<kTextbook>);
+  const auto kernel = est == kCosine     ? guided_kernel<kCosine>(primary)
+                      : est == kTextbook ? guided_kernel<kTextbook>(primary)
+                                         : guided_kernel<kMis>(primary);
   kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, table, g, out_l, traces);
   return static_cast<int>(cudaGetLastError());
@@ -192,18 +213,9 @@ extern "C" int spt_megakernel_guided_tab(
   }
   const bool tree = root >= 0;
   const auto kernel =
-      primary
-          ? (est == kCosine
-                 ? (tree ? megakernel_guided_primary_tab<kCosine, kScanTree>
-                         : megakernel_guided_primary_tab<kCosine, kScanLinear>)
-                 : (tree ? megakernel_guided_primary_tab<kTextbook, kScanTree>
-                         : megakernel_guided_primary_tab<kTextbook,
-                                                         kScanLinear>))
-          : (est == kCosine
-                 ? (tree ? megakernel_guided_tab<kCosine, kScanTree>
-                         : megakernel_guided_tab<kCosine, kScanLinear>)
-                 : (tree ? megakernel_guided_tab<kTextbook, kScanTree>
-                         : megakernel_guided_tab<kTextbook, kScanLinear>));
+      est == kCosine     ? guided_tab_kernel<kCosine>(primary, tree)
+      : est == kTextbook ? guided_tab_kernel<kTextbook>(primary, tree)
+                         : guided_tab_kernel<kMis>(primary, tree);
   kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       p, table, g, reinterpret_cast<const float4*>(sph), n_spheres,
       reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, out_l,

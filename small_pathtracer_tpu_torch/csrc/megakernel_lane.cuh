@@ -24,9 +24,48 @@ constexpr float kNntInto = 1.0f / 1.5f, kNntOut = 1.5f;
 constexpr float kR0 = 0.04f, kOneMinusR0 = 0.96f;
 
 // Estimators (ops/megakernel.py EST_CODE): NEE as continuation, the cosine
-// continuation alone, and textbook NEE (a shadow probe's direct term, the
-// cosine continuation, the next pickup of the light suppressed).
-constexpr int kNee = 0, kCosine = 1, kTextbook = 2;
+// continuation alone, textbook NEE (a shadow probe's direct term, the
+// cosine continuation, the next pickup of the light suppressed), the
+// uniform hemisphere sample with the reference's weight 1 or with
+// 2 max(cos, 0), NEE as continuation where a coin falls below mixture_q,
+// and mis (textbook NEE's two strategies under the balance heuristic).
+// kGlibc added to kNee or kMixture draws the light point from glibc's
+// wrapped offsets (the reference's Linux build, C13a); the others take no
+// light sample or ignore the mode. Every estimator is a template argument,
+// so each instance compiles only its own branches.
+constexpr int kNee = 0, kCosine = 1, kTextbook = 2, kUniform = 3,
+              kUniformCorrected = 4, kMixture = 5, kMis = 6;
+constexpr int kGlibc = 8;
+
+__host__ __device__ constexpr int est_base(int est) { return est & 7; }
+
+// NEE as continuation (nee, mixture): a successful probe becomes the
+// bounce, and the NEE fold applies.
+__host__ __device__ constexpr bool nee_cont(int est) {
+  return est_base(est) == kNee || est_base(est) == kMixture;
+}
+
+// A direct term at each live diffuse vertex (nee_textbook, mis).
+__host__ __device__ constexpr bool direct_term(int est) {
+  return est_base(est) == kTextbook || est_base(est) == kMis;
+}
+
+__host__ __device__ constexpr bool uniform_sample(int est) {
+  return est_base(est) == kUniform || est_base(est) == kUniformCorrected;
+}
+
+// float32(1 / RAND_MAX) for glibc's RAND_MAX = 2^31 - 1: it rounds to 2^-31.
+constexpr float kInvRandMax = 4.656612873077393e-10f;
+
+// integrator/sampling.glibc_overflow_offset: rand() * 36 / RAND_MAX with
+// glibc's int product wrapping. u * 2^31 is an exact integer below 2^31 (u
+// has 24 random bits); the unsigned product wraps modulo 2^32 and is read
+// as int32.
+__device__ __forceinline__ float glibc_offset(float u) {
+  const uint32_t r = static_cast<uint32_t>(u * 2147483648.0f);
+  const int wrapped = static_cast<int>(r * 36u);
+  return __int2float_rn(wrapped) * kInvRandMax;
+}
 
 // The kTab template argument of the loop body: no sphere table (rows 1, 8),
 // or the sphere table scanned as kScanLinear, kScanTree or kScanCount
@@ -160,13 +199,13 @@ __device__ __forceinline__ float pow_k(const GuideParams& g, float x) {
 
 // integrator/wavefront.guided_mixture on a guided vertex (beta_eff = beta):
 // the power-cosine lobe around mu from the cosine sample's u2 and angle,
-// the coin, and the weight pdf_cos / pdf_mix. Returns ok (false: the lane
-// ends, with weight 0).
+// the coin, the weight pdf_cos / pdf_mix, and pdf_mix (mis's carry).
+// Returns ok (false: the lane ends, with weight 0).
 __device__ __forceinline__ bool guided_mixture(const GuideParams& g, V3 n,
                                                V3 mu, V3 cos_dir, float sr1,
                                                float cr1, float u2,
                                                float u_coin, V3* dir,
-                                               float* w) {
+                                               float* w, float* pdf) {
   const V3 a = fabsf(mu.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
   const V3 mu_u = norm(cross(a, mu));
   const V3 mu_v = cross(mu, mu_u);
@@ -183,6 +222,7 @@ __device__ __forceinline__ bool guided_mixture(const GuideParams& g, V3 n,
   const bool ok = pdf_mix > 1e-9f && cos_n > 0.0f;
   *w = ok ? pdf_cos / pdf_mix : 0.0f;
   *dir = d;
+  *pdf = pdf_mix;
   return ok;
 }
 
@@ -237,6 +277,8 @@ struct Bounce {
   float alpha, beta, wz;  // the cosine sample: fu·alpha + fv·beta + n·wz
   V3 lp;                  // the light sample
   float coin;             // REFR's coin
+  bool take;              // mixture: its coin took NEE
+  float pdf_cont;         // mis: the continuation's p_bsdf (diffuse)
 };
 
 // What a bounce's two queries found, as an earlier trace of the same
@@ -275,6 +317,41 @@ __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab
   b->axis = (kTab && b->id >= p.n_rects) ? -1 : p.rects[b->id].axis;
   b->alb = mats.albedo(b->id);
   b->emi = mats.emission(b->id);
+}
+
+// The NEE probe of bounce_scatter from the hit point b->x with normal n:
+// the light sample (a uniform point of the parallelogram, or glibc's
+// wrapped one), whether the probe reaches the light, its t_safe and the
+// NEE weight, into *b. Returns the direction toward the light sample.
+template <int kTab, int kEst, bool kTaped>
+__device__ __forceinline__ V3 nee_probe(const Params& p, const SphereTab& tab,
+                                        const LightFrame& lf, V3 n,
+                                        uint32_t pid, uint32_t ctr, Bounce* bp,
+                                        const Queries* taped) {
+  Bounce& b = *bp;
+  const float lu = uniform(p.seed, pid, ctr + kLightU);
+  const float lv = uniform(p.seed, pid, ctr + kLightV);
+  if constexpr ((kEst & kGlibc) != 0) {
+    b.lp = add(add(lf.lc, mul(ld3(p.leu_hat), glibc_offset(lu))),
+               mul(ld3(p.lev_hat), glibc_offset(lv)));
+  } else {
+    b.lp = add(add(lf.lc, mul(lf.leu, lu)), mul(lf.lev, lv));
+  }
+  const V3 d_l = norm(sub(b.lp, b.x));
+  float t_l;
+  if constexpr (kTaped) {
+    b.success = taped->success;
+    t_l = taped->t_safe;
+  } else if constexpr (kTab) {
+    b.success = probe_light_tab<kTab>(p, tab, b.x, d_l, &t_l);
+  } else {
+    b.success = probe_light(p, b.x, d_l, &t_l);
+  }
+  const float t_safe = b.success ? t_l : 1.0f;
+  b.t_safe = t_safe;
+  b.w_nee = (fabsf(p.area * dot(d_l, lf.ln)) / (t_safe * t_safe)) *
+            (fabsf(dot(d_l, n)) * kInvPi);
+  return d_l;
 }
 
 template <int kTab, int kEst, class Guide, bool kTaped = false>
@@ -321,55 +398,66 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   b.alpha = b.beta = b.wz = b.coin = 0.0f;
   b.lp = v3(0.0f, 0.0f, 0.0f);
   if (b.diffuse) {
-    // Cosine-weighted hemisphere sample around n.
+    // Cosine-weighted (or the uniform estimators' uniform) hemisphere
+    // sample around n.
     const float u1 = uniform(p.seed, pid, ctr + kScatterU);
     const float u2 = uniform(p.seed, pid, ctr + kScatterV);
     float sr1, cr1;
     sincos_2pi(u1, &sr1, &cr1);
-    const float r2s = sqrtf(u2);
-    b.alpha = cr1 * r2s;
-    b.beta = sr1 * r2s;
-    b.wz = sqrtf(1.0f - u2);
+    if constexpr (uniform_sample(kEst)) {
+      const float sin_t = sqrtf(u2 * (2.0f - u2));
+      b.alpha = cr1 * sin_t;
+      b.beta = sr1 * sin_t;
+      b.wz = 1.0f - u2;
+    } else {
+      const float r2s = sqrtf(u2);
+      b.alpha = cr1 * r2s;
+      b.beta = sr1 * r2s;
+      b.wz = sqrtf(1.0f - u2);
+    }
     const V3 a = fabsf(n.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
     const V3 fu = norm(cross(a, n));
     const V3 fv = cross(n, fu);
     const V3 cos_dir =
         norm(add(add(mul(fu, b.alpha), mul(fv, b.beta)), mul(n, b.wz)));
 
-    if constexpr (kEst == kCosine) {
+    V3 d_l = v3(0.0f, 0.0f, 0.0f);  // mis: the light sample's direction
+    if constexpr (kEst == kCosine || est_base(kEst) == kUniform) {
       b.new_dir = cos_dir;
       b.w = 1.0f;
+    } else if constexpr (est_base(kEst) == kUniformCorrected) {
+      b.new_dir = cos_dir;
+      b.w = 2.0f * fmaxf(dot(cos_dir, n), 0.0f);
+    } else if constexpr (est_base(kEst) == kMixture) {
+      // The coin first: a lane it sends to the cosine sample traces no
+      // probe (every draw is keyed by its counter, so skipping one
+      // changes no bit).
+      b.take = uniform(p.seed, pid, ctr + kMixCoin) < p.mixture_q;
+      b.new_dir = cos_dir;
+      b.w = 1.0f;
+      if (b.take) {
+        d_l = nee_probe<kTab, kEst, kTaped>(p, tab, lf, n, pid, ctr, &b,
+                                             taped);
+        b.new_dir = b.success ? d_l : cos_dir;
+        b.w = b.success ? b.w_nee : 1.0f;
+      }
     } else {
       // Probe a uniform point of the light parallelogram.
-      const float lu = uniform(p.seed, pid, ctr + kLightU);
-      const float lv = uniform(p.seed, pid, ctr + kLightV);
-      b.lp = add(add(lf.lc, mul(lf.leu, lu)), mul(lf.lev, lv));
-      const V3 d_l = norm(sub(b.lp, b.x));
-      float t_l;
-      if constexpr (kTaped) {
-        b.success = taped->success;
-        t_l = taped->t_safe;
-      } else if constexpr (kTab) {
-        b.success =
-            probe_light_tab<kTab>(p, tab, b.x, d_l, &t_l);
-      } else {
-        b.success = probe_light(p, b.x, d_l, &t_l);
-      }
-      const float t_safe = b.success ? t_l : 1.0f;
-      b.t_safe = t_safe;
-      b.w_nee = (fabsf(p.area * dot(d_l, lf.ln)) / (t_safe * t_safe)) *
-                (fabsf(dot(d_l, n)) * kInvPi);
-      if constexpr (kEst == kNee) {
+      d_l = nee_probe<kTab, kEst, kTaped>(p, tab, lf, n, pid, ctr, &b, taped);
+      if constexpr (est_base(kEst) == kNee) {
         // NEE as continuation.
         b.new_dir = b.success ? d_l : cos_dir;
         b.w = b.success ? b.w_nee : 1.0f;
       } else {
-        // Textbook: the cosine continuation (render_lane adds the direct
-        // term).
+        // Textbook and mis: the cosine continuation (render_lane adds the
+        // direct term).
         b.new_dir = cos_dir;
         b.w = 1.0f;
       }
     }
+    bool guided = false;  // mis: the vertex took the mixture
+    V3 mu = v3(0.0f, 0.0f, 1.0f);
+    float pdf_mix = 0.0f;
     if constexpr (Guide::kKind != NoGuide::kKind) {
       // The defensive mixture where the vertex has a lobe; elsewhere the
       // cosine sample with weight 1 is what the mixture gives exactly.
@@ -380,10 +468,32 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
         if (depth == 1) entry = guide.lobes[pix];
       }
       if (entry != kGuideSentinel) {
-        b.ok_g = guided_mixture(guide.g, n, oct_decode(entry), cos_dir, sr1,
-                                cr1, u2, uniform(p.seed, pid, ctr + kMixCoin),
-                                &b.new_dir, &b.w);
+        guided = true;
+        mu = oct_decode(entry);
+        b.ok_g = guided_mixture(guide.g, n, mu, cos_dir, sr1, cr1, u2,
+                                uniform(p.seed, pid, ctr + kMixCoin),
+                                &b.new_dir, &b.w, &pdf_mix);
       }
+    }
+    if constexpr (est_base(kEst) == kMis) {
+      // The balance heuristic at the light sample, w_nee * p_light /
+      // (p_light + p_bsdf), p_bsdf the continuation's pdf there (the
+      // mixture's at a guided vertex; at an unguided one the mixture's is
+      // the cosine pdf bit for bit); and the continuation's own p_bsdf,
+      // which the next pickup of the light weighs against.
+      float p_bsdf = fmaxf(dot(d_l, n), 0.0f) * kInvPi;
+      if constexpr (Guide::kKind != NoGuide::kKind) {
+        if (guided) {
+          const float p_lobe =
+              guide.g.norm_k * pow_k(guide.g, fmaxf(dot(d_l, mu), 0.0f));
+          p_bsdf = guide.g.beta * p_lobe + (1.0f - guide.g.beta) * p_bsdf;
+        }
+      }
+      const float cos_l = fabsf(dot(d_l, lf.ln));
+      const float p_light =
+          (b.t_safe * b.t_safe) / (p.area * fmaxf(cos_l, 1e-6f));
+      b.w_nee = b.w_nee * (p_light / (p_light + p_bsdf));
+      b.pdf_cont = guided ? pdf_mix : fmaxf(dot(b.new_dir, n), 0.0f) * kInvPi;
     }
   } else if (b.refl == kSpec) {
     b.new_dir = reflect(d, ng);
@@ -438,6 +548,9 @@ __device__ __forceinline__ void render_lane(const Params& p,
   bool alive = lr.in_range && s < lr.s_stop;
   // nee_textbook: the previous bounce's probe already counted the light.
   bool suppress = false;
+  // mis: the previous diffuse vertex's p_bsdf of this ray (0: the pickup
+  // is whole).
+  float mis_pdf = 0.0f;
   uint32_t n_extend = 0, n_probe = 0;
 
   while (alive) {
@@ -445,18 +558,27 @@ __device__ __forceinline__ void render_lane(const Params& p,
     Bounce b;
     bounce_hit<Mats, kTab>(p, tab, mats, o, d, &b);
     // Emission pickup: throughput * emission (nee_textbook adds it with
-    // the direct term below, or drops it when the light was just probed).
+    // the direct term below, or drops it when the light was just probed;
+    // mis adds it with the direct term, a pickup of the light weighted by
+    // the balance heuristic against the light sampler's density there).
     V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
     if constexpr (kEst == kTextbook) {
       if (suppress && b.hit && b.id == p.light_id) pick = v3(0.0f, 0.0f, 0.0f);
+    } else if constexpr (kEst == kMis) {
+      if (b.hit && b.id == p.light_id && mis_pdf > 0.0f) {
+        const float cos_l = fabsf(dot(d, lf.ln));
+        const float p_light = (b.t * b.t) / (p.area * fmaxf(cos_l, 1e-6f));
+        pick = mul(pick, mis_pdf / (mis_pdf + p_light));
+      }
     } else {
       L = add(L, pick);
     }
     bounce_scatter<kTab, kEst>(p, tab, lf, o, d, pid, depth, lr.pix, guide,
                                &b);
-    // nee_textbook's direct term, with the throughput before the update.
+    // The direct term of nee_textbook and mis, with the throughput before
+    // the update.
     V3 direct = v3(0.0f, 0.0f, 0.0f);
-    if constexpr (kEst == kTextbook) {
+    if constexpr (direct_term(kEst)) {
       if (b.success) {
         direct = v3(((b.w_nee * T.x) * b.alb.x) * e_light.x,
                     ((b.w_nee * T.y) * b.alb.y) * e_light.y,
@@ -467,9 +589,11 @@ __device__ __forceinline__ void render_lane(const Params& p,
 
     bool alive_next = b.survive;
     n_extend += 1;
-    if constexpr (kEst == kNee) {
+    if constexpr (est_base(kEst) == kNee) {
       n_probe += (alive_next && b.diffuse) ? 1u : 0u;
-    } else if constexpr (kEst == kTextbook) {
+    } else if constexpr (est_base(kEst) == kMixture) {
+      n_probe += (alive_next && b.diffuse && b.take) ? 1u : 0u;
+    } else if constexpr (direct_term(kEst)) {
       n_probe += b.diffuse ? 1u : 0u;  // before RR
     }
     alive_next = alive_next && depth < p.max_bounces;
@@ -477,7 +601,8 @@ __device__ __forceinline__ void render_lane(const Params& p,
       alive_next = alive_next && b.ok_g;
     }
 
-    if constexpr (kEst == kNee) {
+    if constexpr (nee_cont(kEst)) {
+      // (mixture: success only where its coin took NEE.)
       if (fold && alive_next && b.success) {
         // The next bounce hits the light at t_l, picks up T_new * e_light
         // and dies in RR (max albedo <= 0): resolve it now.
@@ -490,6 +615,9 @@ __device__ __forceinline__ void render_lane(const Params& p,
     if constexpr (kEst == kTextbook) {
       L = add(L, add(pick, direct));
       suppress = alive_next && b.diffuse;
+    } else if constexpr (kEst == kMis) {
+      L = add(L, add(pick, direct));
+      mis_pdf = b.diffuse ? b.pdf_cont : 0.0f;
     }
 
     if (alive_next) {
@@ -504,6 +632,7 @@ __device__ __forceinline__ void render_lane(const Params& p,
         d = spawn_dir(p, lr.px, lr.py, pid);
         T = v3(1.0f, 1.0f, 1.0f);
         depth = 0;
+        if constexpr (kEst == kMis) mis_pdf = 0.0f;
       } else {
         alive = false;
       }
@@ -558,7 +687,7 @@ __device__ __forceinline__ void tab_body(const Params& p,
   const V3 a = mats.albedo(p.light_id);
   render_lane<TableMaterials, kScan, kEst>(
       p, lane_range(p), mats, sphere_tab(sph, n_sph, refl, bvh, root),
-      kEst == kNee && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
+      nee_cont(kEst) && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
 }
 
 // ---- Host helpers of the entry points ----

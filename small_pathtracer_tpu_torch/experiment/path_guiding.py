@@ -217,7 +217,8 @@ def _guided_diffuse(sh, mu_tab, use_tab, u1, u2, u_coin, beta: float,
     vid = voxel_id(sh.x)
     mu = mu_tab.index_select(0, vid)
     use = use_tab.index_select(0, vid) & (sh.refl == DIFF)
-    return guided_mixture(sh.n, mu, use, u1, u2, u_coin, beta, k)
+    m = guided_mixture(sh.n, mu, use, u1, u2, u_coin, beta, k)
+    return m.d, m.w, m.ok
 
 
 def render_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig,

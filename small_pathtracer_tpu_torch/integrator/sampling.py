@@ -31,6 +31,22 @@ def sample_cosine(nl: torch.Tensor, u1: torch.Tensor,
     return vm.norm(d)
 
 
+def sample_uniform(nl: torch.Tensor, u1: torch.Tensor,
+                   u2: torch.Tensor) -> torch.Tensor:
+    """Uniform hemisphere direction around nl (the reference's commented
+    variant): cos(theta) = 1 - u2, u*cos(2 pi u1)*sqrt(u2*(2 - u2)) +
+    v*sin(2 pi u1)*sqrt(u2*(2 - u2)) + nl*(1 - u2), normalized."""
+    sr1, cr1 = vm.sincos_2pi(u1)
+    sin_t = torch.sqrt(u2 * (2.0 - u2))
+    u, v = vm.onb_from_w(nl)
+    d = (
+        u * (cr1 * sin_t)[..., None]
+        + v * (sr1 * sin_t)[..., None]
+        + nl * (1.0 - u2)[..., None]
+    )
+    return vm.norm(d)
+
+
 def sample_power_cosine(mu: torch.Tensor, u1: torch.Tensor,
                         u2: torch.Tensor, inv_k1: torch.Tensor) -> torch.Tensor:
     """A cos^k lobe sample around the unit axis mu, inv_k1 = 1 / (k + 1) as
@@ -64,6 +80,44 @@ def sample_light_point(light: LightSampler, u1: torch.Tensor,
         light.corner
         + u1[..., None] * light.edge_u
         + u2[..., None] * light.edge_v
+    )
+
+
+# glibc's RAND_MAX and its reciprocal as float32 (the kernels' kInvRandMax).
+_TWO_31 = 2147483648.0
+_INV_RAND_MAX = 1.0 / 2147483647.0
+
+
+def glibc_overflow_offset(u: torch.Tensor) -> torch.Tensor:
+    """The reference's ``rand() * 36 / double(RAND_MAX)`` under glibc: the
+    int product wraps, so the offset lies in (-1, 1) instead of [0, 36).
+    u carries 24 random bits, so u * 2^31 is an exact integer below 2^31;
+    its product by 36 is taken modulo 2^32 (int64 here, masked) and read
+    as int32, then converted to float32 and scaled by 1 / RAND_MAX: the
+    kernels' unsigned multiply, reinterpret and __int2float_rn."""
+    r = (u * _TWO_31).to(torch.int64)
+    wrapped = (r * 36) & 0xFFFFFFFF
+    signed = torch.where(wrapped >= 2 ** 31, wrapped - 2 ** 32, wrapped)
+    return signed.to(torch.int32).to(torch.float32) * _INV_RAND_MAX
+
+
+def glibc_edge_dirs(light: LightSampler):
+    """The light's unit edge directions (float32), along which glibc's
+    offsets move in absolute scene units."""
+    return (light.edge_u / vm.magnitude(light.edge_u),
+            light.edge_v / vm.magnitude(light.edge_v))
+
+
+def sample_light_point_glibc(light: LightSampler, u1: torch.Tensor,
+                             u2: torch.Tensor) -> torch.Tensor:
+    """The glibc build's light sample (C13a): the corner plus the wrapped
+    offsets along the unit edges, a ~2x2 patch at the light's corner for
+    the Cornell presets. Returns (N, 3)."""
+    eu, ev = glibc_edge_dirs(light)
+    return (
+        light.corner
+        + glibc_overflow_offset(u1)[..., None] * eu
+        + glibc_overflow_offset(u2)[..., None] * ev
     )
 
 

@@ -179,6 +179,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
+    # csrc/megakernel_est.cu: rows 1 and 2 with the other estimators.
+    est = [
+        i,  # estimator: 3 uniform, 4 uniform_corrected, 5 mixture, 6 mis,
+        #     + 8 glibc_overflow (0 nee, 5 mixture)
+        f,  # mixture_q
+    ]
+    lib.spt_megakernel_est.restype = ctypes.c_int
+    lib.spt_megakernel_est.argtypes = [
+        *est, *lib.spt_megakernel.argtypes[1:]]
     lib.spt_megakernel_mat.restype = ctypes.c_int
     lib.spt_megakernel_mat.argtypes = [
         i,  # estimator: 0 nee, 1 cosine, 2 nee_textbook
@@ -202,8 +211,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
-    lib.spt_megakernel_nee_budgets.restype = ctypes.c_int
-    lib.spt_megakernel_nee_budgets.argtypes = [
+    lib.spt_megakernel_est_tab.restype = ctypes.c_int
+    lib.spt_megakernel_est_tab.argtypes = [
+        *est, *lib.spt_megakernel_tab.argtypes[2:]]
+    # csrc/megakernel_budgets.cu: row 3 with every estimator (est as
+    # above, and 0 nee, 1 cosine, 2 nee_textbook).
+    lib.spt_megakernel_budgets.restype = ctypes.c_int
+    lib.spt_megakernel_budgets.argtypes = [
+        *est,
         *scene,
         p, p,  # rect_alb, rect_emi: (R, 3) f32 host
         i,  # n_rects
@@ -214,8 +229,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
-    lib.spt_megakernel_nee_tab_budgets.restype = ctypes.c_int
-    lib.spt_megakernel_nee_tab_budgets.argtypes = [
+    lib.spt_megakernel_tab_budgets.restype = ctypes.c_int
+    lib.spt_megakernel_tab_budgets.argtypes = [
+        *est,
         *scene,
         i,  # n_rects
         *budget_launch,
@@ -227,7 +243,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     # The guided kernels (rows 4 and 5) take the guide first.
     guide = [
-        i,  # estimator: 1 cosine, 2 nee_textbook
+        i,  # estimator: 1 cosine, 2 nee_textbook, 6 mis
         i,  # primary: 0 voxel table (row 4), 1 pixel lobes (row 5)
         p,  # table: (V,) or (n_pix,) i32 device, packed lobes
         i,  # its length

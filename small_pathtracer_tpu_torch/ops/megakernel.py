@@ -11,19 +11,26 @@ port's counterpart of the JAX package's ``render_pallas`` /
   (``csrc/megakernel_bvh.cuh``).
 - ``megakernel_cosine`` / ``megakernel_textbook`` and their ``_tab``
   twins are rows 1 and 2 with the ``cosine`` and ``nee_textbook``
-  estimators (``render_megakernel`` picks the kernel from cfg.estimator).
-- ``megakernel_nee_budgets`` and ``megakernel_nee_tab_budgets`` (row 3, the
-  JAX ``render_pallas_budgets``) are rows 1 and 2 with per-pixel sample
-  budgets: ``render_megakernel_budgets``, the unit of an adaptive wave
-  (``utils/adaptive.py``, through ``budget_waves``); ``nee`` only. They
-  launch one lane for each pixel with a non-empty span.
+  estimators (``render_megakernel`` picks the kernel from cfg.estimator);
+  ``megakernel_uniform``, ``_uniform_corrected``, ``_mixture``, ``_mis``,
+  ``_nee_glibc`` and ``_mixture_glibc`` (and ``_tab``) with the others and
+  with ``light_sample_mode='glibc_overflow'`` (``csrc/megakernel_est.cu``;
+  ``kernel_name`` gives each launch's name).
+- ``megakernel_<est>_budgets`` and ``megakernel_<est>_tab_budgets`` (row 3,
+  the JAX ``render_pallas_budgets``; ``csrc/megakernel_budgets.cu``) are
+  rows 1 and 2 with per-pixel sample budgets: ``render_megakernel_budgets``,
+  the unit of an adaptive wave (``utils/adaptive.py``, through
+  ``budget_waves``). They launch one lane for each pixel with a non-empty
+  span.
 - ``megakernel_guided`` and ``megakernel_guided_tab`` (row 4, the JAX
   ``render_pallas_guided``) guide every diffuse vertex from a voxel table of
   packed lobes: ``render_megakernel_guided``. ``megakernel_guided_primary``
   and ``megakernel_guided_primary_tab`` (row 5,
   ``render_pallas_guided_primary``) guide the first diffuse vertex from one
   lobe a pixel: ``render_megakernel_guided_primary``. Both take the
-  ``cosine`` and ``nee_textbook`` estimators.
+  ``cosine``, ``nee_textbook`` and ``mis`` estimators (``mis`` counted as
+  ``megakernel_guided_mis``, ``megakernel_guided_primary_mis`` and their
+  ``_tab`` twins).
 - ``render_megakernel_sharded`` (row 7, the JAX ``render_pallas_sharded``)
   and ``render_megakernel_guided_sharded`` (row 6,
   ``render_pallas_guided_sharded``) launch the same kernels on one rank's
@@ -77,11 +84,40 @@ from . import _build
 # launch on a shard's lanes counts under its kernel's name as well.
 LAUNCHES: Counter = Counter()
 
-# The estimator codes of csrc/megakernel_lane.cuh (kNee, kCosine,
-# kTextbook), and each one's row 1 kernel.
-EST_CODE = {"nee": 0, "cosine": 1, "nee_textbook": 2}
-_EST_KERNEL = {"nee": "megakernel_nee", "cosine": "megakernel_cosine",
-               "nee_textbook": "megakernel_textbook"}
+# The estimator codes of csrc/megakernel_lane.cuh (kNee ... kMis), the
+# flag kGlibc adds to kNee and kMixture under light_sample_mode=
+# 'glibc_overflow', and each code's row 1 kernel. Rows 1 and 2 launch codes
+# 0-2 through csrc/megakernel.cu's entry points, the others through
+# csrc/megakernel_est.cu's; row 3 every code through
+# csrc/megakernel_budgets.cu's.
+EST_CODE = {"nee": 0, "cosine": 1, "nee_textbook": 2, "uniform": 3,
+            "uniform_corrected": 4, "mixture": 5, "mis": 6}
+GLIBC = 8
+_OWN_CODES = (0, 1, 2)
+_EST_KERNEL = {0: "megakernel_nee", 1: "megakernel_cosine",
+               2: "megakernel_textbook", 3: "megakernel_uniform",
+               4: "megakernel_uniform_corrected", 5: "megakernel_mixture",
+               6: "megakernel_mis", GLIBC: "megakernel_nee_glibc",
+               5 + GLIBC: "megakernel_mixture_glibc"}
+
+
+def est_code(cfg: RenderConfig) -> int:
+    """The kernels' estimator code of cfg: EST_CODE, plus GLIBC for nee
+    and mixture under light_sample_mode='glibc_overflow' (the other
+    estimators ignore the mode, as in the JAX package)."""
+    code = EST_CODE[cfg.estimator]
+    if (cfg.light_sample_mode == "glibc_overflow"
+            and cfg.estimator in ("nee", "mixture")):
+        code += GLIBC
+    return code
+
+
+def kernel_name(scene: Scene, cfg: RenderConfig, suffix: str = "") -> str:
+    """The name under which a row 1 or 2 launch (``suffix`` "_budgets": row
+    3) of cfg's estimator on ``scene`` counts in LAUNCHES: e.g.
+    megakernel_mis, megakernel_mis_tab, megakernel_mixture_glibc_budgets."""
+    tab = "_tab" if uses_sphere_table(scene) else ""
+    return _EST_KERNEL[est_code(cfg)] + tab + suffix
 
 TARGET_LANES = 1 << 18
 MAX_RECTS = 32
@@ -222,9 +258,9 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                       device=None):
     """Render sample indices [s0, s0 + n_s) of every pixel (all of spp by
     default) on ``device`` (the scene's by default): a CUDA kernel on a
-    CUDA device (row 2, megakernel_{nee,cosine,textbook}_tab, for a scene
-    with spheres or SPEC/REFR objects, row 1 megakernel_{nee,cosine,
-    textbook} otherwise, by cfg.estimator), the plain version on the CPU.
+    CUDA device (row 2, megakernel_<est>_tab, for a scene with spheres or
+    SPEC/REFR objects, row 1 megakernel_<est> otherwise, by cfg.estimator
+    and light_sample_mode: ``kernel_name``), the plain version on the CPU.
     Returns ((h, w, 3) radiance sum over the span, traces (2,) int64
     [extend, probe])."""
     device = _resolve(scene, device)
@@ -244,6 +280,8 @@ def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     tab = uses_sphere_table(scene)
     geom = pack_geometry(scene, cam)
     lib = _build.build_kernels().lib
+    code = est_code(cfg)
+    own = code in _OWN_CODES
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
                         device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
@@ -251,21 +289,24 @@ def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
         stream = torch.cuda.current_stream(device).cuda_stream
         if tab:
             sa = sphere_args(lib, scene, device)
-            err = lib.spt_megakernel_tab(
-                EST_CODE[cfg.estimator], 0, geom.rect_geom.ctypes.data,
+            est = (code, 0) if own else (code, cfg.mixture_q)
+            err = (lib.spt_megakernel_tab if own
+                   else lib.spt_megakernel_est_tab)(
+                *est, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis),
                 *launch_args(geom, cfg, seed, lay), *sa.args(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
         else:
             alb, emi, fold = _baked_materials(scene, geom)
-            err = lib.spt_megakernel(
-                EST_CODE[cfg.estimator], geom.rect_geom.ctypes.data,
+            est = (code,) if own else (code, cfg.mixture_q)
+            err = (lib.spt_megakernel if own else lib.spt_megakernel_est)(
+                *est, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, alb.ctypes.data, emi.ctypes.data,
                 len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
                 fold, out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    count(_EST_KERNEL[cfg.estimator] + ("_tab" if tab else ""), err)
+    count(kernel_name(scene, cfg), err)
     return reduce_lanes(out_l, lay), traces
 
 
@@ -279,7 +320,8 @@ def count(name: str, err: int) -> None:
 
 def _baked_materials(scene: Scene, geom: KernelGeometry):
     """Host (R, 3) albedo and emission for the baked kernels, and whether
-    the NEE fold is on: it needs an absorbing light (zero albedo)."""
+    the NEE fold is on: it needs an absorbing light (zero albedo); the
+    entry points apply it to nee and mixture only."""
     alb = _host_f32([scene.rects.albedo])
     emi = _host_f32([scene.rects.emission])
     return alb, emi, int(float(alb[geom.light_id].max()) == 0.0)
@@ -511,34 +553,29 @@ def _launch_budgets(pk: _BudgetScene, cfg: RenderConfig, seed,
     head = _budget_args(geom, cfg, seed)
     lanes = (live.data_ptr(), live.numel(), s_start.data_ptr(),
              s_stop.data_ptr())
+    code = est_code(cfg)
     out_l = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if pk.spheres is not None:
-            err = pk.lib.spt_megakernel_nee_tab_budgets(
-                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-                len(geom.rect_axis), *head, *pk.spheres.args(), *lanes,
-                out_l.data_ptr(), traces.data_ptr(), stream,
+            err = pk.lib.spt_megakernel_tab_budgets(
+                code, cfg.mixture_q, geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, len(geom.rect_axis), *head,
+                *pk.spheres.args(), *lanes, out_l.data_ptr(),
+                traces.data_ptr(), stream,
             )
         else:
             alb, emi, fold = pk.baked
-            err = pk.lib.spt_megakernel_nee_budgets(
-                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-                alb.ctypes.data, emi.ctypes.data, len(geom.rect_axis),
-                *head, fold, *lanes, out_l.data_ptr(), traces.data_ptr(),
-                stream,
+            err = pk.lib.spt_megakernel_budgets(
+                code, cfg.mixture_q, geom.rect_geom.ctypes.data,
+                geom.rect_axis.ctypes.data, alb.ctypes.data,
+                emi.ctypes.data, len(geom.rect_axis), *head, fold, *lanes,
+                out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    count("megakernel_nee_tab_budgets" if pk.spheres is not None
-          else "megakernel_nee_budgets", err)
+    count(_EST_KERNEL[code] + ("_tab" if pk.spheres is not None else "")
+          + "_budgets", err)
     return out_l, traces
-
-
-def _check_budgets(cfg: RenderConfig) -> None:
-    if cfg.estimator != "nee":
-        raise NotImplementedError(
-            f"per-pixel budgets with estimator {cfg.estimator!r} are not "
-            "ported yet (ROADMAP.md queue 1, item 10)")
 
 
 def render_megakernel_budgets(scene: Scene, cam: CameraParams,
@@ -551,14 +588,13 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
     span renders nothing. cfg.spp stays the path-id stride, so a sample's
     radiance is the same as in every other schedule.
 
-    On a CUDA device this launches megakernel_nee_tab_budgets for a scene
-    with spheres or SPEC/REFR objects, megakernel_nee_budgets otherwise,
-    one lane for each pixel with a non-empty span (none when every span is
-    empty); on the CPU it runs the plain version. Returns ((n_pix, 3)
-    float32 radiance sum over each span, traces (2,) int64 [extend,
-    probe]). ``nee`` only: the other estimators raise NotImplementedError
-    on every device."""
-    _check_budgets(cfg)
+    On a CUDA device this launches the budget kernel of cfg's estimator
+    (``kernel_name(scene, cfg, "_budgets")``: megakernel_<est>_tab_budgets
+    for a scene with spheres or SPEC/REFR objects, megakernel_<est>_budgets
+    otherwise), one lane for each pixel with a non-empty span (none when
+    every span is empty); on the CPU it runs the plain version. Returns
+    ((n_pix, 3) float32 radiance sum over each span, traces (2,) int64
+    [extend, probe])."""
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_budgets_plain(scene, cam, cfg, seed,
@@ -582,7 +618,6 @@ def budget_waves(scene: Scene, cam: CameraParams, cfg: RenderConfig):
     of the pixels ``live`` ((n_live,) int32, n_live >= 1: the pixels with a
     non-empty span, in order; ``live_pixels``). The scene must not change
     between waves. On the CPU a wave is the plain version."""
-    _check_budgets(cfg)
     device = scene.device
     if device.type == "cpu":
         return lambda seed, s_start, s_stop, live: (
@@ -669,16 +704,20 @@ def dequantize_guide(guide, device=None):
     return oct_decode(guide_table(guide, dev))
 
 
+# The estimators the guided kernels take (the JAX package's).
+GUIDED_ESTIMATORS = ("cosine", "nee_textbook", "mis")
+
+
 def check_guided(scene: Scene, cfg: RenderConfig) -> None:
     """The JAX guided entries' refusals, on every device: an estimator
-    other than cosine or nee_textbook (ValueError), and a scene the JAX
-    package would render through its sphere table (ValueError): spheres
+    other than cosine, nee_textbook or mis (ValueError), and a scene the
+    JAX package would render through its sphere table (ValueError): spheres
     with sphere_table on, cluster or cluster_scratch, or auto with
     SPHERE_TABLE_AUTO_MIN spheres or more."""
-    if cfg.estimator not in ("cosine", "nee_textbook"):
+    if cfg.estimator not in GUIDED_ESTIMATORS:
         raise ValueError(
             "the guided megakernel composes with the cosine-continuation "
-            "estimators ('cosine', 'nee_textbook') only; got "
+            "estimators ('cosine', 'nee_textbook', 'mis') only; got "
             f"estimator={cfg.estimator!r}")
     S = num_spheres(scene)
     mode = cfg.sphere_table
@@ -773,9 +812,10 @@ def render_megakernel_guided(scene: Scene, cam: CameraParams,
     vertex samples the defensive mixture of a power-cosine(k) lobe from
     the voxel table ``guide`` (probability beta) and the cosine lobe. On a
     CUDA device megakernel_guided (megakernel_guided_tab for a scene with
-    spheres or SPEC/REFR objects), on the CPU the plain version.
-    cfg.estimator is cosine or nee_textbook. Returns ((h, w, 3) radiance
-    sum over the span, traces (2,) int64 [extend, probe])."""
+    spheres or SPEC/REFR objects; ``guided_kernel_name``), on the CPU the
+    plain version. cfg.estimator is cosine, nee_textbook or mis. Returns
+    ((h, w, 3) radiance sum over the span, traces (2,) int64 [extend,
+    probe])."""
     check_guided(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
@@ -826,11 +866,11 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if tab:
+            sa = sphere_args(lib, scene, device)
             err = lib.spt_megakernel_guided_tab(
                 *head, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis),
-                *launch_args(geom, cfg, seed, lay),
-                *sphere_args(lib, scene, device).args(),
+                *launch_args(geom, cfg, seed, lay), *sa.args(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
         else:
@@ -841,9 +881,18 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                 len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    name = "megakernel_guided" + ("_primary" if primary else "")
-    count(name + ("_tab" if tab else ""), err)
+    count(guided_kernel_name(scene, cfg, primary), err)
     return reduce_lanes(out_l, lay), traces
+
+
+def guided_kernel_name(scene: Scene, cfg: RenderConfig,
+                       primary: int = 0) -> str:
+    """The name under which a launch of row 4 (row 5 with ``primary``)
+    counts in LAUNCHES: megakernel_guided[_primary][_mis][_tab], ``_mis``
+    for the mis instances (cosine and nee_textbook count together)."""
+    return ("megakernel_guided" + ("_primary" if primary else "")
+            + ("_mis" if cfg.estimator == "mis" else "")
+            + ("_tab" if uses_sphere_table(scene) else ""))
 
 
 # ---------------------------------------------------------------------------

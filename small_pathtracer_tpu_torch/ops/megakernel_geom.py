@@ -61,7 +61,7 @@ from .megakernel import (
     launch_args, pack_geometry, shard_of, sphere_args, sphere_tables,
 )
 from .megakernel_grad import (
-    material_grads_to_scene, plain_chunk, unpack_materials,
+    check_estimator, material_grads_to_scene, plain_chunk, unpack_materials,
 )
 
 # Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
@@ -82,14 +82,12 @@ _ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
 
 def check_geom(scene: Scene, cfg: RenderConfig) -> None:
     """The refusals of this slice, on every device: estimators other than
-    ``nee`` (item 10), GLOS (item 11), and the JAX kernel's own ValueErrors
-    (no spheres, no unrolled object, a light that is not an unrolled rect).
-    Light lists and sphere lights never reach here: the port's Scene holds
-    neither (``convert.scene_from_jax`` refuses them, item 12)."""
-    if cfg.estimator != "nee":
-        raise NotImplementedError(
-            f"the geometry adjoint with estimator {cfg.estimator!r} "
-            + _ITEM.format(10))
+    ``nee`` and light_sample_mode 'glibc_overflow' (item 10), GLOS (item
+    11), and the JAX kernel's own ValueErrors (no spheres, no unrolled
+    object, a light that is not an unrolled rect). Light lists and sphere
+    lights never reach here: the port's Scene holds neither
+    (``convert.scene_from_jax`` refuses them, item 12)."""
+    check_estimator(cfg, "the geometry adjoint", ("nee",))
     check_materials(scene)
     if num_spheres(scene) == 0:
         raise ValueError("no spheres to differentiate; use the material "

@@ -25,9 +25,12 @@ materials, and one rect light.
 
 The tables are in global object order (``pack_materials``): the rects, then
 the spheres, so K = R + S (17 for ``cornell_box``, 7 + 2 for
-``smallpt_original``). The estimators are those ``RenderConfig`` takes (the
-others wait for item 10). GLOS objects and more than ``MAX_GRAD_SPHERES``
-spheres are refused on every device (``check_trainable``). On a CUDA device
+``smallpt_original``). The estimators are ``nee``, ``cosine`` and
+``nee_textbook`` with light_sample_mode 'intended'; the others, which
+``RenderConfig`` takes for rendering, and 'glibc_overflow' wait for the
+adjoint half of ROADMAP item 10 (``check_estimator``). GLOS objects, more
+than ``MAX_GRAD_SPHERES`` spheres and those estimators are refused on
+every device (``check_trainable``). On a CUDA device
 each wrapper launches its kernel or raises. On the CPU it runs the plain
 version: the eager forward (``render_megakernel_plain``) with the tables
 put into the scene and, for the adjoint, ``torch.autograd`` through it.
@@ -59,15 +62,33 @@ KERNEL_BLOCK = 128
 # which caps the sphere count (kMaxGradSpheres in csrc/megakernel_grad.cu).
 MAX_GRAD_SPHERES = 1024
 FIELDS = ("albedo", "emission")
+# The estimators rows 8-10 take, each with its part of their kernels' names.
 _EST_NAME = {"nee": "nee", "cosine": "cosine", "nee_textbook": "textbook"}
 
 
-def check_trainable(scene: Scene) -> None:
-    """Raises NotImplementedError for a scene outside rows 8 and 9, on every
-    device, so the CPU never trains a scene that the card refuses: GLOS
-    objects (item 11; no forward kernel renders them), and more spheres
-    than the adjoint's shared-memory rows hold (ROADMAP.md queue 2, row
-    9)."""
+def check_estimator(cfg: RenderConfig, what: str = "material training",
+                    takes: tuple[str, ...] = tuple(_EST_NAME)) -> None:
+    """Raises NotImplementedError, naming ROADMAP item 10, for an estimator
+    outside ``takes`` or light_sample_mode 'glibc_overflow': the adjoints'
+    kernels have no instance for them yet (the forwards render them)."""
+    if cfg.estimator not in takes:
+        raise NotImplementedError(
+            f"{what} with estimator {cfg.estimator!r} is not ported yet "
+            "(ROADMAP.md queue 1, item 10)")
+    if cfg.light_sample_mode != "intended":
+        raise NotImplementedError(
+            f"{what} with light_sample_mode={cfg.light_sample_mode!r} is not "
+            "ported yet (ROADMAP.md queue 1, item 10)")
+
+
+def check_trainable(scene: Scene, cfg: RenderConfig | None = None) -> None:
+    """Raises NotImplementedError for a scene (and, given, a config) outside
+    rows 8 and 9, on every device, so the CPU never trains what the card
+    refuses: GLOS objects (item 11; no forward kernel renders them), more
+    spheres than the adjoint's shared-memory rows hold (ROADMAP.md queue 2,
+    row 9), and the estimators ``check_estimator`` refuses."""
+    if cfg is not None:
+        check_estimator(cfg)
     check_materials(scene)
     S = num_spheres(scene)
     if S > MAX_GRAD_SPHERES:
@@ -81,6 +102,7 @@ def mat_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
     """The name under which row 8 counts its launches on ``scene``: the
     rect kernel megakernel_{nee,cosine,textbook}_mat, or row 2's table
     kernel of the estimator launched with the runtime tables (``_tab``)."""
+    check_estimator(cfg)
     tab = "_tab" if uses_sphere_table(scene) else ""
     return f"megakernel_{_EST_NAME[cfg.estimator]}_mat{tab}"
 
@@ -90,6 +112,7 @@ def vjp_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
     megakernel_vjp (``nee``), megakernel_vjp_cosine or
     megakernel_vjp_textbook, with ``_tab`` for the sphere-table instances
     (linear and tree counted together)."""
+    check_estimator(cfg)
     est = "" if cfg.estimator == "nee" else "_" + _EST_NAME[cfg.estimator]
     tab = "_tab" if uses_sphere_table(scene) else ""
     return f"megakernel_vjp{est}{tab}"
@@ -165,6 +188,7 @@ def render_megakernel_mat_plain(scene: Scene, cam: CameraParams,
 
 
 def _mat_plain(scene, cam, cfg, albedo, emission, seed, lay, device):
+    check_estimator(cfg)
     return plain_lanes(unpack_materials(scene, albedo, emission), cam, cfg,
                        seed, lay, device)
 
@@ -178,7 +202,7 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
     (``pack_geometry(scene, cam)``) saves the host copy of the rects per
     call; the tables never leave the device. Returns ((h, w, 3) radiance sum
     over the span, traces (2,) int64 [extend, probe])."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
@@ -248,6 +272,7 @@ def _vjp_plain(scene, cam, cfg, albedo, emission, seed, g_rows,
     lanes ``lay``, the tables as leaves; g_rows is (n_pix_loc, 3). The
     lanes run in chunks (``plain_chunk``: one on the CPU), their gradients
     summed: exact up to summation order."""
+    check_estimator(cfg)
     sc, cm = scene.to(device), cam.to(device)
     leaves = _tables(albedo, emission, _n_objects(sc), device)
     pix, s_start, s_stop = shard_lanes(lay, device)
@@ -275,7 +300,7 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     is render_megakernel_mat's radiance sum over spp: (d/d albedo,
     d/d emission), each (K, 3), pathwise. The CUDA kernel on a CUDA device,
     the plain version on the CPU."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
@@ -374,7 +399,7 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     ``seed``. The geometry is packed once; the tables stay on the device.
 
     Returns (optimized scene, list of per-step losses)."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     if checkpoint or checkpoint_every:
         raise NotImplementedError(
             "fit checkpoints are not ported yet (ROADMAP.md queue 1, item "
@@ -424,7 +449,7 @@ def render_megakernel_mat_shard(scene: Scene, cam: CameraParams,
     spp: its pixel block's radiance sums over its dp sample range, before
     any collective (row 8 on the shard's lanes on a CUDA device). Returns
     ((n_pix_loc, 3) partial sums, traces (2,) int64 of the shard)."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_shard_plain(scene, cam, cfg, mesh,
@@ -453,7 +478,7 @@ def render_megakernel_vjp_shard(scene: Scene, cam: CameraParams,
     sum(g_rows · I_loc) over its shard's lanes, where g_rows (n_pix_loc, 3)
     holds the cotangents of its pixel block only (row 9 on a CUDA
     device). Returns (galb, gemi) partials, each (K, 3)."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_shard_plain(scene, cam, cfg, mesh,
@@ -480,7 +505,7 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
 
     Returns step(albedo, emission, seed) -> (loss (), galb (K, 3),
     gemi (K, 3)), the same on every rank."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     lay = shard_of(cfg, mesh, what="spp")
     n_pix, spp = cfg.width * cfg.height, cfg.spp

@@ -546,7 +546,8 @@ def _glos(scene):
     (lambda s, c, f: mg.geom_run(s, c, spt.RenderConfig(
         width=4, height=3, spp=1, estimator="nee_textbook"), 0),
      NotImplementedError, "item 10"),
-    (lambda s, c, f: spt.RenderConfig(light_sample_mode="glibc_overflow"),
+    (lambda s, c, f: mg.geom_run(s, c, spt.RenderConfig(
+        width=4, height=3, spp=1, light_sample_mode="glibc_overflow"), 0),
      NotImplementedError, "item 10"),
     (lambda s, c, f: convert.scene_from_jax(
         jget_scene("cornell_twolights"), device="cpu"),

@@ -322,9 +322,8 @@ def _refuse(call, exc, match):
 
 
 def test_refusals(cam, table):
-    """nee with a guide (ValueError, cosine-continuation), mis (item 10),
-    the sphere_grid family and sphere_table on (sphere_table mode), and
-    per-pixel budgets with another estimator than nee (item 10)."""
+    """nee with a guide (ValueError, cosine-continuation), and the
+    sphere_grid family and sphere_table on (sphere_table mode)."""
     box = spt.get_scene("cornell_box", device="cpu")
     grid = spt.get_scene("sphere_grid", device="cpu")
     sp = spt.get_scene("smallpt_original", device="cpu")
@@ -342,11 +341,6 @@ def test_refusals(cam, table):
                                  estimator="cosine", sphere_table=mode)
             _refuse(lambda: fn(sp, cam[1], c, 0, g), ValueError,
                     "does not support sphere_table mode")
-    _refuse(lambda: spt.RenderConfig(estimator="mis"), NotImplementedError,
-            "item 10")
-    _refuse(lambda: mk.render_megakernel_budgets(
-        box, cam[1], cos, 0, np.zeros(16), np.ones(16)),
-        NotImplementedError, "item 10")
 
 
 def test_fit_takes_cosine(cam):
@@ -394,5 +388,5 @@ def test_cli_render_guided(tmp_path, capsys, monkeypatch):
     assert (tmp_path / "a.png").read_bytes() == (tmp_path / "b.png").read_bytes()
     with pytest.raises(SystemExit, match="--adaptive-tol"):
         cli_main(base + ["--adaptive-tol", "0.1", "-o", str(out)])
-    with pytest.raises(SystemExit, match="cosine or nee_textbook"):
+    with pytest.raises(SystemExit, match="cosine, nee_textbook, or mis"):
         cli_main(base[:-4] + ["-o", str(out)])

@@ -116,9 +116,8 @@ def test_lane_groups_matches_jax(n_pix, n_s, target):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("estimator", "uniform"), ("estimator", "mis"), ("sampler", "sobol"),
-    ("pixel_filter", "tent"), ("aperture", 2.0), ("wavefront", "scan"),
-    ("rng_backend", "mix_packed"), ("light_sample_mode", "glibc_overflow"),
+    ("sampler", "sobol"), ("pixel_filter", "tent"), ("aperture", 2.0),
+    ("wavefront", "scan"), ("rng_backend", "mix_packed"),
 ])
 def test_config_outside_slice_raises(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
