@@ -53,7 +53,9 @@ and the adjoint's event time and counters at x512; both adjoints on
 adjoint's sphere rows with the light black, and at 5 bounces with the
 cotangent zeroed on the pixels whose NEE probe re-hits the light from its
 own underside). Then material training grown to sphere scenes, SPEC/REFR
-and the ``cosine`` and ``nee_textbook`` estimators: row 8's new instances
+and the ``cosine`` and ``nee_textbook`` estimators (``mat_phases`` of
+MAT_GROWN: row 8 at 1024x768x4, row 9 at 256x192x4 on the box and
+128x96x4 on the sphere scenes, row 10 at 128x96x4): row 8's new instances
 bit for bit against their plain version and the render, row 9's against
 autograd through its plain version (and on 200-bounce paths), row 10's on
 each shard, the main path ``cli fit --scene smallpt_original --estimator
@@ -69,7 +71,16 @@ for bit against its plain version at 1024x768x4; ``cli render
 1024x768x512, adaptive, checkpointed, ``--mesh 1x1``, per-shard and
 ``--guided`` paths with their launches counted, each instance's x512
 event time and bound, and guiding's clamped MSE (guided against
-unguided ``mis`` on ``cornell_alcove_baffled``). The
+unguided ``mis`` on ``cornell_alcove_baffled``). Then material training
+with those estimators (``mat_phases`` of MAT_EST): row 8's 18 new
+instances (rect, linear, tree) bit for bit against their plain version and
+the render at 256x192x4, row 9's against autograd (256x192x4 on the box,
+128x96x4 on the sphere scenes; and ``mis`` and
+``mixture`` on 200-bounce paths), row 10 with ``mis`` on each shard, the
+main path ``cli fit --estimator mis --train emission --lr 1`` at
+1024x768x512 (5 steps, the loss must fall, 5 + 5 launches) and a 1-step
+fit of each other instance, and their x512 times;
+the 4-rank main path takes one ``mis`` step over the mesh too. The
 adjoint kernels'
 registers, stack frames (their tapes) and spills are logged from ptxas,
 their times against the function's bound and their algorithm's. Each path
@@ -94,6 +105,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -278,11 +290,12 @@ def query_ops(n_rects: int, n_spheres: int = 0) -> int:
     return FP_RAY + FP_RECT * n_rects + FP_SPHERE * n_spheres
 
 
-def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
-                  n_spheres: int = 0, span_bytes: int = 0, est: str = "nee",
-                  diffuse_only: bool = True, scan=None):
-    """Forward kernels. nee (and its glibc instance): every counted probe
-    follows one traced, unfolded bounce (query, shading, probe, five
+def forward_ops(traces, n_samples: int, n_rects: int, n_spheres: int = 0,
+                est: str = "nee", diffuse_only: bool = True,
+                counted_spheres: bool = True) -> tuple[float, float]:
+    """The least (fp32, int32) operations of a forward launch with these
+    [extend, probe] counts. nee (and its glibc instance): every counted
+    probe follows one traced, unfolded bounce (query, shading, probe, five
     draws); the extends beyond it (RR deaths, folded bounces, SPEC/REFR
     bounces) are left out. mixture: the same, and the extends beyond two a
     probe (its bounce and the folded one after it) each a query with the
@@ -291,18 +304,10 @@ def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
     bounces (nee_textbook, mis: its probes; the others: every extend when
     ``diffuse_only``, else none) add the hemisphere sample, each textbook
     or mis probe the light sample, weight and direct term, each mis probe
-    its balance weights (FP_MIS); the guided mixture is left out. So this
-    is a lower bound. Bytes: the per-lane radiance and the counters out, the
-    material tables (and, with spheres, the codes and sphere rows) in, and
-    the budget kernels' span bounds or the guide table (span_bytes) in.
-
-    With spheres this is the linear scan's bound (every query tests every
-    sphere); ``scan`` (the counting instance's [node tests, rows tested,
-    rows at the square root] of the same launch) gives the tree's: its
-    counted sphere work, every query's, in place of the linear scan's, and
-    the tree's bytes."""
+    its balance weights (FP_MIS); the guided mixture is left out. Queries
+    test every rect and, with ``counted_spheres``, every sphere."""
     extend, probe = traces
-    q = query_ops(n_rects, 0 if scan is not None else n_spheres)
+    q = query_ops(n_rects, n_spheres if counted_spheres else 0)
     direct = est in ("nee_textbook", "mis")
     if est in ("nee", "mixture"):
         fp = probe * (q + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
@@ -321,6 +326,24 @@ def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
             fp += probe * (FP_PROBE + FP_NEE + FP_DIRECT
                            + (FP_MIS if est == "mis" else 0))
             it += probe * 2 * INT_DRAW
+    return fp, it
+
+
+def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
+                  n_spheres: int = 0, span_bytes: int = 0, est: str = "nee",
+                  diffuse_only: bool = True, scan=None):
+    """Forward kernels: ``forward_ops`` over the peak rates, so this is a
+    lower bound. Bytes: the per-lane radiance and the counters out, the
+    material tables (and, with spheres, the codes and sphere rows) in, and
+    the budget kernels' span bounds or the guide table (span_bytes) in.
+
+    With spheres this is the linear scan's bound (every query tests every
+    sphere); ``scan`` (the counting instance's [node tests, rows tested,
+    rows at the square root] of the same launch) gives the tree's: its
+    counted sphere work, every query's, in place of the linear scan's, and
+    the tree's bytes."""
+    fp, it = forward_ops(traces, n_samples, n_rects, n_spheres, est,
+                         diffuse_only, scan is None)
     k = n_rects + n_spheres
     tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
     if scan is not None:
@@ -366,50 +389,90 @@ def cli_traces(text: str) -> tuple[int, float]:
 
 
 # Bytes of one tape entry of the adjoint kernels, written once and read
-# once a taped bounce: csrc/megakernel_grad.cu `VjpEntry` and
+# once a taped bounce: csrc/megakernel_vjp.cuh `VjpEntry` and
 # csrc/megakernel_geom.cu `GeomEntry` (the state before the bounce and
 # what its two queries found).
-# Rows 8, 9 and 10 grown to sphere scenes, SPEC/REFR and the cosine and
-# nee_textbook estimators: each new instance (the name its wrapper counts
-# its launches under: ``mat_kernel_name``, ``vjp_kernel_name``), its source
-# under CSRC and the TPU kernel it replaces. The ``_tab`` instances of row
-# 8 are row 2's table kernels launched with the runtime tables; those of
-# row 9 are a linear and a tree instance each, counted together.
-MAT_KERNELS = (
-    ("megakernel_cosine_mat", "megakernel.cu",
-     "megakernel_grad.py:980 (estimator cosine)"),
-    ("megakernel_textbook_mat", "megakernel.cu",
-     "megakernel_grad.py:980 (estimator nee_textbook)"),
-    ("megakernel_nee_mat_tab", "megakernel.cu",
-     "megakernel_grad.py:980 (spheres, SPEC/REFR)"),
-    ("megakernel_cosine_mat_tab", "megakernel.cu",
-     "megakernel_grad.py:980 (spheres, SPEC/REFR, cosine)"),
-    ("megakernel_textbook_mat_tab", "megakernel.cu",
-     "megakernel_grad.py:980 (spheres, SPEC/REFR, nee_textbook)"),
-    ("megakernel_vjp_cosine", "megakernel_grad.cu",
-     "megakernel_grad.py:1049 (estimator cosine)"),
-    ("megakernel_vjp_textbook", "megakernel_grad.cu",
-     "megakernel_grad.py:1049 (estimator nee_textbook)"),
-    ("megakernel_vjp_tab", "megakernel_grad.cu",
-     "megakernel_grad.py:1049 (spheres, SPEC/REFR)"),
-    ("megakernel_vjp_cosine_tab", "megakernel_grad.cu",
-     "megakernel_grad.py:1049 (spheres, SPEC/REFR, cosine)"),
-    ("megakernel_vjp_textbook_tab", "megakernel_grad.cu",
-     "megakernel_grad.py:1049 (spheres, SPEC/REFR, nee_textbook)"),
+class MatSpec(NamedTuple):
+    """One slice of rows 8, 9 and 10 for ``mat_phases``: its phases' title;
+    its kernels in the ``kernels`` line, (the name its wrapper counts its
+    launches under: ``mat_kernel_name``, ``vjp_kernel_name``; its source
+    under CSRC; the TPU kernel it replaces); its cases, (scene, label,
+    RenderConfig fields); the (width, height) of row 8's and row 9's
+    parity runs on each scene (x4); the RenderConfig fields of the
+    200-bounce check (``smallpt_original``, every albedo DEEP_ALBEDO, the
+    light black); row 10's per-shard case, (scene, fields, (width,
+    height)); its cli fit
+    runs at 1024x768x512, (scene, fields, --train, steps, --lr or None for
+    the CLI's default), the first its main path (the loss must fall); and
+    the CUDA-event launches of each instance's x512 time (row 8, row 9).
+    The ``_tab`` instances of row 8 are row 2's table kernels launched with
+    the runtime tables; those of row 9 are a linear and a tree instance
+    each, counted together (``sphere_grid``'s tree runs are logged, not
+    reported)."""
+
+    title: str
+    kernels: tuple
+    cases: tuple
+    size8: dict
+    size9: dict
+    deep: tuple
+    shard: tuple
+    fits: tuple
+    x512_n: tuple
+
+
+# Rows 8, 9 and 10 grown to sphere scenes, SPEC/REFR and the
+# cosine and nee_textbook estimators. Its main path is ``cli fit --scene
+# smallpt_original --estimator cosine --train emission,albedo`` at the
+# CLI's default learning rate (on the CPU its loss falls at 64x48x32 and
+# diverges at 32x24x32: the gradient's noise shrinks with the samples);
+# then a 2-step fit for each other instance (emission only:
+# nee_textbook's light-albedo row is knife-edge 1/t^2 noise, which makes
+# an albedo step diverge), and sphere_grid's for the tree instances.
+MAT_GROWN = MatSpec(
+    title="rows 8, 9 and 10 grown (cosine, nee_textbook, spheres)",
+    kernels=(
+        ("megakernel_cosine_mat", "megakernel.cu",
+         "megakernel_grad.py:980 (estimator cosine)"),
+        ("megakernel_textbook_mat", "megakernel.cu",
+         "megakernel_grad.py:980 (estimator nee_textbook)"),
+        ("megakernel_nee_mat_tab", "megakernel.cu",
+         "megakernel_grad.py:980 (spheres, SPEC/REFR)"),
+        ("megakernel_cosine_mat_tab", "megakernel.cu",
+         "megakernel_grad.py:980 (spheres, SPEC/REFR, cosine)"),
+        ("megakernel_textbook_mat_tab", "megakernel.cu",
+         "megakernel_grad.py:980 (spheres, SPEC/REFR, nee_textbook)"),
+        ("megakernel_vjp_cosine", "megakernel_grad.cu",
+         "megakernel_grad.py:1049 (estimator cosine)"),
+        ("megakernel_vjp_textbook", "megakernel_grad.cu",
+         "megakernel_grad.py:1049 (estimator nee_textbook)"),
+        ("megakernel_vjp_tab", "megakernel_grad.cu",
+         "megakernel_grad.py:1049 (spheres, SPEC/REFR)"),
+        ("megakernel_vjp_cosine_tab", "megakernel_grad.cu",
+         "megakernel_grad.py:1049 (spheres, SPEC/REFR, cosine)"),
+        ("megakernel_vjp_textbook_tab", "megakernel_grad.cu",
+         "megakernel_grad.py:1049 (spheres, SPEC/REFR, nee_textbook)"),
+    ),
+    cases=(("cornell_box", "cosine", {"estimator": "cosine"}),
+           ("cornell_box", "nee_textbook", {"estimator": "nee_textbook"}),
+           *((n, e, {"estimator": e})
+             for n in ("smallpt_original", "sphere_grid")
+             for e in ("nee", "cosine", "nee_textbook"))),
+    size8={"cornell_box": (1024, 768), "smallpt_original": (1024, 768),
+           "sphere_grid": (1024, 768)},
+    size9={"cornell_box": (256, 192), "smallpt_original": (128, 96),
+           "sphere_grid": (128, 96)},
+    deep=({"estimator": "cosine"}, {"estimator": "nee_textbook"}),
+    shard=("smallpt_original", {"estimator": "cosine"}, (128, 96)),
+    fits=(("smallpt_original", {"estimator": "cosine"}, "emission,albedo",
+           5, None),
+          *((n, {"estimator": e}, "emission", 2, None) for n, e in (
+              ("smallpt_original", "nee"),
+              ("smallpt_original", "nee_textbook"),
+              ("cornell_box", "cosine"), ("cornell_box", "nee_textbook"),
+              ("sphere_grid", "nee_textbook")))),
+    x512_n=(2, 1),
 )
-# The material fit's main path on sphere scenes: ``cli fit --scene
-# smallpt_original --estimator cosine --train emission,albedo`` at
-# 1024x768x512, MAT_STEPS steps at the CLI's default learning rate (on the
-# CPU its loss falls at 64x48x32 and diverges at 32x24x32: the gradient's
-# noise shrinks with the samples). Then a 2-step fit for each other
-# instance (emission only: nee_textbook's light-albedo row is knife-edge
-# 1/t^2 noise, which makes an albedo step diverge), and sphere_grid's for
-# the tree instances.
-MAT_MAIN = ("smallpt_original", "cosine")
-MAT_STEPS = 5
-MAT_FITS = (("smallpt_original", "nee"), ("smallpt_original", "nee_textbook"),
-            ("cornell_box", "cosine"), ("cornell_box", "nee_textbook"),
-            ("sphere_grid", "nee_textbook"))
 
 
 VJP_ENTRY_BYTES, GEOM_ENTRY_BYTES = 48, 64
@@ -421,29 +484,22 @@ def vjp_bound(traces, n_samples: int, n_pix: int, k: int,
     """megakernel_vjp. The function's bound: every bounce of every sample
     traced once, unfolded (the forward's extend count: a folded bounce is
     an extend too), and one gradient update a bounce. nee: each bounce a
-    query, the shading and a probe; cosine and nee_textbook: each a query
-    with the least shading, the cosine sample at the diffuse bounces and
-    each textbook probe's light sample, weight and direct term, as
-    ``forward_bound``. The queries are the linear scan's (n_spheres of the
-    k objects are spheres). Bytes: the cotangent image and the tables in,
-    the gradients out. With ``algorithm`` this kernel's bound: also its
-    tape, an entry a bounce written once and read once (the segment replays
-    of paths longer than the tape, about 1e-5 of the paths, left out)."""
-    extend, probe = traces
-    q = query_ops(k - n_spheres, n_spheres)
+    query, the shading and a probe; the other estimators: the forward's
+    operations (``forward_ops``: for mis with FP_MIS) and the updates. The
+    queries are the linear scan's (n_spheres of the k objects are
+    spheres). Bytes: the cotangent image and the tables in, the gradients
+    out. With ``algorithm`` this kernel's bound: also its tape, an entry a
+    bounce written once and read once (the segment replays of paths longer
+    than the tape, about 1e-5 of the paths, left out)."""
+    extend = traces[0]
     if est == "nee":
+        q = query_ops(k - n_spheres, n_spheres)
         fp = extend * (q + FP_SHADE + FP_PROBE + FP_GRAD) + n_samples * FP_SPAWN
         it = extend * INT_BOUNCE + n_samples * INT_SPAWN
     else:
-        diffuse = probe if est == "nee_textbook" else (
-            extend if diffuse_only else 0)
-        fp = (extend * (q + FP_SHADE_MIN + FP_GRAD) + diffuse * FP_COS_SAMPLE
-              + n_samples * FP_SPAWN)
-        it = (extend * (INT_DRAW + INT_WORD) + diffuse * 2 * INT_DRAW
-              + n_samples * INT_SPAWN)
-        if est == "nee_textbook":
-            fp += probe * (FP_PROBE + FP_NEE + FP_DIRECT)
-            it += probe * 2 * INT_DRAW
+        fp, it = forward_ops(traces, n_samples, k - n_spheres, n_spheres,
+                             est, diffuse_only)
+        fp += extend * FP_GRAD
     n_bytes = n_pix * 12 + 4 * k * 3 * 4 + (
         k * 4 + n_spheres * 16 if n_spheres else 0)
     if algorithm:
@@ -646,12 +702,13 @@ def geom_phases(card: str, cli_main) -> dict:
           "version, cornell_spheres 1024x768x4")
     res = {"cornell_spheres": parity("cornell_spheres", 1024, 768, 3, (3,),
                                      long_paths=True)}
-    # The glass scene under two cotangents: grazing refraction puts the
-    # sphere rows' largest rounding gap near its limit under seed 5.
+    # The glass scene under cotangent seed 5, where grazing refraction puts
+    # the sphere rows' largest rounding gap nearest its limit (each further
+    # cotangent costs 50-60 s of autograd).
     phase("geometry adjoint, smallpt_original 1024x768x4 (SPEC + REFR), "
-          "cotangent seeds 3 and 5")
+          "cotangent seed 5")
     res["smallpt_original"] = parity("smallpt_original", 1024, 768, 3,
-                                     (3, 5), long_paths=True)
+                                     (5,), long_paths=True)
     phase("geometry adjoint, sphere_grid 256x192x4 (64 spheres)")
     res["sphere_grid"] = parity("sphere_grid", 256, 192, 3, (3,))
 
@@ -1128,8 +1185,9 @@ def mesh_rank(paths: list, mat_step: bool) -> dict:
     ``launcher.spawn``): each ``cli`` argv of ``paths`` [(label, argv)],
     ``launcher.distributed_render`` of ``cornell_box`` at 1024x768x512
     (the multi-rank entry point of the library), then, with ``mat_step``,
-    one ``material_train_step_sharded`` step at 1024x768x512 (the entry
-    point a user calls: the JAX package has no CLI path for it). The launch
+    one ``material_train_step_sharded`` step at 1024x768x512 of each of
+    MESH_MAT_STEPS (the entry point a user calls: the JAX package has no
+    CLI path for it). The launch
     counts are set to 0 just before each path and read just after. Returns
     {label: {rc, launches, stdout, stderr, seconds}} with host values
     only."""
@@ -1169,11 +1227,10 @@ def mesh_rank(paths: list, mat_step: bool) -> dict:
         "seconds": time.perf_counter() - t0}
     if mat_step:
         mesh = make_mesh(SHARD_MESH)
-        for label, sc_, cfg_ in (
-                ("row10", sc, cfg),
-                ("row10_tab", get_scene(MAT_MAIN[0]), RenderConfig(
-                    width=1024, height=768, spp=512, seed=0,
-                    estimator=MAT_MAIN[1]))):
+        for label, nm, fields in MESH_MAT_STEPS:
+            sc_ = get_scene(nm)
+            cfg_ = RenderConfig(width=1024, height=768, spp=512, seed=0,
+                                **fields)
             target = _mat_target(sc_, cam, cfg_)
             step = mg.material_train_step_sharded(sc_, cam, cfg_, mesh,
                                                   target)
@@ -1211,10 +1268,10 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
     ``distributed_render`` of ``cornell_box``, one
     ``material_train_step_sharded`` step and ``cli fit --train
     center,radius --mesh 2x2`` (2 steps), all at 1024x768x512, and one
-    ``material_train_step_sharded`` step of the material fit's main path
-    (MAT_MAIN) over the mesh. Returns the ``kernels`` entries of the four
-    rows; ``mat_shard`` holds row 10's per-shard numbers for that main
-    path's two kernels (``mat_phases``)."""
+    ``material_train_step_sharded`` step of each material fit's main path
+    (MESH_MAT_STEPS after the first) over the mesh. Returns the ``kernels``
+    entries of the four rows; ``mat_shard`` holds row 10's per-shard
+    numbers for those main paths' kernels (``mat_phases``)."""
     from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
     from small_pathtracer_tpu_torch.core import film
     from small_pathtracer_tpu_torch.ops import _build, megakernel
@@ -1615,7 +1672,8 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
                                          f"{v['rc']}")
         launches = {}
         for label in ("box", "sphere_grid", "guided", "fit",
-                      "distributed_render", "row10", "row10_tab"):
+                      "distributed_render",
+                      *(step[0] for step in MESH_MAT_STEPS)):
             tot = {}
             for r in ranks:
                 for k, n in r[label]["launches"].items():
@@ -1698,29 +1756,35 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
                 raise AssertionError("the ranks' losses differ")
         if _build.build_kernels().build_seconds != 0.0:
             raise AssertionError("a rank rebuilt the library")
-        # The material fit's main path (MAT_MAIN) as one step over the mesh.
-        m_sc = get_scene(MAT_MAIN[0])
-        m_cfg = RenderConfig(width=width, height=height, spp=512, seed=0,
-                             estimator=MAT_MAIN[1])
-        m_loss, m_alb, m_emi = mg.loss_and_material_grads(
-            m_sc, cam, m_cfg, 0, _mat_target(m_sc, cam, m_cfg))
-        rt = r0["row10_tab"]
-        m_dg = max(float(np.abs(rt[k] - w.cpu().numpy()).max())
-                   / max(1.0, float(w.abs().max()))
-                   for k, w in (("galb", m_alb), ("gemi", m_emi)))
-        tab_launch = {n: launches["row10_tab"].get(n, 0) for n in mat_shard}
-        log(f"[smoke] mesh row10_tab ({MAT_MAIN[0]} {MAT_MAIN[1]}): loss "
-            f"{rt['loss']:.9f} (unsharded {float(m_loss):.9f}), gradients "
-            f"within {m_dg:.3e} of max(1, the largest entry) (limit "
-            f"{STEP_TOL:g}); launches over the ranks {tab_launch}")
-        if not (abs(rt["loss"] - float(m_loss)) <= STEP_TOL
-                * max(1.0, abs(float(m_loss))) and m_dg <= STEP_TOL):
-            raise AssertionError("the material step on the sphere scene over "
-                                 "the mesh differs from the unsharded one")
-        if any(r["row10_tab"]["loss"] != rt["loss"] for r in ranks[1:]):
-            raise AssertionError("the ranks' losses differ (row10_tab)")
-        if any(n != MESH_RANKS for n in tab_launch.values()):
-            raise AssertionError(f"the sharded step launched {tab_launch}")
+        # Each material fit's main path as one step over the mesh.
+        step_launch = {}
+        for label, nm, fields in MESH_MAT_STEPS[1:]:
+            m_sc = get_scene(nm)
+            m_cfg = RenderConfig(width=width, height=height, spp=512, seed=0,
+                                 **fields)
+            m_loss, m_alb, m_emi = mg.loss_and_material_grads(
+                m_sc, cam, m_cfg, 0, _mat_target(m_sc, cam, m_cfg))
+            rt = r0[label]
+            m_dg = max(float(np.abs(rt[k] - w.cpu().numpy()).max())
+                       / max(1.0, float(w.abs().max()))
+                       for k, w in (("galb", m_alb), ("gemi", m_emi)))
+            names = (mg.mat_kernel_name(m_sc, m_cfg),
+                     mg.vjp_kernel_name(m_sc, m_cfg))
+            got = {n: launches[label].get(n, 0) for n in names}
+            step_launch.update(got)
+            log(f"[smoke] mesh {label} ({nm} {m_cfg.estimator}): loss "
+                f"{rt['loss']:.9f} (unsharded {float(m_loss):.9f}), "
+                f"gradients within {m_dg:.3e} of max(1, the largest entry) "
+                f"(limit {STEP_TOL:g}); launches over the ranks {got}")
+            if not (abs(rt["loss"] - float(m_loss)) <= STEP_TOL
+                    * max(1.0, abs(float(m_loss))) and m_dg <= STEP_TOL):
+                raise AssertionError(f"the material step {label} over the "
+                                     "mesh differs from the unsharded one")
+            if any(r[label]["loss"] != rt["loss"] for r in ranks[1:]):
+                raise AssertionError(f"the ranks' losses differ ({label})")
+            if any(n != MESH_RANKS for n in got.values()):
+                raise AssertionError(f"the sharded step {label} launched "
+                                     f"{got}")
 
     main = {"megakernel_nee": launches["box"]["megakernel_nee"]
             + launches["distributed_render"]["megakernel_nee"],
@@ -1738,34 +1802,43 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
     sources = {"megakernel_guided": "megakernel_guided.cu",
                "megakernel_vjp": "megakernel_grad.cu",
                "megakernel_geom": "megakernel_geom.cu"}
-    for name, r in mat_shard.items():
-        main[name] = tab_launch[name]
-        res[name] = r
-        replaces[name] = (("megakernel_grad.py:1195" if "vjp" in name
-                           else "megakernel_grad.py:1156")
-                          + " (spheres, SPEC/REFR, " + MAT_MAIN[1] + ")")
-        if "vjp" in name:
-            sources[name] = "megakernel_grad.cu"
+    for label, nm, fields in MESH_MAT_STEPS[1:]:
+        m_sc = get_scene(nm)
+        m_cfg = RenderConfig(width=8, height=8, spp=1, **fields)
+        where = ("spheres, SPEC/REFR, " if megakernel.uses_sphere_table(m_sc)
+                 else "estimator ")
+        for name in (mg.mat_kernel_name(m_sc, m_cfg),
+                     mg.vjp_kernel_name(m_sc, m_cfg)):
+            main[name] = step_launch[name]
+            res[name] = mat_shard[name]
+            vjp = "vjp" in name
+            replaces[name] = (("megakernel_grad.py:1195" if vjp
+                               else "megakernel_grad.py:1156")
+                              + f" ({where}{m_cfg.estimator})")
+            own = megakernel.est_code(m_cfg) in (0, 1, 2)
+            sources[name] = (("megakernel_grad.cu" if own
+                              else "megakernel_grad_est.cu") if vjp
+                             else ("megakernel.cu" if own
+                                   else "megakernel_est.cu"))
     return [(name + " (shard)", sources.get(name, "megakernel.cu"),
              replaces[name], main[name], res[name]) for name in main]
 
 
 
-def mat_phases(card: str, cli_main) -> tuple[list, dict]:
-    """Rows 8, 9 and 10 grown (MAT_KERNELS): row 8's new instances bit for
-    bit against their plain version and the render at 1024x768x4 (on
-    ``cornell_box``; on ``smallpt_original``, the linear scan, and
-    ``sphere_grid``, the tree), row 9's against autograd through its plain
-    version (``cornell_box`` at 1024x768x4, the sphere scenes at 256x192x4:
-    autograd keeps every bounce's temporaries) and against itself, and on
-    200-bounce paths through the tape's checkpoints; row 10's on each
-    coordinate of a 2x2 mesh at 256x192x4; the main path ``cli fit``
-    (MAT_MAIN, MAT_STEPS steps) and a 2-step fit of each other instance
-    (MAT_FITS) at 1024x768x512, launches counted; and each instance's x512
-    event time (row 8: three launches in a row, row 9: two, after the
-    launch that reads the traces; ms and plain_ms in the entries: medians
-    of three wrapper calls and one at the parity shapes). Returns (the ``kernels`` entries, row 10's per-shard numbers
-    for ``shard_phases``)."""
+def mat_phases(card: str, cli_main, spec: MatSpec) -> tuple[list, dict]:
+    """Rows 8, 9 and 10 of one slice (``spec``): row 8's instances bit for
+    bit against their plain version and the render (``spec.size8``: on
+    ``cornell_box`` the rect instances, on ``smallpt_original`` the linear
+    scan, on ``sphere_grid`` the tree), row 9's against autograd through
+    its plain version (``spec.size9``: autograd keeps every bounce's
+    temporaries) and against itself, and on 200-bounce paths through the
+    tape's checkpoints; row 10's on each coordinate of a 2x2 mesh
+    (``spec.shard``); the cli fit runs (``spec.fits``, the first the main path) at
+    1024x768x512, launches counted; and each instance's x512 event time
+    (``spec.x512_n`` launches of row 8 and of row 9, after the launch that
+    reads the traces; ms and plain_ms in the entries: medians of three
+    wrapper calls and one at the parity shapes). Returns (the ``kernels``
+    entries, row 10's per-shard numbers for ``shard_phases``)."""
     from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
     from small_pathtracer_tpu_torch.ops import megakernel
     from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
@@ -1775,14 +1848,13 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
     scenes = {n: get_scene(n) for n in ("cornell_box", "smallpt_original",
                                         "sphere_grid")}
     cam = make_camera(aspect=4 / 3)
-    light_black = {}
 
     def sizes(sc):
         return sc.rects.k.shape[0], sc.spheres.radius.shape[0]
 
-    def cfg_of(width, height, spp, est, seed, **kw):
+    def cfg_of(width, height, spp, fields, seed, **kw):
         return RenderConfig(width=width, height=height, spp=spp, seed=seed,
-                            estimator=est, **kw)
+                            **fields, **kw)
 
     def f_bound(sc, tr, n_samples, n_lanes, est):
         R, S = sizes(sc)
@@ -1800,9 +1872,9 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
 
     def held(label, kt, pt, light):
         """A table of the kernel within VJP_TOL of autograd's largest entry,
-        and so are its rows other than the light's (nee_textbook's light
-        albedo row is knife-edge 1/t^2 noise that dominates its scale).
-        Returns |kernel - plain| / the largest entry."""
+        and so are its rows other than the light's (nee_textbook's and
+        mis's light albedo row is knife-edge 1/t^2 noise that dominates its
+        scale). Returns |kernel - plain| / the largest entry."""
         ratio = 0.0
         keep = torch.arange(kt.shape[0], device=kt.device) != light
         for k_, p_ in ((kt, pt), (kt[keep], pt[keep])):
@@ -1814,36 +1886,33 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
         return ratio
 
     par = {}  # name -> its reported parity run (linear or rect instance)
-    cases = [("cornell_box", "cosine"), ("cornell_box", "nee_textbook")] + [
-        (n, e) for n in ("smallpt_original", "sphere_grid")
-        for e in ("nee", "cosine", "nee_textbook")]
-    phase("row 8 grown: the runtime-material forward of cosine and "
-          "nee_textbook on cornell_box, of nee, cosine and nee_textbook on "
-          "smallpt_original and sphere_grid, 1024x768x4, against its plain "
-          "version and the render, bit for bit")
-    width, height = 1024, 768
-    n_pix = width * height
-    for nm, est in cases:
+    phase(f"{spec.title}: row 8 against its plain version and the render, "
+          "bit for bit, " + ", ".join(
+              f"{n} {w}x{h}x4" for n, (w, h) in spec.size8.items()))
+    for nm, label, fields in spec.cases:
         sc = scenes[nm]
-        cfg = cfg_of(width, height, 4, est, 16)
+        width, height = spec.size8[nm]
+        n_pix = width * height
+        cam_8 = make_camera(aspect=width / height)
+        cfg = cfg_of(width, height, 4, fields, 16)
         alb, emi = mg.pack_materials(sc)
         name = mg.mat_kernel_name(sc, cfg)
         before = lbn[name]
         outs, med = in_turns(
-            {"kernel": lambda: mg.render_megakernel_mat(sc, cam, cfg, alb,
+            {"kernel": lambda: mg.render_megakernel_mat(sc, cam_8, cfg, alb,
                                                         emi, 16),
              "plain": lambda: mg.render_megakernel_mat_plain(
-                 sc, cam, cfg, alb, emi, 16)},
+                 sc, cam_8, cfg, alb, emi, 16)},
             ("kernel", "kernel", "plain", "kernel"))
         if lbn[name] != before + 3:
-            raise AssertionError(f"row 8 {nm} {est}: {name} did not count 3 "
-                                 "launches")
+            raise AssertionError(f"row 8 {nm} {label}: {name} did not count "
+                                 "3 launches")
         (k_img, k_tr), (k2_img, k2_tr), _ = outs["kernel"]
         p_img, p_tr = outs["plain"][0]
-        r_img, r_tr = megakernel.render_megakernel(sc, cam, cfg, 16)
+        r_img, r_tr = megakernel.render_megakernel(sc, cam_8, cfg, 16)
         err = float((k_img - p_img).abs().max())
-        b = f_bound(sc, k_tr.tolist(), n_pix * 4, n_pix, est)
-        log(f"[smoke] row 8 {nm} {est} {width}x{height}x4: {name} "
+        b = f_bound(sc, k_tr.tolist(), n_pix * 4, n_pix, cfg.estimator)
+        log(f"[smoke] row 8 {nm} {label} {width}x{height}x4: {name} "
             f"{med['kernel'] * 1e3:.3f} ms traces {k_tr.tolist()}; plain "
             f"{med['plain'] * 1e3:.3f} ms traces {p_tr.tolist()}; max |img "
             f"diff| {err:.3e}; == the render: "
@@ -1852,22 +1921,21 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
         if not all(torch.equal(a, b_) for a, b_ in (
                 (k_img, k2_img), (k_tr, k2_tr), (k_img, p_img), (k_tr, p_tr),
                 (k_img, r_img), (k_tr, r_tr))):
-            raise AssertionError(f"row 8 {nm} {est}: the kernel, its plain "
+            raise AssertionError(f"row 8 {nm} {label}: the kernel, its plain "
                                  "version and the render differ")
         if nm != "sphere_grid":
             par[name] = {"err": err, "ms": med["kernel"] * 1e3,
                          "plain_ms": med["plain"] * 1e3, "bound": b}
 
-    phase("row 9 grown: the material adjoint of cosine and nee_textbook on "
-          "cornell_box at 1024x768x4, of nee, cosine and nee_textbook on "
-          "smallpt_original (linear) and sphere_grid (tree) at 256x192x4, "
-          "against autograd through its plain version and against itself")
-    for nm, est in cases:
+    phase(f"{spec.title}: row 9 against autograd through its plain version "
+          "and against itself, " + ", ".join(
+              f"{n} {w}x{h}x4" for n, (w, h) in spec.size9.items()))
+    for nm, label, fields in spec.cases:
         sc = scenes[nm]
-        width, height = (1024, 768) if nm == "cornell_box" else (256, 192)
+        width, height = spec.size9[nm]
         n_pix = width * height
         cam_v = make_camera(aspect=width / height)
-        cfg = cfg_of(width, height, 4, est, 17)
+        cfg = cfg_of(width, height, 4, fields, 17)
         alb, emi = mg.pack_materials(sc)
         g = g_of(height, width, 5)
         name = mg.vjp_kernel_name(sc, cfg)
@@ -1881,19 +1949,19 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
             ("kernel", "kernel", "plain", "kernel"))
         peak = torch.cuda.max_memory_allocated()
         if lbn[name] != before + 3:
-            raise AssertionError(f"row 9 {nm} {est}: {name} did not count 3 "
-                                 "launches")
+            raise AssertionError(f"row 9 {nm} {label}: {name} did not count "
+                                 "3 launches")
         (ka, ke), (ka2, ke2), _ = outs["kernel"]
         if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
-            raise AssertionError(f"row 9 {nm} {est}: kernel runs differ")
+            raise AssertionError(f"row 9 {nm} {label}: kernel runs differ")
         pa, pe = outs["plain"][0]
         light = int(sc.light.light_obj_id)
-        r_a = held(f"row 9 {nm} {est} d/d albedo", ka, pa, light)
-        r_e = held(f"row 9 {nm} {est} d/d emission", ke, pe, light)
+        r_a = held(f"row 9 {nm} {label} d/d albedo", ka, pa, light)
+        r_e = held(f"row 9 {nm} {label} d/d emission", ke, pe, light)
         tr = megakernel.render_megakernel(sc, cam_v, cfg, 17)[1].tolist()
-        b = v_bound(sc, tr, n_pix * 4, n_pix, est)
+        b = v_bound(sc, tr, n_pix * 4, n_pix, cfg.estimator)
         err = max(float((ka - pa).abs().max()), float((ke - pe).abs().max()))
-        log(f"[smoke] row 9 {nm} {est} {width}x{height}x4: {name} "
+        log(f"[smoke] row 9 {nm} {label} {width}x{height}x4: {name} "
             f"{med['kernel'] * 1e3:.3f} ms, plain {med['plain'] * 1e3:.3f} ms"
             f" (peak memory {peak / 2**30:.2f} GiB); d/d albedo within "
             f"{r_a:.3e}, d/d emission within {r_e:.3e} of the largest entry "
@@ -1903,9 +1971,12 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
             par[name] = {"err": err, "ms": med["kernel"] * 1e3,
                          "plain_ms": med["plain"] * 1e3, "bound": b}
 
-    phase(f"row 9 grown on deep paths: smallpt_original cosine and "
-          f"nee_textbook, rr_start_depth = max_bounces = {DEEP_BOUNCES}, "
-          f"every albedo {DEEP_ALBEDO} but the light's (black), 64x48x4")
+    labels = [f["estimator"] + ("_glibc" if "light_sample_mode" in f else "")
+              for f in spec.deep]
+    phase(f"{spec.title}: row 9 on deep paths, smallpt_original "
+          f"{' and '.join(labels)}, rr_start_depth = max_bounces = "
+          f"{DEEP_BOUNCES}, every albedo {DEEP_ALBEDO} but the light's "
+          "(black), 64x48x4")
     sp = scenes["smallpt_original"]
     L = int(sp.light.light_obj_id)
     r_alb = torch.full_like(sp.rects.albedo, DEEP_ALBEDO)
@@ -1916,8 +1987,8 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
             albedo=torch.full_like(sp.spheres.albedo, DEEP_ALBEDO)))
     cam_d = make_camera(aspect=64 / 48)
     g = g_of(48, 64, 5)
-    for est in ("cosine", "nee_textbook"):
-        cfg = cfg_of(64, 48, 4, est, 3, rr_start_depth=DEEP_BOUNCES,
+    for label, fields in zip(labels, spec.deep):
+        cfg = cfg_of(64, 48, 4, fields, 3, rr_start_depth=DEEP_BOUNCES,
                      max_bounces=DEEP_BOUNCES)
         alb, emi = mg.pack_materials(deep)
         ka, ke = mg.render_megakernel_vjp(deep, cam_d, cfg, alb, emi, 3, g)
@@ -1925,24 +1996,25 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
         pa, pe = mg.render_megakernel_vjp_plain(deep, cam_d, cfg, alb, emi,
                                                 3, g)
         if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
-            raise AssertionError(f"deep row 9 {est}: kernel runs differ")
-        r_a = held(f"deep row 9 {est} d/d albedo", ka, pa, L)
-        r_e = held(f"deep row 9 {est} d/d emission", ke, pe, L)
+            raise AssertionError(f"deep row 9 {label}: kernel runs differ")
+        r_a = held(f"deep row 9 {label} d/d albedo", ka, pa, L)
+        r_e = held(f"deep row 9 {label} d/d emission", ke, pe, L)
         tr = megakernel.render_megakernel(deep, cam_d, cfg, 3)[1].tolist()
         per = tr[0] / (64 * 48 * 4)
-        log(f"[smoke] deep row 9 {est}: traces {tr} ({per:.1f} bounces a "
+        log(f"[smoke] deep row 9 {label}: traces {tr} ({per:.1f} bounces a "
             f"sample); d/d albedo within {r_a:.3e}, d/d "
             f"emission within {r_e:.3e} of autograd's largest entry; runs "
             "bit-identical")
 
-    phase(f"row 10 grown per shard: {MAT_MAIN[0]} {MAT_MAIN[1]} 256x192x4, "
-          f"mesh {SHARD_MESH}: forward partials bit for bit, adjoint "
-          "partials against autograd, the sums against the unsharded kernels")
-    width, height = 256, 192
+    sh_nm, sh_fields, (width, height) = spec.shard
+    phase(f"{spec.title}: row 10 per shard, {sh_nm} "
+          f"{sh_fields['estimator']} {width}x{height}x4, mesh {SHARD_MESH}: "
+          "forward partials bit for bit, adjoint partials against autograd, "
+          "the sums against the unsharded kernels")
     n_pix = width * height
     cam_s = make_camera(aspect=width / height)
-    sc = scenes[MAT_MAIN[0]]
-    cfg = cfg_of(width, height, 4, MAT_MAIN[1], 18)
+    sc = scenes[sh_nm]
+    cfg = cfg_of(width, height, 4, sh_fields, 18)
     alb, emi = mg.pack_materials(sc)
     g = g_of(height, width, 6).reshape(n_pix, 3)
     coords = [(i, j) for i in range(SHARD_MESH[0])
@@ -1991,7 +2063,7 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
                                       g.reshape(height, width, 3))
     d_sum = max(float((ga_sum - wa).abs().max()) / float(wa.abs().max()),
                 float((ge_sum - we).abs().max()) / float(we.abs().max()))
-    log(f"[smoke] row 10 {MAT_MAIN[0]} {MAT_MAIN[1]} per shard: forward == "
+    log(f"[smoke] row 10 {sh_nm} {cfg.estimator} per shard: forward == "
         f"plain bit for bit, adjoint within {VJP_TOL:g} of autograd on every "
         f"coordinate; kernel {shard['fwd'][1] * 1e3:.3f} / "
         f"{shard['vjp'][1] * 1e3:.3f} ms, plain {shard['fwd'][2] * 1e3:.3f} / "
@@ -2010,77 +2082,77 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
             "err": 0.0, "ms": shard["fwd"][1] * 1e3,
             "plain_ms": shard["fwd"][2] * 1e3,
             "bound": f_bound(sc, want_tr.tolist(), n_pix * 4, lanes,
-                             MAT_MAIN[1])},
+                             cfg.estimator)},
         mg.vjp_kernel_name(sc, cfg): {
             "err": shard["vjp"][0], "ms": shard["vjp"][1] * 1e3,
             "plain_ms": shard["vjp"][2] * 1e3,
             "bound": v_bound(sc, want_tr.tolist(), n_pix * 4, n_pix,
-                             MAT_MAIN[1])}}
+                             cfg.estimator)}}
 
     main_launch = {}
     base = ["fit", "--width", "1024", "--height", "768", "--spp", "512"]
-    for i, (nm, est) in enumerate((MAT_MAIN, *MAT_FITS)):
-        steps = MAT_STEPS if i == 0 else 2
-        train = "emission,albedo" if i == 0 else "emission"
-        phase(f"{'main path' if i == 0 else 'path'}: cli fit --scene {nm} "
-              f"--estimator {est} --train {train} 1024x768x512, {steps} "
-              "steps")
+    for i, (nm, fields, train, steps, lr) in enumerate(spec.fits):
         sc = scenes[nm]
-        cfg = cfg_of(1024, 768, 512, est, 0)
+        cfg = cfg_of(1024, 768, 512, fields, 0)
+        argv = [*base, "--scene", nm, *est_argv(fields), "--steps",
+                str(steps), "--train", train,
+                *(["--lr", lr] if lr is not None else [])]
+        phase(f"{'main path' if i == 0 else 'path'}: cli {' '.join(argv)}")
         out, err_io = io.StringIO(), io.StringIO()
         lbn.clear()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(
                 err_io):
-            rc = cli_main([*base, "--scene", nm, "--estimator", est,
-                           "--steps", str(steps), "--train", train])
+            rc = cli_main(argv)
         counts = dict(lbn)
+        label = f"{nm} {' '.join(est_argv(fields))}"
         text = err_io.getvalue()
         for line in text.strip().splitlines():
-            log(f"[smoke] cli fit {nm} {est}: {line}")
+            log(f"[smoke] cli fit {label}: {line}")
         if rc != 0:
-            raise AssertionError(f"cli fit {nm} {est} returned {rc}")
+            raise AssertionError(f"cli fit {label} returned {rc}")
         res = json.loads(out.getvalue().strip().splitlines()[-1])
         losses = [float(x) for x in re.findall(r"loss (\S+)", text)]
         secs = [float(x) for x in re.findall(r"seconds (\S+)", text)]
         m_name, v_name = mg.mat_kernel_name(sc, cfg), mg.vjp_kernel_name(
             sc, cfg)
-        target_kernel = ("megakernel_" + {"nee": "nee", "cosine": "cosine",
-                                           "nee_textbook": "textbook"}[est]
-                         + ("_tab" if megakernel.uses_sphere_table(sc)
-                            else ""))
-        log(f"[smoke] {'main path ' if i == 0 else ''}cli fit {nm} {est}: "
+        target_kernel = megakernel.kernel_name(sc, cfg)
+        step_s = float(np.median(secs[1:] if steps > 1 else secs))
+        log(f"[smoke] {'main path ' if i == 0 else ''}cli fit {label}: "
             f"launches {counts}; losses {losses}; light emission "
-            f"{res['light_emission']}; {float(np.median(secs[1:])):.4f} s a "
-            f"step (median of steps 1-{steps - 1}) on {card}")
+            f"{res['light_emission']}; {step_s:.4f} s a step (median of "
+            f"{'steps 1-' + str(steps - 1) if steps > 1 else 'its step'}) on "
+            f"{card}")
         if not (len(losses) == steps and np.all(np.isfinite(losses))):
-            raise AssertionError(f"cli fit {nm} {est}: losses {losses}")
+            raise AssertionError(f"cli fit {label}: losses {losses}")
         if i == 0 and not losses[-1] < losses[0]:
             raise AssertionError(f"the main path's loss did not fall: "
                                  f"{losses}")
         if counts != {m_name: steps, v_name: steps, target_kernel: 1}:
-            raise AssertionError(f"cli fit {nm} {est} launched {counts}")
+            raise AssertionError(f"cli fit {label} launched {counts}")
         if nm != "sphere_grid":
-            main_launch[m_name] = counts[m_name]
-            main_launch[v_name] = counts[v_name]
+            main_launch.setdefault(m_name, counts[m_name])
+            main_launch.setdefault(v_name, counts[v_name])
 
-    phase("rows 8 and 9 grown at 1024x768x512 seed 0: CUDA-event times of "
-          "each new instance (smallpt_original: linear; sphere_grid: tree)")
+    n_m, n_v = spec.x512_n
+    phase(f"{spec.title}: rows 8 and 9 at 1024x768x512 seed 0, CUDA-event "
+          f"times of each instance ({n_m} and {n_v} launches; "
+          "smallpt_original: linear; sphere_grid: tree)")
     g = torch.full((768, 1024, 3), 1e-7, device="cuda")
     n_pix = 1024 * 768
-    for nm, est in cases:
+    for nm, label, fields in spec.cases:
         sc = scenes[nm]
-        cfg = cfg_of(1024, 768, 512, est, 0)
+        cfg = cfg_of(1024, 768, 512, fields, 0)
         alb, emi = mg.pack_materials(sc)
         geom = megakernel.pack_geometry(sc, cam)
         tr = mg.render_megakernel_mat(sc, cam, cfg, alb, emi, 0,
                                       geometry=geom)[1].tolist()
         ms_m = event_ms(lambda: mg.render_megakernel_mat(
-            sc, cam, cfg, alb, emi, 0, geometry=geom), 3)
+            sc, cam, cfg, alb, emi, 0, geometry=geom), n_m)
         ms_v = event_ms(lambda: mg.render_megakernel_vjp(
-            sc, cam, cfg, alb, emi, 0, g, geometry=geom), 2)
-        b_m = f_bound(sc, tr, n_pix * 512, n_pix, est)
-        b_v = v_bound(sc, tr, n_pix * 512, n_pix, est)
-        log(f"[smoke] {nm} {est} 1024x768x512 seed 0, traces {tr}: "
+            sc, cam, cfg, alb, emi, 0, g, geometry=geom), n_v)
+        b_m = f_bound(sc, tr, n_pix * 512, n_pix, cfg.estimator)
+        b_v = v_bound(sc, tr, n_pix * 512, n_pix, cfg.estimator)
+        log(f"[smoke] {nm} {label} 1024x768x512 seed 0, traces {tr}: "
             f"{mg.mat_kernel_name(sc, cfg)} {ms_m:.3f} ms (bound "
             f"{b_m[0]:.3f} ms, {b_m[1]}), {mg.vjp_kernel_name(sc, cfg)} "
             f"{ms_v:.3f} ms (bound {b_v[0]:.3f} ms, {b_v[1]}) a launch "
@@ -2095,7 +2167,7 @@ def mat_phases(card: str, cli_main) -> tuple[list, dict]:
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": None}
 
-    return [entry(*k) for k in MAT_KERNELS], mat_shard
+    return [entry(*k) for k in spec.kernels], mat_shard
 
 
 # ROADMAP item 10's forward half: rows 1 and 2 with the other estimators and
@@ -2113,6 +2185,58 @@ EST_CASES = {
     "mixture_glibc": {"estimator": "mixture",
                       "light_sample_mode": "glibc_overflow"},
 }
+# Material training with the EST_CASES estimators. Its main path is ``cli
+# fit --estimator mis --train emission`` of the Cornell box at MIS_FIT_LR,
+# chosen on the CPU at 32x24x16: the loss falls for 5 steps (1.319 ->
+# 1.092), at 8 it diverges. With ``--train emission,albedo`` it diverges at
+# every rate from 8 down to 1e-4: mis's light-albedo row is knife-edge
+# 1/t^2 noise (about -30 there), and any albedo above 0 on the light makes
+# probes from its own underside re-hit it. Each other instance takes a
+# 1-step ``--train emission`` fit (the rect ones on the box, the ``_tab``
+# ones on smallpt_original). Row 8 is held at 256x192x4, row 9 at
+# 256x192x4 on the box and 128x96x4 on the sphere scenes: its autograd
+# runs in chunks of lanes (megakernel_grad.plain_chunk), 2 on
+# smallpt_original and 8 on sphere_grid at 256x192x4, 11.8-21.7 s an
+# instance there (an H100 80GB HBM3 at 700 W, PERF.md §6), and one at
+# 128x96x4.
+MIS_FIT_LR = "1"
+MAT_EST = MatSpec(
+    title="rows 8, 9 and 10 with the item 10 estimators",
+    kernels=tuple(
+        (name, source, f"megakernel_grad.py:{line} ({where}{label})")
+        for label in EST_CASES
+        for name, source, line, where in (
+            (f"megakernel_{label}_mat", "megakernel_est.cu", 980,
+             "estimator "),
+            (f"megakernel_{label}_mat_tab", "megakernel_est.cu", 980,
+             "spheres, SPEC/REFR, "),
+            (f"megakernel_vjp_{label}", "megakernel_grad_est.cu", 1049,
+             "estimator "),
+            (f"megakernel_vjp_{label}_tab", "megakernel_grad_est.cu", 1049,
+             "spheres, SPEC/REFR, "))),
+    cases=tuple((n, label, fields)
+                for n in ("cornell_box", "smallpt_original", "sphere_grid")
+                for label, fields in EST_CASES.items()),
+    size8={n: (256, 192) for n in ("cornell_box", "smallpt_original",
+                                   "sphere_grid")},
+    size9={"cornell_box": (256, 192), "smallpt_original": (128, 96),
+           "sphere_grid": (128, 96)},
+    deep=(EST_CASES["mis"], EST_CASES["mixture"]),
+    shard=("cornell_box", EST_CASES["mis"], (256, 192)),
+    fits=(("cornell_box", EST_CASES["mis"], "emission", 5, MIS_FIT_LR),
+          *((n, fields, "emission", 1, None)
+            for n in ("cornell_box", "smallpt_original")
+            for label, fields in EST_CASES.items()
+            if (n, label) != ("cornell_box", "mis"))),
+    x512_n=(1, 1),
+)
+# The material steps each rank of the 4-rank main path takes
+# (``mesh_rank``): (label, scene, RenderConfig fields). The first is row
+# 10's own main path (``cornell_box`` nee), the others each material
+# slice's per-shard case as one step over the mesh.
+MESH_MAT_STEPS = (("row10", "cornell_box", {}),
+                  ("row10_tab", *MAT_GROWN.shard[:2]),
+                  ("row10_mis", *MAT_EST.shard[:2]))
 BUDGET_CASES = {"cosine": {"estimator": "cosine"},
                 "nee_textbook": {"estimator": "nee_textbook"}, **EST_CASES}
 # Guiding's own metric (tests/test_path_guiding.py): the clamped MSE of
@@ -3479,10 +3603,11 @@ def main() -> int:
     tie_phase(guides["cornell_box"])
     geo = geom_phases(card, cli_main)
     deep_phase()
-    mat_entries, mat_shard = mat_phases(card, cli_main)
+    mat_entries, mat_shard = mat_phases(card, cli_main, MAT_GROWN)
     est_entries = est_phases(card, cli_main)
+    est_mat_entries, est_shard = mat_phases(card, cli_main, MAT_EST)
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
-                         mat_shard)
+                         {**mat_shard, **est_shard})
 
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
@@ -3532,6 +3657,7 @@ def main() -> int:
           for name, source, replaces, launch, r in shard),
         *mat_entries,
         *est_entries,
+        *est_mat_entries,
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

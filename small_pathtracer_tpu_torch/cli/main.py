@@ -338,8 +338,9 @@ def cmd_bench(args) -> int:
 def _fit_result(loss: float, steps: int) -> dict:
     """Strict-JSON fit summary (the JAX CLI's, which also reports a resumed
     checkpoint as ``already_complete``): ``final_loss`` is None, with
-    ``diverged`` set, when the last step's loss is NaN."""
-    if loss != loss:
+    ``diverged`` set, when the last step's loss is NaN or infinite (the
+    JAX CLI prints an infinite loss as JSON's non-standard Infinity)."""
+    if not math.isfinite(loss):
         return {"steps": steps, "final_loss": None, "diverged": True}
     return {"steps": steps, "final_loss": loss}
 
@@ -432,7 +433,7 @@ def cmd_fit(args) -> int:
             f"optimizer={args.optimizer}, fields={fields})"
         )
     scene, cam, cfg = _build(args)
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     if args.target:
         target = _read_target(args.target, cfg, scene.device)
     else:

@@ -4,12 +4,14 @@ The field set and defaults are the JAX package's, minus ``use_pallas``: the
 device of the scene tensors decides the path (``integrator.wavefront.
 render_counts``). The port renders all seven estimators, with
 ``mixture_q`` and both light-sample modes (``glibc_overflow`` applies to
-``nee`` and ``mixture`` only, as in the JAX package), with the hash
+``nee`` and ``mixture`` only, as the JAX package's ``config.py`` and jnp
+wavefront say; its Pallas kernels apply it to ``mis`` too, a defect of the
+reference that ROADMAP.md records), with the hash
 sampler, the box filter and the pinhole camera on the regenerating
 schedule; every other value of a field raises NotImplementedError naming
-the ROADMAP.md item that ports it. Training takes fewer estimators than
-rendering: its entry points refuse the others themselves
-(``ops/megakernel_grad.py``, ``ops/megakernel_geom.py``).
+the ROADMAP.md item that ports it. Material training takes every
+estimator too (``ops/megakernel_grad.py``); the geometry adjoint takes
+``nee`` only and refuses the others itself (``ops/megakernel_geom.py``).
 
 ``sphere_table`` takes the JAX package's five values and changes nothing:
 on the card every scene with spheres (or SPEC/REFR objects) runs through

@@ -112,25 +112,7 @@ __global__ void __launch_bounds__(kBlock)
       p, lane_range(p), BakedMaterials{p}, SphereTab{}, false, out_l, traces);
 }
 
-// Row 8 on rect-only DIFF scenes, estimator kEst: the tables copied into
-// shared memory once a block; the NEE fold (kNee only) decided from the
-// light's row.
-template <int kEst>
-__device__ __forceinline__ void mat_body(const Params& p,
-                                         const float* __restrict__ alb,
-                                         const float* __restrict__ emi,
-                                         float* __restrict__ out_l,
-                                         unsigned long long* __restrict__ traces) {
-  __shared__ float s_alb[3 * kMaxRects];
-  __shared__ float s_emi[3 * kMaxRects];
-  load_tables(p, alb, emi, s_alb, s_emi);
-  const TableMaterials mats{s_alb, s_emi};
-  const V3 a = mats.albedo(p.light_id);
-  render_lane<TableMaterials, kTabNone, kEst>(
-      p, lane_range(p), mats, SphereTab{},
-      kEst == kNee && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
-}
-
+// Row 8 on rect-only DIFF scenes (mat_body in megakernel_lane.cuh).
 #define SPT_MAT_KERNEL(name, est)                                          \
   __global__ void __launch_bounds__(kBlock)                                \
       name(const __grid_constant__ Params p, const float* __restrict__ alb, \

@@ -1,5 +1,5 @@
 // Device functions shared by the forward megakernels (megakernel.cu) and
-// the adjoints (megakernel_grad.cu, megakernel_geom.cu): the scene
+// the adjoints (megakernel_vjp.cuh, megakernel_geom.cu): the scene
 // parameters, the murmur3 counter RNG, the polynomial sincos, the rect and
 // sphere tests, the rect scans (nearest, probe_light), the primary-ray
 // spawn, the lanes' pixel and sample ranges, and the adjoints' fixed-order

@@ -1,8 +1,8 @@
-// Rows 1 and 2 of the kernel table with the estimators of ROADMAP item 10
-// (the loop body of megakernel.cu, `render_lane` in megakernel_lane.cuh,
+// Rows 1, 2 and 8 of the kernel table with the estimators of ROADMAP item
+// 10 (the loop body of megakernel.cu, `render_lane` in megakernel_lane.cuh,
 // with another estimator argument): `uniform`, `uniform_corrected`,
 // `mixture` and `mis`, and `nee` and `mixture` with
-// light_sample_mode='glibc_overflow'.
+// light_sample_mode='glibc_overflow' (SPT_EST_CODES).
 //
 // - megakernel_est<kEst> replaces the Pallas TPU kernel of
 //   small_pathtracer_tpu/ops/megakernel.py: `build_kernel` (:1203) with
@@ -10,6 +10,13 @@
 //   :2670), baked rect scenes. megakernel_est_tab<kEst, kScan> replaces the
 //   same call with `sphere_tab=True`: the sphere table through its tree or
 //   its linear scan, SPEC and REFR (as megakernel_nee_tab in megakernel.cu).
+// - megakernel_est_mat<kEst> is row 8 on rect-only DIFF scenes with these
+//   estimators: small_pathtracer_tpu/ops/megakernel_grad.py `_build_fwd_mat`
+//   (:980) for `render_pallas_mat`, the runtime (K, 3) tables copied into
+//   shared memory once a block (`mat_body`, as megakernel_nee_mat). On
+//   sphere or SPEC/REFR scenes row 8 is megakernel_est_tab with the
+//   runtime tables. Equal tables give rows 1 and 2's image and traces bit
+//   for bit.
 // - uniform and uniform_corrected sample the uniform hemisphere (cos theta
 //   = 1 - u2) from the cosine sample's draws, with the reference's weight 1
 //   or 2 max(cos, 0) (the TPU kernel's :1738-1743, :2186-2190); no probe.
@@ -43,15 +50,6 @@
 
 namespace {
 
-// The estimators this file instantiates, as X(code).
-#define SPT_EST_CODES(X) \
-  X(kUniform)            \
-  X(kUniformCorrected)   \
-  X(kMixture)            \
-  X(kMis)                \
-  X(kNee | kGlibc)       \
-  X(kMixture | kGlibc)
-
 template <int kEst>
 __global__ void __launch_bounds__(kBlock)
     megakernel_est(const __grid_constant__ Params p, float* __restrict__ out_l,
@@ -74,6 +72,16 @@ __global__ void __launch_bounds__(kBlock)
                         traces);
 }
 
+template <int kEst>
+__global__ void __launch_bounds__(kBlock)
+    megakernel_est_mat(const __grid_constant__ Params p,
+                       const float* __restrict__ alb,
+                       const float* __restrict__ emi,
+                       float* __restrict__ out_l,
+                       unsigned long long* __restrict__ traces) {
+  mat_body<kEst>(p, alb, emi, out_l, traces);
+}
+
 using Row1 = decltype(&megakernel_est<kUniform>);
 using Row2 = decltype(&megakernel_est_tab<kUniform, kScanLinear>);
 
@@ -82,6 +90,20 @@ Row1 row1_kernel(int est) {
 #define SPT_CASE(e) \
   case (e):         \
     return megakernel_est<(e)>;
+    SPT_EST_CODES(SPT_CASE)
+#undef SPT_CASE
+    default:
+      return nullptr;
+  }
+}
+
+using Row8 = decltype(&megakernel_est_mat<kUniform>);
+
+Row8 row8_kernel(int est) {
+  switch (est) {
+#define SPT_CASE(e) \
+  case (e):         \
+    return megakernel_est_mat<(e)>;
     SPT_EST_CODES(SPT_CASE)
 #undef SPT_CASE
     default:
@@ -160,5 +182,30 @@ extern "C" int spt_megakernel_est_tab(
       p, reinterpret_cast<const float4*>(sph), n_spheres,
       reinterpret_cast<const float4*>(bvh), root, alb, emi, refl, out_l,
       traces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Row 8 on rect-only DIFF scenes: the arguments of spt_megakernel_mat after
+// est (alb, emi (n_rects, 3) float32 device tables; the NEE fold decided in
+// the kernel). On sphere or SPEC/REFR scenes row 8 is spt_megakernel_est_tab
+// with the runtime tables.
+extern "C" int spt_megakernel_est_mat(
+    int est, float mixture_q, const float* rect_geom, const int* rect_axis,
+    int n_rects, const float* light_f, int light_id, const float* cam_f,
+    unsigned seed, int width, int height, int spp, int g, int per,
+    unsigned s0, int pix0, int n_pix_loc, int rr_start_depth,
+    int max_bounces, const float* alb, const float* emi, float* out_l,
+    unsigned long long* traces, void* stream) {
+  Params p;
+  const Row8 kernel = row8_kernel(est);
+  if (!fill_params(&p, rect_geom, rect_axis, n_rects, light_f, light_id,
+                   cam_f, seed, width, height, spp, g, per, s0, pix0,
+                   n_pix_loc, rr_start_depth, max_bounces) ||
+      kernel == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.mixture_q = mixture_q;
+  kernel<<<grid_of(p), kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, alb, emi, out_l, traces);
   return static_cast<int>(cudaGetLastError());
 }

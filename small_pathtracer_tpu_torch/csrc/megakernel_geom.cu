@@ -25,7 +25,7 @@
 // sweep runs bounce j = D..1 once each from the tape as a VJP bounce,
 // carrying λ = (dL/do, dL/dd) of the state after bounce j. A VJP bounce
 // re-evaluates bounce j on the taped (o, d) and adds
-//   - the material terms of the material adjoint (megakernel_grad.cu):
+//   - the material terms of the material adjoint (megakernel_vjp.cuh):
 //     d/d albedo with the RR 1/p term split over the channels tied at p_max,
 //     and d/d emission, from T_j·S_{j+1} = (L − A_{j+1}) / (f_j·w_j);
 //   - the pullback of the bounce's continuous map (o, d, c, r) -> (x, d', w)

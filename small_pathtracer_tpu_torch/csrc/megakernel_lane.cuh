@@ -5,7 +5,9 @@
 // (megakernel_geom.cu) traces too, so both compute every bounce with the
 // same expressions (the adjoint's sweep takes the bounce's two queries
 // from its tape instead of tracing them again); `tab_body`, row 2's kernel
-// body (and its counting instance); the SPEC/REFR scatter; path guiding's device functions (the voxel
+// body (and its counting instance), and `mat_body`, row 8's on rect
+// scenes; `mis_pickup`, the weight of a BSDF-sampled pickup of the light
+// under mis; the SPEC/REFR scatter; path guiding's device functions (the voxel
 // lookup, the octahedral decode, the real power, the defensive mixture);
 // and the host helpers the entry points share.
 //
@@ -53,6 +55,17 @@ __host__ __device__ constexpr bool direct_term(int est) {
 __host__ __device__ constexpr bool uniform_sample(int est) {
   return est_base(est) == kUniform || est_base(est) == kUniformCorrected;
 }
+
+// The codes of ROADMAP item 10 beside nee, cosine and nee_textbook, as
+// X(code): the instances of megakernel_est.cu (rows 1, 2, 8) and
+// megakernel_grad_est.cu (row 9).
+#define SPT_EST_CODES(X) \
+  X(kUniform)            \
+  X(kUniformCorrected)   \
+  X(kMixture)            \
+  X(kMis)                \
+  X(kNee | kGlibc)       \
+  X(kMixture | kGlibc)
 
 // float32(1 / RAND_MAX) for glibc's RAND_MAX = 2^31 - 1: it rounds to 2^-31.
 constexpr float kInvRandMax = 4.656612873077393e-10f;
@@ -354,6 +367,22 @@ __device__ __forceinline__ V3 nee_probe(const Params& p, const SphereTab& tab,
   return d_l;
 }
 
+// mis: whether bounce b, reached along d, picks up the light by a BSDF
+// sample from a diffuse vertex (mis_pdf, that vertex's p_bsdf of d, > 0),
+// and then its balance weight mis_pdf / (mis_pdf + p_light) into *w, with
+// p_light = t^2 / (A max(|cos_l|, 1e-6)) at the hit's t. render_lane and
+// the material adjoint weigh the pickup by it.
+__device__ __forceinline__ bool mis_pickup(const Params& p,
+                                          const LightFrame& lf, V3 d,
+                                          const Bounce& b, float mis_pdf,
+                                          float* w) {
+  if (!(b.hit && b.id == p.light_id && mis_pdf > 0.0f)) return false;
+  const float cos_l = fabsf(dot(d, lf.ln));
+  const float p_light = (b.t * b.t) / (p.area * fmaxf(cos_l, 1e-6f));
+  *w = mis_pdf / (mis_pdf + p_light);
+  return true;
+}
+
 template <int kTab, int kEst, class Guide, bool kTaped = false>
 __device__ __forceinline__ void bounce_scatter(const Params& p,
                                                const SphereTab& tab,
@@ -565,11 +594,8 @@ __device__ __forceinline__ void render_lane(const Params& p,
     if constexpr (kEst == kTextbook) {
       if (suppress && b.hit && b.id == p.light_id) pick = v3(0.0f, 0.0f, 0.0f);
     } else if constexpr (kEst == kMis) {
-      if (b.hit && b.id == p.light_id && mis_pdf > 0.0f) {
-        const float cos_l = fabsf(dot(d, lf.ln));
-        const float p_light = (b.t * b.t) / (p.area * fmaxf(cos_l, 1e-6f));
-        pick = mul(pick, mis_pdf / (mis_pdf + p_light));
-      }
+      float w_b;
+      if (mis_pickup(p, lf, d, b, mis_pdf, &w_b)) pick = mul(pick, w_b);
     } else {
       L = add(L, pick);
     }
@@ -687,6 +713,25 @@ __device__ __forceinline__ void tab_body(const Params& p,
   const V3 a = mats.albedo(p.light_id);
   render_lane<TableMaterials, kScan, kEst>(
       p, lane_range(p), mats, sphere_tab(sph, n_sph, refl, bvh, root),
+      nee_cont(kEst) && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
+}
+
+// Row 8 on rect-only DIFF scenes (megakernel.cu, megakernel_est.cu),
+// estimator kEst: the runtime (K, 3) tables copied into shared memory once
+// a block; the NEE fold (nee and mixture) decided from the light's row.
+template <int kEst>
+__device__ __forceinline__ void mat_body(const Params& p,
+                                         const float* __restrict__ alb,
+                                         const float* __restrict__ emi,
+                                         float* __restrict__ out_l,
+                                         unsigned long long* __restrict__ traces) {
+  __shared__ float s_alb[3 * kMaxRects];
+  __shared__ float s_emi[3 * kMaxRects];
+  load_tables(p, alb, emi, s_alb, s_emi);
+  const TableMaterials mats{s_alb, s_emi};
+  const V3 a = mats.albedo(p.light_id);
+  render_lane<TableMaterials, kTabNone, kEst>(
+      p, lane_range(p), mats, SphereTab{},
       nee_cont(kEst) && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
 }
 

@@ -1,4 +1,4 @@
-// The per-lane tape of the two adjoint kernels (megakernel_grad.cu,
+// The per-lane tape of the two adjoint kernels (megakernel_vjp.cuh,
 // megakernel_geom.cu): the pipeline that traces each sample once and sweeps
 // its bounces back from a tape in local memory, the checkpoint segments of
 // paths longer than the tape, and the warp-grouped, fixed-order gradient

@@ -199,6 +199,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
+    lib.spt_megakernel_est_mat.restype = ctypes.c_int
+    lib.spt_megakernel_est_mat.argtypes = [
+        *est, *lib.spt_megakernel_mat.argtypes[1:]]
     lib.spt_megakernel_tab.restype = ctypes.c_int
     lib.spt_megakernel_tab.argtypes = [
         i,  # estimator
@@ -272,8 +275,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
-    lib.spt_megakernel_vjp.restype = ctypes.c_int
-    lib.spt_megakernel_vjp.argtypes = [
+    # Row 9: spt_megakernel_vjp takes estimators 0 nee, 1 cosine and 2
+    # nee_textbook (csrc/megakernel_grad.cu), spt_megakernel_vjp_est the
+    # others (csrc/megakernel_grad_est.cu: the codes of `est` above).
+    vjp = [
         *scene,
         i,  # n_rects
         *launch,
@@ -282,12 +287,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # partials: f32 device scratch
         ctypes.c_longlong,  # its length in floats
         p,  # out: (2, K, 3) f32 device
-        i,  # estimator: 0 nee, 1 cosine, 2 nee_textbook
+        *est,
         i,  # tab: 0 a rect-only DIFF scene, 1 the sphere table
         *spheres[:4],  # sph, n_spheres, bvh, root (unused with tab 0)
         p,  # refl: (K,) i32 device (unused with tab 0)
         p,  # cudaStream_t
     ]
+    for entry in (lib.spt_megakernel_vjp, lib.spt_megakernel_vjp_est):
+        entry.restype = ctypes.c_int
+        entry.argtypes = vjp
     lib.spt_megakernel_geom.restype = ctypes.c_int
     lib.spt_megakernel_geom.argtypes = [
         *scene,

@@ -61,7 +61,7 @@ from .megakernel import (
     launch_args, pack_geometry, shard_of, sphere_args, sphere_tables,
 )
 from .megakernel_grad import (
-    check_estimator, material_grads_to_scene, plain_chunk, unpack_materials,
+    material_grads_to_scene, plain_chunk, unpack_materials,
 )
 
 # Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
@@ -87,7 +87,11 @@ def check_geom(scene: Scene, cfg: RenderConfig) -> None:
     object, a light that is not an unrolled rect). Light lists and sphere
     lights never reach here: the port's Scene holds neither
     (``convert.scene_from_jax`` refuses them, item 12)."""
-    check_estimator(cfg, "the geometry adjoint", ("nee",))
+    if cfg.estimator != "nee" or cfg.light_sample_mode != "intended":
+        raise NotImplementedError(
+            f"the geometry adjoint with estimator {cfg.estimator!r} and "
+            f"light_sample_mode {cfg.light_sample_mode!r} is not ported yet "
+            "(it takes nee, intended; ROADMAP.md queue 1, item 10)")
     check_materials(scene)
     if num_spheres(scene) == 0:
         raise ValueError("no spheres to differentiate; use the material "

@@ -1,21 +1,21 @@
 """Material training on the kernels: the port's counterpart of the JAX
-package's ``ops/megakernel_grad.py`` for the ``nee``, ``cosine`` and
-``nee_textbook`` estimators, rects and spheres with DIFF, SPEC and REFR
-materials, and one rect light.
+package's ``ops/megakernel_grad.py`` for all seven estimators and both
+light-sample modes, rects and spheres with DIFF, SPEC and REFR materials,
+and one rect light.
 
 - ``render_megakernel_mat``: the forward with runtime (K, 3) albedo and
   emission tables, the counterpart of ``render_pallas_mat``: on rect-only
-  DIFF scenes ``megakernel_nee_mat`` / ``_cosine_mat`` / ``_textbook_mat``
-  (``csrc/megakernel.cu``), on scenes with spheres or SPEC/REFR objects row
-  2's table kernel of the estimator with the runtime tables (counted as
-  ``megakernel_{nee,cosine,textbook}_mat_tab``: ``mat_kernel_name``).
-  Equal tables give the image and trace counts of
+  DIFF scenes ``megakernel_<est>_mat`` (``csrc/megakernel.cu`` for nee,
+  cosine and nee_textbook, ``csrc/megakernel_est.cu`` for the others), on
+  scenes with spheres or SPEC/REFR objects row 2's table kernel of the
+  estimator with the runtime tables (counted as ``megakernel_<est>_mat_tab``:
+  ``mat_kernel_name``). Equal tables give the image and trace counts of
   ``ops.megakernel.render_megakernel`` bit for bit.
 - ``render_megakernel_vjp``: the material adjoint, one trace a sample and
   a sweep of its bounces back from a per-lane tape
-  (``csrc/megakernel_grad.cu``: ``megakernel_vjp``, its estimator and scan
-  instances named by ``vjp_kernel_name``), the counterpart of
-  ``render_pallas_vjp``.
+  (``csrc/megakernel_vjp.cuh``: ``megakernel_vjp``, its estimator and scan
+  instances in ``csrc/megakernel_grad.cu`` and ``megakernel_grad_est.cu``,
+  named by ``vjp_kernel_name``), the counterpart of ``render_pallas_vjp``.
 - ``RenderMaterials``: the two as one ``torch.autograd.Function``.
 - ``loss_and_material_grads`` and ``fit_megakernel``: SGD on the tables, the
   counterparts of ``loss_and_material_grads`` and ``fit_pallas``.
@@ -25,12 +25,13 @@ materials, and one rect light.
 
 The tables are in global object order (``pack_materials``): the rects, then
 the spheres, so K = R + S (17 for ``cornell_box``, 7 + 2 for
-``smallpt_original``). The estimators are ``nee``, ``cosine`` and
-``nee_textbook`` with light_sample_mode 'intended'; the others, which
-``RenderConfig`` takes for rendering, and 'glibc_overflow' wait for the
-adjoint half of ROADMAP item 10 (``check_estimator``). GLOS objects, more
-than ``MAX_GRAD_SPHERES`` spheres and those estimators are refused on
-every device (``check_trainable``). On a CUDA device
+``smallpt_original``). The kernels are named by the estimator code
+(``ops.megakernel.est_code``): light_sample_mode 'glibc_overflow' changes
+``nee`` and ``mixture`` only (``nee_glibc``, ``mixture_glibc``); the other
+estimators ignore it, as ``config.py`` and the jnp wavefront do, so ``mis``
+with it trains as ``mis``. GLOS objects and more than
+``MAX_GRAD_SPHERES`` spheres are refused on every device
+(``check_trainable``). On a CUDA device
 each wrapper launches its kernel or raises. On the CPU it runs the plain
 version: the eager forward (``render_megakernel_plain``) with the tables
 put into the scene and, for the adjoint, ``torch.autograd`` through it.
@@ -50,45 +51,32 @@ from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
 from ..scene.types import LightSampler, Rects, Scene, Spheres, num_spheres
 from . import _build
 from .megakernel import (
-    EST_CODE, KernelGeometry, SphereArgs, _image, _resolve, count,
-    full_layout, launch_args, pack_geometry, plain_lanes, shard_of,
-    sphere_args, sphere_tables, uses_sphere_table,
+    _EST_KERNEL, _OWN_CODES, KernelGeometry, SphereArgs, _image, _resolve,
+    count, est_code, full_layout, launch_args, pack_geometry, plain_lanes,
+    shard_of, sphere_args, sphere_tables, uses_sphere_table,
 )
 
 # Threads a block of the adjoint kernel (kBlock in csrc/megakernel_common.cuh):
 # it sizes the per-block partial sums.
 KERNEL_BLOCK = 128
 # The adjoint keeps a row of 6·K gradient slots a warp in shared memory,
-# which caps the sphere count (kMaxGradSpheres in csrc/megakernel_grad.cu).
+# which caps the sphere count (kMaxGradSpheres in csrc/megakernel_vjp.cuh).
 MAX_GRAD_SPHERES = 1024
 FIELDS = ("albedo", "emission")
-# The estimators rows 8-10 take, each with its part of their kernels' names.
-_EST_NAME = {"nee": "nee", "cosine": "cosine", "nee_textbook": "textbook"}
 
 
-def check_estimator(cfg: RenderConfig, what: str = "material training",
-                    takes: tuple[str, ...] = tuple(_EST_NAME)) -> None:
-    """Raises NotImplementedError, naming ROADMAP item 10, for an estimator
-    outside ``takes`` or light_sample_mode 'glibc_overflow': the adjoints'
-    kernels have no instance for them yet (the forwards render them)."""
-    if cfg.estimator not in takes:
-        raise NotImplementedError(
-            f"{what} with estimator {cfg.estimator!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 10)")
-    if cfg.light_sample_mode != "intended":
-        raise NotImplementedError(
-            f"{what} with light_sample_mode={cfg.light_sample_mode!r} is not "
-            "ported yet (ROADMAP.md queue 1, item 10)")
+def _est_name(cfg: RenderConfig) -> str:
+    """The estimator code's part of the kernels' names: nee, cosine,
+    textbook, uniform, uniform_corrected, mixture, mis, nee_glibc,
+    mixture_glibc."""
+    return _EST_KERNEL[est_code(cfg)].removeprefix("megakernel_")
 
 
-def check_trainable(scene: Scene, cfg: RenderConfig | None = None) -> None:
-    """Raises NotImplementedError for a scene (and, given, a config) outside
-    rows 8 and 9, on every device, so the CPU never trains what the card
-    refuses: GLOS objects (item 11; no forward kernel renders them), more
-    spheres than the adjoint's shared-memory rows hold (ROADMAP.md queue 2,
-    row 9), and the estimators ``check_estimator`` refuses."""
-    if cfg is not None:
-        check_estimator(cfg)
+def check_trainable(scene: Scene) -> None:
+    """Raises NotImplementedError for a scene outside rows 8 and 9, on
+    every device, so the CPU never trains what the card refuses: GLOS
+    objects (item 11; no forward kernel renders them) and more spheres than
+    the adjoint's shared-memory rows hold (ROADMAP.md queue 2, row 9)."""
     check_materials(scene)
     S = num_spheres(scene)
     if S > MAX_GRAD_SPHERES:
@@ -100,20 +88,20 @@ def check_trainable(scene: Scene, cfg: RenderConfig | None = None) -> None:
 
 def mat_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
     """The name under which row 8 counts its launches on ``scene``: the
-    rect kernel megakernel_{nee,cosine,textbook}_mat, or row 2's table
-    kernel of the estimator launched with the runtime tables (``_tab``)."""
-    check_estimator(cfg)
+    rect kernel megakernel_<est>_mat (``_est_name``: e.g. nee, textbook,
+    mis, nee_glibc), or row 2's table kernel of the estimator launched with
+    the runtime tables (``_tab``)."""
     tab = "_tab" if uses_sphere_table(scene) else ""
-    return f"megakernel_{_EST_NAME[cfg.estimator]}_mat{tab}"
+    return f"megakernel_{_est_name(cfg)}_mat{tab}"
 
 
 def vjp_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
     """The name under which row 9 counts its launches on ``scene``:
-    megakernel_vjp (``nee``), megakernel_vjp_cosine or
-    megakernel_vjp_textbook, with ``_tab`` for the sphere-table instances
-    (linear and tree counted together)."""
-    check_estimator(cfg)
-    est = "" if cfg.estimator == "nee" else "_" + _EST_NAME[cfg.estimator]
+    megakernel_vjp (``nee``) or megakernel_vjp_<est> (``_est_name``: e.g.
+    cosine, textbook, mis, nee_glibc), with ``_tab`` for the sphere-table
+    instances (linear and tree counted together)."""
+    name = _est_name(cfg)
+    est = "" if name == "nee" else "_" + name
     tab = "_tab" if uses_sphere_table(scene) else ""
     return f"megakernel_vjp{est}{tab}"
 
@@ -188,7 +176,6 @@ def render_megakernel_mat_plain(scene: Scene, cam: CameraParams,
 
 
 def _mat_plain(scene, cam, cfg, albedo, emission, seed, lay, device):
-    check_estimator(cfg)
     return plain_lanes(unpack_materials(scene, albedo, emission), cam, cfg,
                        seed, lay, device)
 
@@ -202,7 +189,7 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
     (``pack_geometry(scene, cam)``) saves the host copy of the rects per
     call; the tables never leave the device. Returns ((h, w, 3) radiance sum
     over the span, traces (2,) int64 [extend, probe])."""
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
@@ -222,20 +209,25 @@ def _launch_mat(scene, cam, cfg, albedo, emission, seed, lay: ShardLayout,
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
                         device=device)
     traces = torch.zeros(2, dtype=torch.int64, device=device)
-    est = EST_CODE[cfg.estimator]
+    code = est_code(cfg)
+    own = code in _OWN_CODES
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if uses_sphere_table(scene):
             sa = _table_args(lib, scene, alb, emi, device)
-            err = lib.spt_megakernel_tab(
-                est, 0, geom.rect_geom.ctypes.data,
+            est = (code, 0) if own else (code, cfg.mixture_q)
+            err = (lib.spt_megakernel_tab if own
+                   else lib.spt_megakernel_est_tab)(
+                *est, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis),
                 *launch_args(geom, cfg, seed, lay), *sa.args(),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
         else:
-            err = lib.spt_megakernel_mat(
-                est, geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+            est = (code,) if own else (code, cfg.mixture_q)
+            err = (lib.spt_megakernel_mat if own
+                   else lib.spt_megakernel_est_mat)(
+                *est, geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
                 len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
                 alb.data_ptr(), emi.data_ptr(), out_l.data_ptr(),
                 traces.data_ptr(), stream,
@@ -272,7 +264,6 @@ def _vjp_plain(scene, cam, cfg, albedo, emission, seed, g_rows,
     lanes ``lay``, the tables as leaves; g_rows is (n_pix_loc, 3). The
     lanes run in chunks (``plain_chunk``: one on the CPU), their gradients
     summed: exact up to summation order."""
-    check_estimator(cfg)
     sc, cm = scene.to(device), cam.to(device)
     leaves = _tables(albedo, emission, _n_objects(sc), device)
     pix, s_start, s_stop = shard_lanes(lay, device)
@@ -300,7 +291,7 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     is render_megakernel_mat's radiance sum over spp: (d/d albedo,
     d/d emission), each (K, 3), pathwise. The CUDA kernel on a CUDA device,
     the plain version on the CPU."""
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
@@ -330,6 +321,7 @@ def _launch_vjp(scene, cam, cfg, albedo, emission, seed, g_rows,
     out = torch.empty((2, K, 3), dtype=torch.float32, device=device)
     lib = _build.build_kernels().lib
     tab = uses_sphere_table(scene)
+    code = est_code(cfg)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if tab:
@@ -337,12 +329,13 @@ def _launch_vjp(scene, cam, cfg, albedo, emission, seed, g_rows,
             spheres = (*sa.args()[:4], sa.refl.data_ptr())
         else:
             spheres = (None, 0, None, 0, None)
-        err = lib.spt_megakernel_vjp(
+        err = (lib.spt_megakernel_vjp if code in _OWN_CODES
+               else lib.spt_megakernel_vjp_est)(
             geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
             len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
             alb.data_ptr(), emi.data_ptr(), g.data_ptr(),
             partials.data_ptr(), partials.numel(), out.data_ptr(),
-            EST_CODE[cfg.estimator], int(tab), *spheres, stream,
+            code, cfg.mixture_q, int(tab), *spheres, stream,
         )
     count(vjp_kernel_name(scene, cfg), err)
     return out[0], out[1]
@@ -399,7 +392,7 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     ``seed``. The geometry is packed once; the tables stay on the device.
 
     Returns (optimized scene, list of per-step losses)."""
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     if checkpoint or checkpoint_every:
         raise NotImplementedError(
             "fit checkpoints are not ported yet (ROADMAP.md queue 1, item "
@@ -449,7 +442,7 @@ def render_megakernel_mat_shard(scene: Scene, cam: CameraParams,
     spp: its pixel block's radiance sums over its dp sample range, before
     any collective (row 8 on the shard's lanes on a CUDA device). Returns
     ((n_pix_loc, 3) partial sums, traces (2,) int64 of the shard)."""
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_shard_plain(scene, cam, cfg, mesh,
@@ -478,7 +471,7 @@ def render_megakernel_vjp_shard(scene: Scene, cam: CameraParams,
     sum(g_rows · I_loc) over its shard's lanes, where g_rows (n_pix_loc, 3)
     holds the cotangents of its pixel block only (row 9 on a CUDA
     device). Returns (galb, gemi) partials, each (K, 3)."""
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_shard_plain(scene, cam, cfg, mesh,
@@ -505,7 +498,7 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
 
     Returns step(albedo, emission, seed) -> (loss (), galb (K, 3),
     gemi (K, 3)), the same on every rank."""
-    check_trainable(scene, cfg)
+    check_trainable(scene)
     device = _resolve(scene, device)
     lay = shard_of(cfg, mesh, what="spp")
     n_pix, spp = cfg.width * cfg.height, cfg.spp

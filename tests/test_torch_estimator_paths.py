@@ -1,10 +1,12 @@
-"""The paths of ROADMAP item 10's forward half that need no JAX program:
-``nee_textbook`` and ``mis`` ignoring ``glibc_overflow``, per-pixel budgets
-and a mesh's shards with the new estimators, ``cli render``'s
-``--mixture-q`` and ``--light-sample-mode``, ``RenderConfig`` taking what
-rows 1-7 now render, and the refusals of the entry points whose kernels do
-not take it yet (training, and the guided kernels' JAX refusals). The
-comparisons with the JAX package are in tests/test_torch_estimators.py."""
+"""The paths of ROADMAP item 10 that need no JAX program: ``nee_textbook``
+and ``mis`` ignoring ``glibc_overflow``, per-pixel budgets and a mesh's
+shards with the new estimators, ``cli render``'s ``--mixture-q`` and
+``--light-sample-mode``, ``RenderConfig`` taking what rows 1-7 render,
+material training (rows 8-10) taking every estimator and the light mode,
+and the refusals of the entry points whose kernels do not take them yet
+(the geometry adjoint, and the guided kernels' JAX refusals). The
+comparisons with the JAX package are in tests/test_torch_estimators.py and
+tests/test_torch_grad_est.py."""
 
 import numpy as np
 import pytest
@@ -39,9 +41,13 @@ def box():
 
 @pytest.mark.parametrize("estimator", ["nee_textbook", "mis"])
 def test_glibc_ignored_by_direct_estimators(box, estimator):
-    """nee_textbook and mis always sample the whole light (the JAX
-    kernel's :1959-1966): with glibc_overflow they render the intended
-    mode's image and traces bit for bit."""
+    """nee_textbook and mis always sample the whole light, as the JAX
+    package's config.py:43-50 and jnp wavefront (integrator/wavefront.py:
+    586-591) say: with glibc_overflow they render the intended mode's
+    image and traces bit for bit. (The JAX Pallas kernels apply the mode
+    to mis too, ops/megakernel.py:1963: a defect of the reference, ROADMAP.md
+    "Known defects in the reference itself", which the port does not
+    follow.)"""
     scene, cam = box
     a = _cfg(16, 12, 2, estimator=estimator)
     b = _cfg(16, 12, 2, estimator=estimator, **GLIBC)
@@ -126,19 +132,63 @@ def _tiny(**kw):
 
 
 def _mat(fn, cfg):
+    """Calls a training entry point on cornell_spheres at 4x3x1; checks
+    what it returns against the render, the plain adjoint or the names of
+    the estimator code's kernels."""
     sc, cam = _sph()
+    K = sc.rects.k.shape[0] + sc.spheres.radius.shape[0]
     alb, emi = mg.pack_materials(sc)
-    if fn is mg.render_megakernel_vjp:
-        return fn(sc, cam, cfg, alb, emi, 0, torch.zeros(3, 4, 3))
-    if fn is mg.fit_megakernel:
-        return fn(sc, cam, cfg, torch.zeros(3, 4, 3), steps=1)
-    if fn is mg.loss_and_material_grads:
-        return fn(sc, cam, cfg, 0, torch.zeros(3, 4, 3))
-    if fn is mg.material_train_step_sharded:
-        return fn(sc, cam, cfg, Mesh.single((1, 1)), torch.zeros(3, 4, 3))
-    if fn in (mg.mat_kernel_name, mg.vjp_kernel_name):
-        return fn(sc, cfg)
-    return fn(sc, cam, cfg, alb, emi, 0)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 4, 3)).astype(np.float32))
+    target = torch.full((3, 4, 3), 0.25)
+    img, traces = mk.render_megakernel(sc, cam, cfg, 0)
+    if fn in (mg.render_megakernel_mat, mg.render_megakernel_mat_plain):
+        got = fn(sc, cam, cfg, alb, emi, 0)
+        assert torch.equal(got[0], img) and torch.equal(got[1], traces)
+    elif fn is mg.render_megakernel_vjp:
+        galb, gemi = fn(sc, cam, cfg, alb, emi, 0, g)
+        assert galb.shape == gemi.shape == (K, 3)
+        want = mg.render_megakernel_vjp_plain(sc, cam, cfg, alb, emi, 0, g)
+        assert torch.equal(galb, want[0]) and torch.equal(gemi, want[1])
+        # The render is linear in emission: sum(emi * d/d emi) = sum(g * I).
+        lin = float((emi.double() * gemi.double()).sum())
+        assert abs(lin - float((g.double() * img.double()).sum())) <= (
+            1e-5 * float((g.abs() * img).sum().double()))
+    elif fn is mg.loss_and_material_grads:
+        loss, galb, gemi = fn(sc, cam, cfg, 0, target)
+        diff = img / cfg.spp - target
+        assert abs(float(loss) - float(torch.mean(diff * diff))) <= (
+            1e-6 * float(loss))
+        assert galb.shape == gemi.shape == (K, 3) and bool(
+            torch.isfinite(galb).all() & torch.isfinite(gemi).all())
+    elif fn is mg.fit_megakernel:
+        fitted, losses = fn(sc, cam, cfg, target, steps=1, lr=0.5)
+        _, _, gemi = mg.loss_and_material_grads(sc, cam, cfg, 0, target)
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        assert torch.equal(mg.pack_materials(fitted)[1], emi - 0.5 * gemi)
+    elif fn is mg.material_train_step_sharded:
+        loss, galb, gemi = fn(sc, cam, cfg, Mesh.single((1, 1)), target)(
+            alb, emi, 0)
+        w_loss, w_alb, w_emi = mg.loss_and_material_grads(sc, cam, cfg, 0,
+                                                          target)
+        assert abs(float(loss) - float(w_loss)) <= 1e-6 * float(w_loss)
+        assert torch.allclose(galb, w_alb, rtol=1e-5, atol=1e-7)
+        assert torch.allclose(gemi, w_emi, rtol=1e-5, atol=1e-7)
+    else:
+        row = "mat" if fn is mg.mat_kernel_name else "vjp"
+        return fn(sc, cfg), row
+
+
+# The estimator codes rows 8-10 take beside nee, cosine and nee_textbook,
+# and each one's part of its kernels' names.
+EST_CODES = [
+    ({"estimator": "uniform"}, "uniform"),
+    ({"estimator": "uniform_corrected"}, "uniform_corrected"),
+    ({"estimator": "mixture"}, "mixture"),
+    ({"estimator": "mis"}, "mis"),
+    ({"estimator": "nee", **GLIBC}, "nee_glibc"),
+    ({"estimator": "mixture", **GLIBC}, "mixture_glibc"),
+]
 
 
 @pytest.mark.parametrize("fn", [
@@ -146,16 +196,19 @@ def _mat(fn, cfg):
     mg.render_megakernel_vjp, mg.loss_and_material_grads, mg.fit_megakernel,
     mg.material_train_step_sharded, mg.mat_kernel_name, mg.vjp_kernel_name,
 ], ids=lambda f: f.__name__)
-@pytest.mark.parametrize("kw", [
-    {"estimator": "uniform"}, {"estimator": "uniform_corrected"},
-    {"estimator": "mixture"}, {"estimator": "mis"},
-    {"estimator": "nee", **GLIBC},
-], ids=["uniform", "uniform_corrected", "mixture", "mis", "glibc"])
-def test_material_training_refuses(fn, kw):
-    """Rows 8-10 refuse, on every device, the estimators and the light
-    mode their kernels do not take yet, naming item 10 (no KeyError)."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _mat(fn, _tiny(**kw))
+@pytest.mark.parametrize("kw, est", EST_CODES,
+                         ids=[e for _, e in EST_CODES])
+def test_material_training_takes(fn, kw, est):
+    """Rows 8-10 take every estimator and glibc_overflow (they refused
+    these, naming item 10, before this slice): the forward equals the
+    render, the adjoint its plain version and the emission identity, the
+    training steps their definitions, and the kernels are named by the
+    estimator code (cornell_spheres: the _tab instances)."""
+    got = _mat(fn, _tiny(**kw))
+    if got is not None:
+        name, row = got
+        assert name == (f"megakernel_{est}_mat_tab" if row == "mat"
+                        else f"megakernel_vjp_{est}_tab")
 
 
 @pytest.mark.parametrize("call", [

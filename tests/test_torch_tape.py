@@ -5,17 +5,16 @@ and counters they are handed, and chip_smoke.py's bounds and ptxas report
 for them. The kernels themselves run only on the card (chip_smoke.py); a
 stand-in library records the arguments here. No JAX computation."""
 
-import contextlib
 from collections import Counter
-from types import SimpleNamespace
 
 import pytest
 import torch
 
 import chip_smoke
 import small_pathtracer_tpu_torch as spt
+from _recording_lib import install
 from small_pathtracer_tpu_torch.ops import (
-    _build, megakernel, megakernel_geom as mgeo, megakernel_grad as mg,
+    megakernel, megakernel_geom as mgeo, megakernel_grad as mg,
 )
 
 torch.set_num_threads(1)
@@ -31,31 +30,9 @@ N_HEAD = 3
 DEPTHS = (16, 17, 1_000_000)
 
 
-class RecordingLib:
-    """Stands in for the kernel library: records each entry point's
-    arguments and returns cudaSuccess."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append((name, args))
-            return 0
-        return entry
-
-
 @pytest.fixture
 def lib(monkeypatch):
-    rec = RecordingLib()
-    monkeypatch.setattr(_build, "build_kernels",
-                        lambda: SimpleNamespace(lib=rec))
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(megakernel, "LAUNCHES", Counter())
-    return rec
+    return install(monkeypatch)
 
 
 def _setup(name, max_bounces):

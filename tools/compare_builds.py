@@ -26,9 +26,11 @@ of PERF.md §6):
   ``--adaptive-tol 0.01`` (1024x768x512) of ``cornell_box`` and
   ``sphere_grid``, its image, spp map and traces, the wall time of two
   renders after a warm-up, and each wave's active share and event time;
-- the adjoints: ``megakernel_vjp`` on ``cornell_box`` and the adjoint
-  launch of ``megakernel_geom`` on ``cornell_spheres`` (and on
-  ``smallpt_original``), their gradient
+- the adjoints: ``megakernel_vjp`` on ``cornell_box`` (``nee``,
+  ``cosine``, ``nee_textbook``, ``mis``; its ``_tab`` instances on
+  ``smallpt_original``, the linear scan, and ``sphere_grid``, the tree)
+  and the adjoint launch of ``megakernel_geom`` on ``cornell_spheres``
+  (and on ``smallpt_original``), their gradient
   tables at 1024x768x4 (seed 3, cotangent seeds 5 and 3, as chip_smoke.py)
   and a launch's event time at 1024x768x512 seed 0 (cotangent 1e-7; two
   launches after one warm-up; for ``megakernel_geom`` also the kernel's
@@ -94,6 +96,9 @@ CASES = {
                               "nee_textbook", "voxel sharded"),
     "megakernel_nee 2x2": ("7", "cornell_box", "nee", "sharded"),
     "megakernel_nee_mat": ("8", "cornell_box", "nee", "mat"),
+    "megakernel_cosine_mat": ("8", "cornell_box", "cosine", "mat"),
+    "megakernel_textbook_mat": ("8", "cornell_box", "nee_textbook", "mat"),
+    "megakernel_mis_mat": ("8", "cornell_box", "mis", "mat"),
     "megakernel_nee_budgets": ("3", "cornell_box", "nee", "budgets"),
     "megakernel_nee_tab": ("2", "sphere_grid", "nee", "unguided"),
     "megakernel_nee_tab 2": ("2", "sphere_grid_2", "nee", "unguided"),
@@ -114,6 +119,15 @@ CASES = {
     "adaptive cornell_box": ("3", "cornell_box", "nee", "adaptive"),
     "adaptive sphere_grid": ("3", "sphere_grid", "nee", "adaptive"),
     "megakernel_vjp": ("9", "cornell_box", "nee", "vjp"),
+    "megakernel_vjp_cosine": ("9", "cornell_box", "cosine", "vjp"),
+    "megakernel_vjp_textbook": ("9", "cornell_box", "nee_textbook", "vjp"),
+    "megakernel_vjp_tab": ("9", "smallpt_original", "nee", "vjp"),
+    "megakernel_vjp_cosine_tab": ("9", "smallpt_original", "cosine", "vjp"),
+    "megakernel_vjp_textbook_tab": ("9", "smallpt_original", "nee_textbook",
+                                    "vjp"),
+    "megakernel_vjp_textbook_tab grid": ("9", "sphere_grid", "nee_textbook",
+                                         "vjp"),
+    "megakernel_vjp_mis": ("9", "cornell_box", "mis", "vjp"),
     "megakernel_geom": ("11", "cornell_spheres", "nee", "geom"),
     "megakernel_geom smallpt": ("11", "smallpt_original", "nee", "geom"),
     "megakernel_geom deep": ("11", "cornell_spheres", "nee", "geom deep"),
