@@ -80,12 +80,26 @@ the render at 256x192x4, row 9's against autograd (256x192x4 on the box,
 main path ``cli fit --estimator mis --train emission --lr 1`` at
 1024x768x512 (5 steps, the loss must fall, 5 + 5 launches) and a 1-step
 fit of each other instance, and their x512 times;
-the 4-rank main path takes one ``mis`` step over the mesh too. The
+the 4-rank main path takes one ``mis`` step over the mesh too. Then the
+geometry adjoint with the other estimators (``geom_est_phases``: the
+eight codes of GEOM_EST_CASES): each instance's image-only launch bit for
+bit against its plain version and ``megakernel_<est>_tab``, its adjoint
+against autograd row by row at 128x96x4, max_bounces 24, on
+``cornell_spheres`` (``mis`` and ``cosine`` also on ``smallpt_original``'s
+glass), ``mis`` on 200-bounce paths and on each coordinate of a 2x2 mesh
+(max_bounces 8), the main path
+``cli fit --train center,radius --estimator mis`` at 1024x768x512 (5
+steps, the loss must fall, 1 + 2 launches a step), a 1-step fit of each
+other instance at 256x192x64, and each instance's x512 event time; the
+4-rank main path takes one ``mis`` geometry step over the mesh. The
 adjoint kernels'
 registers, stack frames (their tapes) and spills are logged from ptxas,
 their times against the function's bound and their algorithm's. Each path
 runs with its kernels' launch counts set to 0 just before it and read just
-after, and fails unless its kernels launched. Every phase raises on
+after, and fails unless its kernels launched. The x4 parity runs of rows
+1-3 with the other estimators, rows 8, 9 and 11 take at most
+PARITY_BOUNCES bounces a path (the plain versions' time goes with their
+longest path). Every phase raises on
 failure, and the seconds each phase took are logged at the end. The second-to-last line of
 the output is one JSON object describing each kernel, the line before it
 the card's name and power limit, and the last line ``{"ok": true,
@@ -128,6 +142,12 @@ SPP_1024 = "128"
 MEAN_TOL = 0.25
 CSRC = "small_pathtracer_tpu_torch/csrc/"
 FIT_LR = "8"  # chosen on the CPU at 32x24x16: the loss falls for 5 steps
+# max_bounces of the parity runs against the plain versions at x4 (rows 1-3
+# of the other estimators, rows 8 and 9, row 11): the plain versions take a
+# launch-bound iteration a bounce of their longest path (PERF.md §6), and
+# the script's phases must end within its time limit. Past kSeg, so the
+# adjoints' paths still outrun their tape; the deep-path phases run 200.
+PARITY_BOUNCES = 24
 VJP_TOL = 1e-4  # of the largest entry of each table (reason: PERF.md)
 
 # Peak rates of one H100 SXM at 700 W: fp32 outside the tensor cores and
@@ -390,8 +410,9 @@ def cli_traces(text: str) -> tuple[int, float]:
 
 # Bytes of one tape entry of the adjoint kernels, written once and read
 # once a taped bounce: csrc/megakernel_vjp.cuh `VjpEntry` and
-# csrc/megakernel_geom.cu `GeomEntry` (the state before the bounce and
-# what its two queries found).
+# csrc/megakernel_geom.cuh `GeomEntry` (the state before the bounce and
+# what its two queries found; nee_textbook's `TbEntry` and mis's
+# `MisEntry` the same 64 bytes).
 class MatSpec(NamedTuple):
     """One slice of rows 8, 9 and 10 for ``mat_phases``: its phases' title;
     its kernels in the ``kernels`` line, (the name its wrapper counts its
@@ -520,28 +541,38 @@ def vjp_bound(traces, n_samples: int, n_pix: int, k: int,
 GEOM_TOL = {"cornell_spheres": (1e-4, 1e-5), "smallpt_original": (1e-4, 1e-3),
             "sphere_grid": (1e-4, 1e-5)}
 # The least fp32 operations of a VJP bounce beyond its replayed bounce,
-# counted from csrc/megakernel_geom.cu: the material terms (~40) and the
+# counted from csrc/megakernel_geom.cuh: the material terms (~40) and the
 # cheapest pullback (a rect winner's cosine sample and hit point, ~60).
 FP_VJP = 100
 
 
 def geom_bound(counts, n_samples: int, n_pix: int, n_rects: int,
-               n_spheres: int, n_blocks: int, algorithm: bool = False):
+               n_spheres: int, n_blocks: int, algorithm: bool = False,
+               est: str = "nee", diffuse_only: bool = True):
     """megakernel_geom from its own counters [extend, probe, replayed, VJP,
     paths longer than the tape]. The function's bound: the gradient needs
     pass A's bounces (a query with the least shading each), pass A's probes
     at their least, one pullback a bounce (FP_VJP, one a VJP bounce) and a
-    spawn a sample. Bytes: the cotangent and the image, the tables, the
-    per-block partials out and in. With ``algorithm`` this kernel's bound:
-    also its segment replays (a query and the least shading each, their
-    probes left out), each VJP bounce's shading (its queries come from the
-    tape), and the tape: an entry written a traced or replayed bounce and
-    read a VJP bounce."""
+    spawn a sample. The other estimators' pass A (``est``, the RenderConfig
+    estimator: glibc's instances count as theirs) is ``forward_ops`` of its
+    counts: the hemisphere samples, the textbook and mis probes' light
+    samples, weights and direct terms, mis's balance weights (FP_MIS).
+    Bytes: the cotangent and the image, the tables, the per-block partials
+    out and in. With ``algorithm`` this kernel's bound: also its segment
+    replays (a query and the least shading each, their probes left out),
+    each VJP bounce's shading (its queries come from the tape), and the
+    tape: an entry written a traced or replayed bounce and read a VJP
+    bounce."""
     extend, probe, replay, vjp = counts[:4]
     q = query_ops(n_rects, n_spheres)
-    fp = (extend * (q + FP_SHADE_MIN) + probe * (FP_PROBE + FP_NEE)
-          + vjp * FP_VJP + n_samples * FP_SPAWN)
-    it = extend * (INT_DRAW + INT_WORD) + n_samples * INT_SPAWN
+    if est == "nee":
+        fp = (extend * (q + FP_SHADE_MIN) + probe * (FP_PROBE + FP_NEE)
+              + vjp * FP_VJP + n_samples * FP_SPAWN)
+        it = extend * (INT_DRAW + INT_WORD) + n_samples * INT_SPAWN
+    else:
+        fp, it = forward_ops((extend, probe), n_samples, n_rects, n_spheres,
+                             est, diffuse_only)
+        fp += vjp * FP_VJP
     k = n_rects + n_spheres
     slots = 6 * k + 4 * n_spheres
     n_bytes = (n_pix * 24 + k * 28 + n_spheres * 16
@@ -615,7 +646,8 @@ def geom_phases(card: str, cli_main) -> dict:
         replays ran."""
         sc = get_scene(name)
         cam = make_camera(aspect=width / height)
-        cfg = RenderConfig(width=width, height=height, spp=4, seed=seed)
+        cfg = RenderConfig(width=width, height=height, spp=4, seed=seed,
+                           max_bounces=PARITY_BOUNCES)
         t_img, t_tr = megakernel.render_megakernel(sc, cam, cfg, seed)
         outs, med = in_turns(
             {"kernel": lambda: mgeo.geom_run(sc, cam, cfg, seed,
@@ -1187,7 +1219,8 @@ def mesh_rank(paths: list, mat_step: bool) -> dict:
     (the multi-rank entry point of the library), then, with ``mat_step``,
     one ``material_train_step_sharded`` step at 1024x768x512 of each of
     MESH_MAT_STEPS (the entry point a user calls: the JAX package has no
-    CLI path for it). The launch
+    CLI path for it) and one ``geom_train_step_sharded`` step of each of
+    MESH_GEOM_STEPS (cli fit's self-test scene and target). The launch
     counts are set to 0 just before each path and read just after. Returns
     {label: {rc, launches, stdout, stderr, seconds}} with host values
     only."""
@@ -1244,6 +1277,25 @@ def mesh_rank(paths: list, mat_step: bool) -> dict:
                           "loss": float(loss), "galb": galb.cpu().numpy(),
                           "gemi": gemi.cpu().numpy(),
                           "seconds": time.perf_counter() - t0}
+        from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+        for label, nm, fields, (w, h, spp) in MESH_GEOM_STEPS:
+            sc_ = get_scene(nm)
+            cam_ = make_camera(aspect=w / h)
+            cfg_ = RenderConfig(width=w, height=h, spp=spp, seed=0, **fields)
+            target = mgeo.geom_run(sc_, cam_, cfg_, 1)[0] / cfg_.spp
+            moved = displaced(sc_)
+            step = mgeo.geom_train_step_sharded(moved, cam_, cfg_, mesh,
+                                                target)
+            tables = mgeo.pack_tables(moved)
+            megakernel.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _, *grads = step(*tables, 0)
+            torch.cuda.synchronize()
+            out[label] = {"rc": 0, "launches": dict(megakernel.LAUNCHES),
+                          "loss": float(loss),
+                          "grads": [t.cpu().numpy() for t in grads],
+                          "seconds": time.perf_counter() - t0}
     return out
 
 
@@ -1257,7 +1309,8 @@ def _mat_target(sc, cam, cfg):
     return megakernel.render_megakernel(bright, cam, cfg, 1)[0] / cfg.spp
 
 
-def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
+def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict,
+                 geom_shard: dict) -> list:
     """Rows 7, 6, 10 and 12 on a shard's lanes: each coordinate of a 2x2
     mesh (``Mesh.single``, one process) at 1024x768x4 against its plain
     version (forward launches bit for bit, adjoint partials to rows 9 and
@@ -1269,9 +1322,11 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
     ``material_train_step_sharded`` step and ``cli fit --train
     center,radius --mesh 2x2`` (2 steps), all at 1024x768x512, and one
     ``material_train_step_sharded`` step of each material fit's main path
-    (MESH_MAT_STEPS after the first) over the mesh. Returns the ``kernels``
+    (MESH_MAT_STEPS after the first) and a ``geom_train_step_sharded``
+    step of each of MESH_GEOM_STEPS over the mesh. Returns the ``kernels``
     entries of the four rows; ``mat_shard`` holds row 10's per-shard
-    numbers for those main paths' kernels (``mat_phases``)."""
+    numbers for those main paths' kernels (``mat_phases``), ``geom_shard``
+    row 12's for MESH_GEOM_STEPS' (``geom_est_phases``)."""
     from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
     from small_pathtracer_tpu_torch.core import film
     from small_pathtracer_tpu_torch.ops import _build, megakernel
@@ -1673,7 +1728,8 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
         launches = {}
         for label in ("box", "sphere_grid", "guided", "fit",
                       "distributed_render",
-                      *(step[0] for step in MESH_MAT_STEPS)):
+                      *(step[0] for step in MESH_MAT_STEPS),
+                      *(step[0] for step in MESH_GEOM_STEPS)):
             tot = {}
             for r in ranks:
                 for k, n in r[label]["launches"].items():
@@ -1785,6 +1841,38 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
             if any(n != MESH_RANKS for n in got.values()):
                 raise AssertionError(f"the sharded step {label} launched "
                                      f"{got}")
+        # Row 12 with mis: the 4-rank step against the one-rank one.
+        from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+        for label, nm, fields, (w, h, spp) in MESH_GEOM_STEPS:
+            g_sc = get_scene(nm)
+            g_cam = make_camera(aspect=w / h)
+            g_cfg = RenderConfig(width=w, height=h, spp=spp, seed=0,
+                                 **fields)
+            target = mgeo.geom_run(g_sc, g_cam, g_cfg, 1)[0] / g_cfg.spp
+            g_loss, *g_want = mgeo.loss_and_geom_grads(
+                displaced(g_sc), g_cam, g_cfg, 0, target)
+            rt = r0[label]
+            g_d = max(float(np.abs(a - w.cpu().numpy()).max())
+                      / max(1.0, float(w.abs().max()))
+                      for a, w in zip(rt["grads"], g_want))
+            name = mgeo.geom_kernel_name(g_cfg)
+            got = launches[label].get(name, 0)
+            step_launch[name] = got
+            log(f"[smoke] mesh {label} ({nm} {g_cfg.estimator} {w}x{h}x"
+                f"{spp}): loss {rt['loss']:.9f} (one rank "
+                f"{float(g_loss):.9f}), gradients within {g_d:.3e} of "
+                f"max(1, the largest entry) (limit {STEP_TOL:g}); {got} "
+                f"launches of {name} over the ranks, rank seconds "
+                f"{[round(r[label]['seconds'], 3) for r in ranks]}")
+            if not (abs(rt["loss"] - float(g_loss)) <= STEP_TOL
+                    * max(1.0, abs(float(g_loss))) and g_d <= STEP_TOL):
+                raise AssertionError(f"the geometry step {label} over the "
+                                     "mesh differs from the one-rank step")
+            if any(r[label]["loss"] != rt["loss"] for r in ranks[1:]):
+                raise AssertionError(f"the ranks' losses differ ({label})")
+            if got != 2 * MESH_RANKS or len(launches[label]) != 1:
+                raise AssertionError(f"the sharded step {label} launched "
+                                     f"{launches[label]}")
 
     main = {"megakernel_nee": launches["box"]["megakernel_nee"]
             + launches["distributed_render"]["megakernel_nee"],
@@ -1820,6 +1908,16 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict) -> list:
                               else "megakernel_grad_est.cu") if vjp
                              else ("megakernel.cu" if own
                                    else "megakernel_est.cu"))
+    for label, nm, fields, _ in MESH_GEOM_STEPS:
+        name = mgeo.geom_kernel_name(RenderConfig(width=8, height=8, spp=1,
+                                                  **fields))
+        main[name] = step_launch[name]
+        res[name] = geom_shard[name]
+        replaces[name] = ("megakernel_geom.py:1686 (estimator "
+                          f"{fields['estimator']})")
+        sources[name] = ("megakernel_geom_direct.cu"
+                         if fields["estimator"] in mgeo.DIRECT
+                         else "megakernel_geom_est.cu")
     return [(name + " (shard)", sources.get(name, "megakernel.cu"),
              replaces[name], main[name], res[name]) for name in main]
 
@@ -1894,7 +1992,8 @@ def mat_phases(card: str, cli_main, spec: MatSpec) -> tuple[list, dict]:
         width, height = spec.size8[nm]
         n_pix = width * height
         cam_8 = make_camera(aspect=width / height)
-        cfg = cfg_of(width, height, 4, fields, 16)
+        cfg = cfg_of(width, height, 4, fields, 16,
+                     max_bounces=PARITY_BOUNCES)
         alb, emi = mg.pack_materials(sc)
         name = mg.mat_kernel_name(sc, cfg)
         before = lbn[name]
@@ -1935,7 +2034,8 @@ def mat_phases(card: str, cli_main, spec: MatSpec) -> tuple[list, dict]:
         width, height = spec.size9[nm]
         n_pix = width * height
         cam_v = make_camera(aspect=width / height)
-        cfg = cfg_of(width, height, 4, fields, 17)
+        cfg = cfg_of(width, height, 4, fields, 17,
+                     max_bounces=PARITY_BOUNCES)
         alb, emi = mg.pack_materials(sc)
         g = g_of(height, width, 5)
         name = mg.vjp_kernel_name(sc, cfg)
@@ -2244,6 +2344,373 @@ BUDGET_CASES = {"cosine": {"estimator": "cosine"},
 # render, over seeds.
 MSE_SPPS, MSE_SEEDS, MSE_REF_SPP, MSE_REF_SEED = (16, 64), (0, 1, 2, 3), 4096, 100
 
+# The geometry adjoint with the other estimators: rows 11 and 12's
+# instances in csrc/megakernel_geom_est.cu and csrc/megakernel_geom_direct.cu.
+# Each case: the part of its kernel's name after megakernel_geom_
+# (ops/megakernel_geom.geom_kernel_name) and its RenderConfig fields.
+GEOM_EST_CASES = {"cosine": {"estimator": "cosine"},
+                  "textbook": {"estimator": "nee_textbook"},
+                  **EST_CASES}
+# The parity runs of each instance, against autograd through its plain
+# version: cornell_spheres at GEOM_EST_SIZE x4 (the plain versions are
+# bound by the longest path's bounce count, not by pixels), and the glass
+# of smallpt_original for GEOM_EST_GLASS. Every other check of the phase
+# runs mis, the main path's estimator: on 200-bounce paths (DEEP_ALBEDO,
+# the light black: DEEP_SIZE x4), each coordinate of the 2x2 mesh (row 12)
+# at GEOM_EST_SIZE, and ``cli fit --train center,radius --estimator mis``
+# at 1024x768x512 (5 steps, the loss must fall).
+GEOM_EST_SIZE, GEOM_EST_GLASS = (128, 96), ("mis", "cosine")
+DEEP_SIZE = (32, 24)
+# max_bounces of the per-shard runs (the lanes' split is what they check;
+# the parity runs take PARITY_BOUNCES: at the default 256 their autograd
+# took 0.7-10.9 s each, an H100, PERF.md §6).
+GEOM_SHARD_BOUNCES = 8
+# Sphere rows whose exact value is 0: on a scene of DIFF objects only the
+# cosine and uniform estimators' weights do not depend on the geometry
+# (uniform_corrected's 2 max(d'.n, 0) is wz / |sv| for the sample drawn in
+# n's frame), so their sphere rows are rounding. Such a row is held to
+# GEOM_ZERO of the albedo table's largest entry instead of its own
+# (measured on an H100, uniform_corrected at 128x96x4: 5.8e-5 against an
+# albedo table of 3.8e3; cosine and uniform exactly 0; PERF.md §6).
+# Mirrors and glass weigh and turn paths by the geometry, so there the
+# rows are held as every other row.
+GEOM_ZERO = 1e-6
+# The 4-rank step of row 12 with mis (``mesh_rank``): label, scene, fields,
+# (width, height, spp).
+MESH_GEOM_STEPS = (("row12_mis", "cornell_spheres", {"estimator": "mis"},
+                    (512, 384, 64)),)
+
+
+def displaced(sc):
+    """cli fit's geometry self-test scene: sphere 0 moved by (4, 0, -3),
+    its radius scaled by 1.1."""
+    sp = sc.spheres
+    center, radius = sp.center.clone(), sp.radius.clone()
+    center[0] += torch.tensor([4.0, 0.0, -3.0], device=center.device)
+    radius[0] *= 1.1
+    return sc._replace(spheres=sp._replace(center=center, radius=radius))
+
+
+def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
+    """Rows 11 and 12 with GEOM_EST_CASES: each instance's image-only
+    launch bit for bit against its plain version and megakernel_<est>_tab,
+    its adjoint against autograd through the plain version row by row
+    (GEOM_TOL; GEOM_ZERO for rows that are 0) and against itself; mis on
+    200-bounce paths and on each coordinate of the 2x2 mesh; the main path
+    ``cli fit --train center,radius --estimator mis`` at 1024x768x512; each
+    instance's x512 event time. Returns the ``kernels`` entries and row
+    12's mis numbers for shard_phases."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.integrator.wavefront import check_materials
+    from small_pathtracer_tpu_torch.ops import _build, megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+
+    def cfg_of(fields, width, height, spp, seed, **kw):
+        return RenderConfig(width=width, height=height, spp=spp, seed=seed,
+                            **fields, **kw)
+
+    def g_of(height, width, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (height, width, 3)).astype(np.float32)).to("cuda")
+
+    def held(label, got, want, tols, zero_rows=False):
+        """Each table (sphere rows, albedo, emission) row by row against
+        autograd; returns the largest |kernel - plain|."""
+        err, bad = 0.0, []
+        for name, kt, pt, tol in zip(("sphere rows", "albedo", "emission"),
+                                     got, want, tols):
+            e = float((kt - pt).abs().max())
+            err = max(err, e)
+            if name == "sphere rows" and zero_rows:
+                floor = GEOM_ZERO * float(want[1].abs().max())
+                msg = (f"largest |kernel| {float(kt.abs().max()):.3e}, "
+                       f"|plain| {float(pt.abs().max()):.3e} (exactly 0; "
+                       f"limit {floor:.3e})")
+                if not max(float(kt.abs().max()),
+                           float(pt.abs().max())) <= floor:
+                    bad.append(f"{name} not 0")
+            else:
+                ratio, row, scale = worst_row(kt, pt)
+                msg = (f"worst row {row}: ratio {ratio:.3e} to its largest "
+                       f"entry {scale:.3e} (limit {tol:g})")
+                if not ratio <= tol:
+                    bad.append(f"{name} row {row} off by {ratio:.3e}")
+            log(f"[smoke] {label} d/d {name}: max |kernel - plain| {e:.3e}; "
+                + msg)
+        if bad:
+            raise AssertionError(f"{label}: " + "; ".join(bad))
+        return err
+
+    par, cam_cache = {}, {}
+
+    def camera(width, height):
+        if (width, height) not in cam_cache:
+            cam_cache[(width, height)] = make_camera(aspect=width / height)
+        return cam_cache[(width, height)]
+
+    phase(f"rows 11 and 12 with the other estimators: each instance against "
+          f"megakernel_<est>_tab and autograd through its plain version, "
+          f"cornell_spheres {GEOM_EST_SIZE[0]}x{GEOM_EST_SIZE[1]}x4 and the "
+          f"glass of smallpt_original ({', '.join(GEOM_EST_GLASS)})")
+    width, height = GEOM_EST_SIZE
+    cam = camera(width, height)
+    runs = [("cornell_spheres", label) for label in GEOM_EST_CASES]
+    runs += [("smallpt_original", label) for label in GEOM_EST_GLASS]
+    for nm, label in runs:
+        sc = get_scene(nm)
+        fields = GEOM_EST_CASES[label]
+        cfg = cfg_of(fields, width, height, 4, 3,
+                     max_bounces=PARITY_BOUNCES)
+        name = mgeo.geom_kernel_name(cfg)
+        t_img, t_tr = megakernel.render_megakernel(sc, cam, cfg, 3)
+        g = g_of(height, width, 3)
+        before = megakernel.LAUNCHES[name]
+        (img_i, _, _, _, c_i), img_s = timed(
+            lambda: mgeo.geom_run(sc, cam, cfg, 3, with_counts=True))
+        outs, secs = [], []
+        for _ in range(2):
+            out, sec = timed(lambda: mgeo.geom_run(sc, cam, cfg, 3, g,
+                                                   with_counts=True))
+            outs.append(out)
+            secs.append(sec)
+        if megakernel.LAUNCHES[name] != before + 3:
+            raise AssertionError(f"{label}: {name} did not count 3 launches")
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"{nm} {label}: adjoint runs differ")
+        k_img, k_sph, k_alb, k_emi, counts = outs[0]
+        torch.cuda.reset_peak_memory_stats()
+        (p_img, p_sph, p_alb, p_emi, p_tr), p_s = timed(
+            lambda: mgeo.geom_run_plain(sc, cam, cfg, 3, g))
+        peak = torch.cuda.max_memory_allocated()
+        if not (torch.equal(img_i, t_img) and torch.equal(k_img, t_img)
+                and torch.equal(p_img, t_img)
+                and torch.equal(c_i[:2], t_tr) and torch.equal(p_tr, t_tr)
+                and torch.equal(counts[:2], t_tr)
+                and int(counts[3]) == int(t_tr[0]) and int(counts[4]) > 0):
+            raise AssertionError(f"{nm} {label}: the image-only launch, the "
+                                 "adjoint's pass A or the plain version "
+                                 "differs from "
+                                 f"{megakernel.kernel_name(sc, cfg)}, or no "
+                                 "path outran the tape")
+        tols = (GEOM_TOL[nm][1], GEOM_TOL[nm][0], GEOM_TOL[nm][0])
+        spec = check_materials(sc)  # SPEC or REFR objects
+        err = held(f"{name} {nm}", (k_sph, k_alb, k_emi),
+                   (p_sph, p_alb, p_emi), tols,
+                   zero_rows=not spec and fields["estimator"] in (
+                       "cosine", "uniform", "uniform_corrected"))
+        n_pix = width * height
+        b = geom_bound(counts.tolist(), n_pix * 4, n_pix,
+                       sc.rects.k.shape[0], sc.spheres.radius.shape[0],
+                       -(-n_pix * megakernel.full_layout(cfg).g
+                         // mgeo.KERNEL_BLOCK), est=fields["estimator"],
+                       diffuse_only=not spec)
+        ms = float(np.median(secs)) * 1e3
+        log(f"[smoke] {name} {nm} {width}x{height}x4 seed 3: image-only "
+            f"{img_s * 1e3:.3f} ms == {megakernel.kernel_name(sc, cfg)} and "
+            f"the plain version, traces {t_tr.tolist()}; adjoint {ms:.3f} ms, "
+            f"counts {counts.tolist()}, two runs bit-identical; plain "
+            f"adjoint {p_s:.3f} s, peak {peak / 2**30:.2f} GiB; bound "
+            f"{b[0]:.3f} ms ({b[1]})")
+        if nm == "cornell_spheres":
+            par[name] = {"err": err, "ms": ms, "plain_ms": p_s * 1e3,
+                         "bound": b, "label": label}
+
+    k_seg, k_ckpt = tape_sizes()
+    dw, dh = DEEP_SIZE
+    phase(f"mis geometry adjoint on {DEEP_BOUNCES}-bounce paths, "
+          f"cornell_spheres {dw}x{dh}x4, every albedo {DEEP_ALBEDO} but the "
+          "light's (black)")
+    sph = get_scene("cornell_spheres")
+    t_sph, t_alb, t_emi = mgeo.pack_tables(sph)
+    dark_alb = torch.full_like(t_alb, DEEP_ALBEDO)
+    dark_alb[sph.light.light_obj_id] = 0.0
+    dark = mgeo.scene_with_tables(sph, t_sph, dark_alb, t_emi)
+    cfg = cfg_of(EST_CASES["mis"], dw, dh, 4, 3, rr_start_depth=DEEP_BOUNCES,
+                 max_bounces=DEEP_BOUNCES)
+    dcam = camera(dw, dh)
+    g = g_of(dh, dw, 5)
+    runs = [mgeo.geom_run(dark, dcam, cfg, 3, g, with_counts=True)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("deep paths, mis: adjoint runs differ")
+    img, k_sph, k_alb, k_emi, counts = runs[0]
+    t_img, t_tr = megakernel.render_megakernel(dark, dcam, cfg, 3)
+    deepest = int(counts[4])
+    log(f"[smoke] deep paths, megakernel_geom_mis counts {counts.tolist()} "
+        f"[extend, probe, replayed, VJP, paths longer than the tape]; "
+        f"(kCkpt + 2)·kSeg = {(k_ckpt + 2) * k_seg}")
+    if not (torch.equal(img, t_img) and torch.equal(counts[:2], t_tr)
+            and deepest > 0 and int(counts[3]) == int(t_tr[0])):
+        raise AssertionError("deep paths, mis: the image or counters differ "
+                             "from megakernel_mis_tab's, or no path outran "
+                             "the tape")
+    _, p_sph, p_alb, p_emi, _ = mgeo.geom_run_plain(dark, dcam, cfg, 3, g)
+    tol_mat, tol_sph = GEOM_TOL["cornell_spheres"]
+    held("deep paths, megakernel_geom_mis", (k_sph, k_alb, k_emi),
+         (p_sph, p_alb, p_emi), (tol_sph, tol_mat, tol_mat))
+
+    phase(f"row 12 with mis per shard on cornell_spheres {width}x{height}x4, "
+          f"max_bounces {GEOM_SHARD_BOUNCES} (mesh {SHARD_MESH}, one process)")
+    cfg = cfg_of(EST_CASES["mis"], width, height, 4, 3,
+                 max_bounces=GEOM_SHARD_BOUNCES)
+    name = mgeo.geom_kernel_name(cfg)
+    g = g_of(height, width, 3)
+    n_pix = width * height
+    shard = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    tot_img, tot_grads, tot_counts = None, None, None
+    for c in ((i, j) for i in range(SHARD_MESH[0])
+              for j in range(SHARD_MESH[1])):
+        m = Mesh.single(SHARD_MESH, c)
+        lay = megakernel.shard_of(cfg, m, what="spp")
+        g_c = g.reshape(n_pix, 3)[lay.pix0:lay.pix0 + lay.n_pix_loc]
+        before = megakernel.LAUNCHES[name]
+        out_i, s_i = timed(lambda: mgeo.geom_run_shard(sph, cam, cfg, m, 3))
+        out_k, s_k = timed(lambda: mgeo.geom_run_shard(sph, cam, cfg, m, 3,
+                                                       g_c))
+        out_p, s_p = timed(lambda: mgeo.geom_run_shard_plain(sph, cam, cfg,
+                                                             m, 3, g_c))
+        if megakernel.LAUNCHES[name] != before + 2:
+            raise AssertionError(f"row 12 mis {c}: {name} did not count 2 "
+                                 "launches")
+        if not (torch.equal(out_i[0], out_p[0])
+                and torch.equal(out_k[0], out_p[0])
+                and torch.equal(out_i[4][:2], out_p[4])):
+            raise AssertionError(f"row 12 mis {c}: the shard's image or "
+                                 "traces differ from its plain version")
+        shard["err"] = max(shard["err"], held(
+            f"row 12 {name} shard {c}", out_k[1:4], out_p[1:4],
+            (tol_sph, tol_mat, tol_mat)))
+        shard["ms"] += (s_i + s_k) * 1e3
+        shard["plain_ms"] += s_p * 1e3
+        tot_grads = (list(out_k[1:4]) if tot_grads is None
+                     else [a + b for a, b in zip(tot_grads, out_k[1:4])])
+        tot_counts = (out_k[4] if tot_counts is None
+                      else tot_counts + out_k[4])
+    whole = mgeo.geom_run(sph, cam, cfg, 3, g)[1:4]
+    d_g = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(tot_grads, whole))
+    log(f"[smoke] row 12 {name} per shard: images and traces equal the "
+        f"plain version's; adjoint partials held row by row; the shards' "
+        f"sums within {d_g:.3e} of the unsharded adjoint's largest entries "
+        f"(limit {STEP_TOL:g}); kernel {shard['ms']:.3f} ms, plain "
+        f"{shard['plain_ms']:.3f} ms (sums over the coordinates)")
+    if not d_g <= STEP_TOL:
+        raise AssertionError("row 12 mis: the shards' sums differ from the "
+                             "unsharded adjoint")
+    shard["bound"] = geom_bound(tot_counts.tolist(), n_pix * 4, n_pix,
+                                sph.rects.k.shape[0],
+                                sph.spheres.radius.shape[0],
+                                -(-n_pix * megakernel.full_layout(cfg).g
+                                  // mgeo.KERNEL_BLOCK), est="mis")
+
+    phase("main path, cli fit --train center,radius --scene cornell_spheres "
+          "--estimator mis, 1024x768x512, 5 steps")
+    out, err_io = io.StringIO(), io.StringIO()
+    megakernel.LAUNCHES.clear()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err_io):
+        rc = cli_main(["fit", "--scene", "cornell_spheres", "--width", "1024",
+                       "--height", "768", "--spp", "512", "--steps", "5",
+                       "--train", "center,radius", "--estimator", "mis"])
+    launches = megakernel.LAUNCHES["megakernel_geom_mis"]
+    others = {k: v for k, v in megakernel.LAUNCHES.items()
+              if k != "megakernel_geom_mis"}
+    for line in err_io.getvalue().strip().splitlines():
+        log("[smoke] cli fit mis: " + line)
+    if rc != 0:
+        raise AssertionError(f"cli fit --estimator mis returned {rc}")
+    fit = json.loads(out.getvalue().strip().splitlines()[-1])
+    log("[smoke] cli fit mis: " + json.dumps(fit))
+    steps = [(float(a), float(b)) for a, b in re.findall(
+        r"loss (\S+).*?seconds (\S+)", err_io.getvalue())]
+    losses = [a for a, _ in steps]
+    if launches != 1 + 2 * 5 or others:
+        raise AssertionError(f"cli fit mis launched megakernel_geom_mis "
+                             f"{launches} times (not 1 + 2 a step), and "
+                             f"{others}")
+    # The fitter's contract: 5 finite losses, each rejected step restored,
+    # so the returned (last) loss is the best. Whether the loss falls is
+    # logged, not gated: on this self-test mis's interior gradient points
+    # away from the truth (its loss rises along it at every step from 0.05
+    # to 1 scene unit, as nee_textbook's; nee's falls), the silhouette
+    # terms it leaves out being item 16 (PERF.md §6).
+    if not (len(losses) == 5 and all(np.isfinite(losses))
+            and losses[-1] == min(losses)):
+        raise AssertionError(f"the mis geometry fit's losses {losses}")
+    if _build.build_kernels().build_seconds != 0.0:
+        raise AssertionError("moving the spheres rebuilt the library")
+    step_s = float(np.median([b for _, b in steps]))
+    falls = "falls" if min(losses) < losses[0] else "does not fall"
+    log(f"[smoke] mis geometry fit: {launches} launches of "
+        f"megakernel_geom_mis (1 + 2 a step); loss {losses[0]:.6f} -> best "
+        f"{min(losses):.6f} ({falls}); {step_s:.4f} s a step (median of 5) "
+        f"on {card}")
+    par["megakernel_geom_mis"]["launches"] = launches
+
+    phase("each other instance's path: a 1-step cli fit --train "
+          "center,radius of cornell_spheres at 256x192x64")
+    for name, r in par.items():
+        if name == "megakernel_geom_mis":
+            continue
+        megakernel.LAUNCHES.clear()
+        with (contextlib.redirect_stdout(io.StringIO()),
+              contextlib.redirect_stderr(io.StringIO())):
+            rc = cli_main(["fit", "--scene", "cornell_spheres", "--width",
+                           "256", "--height", "192", "--spp", "64",
+                           "--steps", "1", "--train", "center,radius",
+                           *est_argv(GEOM_EST_CASES[r["label"]])])
+        got = dict(megakernel.LAUNCHES)
+        if rc != 0 or got != {name: 3}:
+            raise AssertionError(f"cli fit {r['label']}: rc {rc}, launches "
+                                 f"{got} (not 1 + 2 of {name})")
+        r["launches"] = got[name]
+    log(f"[smoke] a 1-step cli fit of each other instance: 3 launches each "
+        f"(1 + 2 a step) of {[n for n in par if n != 'megakernel_geom_mis']}")
+
+    phase("each new geometry-adjoint instance at 1024x768x512 on "
+          "cornell_spheres, CUDA events")
+    cam = camera(1024, 768)
+    geometry = megakernel.pack_geometry(sph, cam)
+    g512 = torch.full((768, 1024, 3), 1e-7, device="cuda")
+    n_pix = 1024 * 768
+    for name, r in par.items():
+        fields = GEOM_EST_CASES[r["label"]]
+        cfg = cfg_of(fields, 1024, 768, 512, 0)
+        counts = mgeo.geom_run(sph, cam, cfg, 0, g512, geometry=geometry,
+                               with_counts=True)[4].tolist()
+        img_ms = event_ms(lambda: mgeo.geom_run(sph, cam, cfg, 0,
+                                                geometry=geometry), 1)
+        adj_ms = event_ms(lambda: mgeo.geom_run(sph, cam, cfg, 0, g512,
+                                                geometry=geometry), 1)
+        b512 = geom_bound(counts, n_pix * 512, n_pix, sph.rects.k.shape[0],
+                          sph.spheres.radius.shape[0], -(-n_pix // 128),
+                          est=fields["estimator"])
+        b_alg = geom_bound(counts, n_pix * 512, n_pix, sph.rects.k.shape[0],
+                           sph.spheres.radius.shape[0], -(-n_pix // 128),
+                           True, est=fields["estimator"])
+        log(f"[smoke] {name} cornell_spheres 1024x768x512 seed 0: image-only "
+            f"{img_ms:.3f} ms, adjoint {adj_ms:.3f} ms a launch, counts "
+            f"{counts} [extend, probe, replayed, VJP, paths longer than the "
+            f"tape]; bound {b512[0]:.3f} ms ({b512[1]}; the taped "
+            f"algorithm's {b_alg[0]:.3f} ms, {b_alg[1]}) on {card}")
+
+    def entry(name, r, source, replaces):
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": "small_pathtracer_tpu/ops/" + replaces,
+                "launches": r["launches"], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None}
+
+    out = []
+    for name, r in par.items():
+        est = GEOM_EST_CASES[r["label"]]["estimator"]
+        source = ("megakernel_geom_direct.cu" if est in mgeo.DIRECT
+                  else "megakernel_geom_est.cu")
+        out.append(entry(name, r, source, "megakernel_geom.py:1488 "
+                         f"(estimator {r['label']})"))
+    return out, {"megakernel_geom_mis": shard}
+
 
 def est_argv(fields: dict) -> list[str]:
     """cli render flags of a case's RenderConfig fields."""
@@ -2329,7 +2796,7 @@ def est_phases(card: str, cli_main) -> list:
     for label, fields in EST_CASES.items():
         for nm in ("cornell_box", "smallpt_original", "sphere_grid"):
             sc = sc_of[nm]
-            cfg = cfg_of(fields, 4, 21)
+            cfg = cfg_of(fields, 4, 21, max_bounces=PARITY_BOUNCES)
             name = megakernel.kernel_name(sc, cfg)
             r = parity(
                 f"{label} {nm} 1024x768x4 seed 21", name,
@@ -2346,7 +2813,7 @@ def est_phases(card: str, cli_main) -> list:
         for i, nm in enumerate(("cornell_box", "sphere_grid",
                                 "smallpt_original")):
             sc = sc_of[nm]
-            cfg = cfg_of(fields, 64, 22 + i)
+            cfg = cfg_of(fields, 64, 22 + i, max_bounces=PARITY_BOUNCES)
             a, b_ = ragged_spans(n_pix, 4, 3, 22 + i, empty=0.75)
             name = megakernel.kernel_name(sc, cfg, "_budgets")
             n_samples = int((b_ - a).sum())
@@ -3606,8 +4073,9 @@ def main() -> int:
     mat_entries, mat_shard = mat_phases(card, cli_main, MAT_GROWN)
     est_entries = est_phases(card, cli_main)
     est_mat_entries, est_shard = mat_phases(card, cli_main, MAT_EST)
+    geo_entries, geo_shard = geom_est_phases(card, cli_main)
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
-                         {**mat_shard, **est_shard})
+                         {**mat_shard, **est_shard}, geo_shard)
 
     PHASES.append(("end", time.perf_counter()))
     for (name, t0), (_, t1) in zip(PHASES, PHASES[1:]):
@@ -3658,6 +4126,7 @@ def main() -> int:
         *mat_entries,
         *est_entries,
         *est_mat_entries,
+        *geo_entries,
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

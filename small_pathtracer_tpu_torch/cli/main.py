@@ -360,11 +360,13 @@ def _cmd_fit_geom(args, fields: tuple[str, ...], mesh=None,
                   device=None) -> int:
     """Sphere fitting through the geometry adjoint (the JAX CLI's ``fit
     --pallas --train center,...``): normalized-step descent on the spheres'
-    fields, one image and one adjoint launch of megakernel_geom a step.
-    Without ``--target`` the self-test: the target is the scene at seed + 1,
-    then sphere ``--fd-sphere`` (or 0) is moved by (4, 0, -3) and its
-    radius scaled by 1.1. With ``--mesh`` every step is sharded
-    (``fit_geom(mesh=)``); each rank renders the whole target."""
+    fields, one image and one adjoint launch of the estimator's
+    megakernel_geom instance a step (``--estimator``,
+    ``--light-sample-mode``). Without ``--target`` the self-test: the
+    target is the scene at seed + 1, then sphere ``--fd-sphere`` (or 0) is
+    moved by (4, 0, -3) and its radius scaled by 1.1. With ``--mesh``
+    every step is sharded (``fit_geom(mesh=)``); each rank renders the
+    whole target."""
     bad = [f for f in fields if f not in megakernel_geom.FIELDS]
     if bad or args.optimizer != "sgd":
         raise SystemExit(

@@ -1,5 +1,5 @@
-// Row 9, the material adjoint (megakernel_vjp.cuh), with the estimators of
-// ROADMAP item 10 (SPT_EST_CODES, megakernel_lane.cuh): `uniform`,
+// Row 9, the material adjoint (megakernel_vjp.cuh), with the other
+// estimators (SPT_EST_CODES, megakernel_lane.cuh): `uniform`,
 // `uniform_corrected`, `mixture` and `mis`, and `nee` and `mixture` with
 // light_sample_mode='glibc_overflow'. megakernel_vjp<kTab, kEst> under each
 // scan replaces the Pallas TPU kernel of

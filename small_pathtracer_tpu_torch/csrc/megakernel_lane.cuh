@@ -56,7 +56,7 @@ __host__ __device__ constexpr bool uniform_sample(int est) {
   return est_base(est) == kUniform || est_base(est) == kUniformCorrected;
 }
 
-// The codes of ROADMAP item 10 beside nee, cosine and nee_textbook, as
+// The estimator codes beside nee, cosine and nee_textbook, as
 // X(code): the instances of megakernel_est.cu (rows 1, 2, 8) and
 // megakernel_grad_est.cu (row 9).
 #define SPT_EST_CODES(X) \

@@ -311,6 +311,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # counts: (5,) u64 device
         p,  # cudaStream_t
     ]
+    # Rows 11 and 12 with the other estimators: spt_megakernel_geom_est
+    # (csrc/megakernel_geom_est.cu: 1 cosine, 3 uniform, 4
+    # uniform_corrected, 5 mixture, 8 and 13 glibc_overflow) and
+    # spt_megakernel_geom_direct (csrc/megakernel_geom_direct.cu: 2
+    # nee_textbook, 6 mis) take `est` first.
+    for entry in (lib.spt_megakernel_geom_est,
+                  lib.spt_megakernel_geom_direct):
+        entry.restype = ctypes.c_int
+        entry.argtypes = [*est, *lib.spt_megakernel_geom.argtypes]
     lib.spt_sphere_queries.restype = ctypes.c_int
     lib.spt_sphere_queries.argtypes = [
         *scene,

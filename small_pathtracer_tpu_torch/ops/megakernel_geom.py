@@ -1,12 +1,15 @@
 """Sphere-geometry training on the card: the port's counterpart of the JAX
-package's ``ops/megakernel_geom.py`` for ``nee``, sphere-table scenes
-(rects unrolled, spheres in the runtime table), DIFF/SPEC/REFR and one rect
-light.
+package's ``ops/megakernel_geom.py`` for every estimator (``nee``,
+``cosine``, ``nee_textbook``, ``uniform``, ``uniform_corrected``,
+``mixture``, ``mis``, and ``light_sample_mode='glibc_overflow'`` for
+``nee`` and ``mixture``), sphere-table scenes (rects unrolled, spheres in
+the runtime table), DIFF/SPEC/REFR and one rect light.
 
-- ``geom_run`` / ``geom_vjp``: one launch of ``megakernel_geom``
-  (``csrc/megakernel_geom.cu``). The image-only launch (``g_img=None``)
-  runs the TPU kernel's pass A alone, which is row 2's loop body: the
-  image, counts and time of ``megakernel_nee_tab``. The adjoint launch
+- ``geom_run`` / ``geom_vjp``: one launch of the estimator's instance of
+  ``megakernel_geom`` (``csrc/megakernel_geom.cuh``; ``geom_kernel_name``
+  names it). The image-only launch (``g_img=None``) runs the TPU kernel's
+  pass A alone, which is row 2's loop body: the image, counts and time of
+  ``megakernel_<est>_tab``. The adjoint launch
   traces the same paths with the same bounce code, tapes each bounce's
   state in the lane's local memory and sweeps the bounces back once each,
   adding the pathwise interior cotangents of every sphere's (center,
@@ -20,11 +23,13 @@ light.
   (sp, dp) mesh, each rank running both launches on its shard's lanes
   (``geom_run_shard``); ``fit_geom(mesh=)`` routes every step through it.
 - ``diff_step`` and ``bounce_vjp``: one bounce's continuous map (o, d,
-  center, radius) -> (x, d', w) with every discrete choice fixed, and its
-  pullback derived by hand in the formulas and order of the kernel's
-  ``bounce_vjp``. The TPU kernel gets the pullback from ``jax.vjp`` inside
-  the kernel; the card has no such thing, so this is the written
-  derivation, held against ``torch.autograd`` by the tests.
+  center, radius, mis's pdf carry) -> (x, d', w, the direct term's
+  weight, the pickup's weight, the continuation's pdf) with every discrete
+  choice fixed, and its pullback derived by hand in the formulas and
+  order of the kernel's ``bounce_vjp``. The TPU kernel gets the pullback
+  from ``jax.vjp`` inside the kernel; the card has no such thing, so this
+  is the written derivation, held against ``torch.autograd`` by the
+  tests.
 
 Gradient layout (the port's tables, not the JAX 16-slot ``gtab``): sphere
 rows (S, 4) ``[cx, cy, cz, r]`` as ``ops/megakernel.sphere_tables`` packs
@@ -57,11 +62,12 @@ from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
 from ..scene.types import DIFF, SPEC, Scene, num_spheres
 from . import _build
 from .megakernel import (
-    KernelGeometry, _image, _resolve, count, full_layout,
-    launch_args, pack_geometry, shard_of, sphere_args, sphere_tables,
+    EST_CODE, KernelGeometry, _image, _resolve, count, est_code,
+    full_layout, launch_args, pack_geometry, shard_of, sphere_args,
+    sphere_tables,
 )
 from .megakernel_grad import (
-    material_grads_to_scene, plain_chunk, unpack_materials,
+    _est_name, material_grads_to_scene, plain_chunk, unpack_materials,
 )
 
 # Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
@@ -81,17 +87,13 @@ _ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
 # Scope and layout.
 
 def check_geom(scene: Scene, cfg: RenderConfig) -> None:
-    """The refusals of this slice, on every device: estimators other than
-    ``nee`` and light_sample_mode 'glibc_overflow' (item 10), GLOS (item
+    """The refusals of the geometry adjoint, on every device: GLOS (item
     11), and the JAX kernel's own ValueErrors (no spheres, no unrolled
-    object, a light that is not an unrolled rect). Light lists and sphere
-    lights never reach here: the port's Scene holds neither
+    object, a light that is not an unrolled rect). Every estimator and
+    light_sample_mode passes (``mis`` and ``nee_textbook`` ignore
+    'glibc_overflow', as the JAX package's config.py says). Light lists
+    and sphere lights never reach here: the port's Scene holds neither
     (``convert.scene_from_jax`` refuses them, item 12)."""
-    if cfg.estimator != "nee" or cfg.light_sample_mode != "intended":
-        raise NotImplementedError(
-            f"the geometry adjoint with estimator {cfg.estimator!r} and "
-            f"light_sample_mode {cfg.light_sample_mode!r} is not ported yet "
-            "(it takes nee, intended; ROADMAP.md queue 1, item 10)")
     check_materials(scene)
     if num_spheres(scene) == 0:
         raise ValueError("no spheres to differentiate; use the material "
@@ -138,14 +140,23 @@ def grads_to_scene(scene: Scene, g_sph, g_alb, g_emi) -> Scene:
 RECT, SPHERE, MISS = 0, 1, 2
 INV_PI = 1.0 / math.pi
 NNT_INTO, NNT_OUT, R0 = 1.0 / 1.5, 1.5, 0.04
+# The estimators whose NEE probe, where it reaches the light, is the
+# continuation, and those that add a direct term at each diffuse vertex.
+NEE_CONT = ("nee", "mixture")
+DIRECT = ("nee_textbook", "mis")
+COS_MIN = 1e-6  # mis: the floor of the light density's |cos| (_p_light)
 
 
 class Bounce(NamedTuple):
     """The discrete choices and draws of one bounce, per lane (N,): what
-    the forward fixed. ``n = sign * ng``; the cosine sample is
-    ``norm(fu * alpha + fv * beta + n * wz)`` in the frame of n; ``lp`` the
-    light sample; ``coin`` the REFR coin. The frame's axis pick, REFR's
-    ``into``, ``tir`` and reflect/refract pick follow from the primal."""
+    the forward fixed. ``n = sign * ng``; the hemisphere sample (cosine, or
+    the uniform estimators' uniform one) is ``norm(fu * alpha + fv * beta
+    + n * wz)`` in the frame of n; ``lp`` the light sample (glibc's patch
+    point under glibc_overflow); ``coin`` the REFR coin. The frame's axis
+    pick, REFR's ``into``, ``tir`` and reflect/refract pick follow from the
+    primal. ``take``: mixture's coin took NEE (None: every lane). ``pick``:
+    mis, the hit is the light's and the carry is above 0 (the pickup is
+    balance-weighted)."""
 
     kind: torch.Tensor     # RECT, SPHERE or MISS
     axis: torch.Tensor     # the rect winner's axis (rect 0's on a miss)
@@ -159,6 +170,8 @@ class Bounce(NamedTuple):
     lp: torch.Tensor       # (N, 3)
     success: torch.Tensor  # the NEE probe reached the light
     coin: torch.Tensor
+    take: torch.Tensor | None = None
+    pick: torch.Tensor | None = None
 
 
 class LightConsts(NamedTuple):
@@ -191,11 +204,23 @@ def _safe_norm(v):
     return v * vm.rsqrt(torch.where(l2 > 0.0, l2, 1.0))[:, None]
 
 
-def diff_step(o, d, c, r, b: Bounce, light: LightConsts):
-    """One bounce's continuous map (o, d, winner sphere center c (N, 3) and
-    radius r (N,)) -> (x (N, 3), d' (N, 3), w (N,)), every discrete choice
-    fixed by ``b``; torch.autograd differentiates it. The expressions are
-    the eager forward's (integrator/wavefront.py, geometry/intersect.py)."""
+def _p_light(light: LightConsts, d, t):
+    """mis: the light sampler's density toward unit d at distance t."""
+    cm = torch.clamp(torch.abs(vm.dot(d, light.ln)), min=COS_MIN)
+    return (t * t) / (light.area * cm)
+
+
+def diff_step(o, d, c, r, mp, b: Bounce, light: LightConsts,
+              est: str = "nee"):
+    """One bounce's continuous map for the estimator ``est``: (o, d, winner
+    sphere center c (N, 3) and radius r (N,), mis's carry mp (N,), the
+    previous diffuse vertex's p_bsdf of d) -> (x (N, 3), d' (N, 3), w (N,)
+    the continuation's weight, w_tb (N,) the direct term's weight, w_pick
+    (N,) the pickup's weight, pdf_cont (N,) the p_bsdf of d' that the next
+    bounce's pickup weighs against), the outputs of the JAX kernel's
+    diff_step. Every discrete choice is fixed by ``b``; torch.autograd
+    differentiates it. The expressions are the eager forward's
+    (integrator/wavefront.py, geometry/intersect.py)."""
     is_sph, is_rect = b.kind == SPHERE, b.kind == RECT
     da = _col(d, b.axis)
     t_rect = (b.k - _col(o, b.axis)) * (1.0 / torch.where(da != 0.0, da, 1.0))
@@ -212,7 +237,7 @@ def diff_step(o, d, c, r, b: Bounce, light: LightConsts):
     x = torch.where((b.kind != MISS)[:, None], o + t[:, None] * d, 0.0)
     ng = torch.where(is_sph[:, None], _safe_norm(x - c), _onehot(b.axis, x))
     n = ng * b.sign[:, None]
-    # DIFF: the cosine sample in the frame of n (axis pick detached).
+    # DIFF: the hemisphere sample in the frame of n (axis pick detached).
     pick = (torch.abs(n.detach()[:, 0]) > 0.1)[:, None]
     e_y = torch.tensor([0.0, 1.0, 0.0], device=x.device)
     e_x = torch.tensor([1.0, 0.0, 0.0], device=x.device)
@@ -229,8 +254,22 @@ def diff_step(o, d, c, r, b: Bounce, light: LightConsts):
     tl = torch.where(b.success, tl, 1.0)
     w_nee = (torch.abs(light.area * vm.dot(dl, light.ln)) / (tl * tl)) * (
         torch.abs(vm.dot(dl, n)) * INV_PI)
-    dir_diff = torch.where(b.success[:, None], dl, cos_dir)
-    w_diff = torch.where(b.success, w_nee, 1.0)
+    is_diff1 = b.refl == DIFF
+    w_tb = torch.zeros_like(r)
+    if est in NEE_CONT:
+        sel = b.success if b.take is None else b.success & b.take
+        dir_diff = torch.where(sel[:, None], dl, cos_dir)
+        w_diff = torch.where(sel, w_nee, 1.0)
+    else:
+        dir_diff = cos_dir
+        w_diff = (2.0 * torch.clamp(vm.dot(cos_dir, n), min=0.0)
+                  if est == "uniform_corrected" else torch.ones_like(r))
+    if est in DIRECT:
+        if est == "mis":
+            p_l = _p_light(light, dl, tl)
+            p_b = torch.clamp(vm.dot(dl, n), min=0.0) * INV_PI
+            w_nee = w_nee * (p_l / (p_l + p_b))
+        w_tb = torch.where(b.success & is_diff1, w_nee, 0.0)
     # SPEC: the mirror about the geometric normal.
     refl_dir = vm.reflect(d, ng)
     # REFR: Schlick's dielectric, decisions detached.
@@ -250,12 +289,20 @@ def diff_step(o, d, c, r, b: Bounce, light: LightConsts):
     w_refr = torch.where(tir, 1.0, torch.where(pick_refl, re / pr,
                                                (1.0 - re) / (1.0 - pr)))
     dir_refr = torch.where(pick_refl[:, None], refl_dir, td)
-    is_diff, is_spec = (b.refl == DIFF)[:, None], (b.refl == SPEC)[:, None]
+    is_diff, is_spec = is_diff1[:, None], (b.refl == SPEC)[:, None]
     d_new = torch.where(is_diff, dir_diff,
                         torch.where(is_spec, refl_dir, dir_refr))
     w = torch.where(b.refl == DIFF, w_diff,
                     torch.where(b.refl == SPEC, 1.0, w_refr))
-    return x, d_new, w
+    w_pick, pdf_cont = torch.ones_like(r), torch.zeros_like(r)
+    if est == "mis":
+        # The pickup's balance weight at this hit, and the continuation's
+        # p_bsdf (the cosine sample's).
+        den = torch.where(b.pick, mp + _p_light(light, d, t), 1.0)
+        w_pick = torch.where(b.pick, mp / den, 1.0)
+        pdf_cont = torch.where(is_diff1, torch.clamp(
+            vm.dot(d_new, n), min=0.0) * INV_PI, 0.0)
+    return x, d_new, w, w_tb, w_pick, pdf_cont
 
 
 def _reflect_vjp(d, ng, lam):
@@ -272,13 +319,62 @@ def _norm_vjp(u, rs, g_u):
     return (g_u - u * vm.dot(u, g_u)[:, None]) * rs[:, None]
 
 
-def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
-               sig_w):
-    """The pullback of ``diff_step`` at (o, d, c, r) under the cotangents
-    (lam_x, lam_d, sig_w) of (x, d', w): returns (g_o, g_d, g_c, g_r),
-    derived by hand, in the formulas and order of ``bounce_vjp`` in
-    csrc/megakernel_geom.cu (there per lane with branches; here every
-    branch on every lane, then selected)."""
+def _nee_vjp(x, n, b: Bounce, light: LightConsts, sig, lam_dl, balance):
+    """The NEE weight |A (dl . ln)| / tl^2 * |dl . n| / pi of a probe that
+    reached the light (``balance``: times mis's p_l / (p_l + p_b)) and its
+    direction dl = norm(lp - x), pulled back under the cotangents (sig,
+    lam_dl): (g_x, g_n); csrc/megakernel_geom.cuh ``nee_vjp``."""
+    vl = b.lp - x
+    vl2 = vm.dot(vl, vl)
+    rs_l = vm.rsqrt(torch.where(vl2 > 0.0, vl2, 1.0))
+    dl = vl * rs_l[:, None]
+    dla = dl[:, light.axis]
+    inv_l = 1.0 / torch.where(dla != 0.0, dla, 1.0)
+    tl = (light.k - x[:, light.axis]) * inv_l
+    cl = vm.dot(dl, light.ln)
+    a1 = light.area * cl
+    q = torch.abs(a1) / (tl * tl)
+    cs = vm.dot(dl, n)
+    bb = torch.abs(cs) * INV_PI
+    gcs_b = gtl_b = gcl_b = 0.0
+    if balance:
+        cm = torch.clamp(torch.abs(cl), min=COS_MIN)
+        p_l = (tl * tl) / (light.area * cm)
+        p_b = torch.clamp(cs, min=0.0) * INV_PI
+        den = p_l + p_b
+        g_bal = sig * (q * bb)
+        sig = sig * (p_l / den)
+        g_pl = g_bal * p_b / (den * den)
+        g_pb = -g_bal * p_l / (den * den)
+        gtl_b = g_pl * 2.0 * tl / (light.area * cm)
+        gcl_b = torch.where(torch.abs(cl) >= COS_MIN,
+                            -g_pl * p_l / cm * torch.sign(cl), 0.0)
+        gcs_b = torch.where(cs >= 0.0, g_pb * INV_PI, 0.0)
+    gq = sig * bb
+    gb = sig * q
+    gcs = gb * INV_PI * torch.sign(cs) + gcs_b
+    ga1 = gq / (tl * tl) * torch.sign(a1)
+    gtl = -2.0 * gq * q / tl + gtl_b
+    gdl = lam_dl + light.ln * (ga1 * light.area + gcl_b)[:, None] + n * gcs[
+        :, None]
+    g_n = dl * gcs[:, None]
+    e_l = torch.zeros_like(x)
+    e_l[:, light.axis] = 1.0
+    g_x = -e_l * (gtl * inv_l)[:, None]
+    gdl = gdl - e_l * (gtl * tl * inv_l)[:, None]
+    g_x = g_x - _norm_vjp(dl, rs_l, gdl)
+    return g_x, g_n
+
+
+def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
+               sig_w, sig_tb, sig_pk, lam_mp, est: str = "nee"):
+    """The pullback of ``diff_step`` at (o, d, c, r, mp) under the
+    cotangents (lam_x, lam_d, sig_w, sig_tb, sig_pk, lam_mp) of its six
+    outputs: returns (g_o, g_d, g_c, g_r, g_mp), derived by hand, in the
+    formulas and order of ``bounce_vjp`` in csrc/megakernel_geom.cuh (there
+    per lane with branches; here every branch on every lane, then
+    selected). g_mp is mis's: the cotangent of the previous diffuse
+    vertex's pdf_cont."""
     z3 = torch.zeros_like(o)
     is_sph, is_rect, hit = b.kind == SPHERE, b.kind == RECT, b.kind != MISS
     # Forward quantities.
@@ -303,33 +399,12 @@ def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
     n = ng * b.sign[:, None]
 
     # Scatter: the cotangents of x, n, ng and d from (lam_d, sig_w).
-    # DIFF, NEE success: d' = dl = norm(lp - x), w = w_nee.
-    vl = b.lp - x
-    vl2 = vm.dot(vl, vl)
-    rs_l = vm.rsqrt(torch.where(vl2 > 0.0, vl2, 1.0))
-    dl = vl * rs_l[:, None]
-    dla = dl[:, light.axis]
-    inv_l = 1.0 / torch.where(dla != 0.0, dla, 1.0)
-    tl = (light.k - x[:, light.axis]) * inv_l
-    cl = vm.dot(dl, light.ln)
-    a1 = light.area * cl
-    q = torch.abs(a1) / (tl * tl)
-    cs = vm.dot(dl, n)
-    bb = torch.abs(cs) * INV_PI
-    gq = sig_w * bb
-    gb = sig_w * q
-    gcs = gb * INV_PI * torch.sign(cs)
-    ga1 = gq / (tl * tl) * torch.sign(a1)
-    gtl = -2.0 * gq * q / tl
-    gdl = lam_d + light.ln * (ga1 * light.area)[:, None] + n * gcs[:, None]
-    gn_nee = dl * gcs[:, None]
-    e_l = torch.zeros_like(o)
-    e_l[:, light.axis] = 1.0
-    gx_nee = -e_l * (gtl * inv_l)[:, None]
-    gdl = gdl - e_l * (gtl * tl * inv_l)[:, None]
-    gx_nee = gx_nee - _norm_vjp(dl, rs_l, gdl)
+    # DIFF, NEE as the continuation: d' = dl = norm(lp - x), w = w_nee.
+    gx_nee, gn_nee = _nee_vjp(x, n, b, light, sig_w, lam_d, False)
 
-    # DIFF, NEE failure: d' = the cosine sample, w = 1.
+    # DIFF, the hemisphere sample: d' = its direction, w = 1
+    # (uniform_corrected: 2 max(d' . n, 0); mis: pdf_cont = max(d' . n, 0)
+    # / pi).
     pick = (torch.abs(n[:, 0]) > 0.1)[:, None]
     e_y = torch.tensor([0.0, 1.0, 0.0], device=x.device)
     e_x = torch.tensor([1.0, 0.0, 0.0], device=x.device)
@@ -343,13 +418,20 @@ def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
     sv2 = vm.dot(sv, sv)
     rs_s = vm.rsqrt(torch.where(sv2 > 0.0, sv2, 1.0))
     dn = sv * rs_s[:, None]
-    gsv = _norm_vjp(dn, rs_s, lam_d)
+    lam_s, gn_cd = lam_d, z3
+    if est in ("uniform_corrected", "mis"):
+        g_cd = torch.where(vm.dot(dn, n) >= 0.0, 2.0 * sig_w
+                           if est == "uniform_corrected" else lam_mp * INV_PI,
+                           0.0)
+        lam_s = lam_d + n * g_cd[:, None]
+        gn_cd = dn * g_cd[:, None]
+    gsv = _norm_vjp(dn, rs_s, lam_s)
     gfu = gsv * b.alpha[:, None]
     gfv = gsv * b.beta[:, None]
     gn_cos = gsv * b.wz[:, None] + vm.cross(fu, gfv)
     gfu = gfu + vm.cross(gfv, n)
     gcr = _norm_vjp(fu, rs_u, gfu)
-    gn_cos = gn_cos + vm.cross(gcr, ax)
+    gn_cos = gn_cos + vm.cross(gcr, ax) + gn_cd
 
     # SPEC: d' = reflect(d, ng), w = 1.
     gd_spec, gng_spec = _reflect_vjp(d, ng, lam_d)
@@ -398,12 +480,23 @@ def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
     gd_refr = gd_refr + n * gddn[:, None]
     gn_refr = d * gddn[:, None]
 
-    # Select the scatter's cotangents by material.
+    # Select the scatter's cotangents by material; the direct term's weight
+    # (nee_textbook, mis) under sig_tb where the probe reached the light.
     is_diff = (b.refl == DIFF)[:, None]
     is_spec = (b.refl == SPEC)[:, None]
     succ = b.success[:, None]
-    g_x = torch.where(is_diff & succ, gx_nee, z3)
-    g_n = torch.where(is_diff, torch.where(succ, gn_nee, gn_cos),
+    if est in NEE_CONT:
+        nee_m = succ if b.take is None else succ & b.take[:, None]
+    else:
+        nee_m = torch.zeros_like(succ)
+    gx_diff = torch.where(nee_m, gx_nee, z3)
+    gn_diff = torch.where(nee_m, gn_nee, gn_cos)
+    if est in DIRECT:
+        gx_tb, gn_tb = _nee_vjp(x, n, b, light, sig_tb, z3, est == "mis")
+        gx_diff = gx_diff + torch.where(succ, gx_tb, z3)
+        gn_diff = gn_diff + torch.where(succ, gn_tb, z3)
+    g_x = torch.where(is_diff, gx_diff, z3)
+    g_n = torch.where(is_diff, gn_diff,
                       torch.where(is_spec, z3, gn_refr))
     g_ng = torch.where(is_diff, z3, torch.where(is_spec, gng_spec, gng_refr))
     g_d = torch.where(is_diff, z3, torch.where(is_spec, gd_spec, gd_refr))
@@ -419,6 +512,20 @@ def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
     g_o = g_x
     g_d = g_d + g_x * t[:, None]
     g_t = vm.dot(g_x, d)
+    g_mp = torch.zeros_like(r)
+    if est == "mis":
+        # The pickup's weight mp / (mp + p_h), p_h = t^2 / (A max(|d . ln|,
+        # 1e-6)), on a BSDF-sampled hit of the light (a rect).
+        cos_h = vm.dot(d, light.ln)
+        cm = torch.clamp(torch.abs(cos_h), min=COS_MIN)
+        p_h = (t * t) / (light.area * cm)
+        den = torch.where(b.pick, mp + p_h, 1.0)
+        g_mp = torch.where(b.pick, sig_pk * p_h / (den * den), 0.0)
+        g_ph = torch.where(b.pick, -sig_pk * mp / (den * den), 0.0)
+        g_t = g_t + g_ph * 2.0 * t / (light.area * cm)
+        g_cm = torch.where(torch.abs(cos_h) >= COS_MIN,
+                           -g_ph * p_h / cm * torch.sign(cos_h), 0.0)
+        g_d = g_d + light.ln * g_cm[:, None]
     # Rect winner: t = (k - o[a]) / d[a].
     e_a = _onehot(b.axis, o)
     rect_m = is_rect[:, None]
@@ -436,7 +543,7 @@ def bounce_vjp(o, d, c, r, b: Bounce, light: LightConsts, lam_x, lam_d,
     g_o = g_o - torch.where(sph_m, g_op, z3)
     g_d = g_d + torch.where(sph_m, g_dd, z3)
     g_c = g_c + torch.where(sph_m, g_op, z3)
-    return g_o, g_d, g_c, g_r
+    return g_o, g_d, g_c, g_r, g_mp
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +617,22 @@ def _plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed, g_rows,
 # ---------------------------------------------------------------------------
 # The kernel.
 
+# The estimator codes (ops/megakernel.est_code) whose instances
+# csrc/megakernel_geom_direct.cu holds (the direct-term estimators); nee's
+# is csrc/megakernel_geom.cu's, the others csrc/megakernel_geom_est.cu's.
+_DIRECT_CODES = (EST_CODE["nee_textbook"], EST_CODE["mis"])
+
+
+def geom_kernel_name(cfg: RenderConfig) -> str:
+    """The name under which both launches of cfg's estimator count in
+    LAUNCHES: megakernel_geom (``nee``) or megakernel_geom_<est>
+    (``_est_name``: cosine, textbook, uniform, uniform_corrected, mixture,
+    mis, nee_glibc, mixture_glibc; ``mis`` with glibc_overflow is
+    ``mis``); its linear and tree instances count together."""
+    name = _est_name(cfg)
+    return "megakernel_geom" + ("" if name == "nee" else "_" + name)
+
+
 def _check_spheres(scene: Scene) -> int:
     S = num_spheres(scene)
     if S > MAX_GEOM_SPHERES:
@@ -524,9 +647,10 @@ def _check_spheres(scene: Scene) -> int:
 def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
             g_rows, lay: ShardLayout, device,
             geometry: KernelGeometry | None):
-    """One launch of megakernel_geom on the lanes ``lay``, the adjoint
-    under the (n_pix_loc, 3) cotangent rows g_rows, image-only for None:
-    ((n_pix_loc, 3) radiance sums, g_sph, g_alb, g_emi, counts (5,))."""
+    """One launch of cfg's instance of megakernel_geom
+    (``geom_kernel_name``) on the lanes ``lay``, the adjoint under the
+    (n_pix_loc, 3) cotangent rows g_rows, image-only for None: ((n_pix_loc,
+    3) radiance sums, g_sph, g_alb, g_emi, counts (5,))."""
     S = _check_spheres(scene)
     geom = pack_geometry(scene, cam) if geometry is None else geometry
     R = len(geom.rect_axis)
@@ -550,16 +674,23 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
         n_blocks = -(-lay.n_pix_loc * lay.g // KERNEL_BLOCK)
         partials = torch.empty(n_blocks * n_slots, dtype=torch.float32,
                                device=device)
+    code = est_code(cfg)
+    if code == EST_CODE["nee"]:
+        entry, est = lib.spt_megakernel_geom, ()
+    else:
+        entry = (lib.spt_megakernel_geom_direct if code in _DIRECT_CODES
+                 else lib.spt_megakernel_geom_est)
+        est = (code, cfg.mixture_q)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.spt_megakernel_geom(
-            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
-            *launch_args(geom, cfg, seed, lay),
-            *sphere_args(lib, scene, device).args(), bk, g_ptr,
+        sa = sphere_args(lib, scene, device)
+        err = entry(
+            *est, geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
+            *launch_args(geom, cfg, seed, lay), *sa.args(), bk, g_ptr,
             partials.data_ptr(), partials.numel(), out.data_ptr(),
             out_l.data_ptr(), counts.data_ptr(), stream,
         )
-    count("megakernel_geom", err)
+    count(geom_kernel_name(cfg), err)
     g_alb = out[:3 * K].reshape(K, 3)
     g_emi = out[3 * K:6 * K].reshape(K, 3)
     g_sph = out[6 * K:].reshape(S, 4)
@@ -572,8 +703,8 @@ def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     """One launch of the geometry-adjoint kernel (the JAX ``geom_run``).
 
     With ``g_img=None`` the image-only launch: pass A alone (row 2's loop
-    body, the NEE fold on), the image of megakernel_nee_tab bit for bit,
-    zero gradients. With ``g_img`` (h, w, 3)
+    body, the NEE fold on for nee and mixture), the image of
+    megakernel_<est>_tab bit for bit, zero gradients. With ``g_img`` (h, w, 3)
     the adjoint launch: the same image, and the pathwise interior
     cotangents of sum(g_img * img_sum). The two launches trace the same
     paths (common random numbers), so a fit step's loss and gradient see
@@ -584,7 +715,7 @@ def geom_run(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     [cx, cy, cz, r], g_alb (K, 3), g_emi (K, 3)), and with ``with_counts``
     the counters: on the card (5,) int64 [extend, probe, replayed bounces,
     VJP bounces, paths longer than the tape] (the first two pass A's, which
-    are megakernel_nee_tab's; the image-only launch counts the first two
+    are megakernel_<est>_tab's; the image-only launch counts the first two
     only); on the CPU (2,) [extend, probe]."""
     check_geom(scene, cfg)
     device = _resolve(scene, device)
@@ -670,9 +801,10 @@ def geom_run_shard_plain(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 def geom_run_shard(scene: Scene, cam: CameraParams, cfg: RenderConfig,
                    mesh: Mesh, seed, g_rows=None, device=None,
                    geometry: KernelGeometry | None = None):
-    """One launch of megakernel_geom on this rank's shard lanes, before any
-    collective: image-only with ``g_rows=None``, else the adjoint under the
-    cotangent rows g_rows (n_pix_loc, 3) of its pixel block. Both launches
+    """One launch of cfg's megakernel_geom instance on this rank's shard
+    lanes, before any collective: image-only with ``g_rows=None``, else
+    the adjoint under the cotangent rows g_rows (n_pix_loc, 3) of its pixel
+    block. Both launches
     of a step take the same lanes and seed, so they trace the same paths.
     Returns ((n_pix_loc, 3) partial radiance sums over the shard's
     samples, g_sph (S, 4), g_alb (K, 3), g_emi (K, 3) partials, counts:

@@ -2,17 +2,18 @@
 and ``mis`` ignoring ``glibc_overflow``, per-pixel budgets and a mesh's
 shards with the new estimators, ``cli render``'s ``--mixture-q`` and
 ``--light-sample-mode``, ``RenderConfig`` taking what rows 1-7 render,
-material training (rows 8-10) taking every estimator and the light mode,
-and the refusals of the entry points whose kernels do not take them yet
-(the geometry adjoint, and the guided kernels' JAX refusals). The
-comparisons with the JAX package are in tests/test_torch_estimators.py and
-tests/test_torch_grad_est.py."""
+material training (rows 8-10) and the geometry adjoint (rows 11 and 12)
+taking every estimator and the light mode, and the guided kernels' JAX
+refusals. The comparisons with the JAX package are in
+tests/test_torch_estimators.py, tests/test_torch_grad_est.py and
+tests/test_torch_geom_est.py."""
 
 import numpy as np
 import pytest
 import torch
 
 import small_pathtracer_tpu_torch as spt
+from _recording_lib import install
 from small_pathtracer_tpu_torch.cli import main as cli_main
 from small_pathtracer_tpu_torch.experiment import path_guiding as pg
 from small_pathtracer_tpu_torch.integrator import wavefront
@@ -211,23 +212,90 @@ def test_material_training_takes(fn, kw, est):
                         else f"megakernel_vjp_{est}_tab")
 
 
-@pytest.mark.parametrize("call", [
-    lambda sc, cam, cfg: mgeo.geom_run(sc, cam, cfg, 0),
-    lambda sc, cam, cfg: mgeo.geom_run_plain(sc, cam, cfg, 0),
-    lambda sc, cam, cfg: mgeo.loss_and_geom_grads(sc, cam, cfg, 0,
-                                                  torch.zeros(3, 4, 3)),
-    lambda sc, cam, cfg: mgeo.fit_geom(sc, cam, cfg, torch.zeros(3, 4, 3),
-                                       steps=1),
-], ids=["geom_run", "geom_run_plain", "loss_and_geom_grads", "fit_geom"])
-@pytest.mark.parametrize("kw", [
-    {"estimator": "cosine"}, {"estimator": "mis"},
-    {"estimator": "nee", **GLIBC},
-], ids=["cosine", "mis", "glibc"])
-def test_geometry_adjoint_refuses(call, kw):
-    """Rows 11 and 12 refuse every estimator but nee, and glibc_overflow,
-    on every device, naming item 10."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        call(*_sph(), _tiny(**kw))
+# The estimator codes rows 11 and 12 take beside nee, each one's part of
+# its kernel's name, and its entry point (csrc/megakernel_geom_est.cu or
+# csrc/megakernel_geom_direct.cu).
+GEOM_CODES = [
+    ({"estimator": "cosine"}, "cosine", "est"),
+    ({"estimator": "nee_textbook"}, "textbook", "direct"),
+    ({"estimator": "uniform"}, "uniform", "est"),
+    ({"estimator": "uniform_corrected"}, "uniform_corrected", "est"),
+    ({"estimator": "mixture"}, "mixture", "est"),
+    ({"estimator": "mis"}, "mis", "direct"),
+    ({"estimator": "nee", **GLIBC}, "nee_glibc", "est"),
+    ({"estimator": "mixture", **GLIBC}, "mixture_glibc", "est"),
+]
+
+
+@pytest.mark.parametrize("fn", [
+    mgeo.geom_run, mgeo.geom_run_plain, mgeo.loss_and_geom_grads,
+    mgeo.fit_geom, mgeo.geom_train_step_sharded,
+], ids=lambda f: f.__name__)
+@pytest.mark.parametrize("kw, est, entry", GEOM_CODES,
+                         ids=[e for _, e, _ in GEOM_CODES])
+def test_geometry_adjoint_takes(fn, kw, est, entry, monkeypatch):
+    """Rows 11 and 12 take every estimator and glibc_overflow (they once
+    refused all but nee, naming ROADMAP item 10): on the CPU each entry point
+    runs the plain version, whose image is the render's (cornell_spheres
+    at 4x3x1: render_megakernel's plain version) and whose gradients are
+    finite (the sharded step on a mesh of one: the unsharded step's); on
+    the card the launch goes to the estimator code's entry point and counts
+    as megakernel_geom_<est> (a stand-in library records it)."""
+    sc, cam = _sph()
+    cfg = _tiny(**kw)
+    img, traces = mk.render_megakernel(sc, cam, cfg, 0)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 4, 3)).astype(np.float32))
+    target = torch.full((3, 4, 3), 0.25)
+    if fn is mgeo.geom_run:
+        got, gs, ga, ge, tr = fn(sc, cam, cfg, 0, with_counts=True)
+        assert torch.equal(got, img) and torch.equal(tr, traces)
+        assert not (gs.any() or ga.any() or ge.any())
+        grads = mgeo.geom_vjp(sc, cam, cfg, 0, g)
+    elif fn is mgeo.geom_run_plain:
+        got, *grads, tr = fn(sc, cam, cfg, 0, g)
+        assert torch.equal(got, img) and torch.equal(tr, traces)
+    elif fn is mgeo.loss_and_geom_grads:
+        loss, *grads = fn(sc, cam, cfg, 0, target)
+        diff = img / cfg.spp - target
+        assert abs(float(loss) - float(torch.mean(diff * diff))) <= (
+            1e-6 * float(loss))
+    elif fn is mgeo.geom_train_step_sharded:
+        loss, img_loc, *grads = fn(sc, cam, cfg, Mesh.single((1, 1)),
+                                   target)(*mgeo.pack_tables(sc), 0)
+        w_loss, *want = mgeo.loss_and_geom_grads(sc, cam, cfg, 0, target)
+        assert torch.equal(img_loc, img.reshape(-1, 3))
+        assert abs(float(loss) - float(w_loss)) <= 1e-6 * float(w_loss)
+        for a, b in zip(grads, want):
+            assert torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+    else:
+        fitted, losses = fn(sc, cam, cfg, target, steps=1)
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        grads = mgeo.loss_and_geom_grads(sc, cam, cfg, 0, target)[1:]
+    assert all(bool(torch.isfinite(t).all()) for t in grads)
+    lib = install(monkeypatch)
+    mgeo._launch(sc, cam, cfg, 0, None, mk.full_layout(cfg),
+                 torch.device("cpu"), None)
+    (name, args), = [c for c in lib.calls if c[0] != "spt_sphere_bvh"]
+    assert name == f"spt_megakernel_geom_{entry}"
+    assert args[:2] == (mk.est_code(cfg), cfg.mixture_q)
+    assert mgeo.geom_kernel_name(cfg) == f"megakernel_geom_{est}"
+    assert dict(mk.LAUNCHES) == {f"megakernel_geom_{est}": 1}
+
+
+def test_geometry_adjoint_mis_ignores_glibc():
+    """mis trains its geometry as mis under glibc_overflow (the JAX
+    package's config.py:43-50; ROADMAP.md, known defects in the
+    reference): the plain adjoint's image and gradients bit for bit, and
+    the same kernel."""
+    sc, cam = _sph()
+    a, b = _tiny(estimator="mis"), _tiny(estimator="mis", **GLIBC)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 4, 3)).astype(np.float32))
+    ra = mgeo.geom_run_plain(sc, cam, a, 0, g)
+    rb = mgeo.geom_run_plain(sc, cam, b, 0, g)
+    assert all(torch.equal(x, y) for x, y in zip(ra, rb))
+    assert mgeo.geom_kernel_name(a) == mgeo.geom_kernel_name(b)
 
 
 @pytest.mark.parametrize("estimator", ["nee", "uniform", "mixture"])

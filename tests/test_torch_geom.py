@@ -113,10 +113,52 @@ def jax_side(port):
 # cornell_spheres' light: the sampler's normal (0, -1, 0) and area 1296,
 # the light rect at y = 81.5.
 LIGHT = mg.light_consts(spt.get_scene("cornell_spheres", device="cpu"))
-BRANCHES = ("rect_nee", "rect_cosine", "sphere_nee", "sphere_cosine",
-            "spec", "refr_reflect", "refr_refract", "refr_inside",
-            "refr_inside_reflect", "miss", "rect_light_axis_nee",
-            "light_rect_below", "near_light_plane_nee")
+LIGHT_CORNER = spt.get_scene("cornell_spheres", device="cpu").light.corner
+# Each case: (the geometry of _branch_inputs, the estimator, options): the
+# first thirteen are nee's; then a case for each branch the other
+# estimators add (the uniform sample, uniform_corrected's weight, the
+# direct term, mixture's coin, mis's balance weights, pickup and carry, and
+# glibc's light point).
+BRANCH_CASES = {
+    "rect_nee": ("rect_nee", "nee", ()),
+    "rect_cosine": ("rect_cosine", "nee", ()),
+    "sphere_nee": ("sphere_nee", "nee", ()),
+    "sphere_cosine": ("sphere_cosine", "nee", ()),
+    "spec": ("spec", "nee", ()),
+    "refr_reflect": ("refr_reflect", "nee", ()),
+    "refr_refract": ("refr_refract", "nee", ()),
+    "refr_inside": ("refr_inside", "nee", ()),
+    "refr_inside_reflect": ("refr_inside_reflect", "nee", ()),
+    "miss": ("miss", "nee", ()),
+    "rect_light_axis_nee": ("rect_light_axis_nee", "nee", ()),
+    "light_rect_below": ("light_rect_below", "nee", ()),
+    "near_light_plane_nee": ("near_light_plane_nee", "nee", ()),
+    "cosine_sphere": ("sphere_cosine", "cosine", ()),
+    "cosine_refr": ("refr_refract", "cosine", ()),
+    "uniform_sphere": ("sphere_cosine", "uniform", ("uniform",)),
+    "uniform_rect": ("rect_cosine", "uniform", ("uniform",)),
+    "uniform_corrected_sphere": ("sphere_cosine", "uniform_corrected",
+                                 ("uniform",)),
+    "uniform_corrected_rect": ("rect_cosine", "uniform_corrected",
+                               ("uniform",)),
+    "uniform_corrected_spec": ("spec", "uniform_corrected", ("uniform",)),
+    "textbook_sphere": ("sphere_nee", "nee_textbook", ()),
+    "textbook_rect": ("rect_nee", "nee_textbook", ()),
+    "textbook_fail": ("sphere_cosine", "nee_textbook", ()),
+    "textbook_light_axis": ("rect_light_axis_nee", "nee_textbook", ()),
+    "mixture_take": ("sphere_nee", "mixture", ("take",)),
+    "mixture_skip": ("sphere_nee", "mixture", ()),
+    "mixture_coin": ("rect_nee", "mixture", ("coin",)),
+    "mis_sphere": ("sphere_nee", "mis", ()),
+    "mis_rect": ("rect_nee", "mis", ()),
+    "mis_fail": ("sphere_cosine", "mis", ()),
+    "mis_near_light_plane": ("near_light_plane_nee", "mis", ()),
+    "mis_pickup": ("light_rect_below", "mis", ("pick",)),
+    "mis_refr": ("refr_refract", "mis", ()),
+    "glibc_nee": ("sphere_nee", "nee", ("glibc",)),
+    "glibc_mixture": ("rect_nee", "mixture", ("glibc", "coin")),
+}
+BRANCHES = tuple(BRANCH_CASES)
 
 
 def _unit(x):
@@ -124,50 +166,55 @@ def _unit(x):
 
 
 def _branch_inputs(case, n=128, seed=0):
-    """numpy-seeded (o, d, c, r, Bounce, cotangents) whose lanes all take
-    the branch ``case``: a rect (the z = 0 wall) or a sphere winner hit
-    from outside (near root) or inside (far root), DIFF with NEE success
-    or the cosine sample, SPEC, REFR reflecting or refracting (inside: a
-    mix of refraction and total internal reflection), or a miss. The
-    light's cases: a rect winner on the light's axis (the floor, y = 0,
-    hit from above) with NEE success; the light rect itself hit from below
-    (sign -1; its probe meets the ceiling, so the cosine sample); NEE
-    success from wall points within 0.1 below the light's plane, where
-    the probe grazes the light (dl . ln near 0). A light whose albedo is
-    0.98 scatters like any DIFF rect: the albedo enters the pullback only
-    through sig_w."""
+    """numpy-seeded (o, d, c, r, mp, Bounce, est, cotangents) whose lanes
+    all take the branch ``case`` (BRANCH_CASES): a rect (the z = 0 wall)
+    or a sphere winner hit from outside (near root) or inside (far root),
+    DIFF with NEE success or the hemisphere sample, SPEC, REFR reflecting
+    or refracting (inside: a mix of refraction and total internal
+    reflection), or a miss. The light's cases: a rect winner on the
+    light's axis (the floor, y = 0, hit from above) with NEE success; the
+    light rect itself hit from below (sign -1; its probe meets the
+    ceiling, so the cosine sample; mis: a BSDF-sampled pickup of the light,
+    carry above 0); NEE success from wall points within 0.1 below the
+    light's plane, where the probe grazes the light (dl . ln near 0). A
+    light whose albedo is 0.98 scatters like any DIFF rect: the albedo
+    enters the pullback only through the cotangents. Options: the uniform
+    estimators' sample, mixture's coin taken on every lane ("take") or on
+    about half ("coin"), mis's pickup ("pick"), glibc's light point in a
+    2x2 patch at the light's corner ("glibc")."""
+    geo, est, opts = BRANCH_CASES[case]
     r = np.random.default_rng(seed)
     c = r.uniform([25, 15, 40], [75, 50, 120], (n, 3))
     rad = r.uniform(6, 14, n)
     kind = np.full(n, mg.SPHERE)
-    near = np.full(n, "inside" not in case)
+    near = np.full(n, "inside" not in geo)
     axis, k = np.zeros(n, np.int64), np.zeros(n)
-    if case == "rect_light_axis_nee":
+    if geo == "rect_light_axis_nee":
         kind[:], axis[:] = mg.RECT, 1
         o = r.uniform([20, 30, 30], [80, 70, 150], (n, 3))
         d = _unit(np.stack([r.uniform(-.3, .3, n), -np.ones(n),
                             r.uniform(-.3, .3, n)], 1))
-    elif case == "light_rect_below":
+    elif geo == "light_rect_below":
         kind[:], axis[:], k[:] = mg.RECT, 1, float(LIGHT.k)
         o = r.uniform([35, 10, 65], [65, 60, 95], (n, 3))
         d = _unit(np.stack([r.uniform(-.1, .1, n), np.ones(n),
                             r.uniform(-.1, .1, n)], 1))
-    elif case == "near_light_plane_nee":
+    elif geo == "near_light_plane_nee":
         kind[:], axis[:], k[:] = mg.RECT, 0, 1.0
         o = np.stack([r.uniform(20, 60, n), r.uniform(81.4, 81.5, n),
                       r.uniform(40, 120, n)], 1)
         d = _unit(np.stack([-np.ones(n), r.uniform(-1e-3, 1e-3, n),
                             r.uniform(-.3, .3, n)], 1))
-    elif case.startswith("rect"):
+    elif geo.startswith("rect"):
         kind[:], axis[:] = mg.RECT, 2
         o = r.uniform([20, 10, 30], [80, 60, 150], (n, 3))
         d = _unit(np.stack([r.uniform(-.3, .3, n), r.uniform(-.3, .3, n),
                             -np.ones(n)], 1))
-    elif case == "miss":
+    elif geo == "miss":
         kind[:] = mg.MISS
         o = r.uniform([20, 10, 30], [80, 60, 150], (n, 3))
         d = _unit(r.normal(size=(n, 3)))
-    elif "inside" in case:
+    elif "inside" in geo:
         o = c + _unit(r.normal(size=(n, 3))) * (
             rad * r.uniform(.5, .95, n))[:, None]
         d = _unit(r.normal(size=(n, 3)))
@@ -177,10 +224,19 @@ def _branch_inputs(case, n=128, seed=0):
         aim = c + _unit(r.normal(size=(n, 3))) * (
             rad * r.uniform(0, .7, n))[:, None]
         d = _unit(aim - o)
-    refl = 1 if case == "spec" else (2 if case.startswith("refr") else 0)
+    refl = 1 if geo == "spec" else (2 if geo.startswith("refr") else 0)
     u1, u2 = r.random(n), r.random(n)
     lp = np.stack([32 + 36 * r.random(n), np.full(n, 81.6),
                    63 + 36 * r.random(n)], 1)
+    if "glibc" in opts:
+        lp = LIGHT_CORNER.numpy() + np.stack(
+            [r.uniform(-1, 1, n), np.zeros(n), r.uniform(-1, 1, n)], 1)
+    if "uniform" in opts:
+        sin_t, wz = np.sqrt(u2 * (2 - u2)), 1 - u2
+    else:
+        sin_t, wz = np.sqrt(u2), np.sqrt(1 - u2)
+    take = (np.full(n, "take" in opts) if "coin" not in opts
+            else r.random(n) < 0.5)
 
     def f32(a):
         return torch.tensor(a, dtype=torch.float32)
@@ -188,36 +244,37 @@ def _branch_inputs(case, n=128, seed=0):
     b = mg.Bounce(
         kind=torch.tensor(kind), axis=torch.tensor(axis), k=f32(k),
         near=torch.tensor(near), refl=torch.full((n,), refl),
-        sign=torch.ones(n), alpha=f32(np.cos(2 * np.pi * u1) * np.sqrt(u2)),
-        beta=f32(np.sin(2 * np.pi * u1) * np.sqrt(u2)),
-        wz=f32(np.sqrt(1 - u2)), lp=f32(lp),
-        success=torch.full((n,), "cosine" not in case
-                           and case != "light_rect_below"),
-        coin=torch.full((n,), 0.0 if "reflect" in case else 0.999))
+        sign=torch.ones(n), alpha=f32(np.cos(2 * np.pi * u1) * sin_t),
+        beta=f32(np.sin(2 * np.pi * u1) * sin_t), wz=f32(wz), lp=f32(lp),
+        success=torch.full((n,), "cosine" not in geo
+                           and geo != "light_rect_below"),
+        coin=torch.full((n,), 0.0 if "reflect" in geo else 0.999),
+        take=torch.tensor(take), pick=torch.full((n,), "pick" in opts))
     o, d, c, rad = f32(o), f32(d), f32(c), f32(rad)
+    mp = f32(r.uniform(0.05, 0.3, n))
     with torch.no_grad():  # the primal's orientation
-        x = mg.diff_step(o, d, c, rad, b, LIGHT)[0]
+        x = mg.diff_step(o, d, c, rad, mp, b, LIGHT, est)[0]
         ng = torch.where((b.kind == mg.SPHERE)[:, None], vm.norm(x - c),
                          mg._onehot(b.axis, x))
     b = b._replace(sign=torch.where(vm.dot(ng, d) < 0.0, 1.0, -1.0))
-    if case == "light_rect_below":
+    if geo == "light_rect_below":
         assert bool((b.sign == -1.0).all())
     lam = (f32(r.normal(size=(n, 3))), f32(r.normal(size=(n, 3))),
-           f32(r.normal(size=n)))
-    return o, d, c, rad, b, lam
+           *(f32(r.normal(size=n)) for _ in range(4)))
+    return o, d, c, rad, mp, b, est, lam
 
 
 @pytest.mark.parametrize("case", BRANCHES)
 def test_bounce_vjp_matches_autograd(case):
-    o, d, c, r, b, lam = _branch_inputs(case)
+    o, d, c, r, mp, b, est, lam = _branch_inputs(case)
     if case == "refr_inside":  # both sub-branches are exercised
         ddn = vm.dot(d, b.sign[:, None] * vm.norm(
-            mg.diff_step(o, d, c, r, b, LIGHT)[0] - c))
+            mg.diff_step(o, d, c, r, mp, b, LIGHT, est)[0] - c))
         tir = 1.0 - 2.25 * (1.0 - ddn * ddn) < 0.0
         assert 0 < int(tir.sum()) < len(tir)
     _, want = torch.autograd.functional.vjp(
-        lambda *a: mg.diff_step(*a, b, LIGHT), (o, d, c, r), lam)
-    got = mg.bounce_vjp(o, d, c, r, b, LIGHT, *lam)
+        lambda *a: mg.diff_step(*a, b, LIGHT, est), (o, d, c, r, mp), lam)
+    got = mg.bounce_vjp(o, d, c, r, mp, b, LIGHT, *lam, est=est)
     # Measured: within 2.4e-7 of the largest entry of each output (float32
     # rounding in two formula orders); 1e-5 relative leaves room.
     for g, w in zip(got, want):
@@ -524,13 +581,42 @@ def test_cli_fit_geom_cpu(capsys):
     assert out.err.count("step ") == 2
 
 
+@pytest.mark.parametrize("argv, fields", [
+    (["--estimator", "mis"], {"estimator": "mis"}),
+    (["--estimator", "mixture", "--mixture-q", "0.3",
+      "--light-sample-mode", "glibc_overflow"],
+     {"estimator": "mixture", "mixture_q": 0.3,
+      "light_sample_mode": "glibc_overflow"}),
+    (["--estimator", "uniform_corrected"], {"estimator": "uniform_corrected"}),
+], ids=["mis", "mixture_glibc", "uniform_corrected"])
+def test_cli_fit_geom_estimators(argv, fields, capsys, monkeypatch):
+    """cli fit --train center,radius passes --estimator, --mixture-q and
+    --light-sample-mode to the geometry adjoint (it refused every
+    estimator but nee before): the fit runs and its config carries them."""
+    seen = []
+    fit = mg.fit_geom
+
+    def spy(scene, cam, cfg, *a, **k):
+        seen.append(cfg)
+        return fit(scene, cam, cfg, *a, **k)
+
+    monkeypatch.setattr(mg, "fit_geom", spy)
+    assert cli_main(["fit", "--device", "cpu", "--scene", "cornell_spheres",
+                     "--width", "8", "--height", "6", "--spp", "2",
+                     "--steps", "1", "--train", "center,radius",
+                     *argv]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["steps"] == 1 and np.isfinite(res["final_loss"])
+    (cfg,), = [seen]
+    assert all(getattr(cfg, k) == v for k, v in fields.items())
+
+
 @pytest.mark.parametrize("argv, err", [
-    (["--train", "center", "--estimator", "cosine"], NotImplementedError),
     (["--train", "center", "--fd-sphere", "0"], NotImplementedError),
     (["--train", "center", "--fd-sphere", "5"], SystemExit),
     (["--train", "radius,k"], SystemExit),
     (["--train", "center", "--scene", "cornell_box"], SystemExit),
-], ids=["estimator", "fd_sphere", "fd_sphere_range", "field", "no_spheres"])
+], ids=["fd_sphere", "fd_sphere_range", "field", "no_spheres"])
 def test_cli_fit_geom_refuses(argv, err):
     with pytest.raises(err):
         cli_main(["fit", "--device", "cpu", "--scene", "cornell_spheres",
@@ -543,12 +629,6 @@ def _glos(scene):
 
 
 @pytest.mark.parametrize("call, err, match", [
-    (lambda s, c, f: mg.geom_run(s, c, spt.RenderConfig(
-        width=4, height=3, spp=1, estimator="nee_textbook"), 0),
-     NotImplementedError, "item 10"),
-    (lambda s, c, f: mg.geom_run(s, c, spt.RenderConfig(
-        width=4, height=3, spp=1, light_sample_mode="glibc_overflow"), 0),
-     NotImplementedError, "item 10"),
     (lambda s, c, f: convert.scene_from_jax(
         jget_scene("cornell_twolights"), device="cpu"),
      NotImplementedError, "item 12"),
@@ -573,7 +653,7 @@ def _glos(scene):
     (lambda s, c, f: mg.fit_geom(s, c, f, torch.zeros(3, 4, 3),
                                  fields=("center", "gloss")),
      ValueError, "fields"),
-], ids=["estimator", "glibc", "light_list", "sphere_light", "glos",
+], ids=["light_list", "sphere_light", "glos",
         "edge_sphere", "fd_sphere", "mesh", "no_spheres", "light_sphere",
         "field"])
 def test_refusals(call, err, match):

@@ -30,16 +30,19 @@ of PERF.md §6):
   ``cosine``, ``nee_textbook``, ``mis``; its ``_tab`` instances on
   ``smallpt_original``, the linear scan, and ``sphere_grid``, the tree)
   and the adjoint launch of ``megakernel_geom`` on ``cornell_spheres``
-  (and on ``smallpt_original``), their gradient
+  (and on ``smallpt_original``; each estimator's instance,
+  ``megakernel_geom_<est>``, on ``cornell_spheres``, ``mis`` also on
+  ``smallpt_original``: one launch timed, a checkout without it shows no
+  time and no output), their gradient
   tables at 1024x768x4 (seed 3, cotangent seeds 5 and 3, as chip_smoke.py)
   and a launch's event time at 1024x768x512 seed 0 (cotangent 1e-7; two
   launches after one warm-up; for ``megakernel_geom`` also the kernel's
   own device time from torch.profiler, without the wrapper's host work); ``megakernel_geom deep``, its tables on
   ``cornell_spheres`` 64x48x4 with rr_start_depth = max_bounces = 200 and
-  every albedo 0.98; ``geom fit``, ``cli fit --train center,radius`` of
-  ``cornell_spheres`` at 1024x768x512 (5 steps, the main path: host work
-  and syncs included), each step's printed seconds and the stdout line's
-  sphere 0 and losses;
+  every albedo 0.98; ``geom fit`` (``geom fit mis``: with ``--estimator
+  mis``), ``cli fit --train center,radius`` of ``cornell_spheres`` at
+  1024x768x512 (5 steps, the main path: host work and syncs included),
+  each step's printed seconds and the stdout line's sphere 0 and losses;
 - ``guided 4 ranks`` (row 6 end to end): ``cli render --guided --mesh 2x2``
   of the alcove at 1024x768x512 as chip_smoke.py's main path runs it, four
   gloo ranks on the one card (the checkout's ``launcher.spawn``): one
@@ -132,9 +135,26 @@ CASES = {
     "megakernel_geom smallpt": ("11", "smallpt_original", "nee", "geom"),
     "megakernel_geom deep": ("11", "cornell_spheres", "nee", "geom deep"),
     "geom fit": ("11", "cornell_spheres", "nee", "fit"),
+    **{f"megakernel_geom_{name}": ("11", "cornell_spheres", est, "geom")
+       for name, est in (("cosine", "cosine"), ("textbook", "nee_textbook"),
+                         ("uniform", "uniform"),
+                         ("uniform_corrected", "uniform_corrected"),
+                         ("mixture", "mixture"), ("mis", "mis"),
+                         ("nee_glibc", "nee+glibc"),
+                         ("mixture_glibc", "mixture+glibc"))},
+    "megakernel_geom_mis smallpt": ("11", "smallpt_original", "mis", "geom"),
+    "geom fit mis": ("11", "cornell_spheres", "mis", "fit"),
     "guided 4 ranks": ("6", "cornell_alcove_baffled", "nee_textbook",
                        "mesh"),
 }
+
+
+def _fields(est: str) -> dict:
+    """RenderConfig fields of a case's estimator: ``e+glibc`` is e with
+    light_sample_mode='glibc_overflow'."""
+    e, _, glibc = est.partition("+")
+    return {"estimator": e,
+            **({"light_sample_mode": "glibc_overflow"} if glibc else {})}
 
 
 def event_ms(fn, n: int) -> float:
@@ -261,17 +281,17 @@ def waves_case(sc, cam, name: str) -> dict:
             "ms": walls, "waves": waves}
 
 
-def fit_case() -> dict:
-    """The ``geom fit`` case: the CLI's geometry fit in this process; the
-    losses and sphere 0 (from stderr and the stdout line) and each step's
-    seconds."""
+def fit_case(est: str) -> dict:
+    """The ``geom fit`` cases: the CLI's geometry fit with estimator
+    ``est`` in this process; the losses and sphere 0 (from stderr and the
+    stdout line) and each step's seconds."""
     from small_pathtracer_tpu_torch.cli import main as cli_main
 
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli_main(["fit", "--scene", "cornell_spheres", "--width", "1024",
                        "--height", "768", "--spp", "512", "--steps", "5",
-                       "--train", "center,radius"])
+                       "--train", "center,radius", "--estimator", est])
     if rc != 0:
         raise SystemExit(f"cli fit returned {rc}")
     steps = re.findall(r"loss (\S+).*?seconds (\S+)", err.getvalue())
@@ -365,16 +385,21 @@ def worker(root: str, out: str, cases: list[str]) -> None:
         # The guided kernels refuse the JAX sphere_table modes; "off" is
         # the same kernel.
         table = "off" if kind.startswith(("voxel", "primary")) else "auto"
-        cfg4 = RenderConfig(width=1024, height=768, spp=4, estimator=est,
+        cfg4 = RenderConfig(width=1024, height=768, spp=4, **_fields(est),
                             seed=3, sphere_table=table)
         cfg512 = RenderConfig(width=1024, height=768, spp=512,
-                              estimator=est, seed=0, sphere_table=table)
+                              **_fields(est), seed=0, sphere_table=table)
+        if kind in ("geom", "fit") and est != "nee" and not hasattr(
+                mgeo, "geom_kernel_name"):
+            # A checkout without the other estimators' geometry adjoint.
+            res[case] = {"out": []}
+            continue
         if kind == "mesh":
             res[case] = mesh_case(root)
         elif kind == "adaptive":
             res[case] = waves_case(scene(name), cam, name)
         elif kind == "fit":
-            res[case] = fit_case()
+            res[case] = fit_case(est)
         elif kind == "vjp":
             sc = get_scene(name)
             alb, emi = mg.pack_materials(sc)
@@ -392,8 +417,9 @@ def worker(root: str, out: str, cases: list[str]) -> None:
             res[case] = {
                 "out": list(mgeo.geom_vjp(sc, cam, cfg4, 3,
                                           _cotangent(3, 768, 1024))),
-                "ms": event_ms(run, 2),
-                "device_ms": device_ms(run, 2, "megakernel_geom")}
+                "ms": event_ms(run, 2 if est == "nee" else 1),
+                "device_ms": device_ms(run, 2 if est == "nee" else 1,
+                                       "megakernel_geom")}
         elif kind == "geom deep":
             sc = get_scene(name)
             t_sph, t_alb, t_emi = mgeo.pack_tables(sc)

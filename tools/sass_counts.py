@@ -1,6 +1,7 @@
 """Instruction counts of the port's CUDA kernels, read from their SASS.
 
     python3 tools/sass_counts.py [ROOT ...] [--kernels NAME,NAME] [--dump DIR]
+    python3 tools/sass_counts.py OTHER THIS --same "OLD=NEW[;OLD=NEW ...]"
 
 Builds the kernel library of each checkout ROOT (default: this one) in a
 process of its own, each into its own build/kernels, then reads the
@@ -14,8 +15,13 @@ The innermost loops of a forward kernel are its scans, the outermost its
 bounce loop; a loop that tests rects (each test compares t with the
 self-hit epsilon, 1e-3, once) also prints its rect tests an iteration and
 its instructions a test. ``--dump DIR`` also writes each kernel's SASS to
-DIR/<root name>.<kernel>.sass. Needs nvcc and cuobjdump (the CUDA
-toolkit), not a card.
+DIR/<root name>.<kernel>.sass. ``--same`` compares, for each pair, kernel
+OLD of the first root with kernel NEW of the second (a kernel that became
+an instance of a template with another argument has another name): their
+registers, stack frames and SASS, instruction by instruction with each
+constant-bank address (the kernel's parameters) masked, and prints whether
+they are the same but for parameter offsets. Needs nvcc and cuobjdump (the
+CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -60,9 +66,10 @@ def demangle(names: list[str]) -> dict[str, str]:
 
 def short(name: str) -> str:
     """`void <unnamed>::megakernel_guided<(int)2>(Params, ...)` ->
-    `megakernel_guided<2>` (either demangler's spelling)."""
+    `megakernel_guided<2>`, `megakernel_geom<(int)1, (int)0>` ->
+    `megakernel_geom<1,0>` (either demangler's spelling)."""
     name = (name.replace("(anonymous namespace)", "").replace("<unnamed>", "")
-            .replace("(int)", ""))
+            .replace("(int)", "").replace(", ", ","))
     depth = 0
     for i, ch in enumerate(name):
         depth += (ch == "<") - (ch == ">")
@@ -172,12 +179,42 @@ def report(label: str, lib: Path, kernels: tuple, dump: Path | None) -> None:
                 "\n".join(f"/*{o:04x}*/ {t} ;" for o, t in code) + "\n")
 
 
+_CBANK = re.compile(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]")
+
+
+def same(libs: list[Path], pairs: list[str]) -> None:
+    """--same: each OLD=NEW pair's resources and SASS, parameters masked."""
+    (f0, r0), (f1, r1) = ((functions(lib), resources(lib)) for lib in libs)
+    for pair in pairs:
+        old, new = pair.split("=")
+        if old not in f0 or new not in f1:
+            stem = old.split("<")[0]
+            print(f"[same] {old} = {new}: missing ({old in f0}, {new in f1});"
+                  " have: " + ", ".join(sorted(
+                      k for k in {*f0, *f1} if k.startswith(stem))))
+            continue
+        a = [_CBANK.sub("c[P]", t) for _, t in f0[old]]
+        b = [_CBANK.sub("c[P]", t) for _, t in f1[new]]
+        diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+        raw = sum(x != y for (_, x), (_, y) in zip(f0[old], f1[new]))
+        verdict = ("the same but for parameter offsets" if diff == 0
+                   else f"{diff} instructions differ")
+        print(f"[same] {old} = {new}: {len(a)} / {len(b)} instructions, "
+              f"{raw} differ as printed, {verdict}; resources "
+              f"{r0.get(old, '?')} / {r1.get(new, '?')}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", default=[str(ROOT)])
     ap.add_argument("--kernels", default=",".join(DEFAULT_KERNELS))
     ap.add_argument("--dump", default=None)
+    ap.add_argument("--same", default=None)
     args = ap.parse_args()
+    if args.same:
+        same([build(Path(r).resolve()) for r in args.roots[:2]],
+             args.same.split(";"))
+        return 0
     kernels = tuple(args.kernels.split(","))
     for r in args.roots:
         root = Path(r).resolve()
