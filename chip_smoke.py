@@ -39,8 +39,10 @@ on four sphere presets and on ``smallpt_original`` with the original
 smallpt's radius-1e5 walls. Then the
 rect scan's tie rule through rows 1 and 4 on ``cornell_box`` at 256x192x4
 (a copy of a wall after it changes nothing, before it takes its place, a
-dark copy of the light before it hides the light), each launch bit for bit
-its plain version. Then the
+dark copy of the light before it hides the light), and with quads on
+``cornell_tilted_light`` (a copy of the light quad after it changes
+nothing, a dark copy before it hides the light, a quad on the floor's
+plane), each launch bit for bit its plain version. Then the
 geometry adjoint ``megakernel_geom``: its image-only launch bit for bit
 against ``megakernel_nee_tab`` and the plain version, its adjoint against
 autograd through the plain version row by row and against itself (``cornell_spheres``
@@ -71,7 +73,17 @@ for bit against its plain version at 1024x768x4; ``cli render
 1024x768x512, adaptive, checkpointed, ``--mesh 1x1``, per-shard and
 ``--guided`` paths with their launches counted, each instance's x512
 event time and bound, and guiding's clamped MSE (guided against
-unguided ``mis`` on ``cornell_alcove_baffled``). Then material training
+unguided ``mis`` on ``cornell_alcove_baffled``). Then general quads and
+GLOS materials in rows 1-7 (``ext_phases``): every ``_ext`` instance
+(``csrc/megakernel_ext.cu``, ``_ext_budgets.cu``, ``_ext_guided.cu``) bit
+for bit against its plain version at 1024x768x4 on
+``cornell_tilted_light``, ``cornell_glossy`` and the tilted light with
+``sphere_grid``'s spheres (the tree), row 3 on ragged spans; the main paths
+``cli render --scene cornell_tilted_light`` and ``--scene cornell_glossy
+--estimator mis`` at 1024x768x512 (and ``nee`` refused on the glossy
+scene), ``cli render``, ``--adaptive-tol 0`` and ``--guided`` of every
+other instance, rows 7 and 6 on each shard of a 2x2 mesh, each instance's
+x512 event time and bound. Then material training
 with those estimators (``mat_phases`` of MAT_EST): row 8's 18 new
 instances (rect, linear, tree) bit for bit against their plain version and
 the render at 256x192x4, row 9's against autograd (256x192x4 on the box,
@@ -145,9 +157,10 @@ FIT_LR = "8"  # chosen on the CPU at 32x24x16: the loss falls for 5 steps
 # max_bounces of the parity runs against the plain versions at x4 (rows 1-3
 # of the other estimators, rows 8 and 9, row 11): the plain versions take a
 # launch-bound iteration a bounce of their longest path (PERF.md §6), and
-# the script's phases must end within its time limit. Past kSeg, so the
-# adjoints' paths still outrun their tape; the deep-path phases run 200.
-PARITY_BOUNCES = 24
+# the script's phases must end within its time limit (24 before the quad
+# and GLOS phases came). Past kSeg (16), so the adjoints' paths still
+# outrun their tape; the deep-path phases run 200.
+PARITY_BOUNCES = 18
 VJP_TOL = 1e-4  # of the largest entry of each table (reason: PERF.md)
 
 # Peak rates of one H100 SXM at 700 W: fp32 outside the tensor cores and
@@ -196,6 +209,20 @@ FP_MIS = 27
 # agreement of a guided and an unguided render's linear means (the
 # estimator is unbiased; at 512 samples the means' noise is far below it).
 GUIDE_BETA, GUIDE_K, GUIDE_MEAN_TOL = 0.6, 8.0, 0.02
+# Quads and GLOS (ext_phases), counted from the .cu sources as FP_RECT: a
+# quad test (csrc/megakernel_common.cuh quad_hit) 49: the plane's d . n 5,
+# (c - o) . n 8, the divide and its guard 3, the point 9, the Gram
+# products 10, a and b 8, the bounds and the eps 6. The GLOS lobe at a
+# GLOS vertex (csrc/megakernel_lane.cuh, the kWithGlos branches) 112: the
+# mirror 11, its frame 30, 1 / (n + 1) 2, pow_pos 31, the sine 4, the
+# direction and its norm 25, the weight 9; at a GLOS probe (nee_textbook,
+# mis) the lobe's BRDF in the direct term 48 (|A cos_l| / t^2 8, a dot 5,
+# pow_pos 31, 4 more) and, for mis, the lobe's two pdfs 80. The kernels do
+# not count GLOS vertices: the parity runs count them on the plain version
+# (glos_vertices), so the x4 bounds carry the lobe and the logged x512
+# bounds leave it out (still lower bounds).
+FP_QUAD = 49
+FP_GLOS, FP_GLOS_NEE, FP_GLOS_MIS = 112, 48, 80
 
 
 # The kernels of the cosine and nee_textbook estimators and of path guiding:
@@ -305,14 +332,16 @@ def bound(fp_ops: float, int_ops: float, n_bytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def query_ops(n_rects: int, n_spheres: int = 0) -> int:
+def query_ops(n_rects: int, n_spheres: int = 0, n_quads: int = 0) -> int:
     """fp32 operations of one nearest-hit query: 210 on the Cornell box."""
-    return FP_RAY + FP_RECT * n_rects + FP_SPHERE * n_spheres
+    return (FP_RAY + FP_RECT * n_rects + FP_SPHERE * n_spheres
+            + FP_QUAD * n_quads)
 
 
 def forward_ops(traces, n_samples: int, n_rects: int, n_spheres: int = 0,
                 est: str = "nee", diffuse_only: bool = True,
-                counted_spheres: bool = True) -> tuple[float, float]:
+                counted_spheres: bool = True,
+                n_quads: int = 0) -> tuple[float, float]:
     """The least (fp32, int32) operations of a forward launch with these
     [extend, probe] counts. nee (and its glibc instance): every counted
     probe follows one traced, unfolded bounce (query, shading, probe, five
@@ -325,9 +354,10 @@ def forward_ops(traces, n_samples: int, n_rects: int, n_spheres: int = 0,
     ``diffuse_only``, else none) add the hemisphere sample, each textbook
     or mis probe the light sample, weight and direct term, each mis probe
     its balance weights (FP_MIS); the guided mixture is left out. Queries
-    test every rect and, with ``counted_spheres``, every sphere."""
+    test every rect and quad and, with ``counted_spheres``, every
+    sphere."""
     extend, probe = traces
-    q = query_ops(n_rects, n_spheres if counted_spheres else 0)
+    q = query_ops(n_rects, n_spheres if counted_spheres else 0, n_quads)
     direct = est in ("nee_textbook", "mis")
     if est in ("nee", "mixture"):
         fp = probe * (q + FP_SHADE + FP_PROBE) + n_samples * FP_SPAWN
@@ -351,7 +381,8 @@ def forward_ops(traces, n_samples: int, n_rects: int, n_spheres: int = 0,
 
 def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
                   n_spheres: int = 0, span_bytes: int = 0, est: str = "nee",
-                  diffuse_only: bool = True, scan=None):
+                  diffuse_only: bool = True, scan=None, n_quads: int = 0,
+                  extra_fp: float = 0.0):
     """Forward kernels: ``forward_ops`` over the peak rates, so this is a
     lower bound. Bytes: the per-lane radiance and the counters out, the
     material tables (and, with spheres, the codes and sphere rows) in, and
@@ -361,11 +392,16 @@ def forward_bound(traces, n_samples: int, n_lanes: int, n_rects: int,
     sphere); ``scan`` (the counting instance's [node tests, rows tested,
     rows at the square root] of the same launch) gives the tree's: its
     counted sphere work, every query's, in place of the linear scan's, and
-    the tree's bytes."""
+    the tree's bytes. Quads (n_quads) add their tests to every query, the
+    quads' kernel parameters and the codes and Phong exponents of every
+    object; extra_fp is added as it is (the GLOS lobe's work)."""
     fp, it = forward_ops(traces, n_samples, n_rects, n_spheres, est,
-                         diffuse_only, scan is None)
-    k = n_rects + n_spheres
+                         diffuse_only, scan is None, n_quads)
+    fp += extra_fp
+    k = n_rects + n_quads + n_spheres
     tables = 2 * k * 3 * 4 + (k * 4 + n_spheres * 16 if n_spheres else 0)
+    if n_quads:  # the quads' rows, the Phong exponents (and the codes)
+        tables += n_quads * 19 * 4 + k * 4 + (0 if n_spheres else k * 4)
     if scan is not None:
         from small_pathtracer_tpu_torch.ops.megakernel import bvh_floats
 
@@ -1195,6 +1231,83 @@ def tie_phase(guide) -> None:
             f"light {dark_tr.tolist()}")
         if not all(checks.values()):
             raise AssertionError(f"tie phase: {name} breaks a tie rule")
+    quad_ties(guide)
+
+
+def quad_ties(guide) -> None:
+    """The tie rule with quads (ids after the rects, scanned after the
+    axis groups) through the _ext instances of rows 1 and 4
+    (megakernel_nee_ext; megakernel_guided_ext, nee_textbook, with the guide
+    table of cornell_box) at 256x192x4 on cornell_tilted_light, each launch
+    bit for bit its plain version: a copy of the light quad with another
+    emission after it changes nothing; a dark copy before it blocks every
+    probe and hides the light (an all-black image); a tinted quad on the
+    floor's plane after the light, whose t ties with the floor rect's up to
+    rounding, renders as its plain version's in-order scan says."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.scene.types import Quads, insert_quad
+
+    phase("tie phase with quads: rows 1 and 4 (_ext) on cornell_tilted_light "
+          "256x192x4 with copies of the light quad after and before it and "
+          "a quad on the floor's plane")
+    tl = get_scene("cornell_tilted_light")
+    cam = make_camera(aspect=256 / 192)
+    cfg = RenderConfig(width=256, height=192, spp=4, seed=4)
+    cfg_t = RenderConfig(width=256, height=192, spp=4, seed=4,
+                         estimator="nee_textbook")
+    renders = {
+        "megakernel_nee_ext": lambda sc, plain: (
+            megakernel.render_megakernel_plain if plain
+            else megakernel.render_megakernel)(sc, cam, cfg, 4),
+        "megakernel_guided_ext": lambda sc, plain: (
+            megakernel.render_megakernel_guided_plain if plain
+            else megakernel.render_megakernel_guided)(
+                sc, cam, cfg_t, 4, guide, GUIDE_BETA, GUIDE_K),
+    }
+    floor = Quads(*(torch.tensor(v, dtype=torch.float32, device="cuda")
+                    for v in ([[1.0, 0.0, 0.0]], [[98.0, 0.0, 0.0]],
+                              [[0.0, 0.0, 170.0]], [TIE_TINT],
+                              [[0.0, 0.0, 0.0]])),
+                  refl=torch.zeros(1, dtype=torch.int64, device="cuda"),
+                  gloss=torch.zeros(1, device="cuda"))
+    scenes = {
+        "as built": tl,
+        "light copy after": insert_quad(tl, 1, 0, emission=TIE_TINT),
+        "dark light copy before": insert_quad(tl, 0, 0,
+                                              emission=(0.0, 0.0, 0.0)),
+        "floor quad after": tl._replace(quads=Quads(*(
+            torch.cat([a, b]) for a, b in zip(tl.quads, floor)))),
+    }
+    for name, render in renders.items():
+        out = {}
+        for label, sc in scenes.items():
+            before = megakernel.LAUNCHES[name]
+            img, tr = render(sc, False)
+            p_img, p_tr = render(sc, True)
+            if megakernel.LAUNCHES[name] != before + 1:
+                raise AssertionError(f"quad ties: {name} did not launch once "
+                                     f"on {label}")
+            if not (torch.equal(img, p_img) and torch.equal(tr, p_tr)):
+                raise AssertionError(f"quad ties: {name} on {label} differs "
+                                     "from its plain version")
+            out[label] = (img, tr)
+        dark_img, dark_tr = out["dark light copy before"]
+        checks = {
+            "a later copy of the light changes nothing": (
+                torch.equal(out["light copy after"][0], out["as built"][0])
+                and torch.equal(out["light copy after"][1],
+                                out["as built"][1])),
+            "a dark copy before the light blocks every probe": (
+                not bool(dark_img.any()) and int(dark_tr[0]) > 0),
+        }
+        log(f"[smoke] quad ties {name}: every scene == plain version; "
+            + "; ".join(f"{k}: {'ok' if v else 'FAILED'}"
+                        for k, v in checks.items())
+            + f"; traces as built {out['as built'][1].tolist()}, floor quad "
+            f"{out['floor quad after'][1].tolist()}")
+        if not all(checks.values()):
+            raise AssertionError(f"quad ties: {name} breaks a tie rule")
 
 
 # The sharded rows (6, 7, 10 and 12): the mesh of the per-shard phases and
@@ -2401,7 +2514,7 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
     instance's x512 event time. Returns the ``kernels`` entries and row
     12's mis numbers for shard_phases."""
     from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
-    from small_pathtracer_tpu_torch.integrator.wavefront import check_materials
+    from small_pathtracer_tpu_torch.integrator.wavefront import has_spec_refr
     from small_pathtracer_tpu_torch.ops import _build, megakernel
     from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
     from small_pathtracer_tpu_torch.parallel.mesh import Mesh
@@ -2494,7 +2607,7 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
                                  f"{megakernel.kernel_name(sc, cfg)}, or no "
                                  "path outran the tape")
         tols = (GEOM_TOL[nm][1], GEOM_TOL[nm][0], GEOM_TOL[nm][0])
-        spec = check_materials(sc)  # SPEC or REFR objects
+        spec = has_spec_refr(sc)  # SPEC or REFR objects
         err = held(f"{name} {nm}", (k_sph, k_alb, k_emi),
                    (p_sph, p_alb, p_emi), tols,
                    zero_rows=not spec and fields["estimator"] in (
@@ -2712,6 +2825,42 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
     return out, {"megakernel_geom_mis": shard}
 
 
+def kernel_parity(label, name, kernel_fn, plain_fn, bound_fn,
+                  glos: bool = False) -> dict:
+    """kernel, plain, kernel at one launch's shape: the kernel runs
+    bit-identical, the plain version's equal bit for bit, two launches
+    counted under name. bound_fn(traces) gives the bound; with glos,
+    bound_fn(traces, GLOS vertices of one more plain run). Returns the
+    numbers of the run's ``kernels`` entry."""
+    from small_pathtracer_tpu_torch.ops import megakernel
+
+    lbn = megakernel.LAUNCHES
+    before = lbn[name]
+    outs, med = in_turns({"kernel": kernel_fn, "plain": plain_fn},
+                         ("kernel", "plain", "kernel"))
+    if lbn[name] != before + 2:
+        raise AssertionError(f"{label}: {name} did not count 2 launches")
+    (k_img, k_tr), (k2_img, k2_tr) = outs["kernel"]
+    p_img, p_tr = outs["plain"][0]
+    if not (torch.equal(k_img, k2_img) and torch.equal(k_tr, k2_tr)):
+        raise AssertionError(f"{label}: kernel runs differ")
+    err_ = float((k_img - p_img).abs().max())
+    if glos:
+        n_glos = glos_vertices(plain_fn)
+        b = bound_fn(k_tr.tolist(), n_glos)
+        extra = f"; GLOS vertices {n_glos}"
+    else:
+        b, extra = bound_fn(k_tr.tolist()), ""
+    log(f"[smoke] {label}: {name} {med['kernel'] * 1e3:.3f} ms traces "
+        f"{k_tr.tolist()}; plain {med['plain'] * 1e3:.3f} ms traces "
+        f"{p_tr.tolist()}; max |diff| {err_:.3e}{extra}; bound "
+        f"{b[0]:.3f} ms ({b[1]})")
+    if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
+        raise AssertionError(f"{label}: kernel and plain version differ")
+    return {"err": err_, "ms": med["kernel"] * 1e3,
+            "plain_ms": med["plain"] * 1e3, "bound": b}
+
+
 def est_argv(fields: dict) -> list[str]:
     """cli render flags of a case's RenderConfig fields."""
     argv = ["--estimator", fields["estimator"]]
@@ -2766,29 +2915,7 @@ def est_phases(card: str, cli_main) -> list:
                              sc.spheres.radius.shape[0], extra_bytes, est,
                              not megakernel.uses_sphere_table(sc))
 
-    def parity(label, name, kernel_fn, plain_fn, bound_fn):
-        """kernel, plain, kernel: the kernel runs bit-identical, the plain
-        version's equal bit for bit, two launches counted under name."""
-        before = lbn[name]
-        outs, med = in_turns({"kernel": kernel_fn, "plain": plain_fn},
-                             ("kernel", "plain", "kernel"))
-        if lbn[name] != before + 2:
-            raise AssertionError(f"{label}: {name} did not count 2 launches")
-        (k_img, k_tr), (k2_img, k2_tr) = outs["kernel"]
-        p_img, p_tr = outs["plain"][0]
-        if not (torch.equal(k_img, k2_img) and torch.equal(k_tr, k2_tr)):
-            raise AssertionError(f"{label}: kernel runs differ")
-        err_ = float((k_img - p_img).abs().max())
-        b = bound_fn(k_tr.tolist())
-        log(f"[smoke] {label}: {name} {med['kernel'] * 1e3:.3f} ms traces "
-            f"{k_tr.tolist()}; plain {med['plain'] * 1e3:.3f} ms traces "
-            f"{p_tr.tolist()}; max |diff| {err_:.3e}; bound {b[0]:.3f} ms "
-            f"({b[1]})")
-        if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
-            raise AssertionError(f"{label}: kernel and plain version differ")
-        return {"err": err_, "ms": med["kernel"] * 1e3,
-                "plain_ms": med["plain"] * 1e3, "bound": b}
-
+    parity = kernel_parity
     par = {}  # kernel name -> its reported parity run
     phase("rows 1 and 2 with the item 10 estimators against their plain "
           "version 1024x768x4: cornell_box, smallpt_original (linear), "
@@ -3151,6 +3278,342 @@ def est_phases(card: str, cli_main) -> list:
             out.append(entry(megakernel.guided_kernel_name(
                 sc_of[nm], cfg_mis, primary), "megakernel_guided.cu",
                 f"megakernel.py:{site} ({what}mis)"))
+    return out
+
+
+# Item 11's forward half (ext_phases): the scenes of the _ext instances.
+# The presets: cornell_tilted_light (16 rects, the light a quad; the
+# linear scan of an empty sphere table) and cornell_glossy (a GLOS sphere,
+# exponent 60; the linear scan). Their tree instances run on
+# cornell_tilted_light with sphere_grid's 64 spheres (ids after the quad),
+# sphere 0 GLOS (exponent 20) for the estimators with glossy semantics.
+EXT_CASES = {"nee": {"estimator": "nee"}, **BUDGET_CASES}
+GLOS_CASES = ("cosine", "nee_textbook", "mis")
+EXT_TREE_GLOSS = 20.0
+
+
+def glos_vertices(run_plain) -> int:
+    """The GLOS vertices (live lanes whose hit is GLOS) of a run of the
+    plain version, counted by a spy around wavefront._bounce_core that
+    shades each bounce's rays once more."""
+    from small_pathtracer_tpu_torch.geometry.intersect import (
+        shade_info, trace,
+    )
+    from small_pathtracer_tpu_torch.integrator import wavefront as wf
+    from small_pathtracer_tpu_torch.scene.types import GLOS
+
+    n = [0]
+    orig = wf._bounce_core
+
+    def spy(scene, cfg, seed, o, d, T, alive, *args, **kw):
+        sh = shade_info(scene, o, d, trace(scene, o, d))
+        n[0] += int((alive & (sh.refl == GLOS)).sum())
+        return orig(scene, cfg, seed, o, d, T, alive, *args, **kw)
+
+    wf._bounce_core = spy
+    try:
+        run_plain()
+    finally:
+        wf._bounce_core = orig
+    return n[0]
+
+
+def ext_phases(card: str, cli_main) -> list:
+    """ROADMAP item 11's forward half: rows 1-7 with general quads and GLOS
+    materials (the _ext instances of csrc/megakernel_ext*.cu). Each
+    instance bit for bit against its plain version (kernel, plain, kernel)
+    at 1024x768x4, paths stopped at PARITY_BOUNCES: rows 1 and 2 of every
+    estimator on cornell_tilted_light (linear) and on the tree scene
+    (EXT_CASES), the three GLOS estimators also on cornell_glossy; row 3
+    on ragged spans (75% empty) of both; rows 4 and 5 (cosine,
+    nee_textbook, mis) on both with a table trained on the tilted light.
+    Then, with the launch counts cleared before each path and read after,
+    at 1024x768x512: the main paths ``cli render --scene
+    cornell_tilted_light`` and ``--scene cornell_glossy --estimator mis``,
+    the refusal of ``nee`` on the glossy scene, ``cli render`` of every
+    other case on the presets, ``--adaptive-tol 0 --adaptive-wave 256`` of
+    each (the uniform render's traces) and ``--guided``; rows 7 and 6 with
+    mis on each shard of a 2x2 mesh at x4 against the unsharded kernel; and
+    each instance's x512 event time and bound. Returns the ``kernels``
+    entries."""
+    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    from small_pathtracer_tpu_torch.experiment import path_guiding as pg
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+    from small_pathtracer_tpu_torch.scene.types import GLOS
+
+    lbn = megakernel.LAUNCHES
+    width, height = 1024, 768
+    n_pix = width * height
+    cam = make_camera(aspect=width / height)
+    tilted, glossy = (get_scene(n) for n in ("cornell_tilted_light",
+                                            "cornell_glossy"))
+    grid = get_scene("sphere_grid").spheres
+    refl = grid.refl.clone()
+    refl[0] = GLOS
+    tree = tilted._replace(spheres=grid)
+    tree_g = tilted._replace(spheres=grid._replace(
+        refl=refl, gloss=torch.where(refl == GLOS, EXT_TREE_GLOSS, 0.0)))
+    base = ["render", "--width", "1024", "--height", "768", "--spp", "512"]
+
+    def cfg_of(fields, spp, seed, **kw):
+        return RenderConfig(width=width, height=height, spp=spp, seed=seed,
+                            **fields, **kw)
+
+    def f_bound(sc, tr, n_samples, n_lanes, est, extra_bytes=0, n_glos=0):
+        g = FP_GLOS + (FP_GLOS_NEE if est in GLOS_CASES[1:] else 0) + (
+            FP_GLOS_MIS if est == "mis" else 0)
+        return forward_bound(tr, n_samples, n_lanes, sc.rects.k.shape[0],
+                             sc.spheres.radius.shape[0], extra_bytes, est,
+                             False, n_quads=sc.quads.corner.shape[0],
+                             extra_fp=n_glos * g)
+
+    parity = kernel_parity
+    par = {}  # kernel name -> its reported parity run (the tilted light's)
+    phase("rows 1 and 2 with quads and GLOS (_ext) against their plain "
+          "version 1024x768x4: cornell_tilted_light, cornell_glossy "
+          "(linear), the tilted light with sphere_grid's spheres (tree)")
+    for label, fields in EXT_CASES.items():
+        glos = label in GLOS_CASES
+        for nm, sc in (("cornell_tilted_light", tilted),
+                       *((("cornell_glossy", glossy),) if glos else ()),
+                       ("tree", tree_g if glos else tree)):
+            cfg = cfg_of(fields, 4, 31, max_bounces=PARITY_BOUNCES)
+            name = megakernel.kernel_name(sc, cfg)
+            r = parity(
+                f"{label} {nm} 1024x768x4 seed 31", name,
+                lambda: megakernel.render_megakernel(sc, cam, cfg, 31),
+                lambda: megakernel.render_megakernel_plain(sc, cam, cfg, 31),
+                lambda tr, n_g=0: f_bound(sc, tr, n_pix * 4, n_pix,
+                                        fields["estimator"], n_glos=n_g),
+                glos and nm == "cornell_glossy")
+            par.setdefault(name, r)
+
+    phase("row 3 with quads and GLOS (_ext_budgets) against its plain "
+          "version, 1024x768 ragged spans: cornell_tilted_light (linear), "
+          "the tree scene")
+    for label, fields in EXT_CASES.items():
+        glos = label in GLOS_CASES
+        for i, (nm, sc) in enumerate((("cornell_tilted_light", tilted),
+                                      ("tree", tree_g if glos else tree))):
+            cfg = cfg_of(fields, 64, 32 + i, max_bounces=PARITY_BOUNCES)
+            a, b_ = ragged_spans(n_pix, 4, 3, 32 + i, empty=0.75)
+            name = megakernel.kernel_name(sc, cfg, "_budgets")
+            n_samples = int((b_ - a).sum())
+            r = parity(
+                f"budgets {label} {nm} spans [0,4) + [0,3]", name,
+                lambda: megakernel.render_megakernel_budgets(
+                    sc, cam, cfg, 32 + i, a, b_),
+                lambda: megakernel.render_megakernel_budgets_plain(
+                    sc, cam, cfg, 32 + i, a, b_),
+                lambda tr, n_g=0: f_bound(sc, tr, n_samples, n_pix,
+                                        fields["estimator"], 2 * 4 * n_pix,
+                                        n_g))
+            par.setdefault(name, r)
+
+    phase("rows 4 and 5 with quads (_ext) against their plain version "
+          "1024x768x4: cornell_tilted_light (linear), the tree scene")
+    tcfg = RenderConfig(width=128, height=96, spp=16, seed=1)
+    g_tl = pg.guide_lobes(pg.train_guide(tilted, cam, tcfg, 8, 1))
+    guided = {0: (megakernel.render_megakernel_guided,
+                  megakernel.render_megakernel_guided_plain),
+              1: (megakernel.render_megakernel_guided_primary,
+                  megakernel.render_megakernel_guided_primary_plain)}
+    for label in GLOS_CASES:
+        fields = EXT_CASES[label]
+        for nm, sc in (("cornell_tilted_light", tilted), ("tree", tree)):
+            cfg = cfg_of(fields, 4, 33, sphere_table="off",
+                         max_bounces=PARITY_BOUNCES)
+            for primary, (k_fn, p_fn) in guided.items():
+                name = megakernel.guided_kernel_name(sc, cfg, primary)
+                r = parity(
+                    f"row {4 + primary} {label} {nm} 1024x768x4 seed 33",
+                    name,
+                    lambda: k_fn(sc, cam, cfg, 33, g_tl, GUIDE_BETA, GUIDE_K),
+                    lambda: p_fn(sc, cam, cfg, 33, g_tl, GUIDE_BETA, GUIDE_K),
+                    lambda tr, n_g=0: f_bound(
+                        sc, tr, n_pix * 4, n_pix, fields["estimator"],
+                        (n_pix if primary else pg.N_VOXELS) * 4))
+                par.setdefault(name, r)
+
+    main_launch = {}  # kernel name -> launches in its path's run
+
+    def run_path(label, argv, name, n_expect=1):
+        lbn.clear()
+        with tempfile.TemporaryDirectory() as tmp:
+            text = cli_stderr(cli_main, base + argv + [
+                "-o", os.path.join(tmp, "out.png")])
+        counts = dict(lbn)
+        if counts != {name: n_expect}:
+            raise AssertionError(f"{label} launched {counts}, expected "
+                                 f"{name} x{n_expect}")
+        main_launch.setdefault(name, n_expect)
+        return cli_traces(text)
+
+    def x512(label, name, fn, sc, est, extra_bytes=0):
+        tr = fn()[1].tolist()
+        ms = event_ms(fn, 3)
+        b = f_bound(sc, tr, n_pix * 512, n_pix, est, extra_bytes)
+        log(f"[smoke] {label} 1024x768x512 seed 0: {name} {ms:.3f} ms a "
+            f"launch (CUDA events), traces {tr}; bound {b[0]:.3f} ms "
+            f"({b[1]}, the GLOS lobe left out) on {card}")
+        return ms, tr
+
+    phase("main paths: cli render --scene cornell_tilted_light, --scene "
+          "cornell_glossy --estimator mis 1024x768x512; nee refused on "
+          "cornell_glossy")
+    uniform_tr = {}
+    for nm, sc, label in (("cornell_tilted_light", tilted, "nee"),
+                          ("cornell_glossy", glossy, "mis")):
+        fields = EXT_CASES[label]
+        argv = ["--scene", nm] + (est_argv(fields) if label != "nee" else [])
+        cfg = cfg_of(fields, 512, 0)
+        name = megakernel.kernel_name(sc, cfg)
+        rays, secs = run_path(f"cli render {' '.join(argv)}", argv, name)
+        ms, tr = x512(f"{label} {nm}", name,
+                      lambda: megakernel.render_megakernel(sc, cam, cfg, 0),
+                      sc, label)
+        if sum(tr) != rays:
+            raise AssertionError(f"{nm}: cli render's traces differ")
+        uniform_tr[(label, nm)] = tr
+        log(f"[smoke] main path cli render {' '.join(argv)}: 1 launch of "
+            f"{name}, {rays} rays in {secs:.3f} s = "
+            f"{rays / secs / 1e6:.1f} Mrays/s wall on {card}; kernel "
+            f"{ms:.3f} ms = {rays / ms / 1e3:.1f} Mrays/s")
+    lbn.clear()
+    try:
+        cli_stderr(cli_main, base[:1] + ["--scene", "cornell_glossy",
+                                         "--width", "64", "--height", "48",
+                                         "--spp", "4", "-o", os.devnull])
+    except ValueError as exc:
+        if "glossy" not in str(exc) or dict(lbn):
+            raise
+        log(f"[smoke] cli render --scene cornell_glossy (nee) refused: {exc}")
+    else:
+        raise AssertionError("cli render of cornell_glossy with nee ran")
+
+    phase("rows 1-3 with quads and GLOS at 1024x768x512: cli render of "
+          "every other case on the presets, --adaptive-tol 0 "
+          "--adaptive-wave 256 of each on cornell_tilted_light, event times")
+    for label, fields in EXT_CASES.items():
+        for nm, sc in (("cornell_tilted_light", tilted),
+                       ("cornell_glossy", glossy)):
+            if (nm == "cornell_glossy" and label not in GLOS_CASES) or (
+                    (label, nm) in uniform_tr):
+                continue
+            cfg = cfg_of(fields, 512, 0)
+            name = megakernel.kernel_name(sc, cfg)
+            rays, _ = run_path(f"cli render {nm} {label}",
+                               est_argv(fields) + ["--scene", nm], name)
+            _, tr = x512(f"{label} {nm}", name,
+                         lambda: megakernel.render_megakernel(sc, cam, cfg,
+                                                              0),
+                         sc, fields["estimator"])
+            if sum(tr) != rays:
+                raise AssertionError(f"{label} {nm}: cli traces differ")
+            uniform_tr[(label, nm)] = tr
+        name = megakernel.kernel_name(tilted, cfg_of(fields, 512, 0),
+                                      "_budgets")
+        rays, _ = run_path(f"adaptive tol 0 {label} cornell_tilted_light",
+                           est_argv(fields) + [
+                               "--scene", "cornell_tilted_light",
+                               "--adaptive-tol", "0", "--adaptive-wave",
+                               "256"], name, 2)
+        if rays != sum(uniform_tr[(label, "cornell_tilted_light")]):
+            raise AssertionError(f"adaptive tol 0 {label}: traces {rays}")
+        wave = megakernel.budget_waves(tilted, cam, cfg_of(fields, 512, 0))
+        a0 = torch.zeros(n_pix, dtype=torch.int32, device="cuda")
+        b0 = torch.full((n_pix,), 512, dtype=torch.int32, device="cuda")
+        live = torch.arange(n_pix, dtype=torch.int32, device="cuda")
+        _, tr = x512(f"budgets {label} cornell_tilted_light, every span "
+                     "x512", name, lambda: wave(0, a0, b0, live), tilted,
+                     fields["estimator"], 2 * 4 * n_pix)
+        if tr != uniform_tr[(label, "cornell_tilted_light")]:
+            raise AssertionError(f"budgets {label}: full spans' traces {tr}")
+
+    phase("rows 4 and 5 with quads at 1024x768x512: cli render --guided "
+          "--scene cornell_tilted_light (cosine, nee_textbook, mis), row 5 "
+          "through its wrapper, event times")
+    for label in GLOS_CASES:
+        fields = EXT_CASES[label]
+        cfg = cfg_of(fields, 512, 0)
+        name = megakernel.guided_kernel_name(tilted, cfg)
+        rays, secs = run_path(f"cli render --guided {label}",
+                              est_argv(fields) + [
+                                  "--scene", "cornell_tilted_light",
+                                  "--guided"], name)
+        log(f"[smoke] cli render --guided cornell_tilted_light {label}: 1 "
+            f"launch of {name}, {rays} rays in {secs:.3f} s")
+        for primary, (k_fn, _) in guided.items():
+            name = megakernel.guided_kernel_name(tilted, cfg, primary)
+            fn = (lambda: k_fn(tilted, cam, cfg, 0, g_tl, GUIDE_BETA,
+                               GUIDE_K))
+            if primary:
+                lbn.clear()
+                img, _ = fn()
+                if dict(lbn) != {name: 1} or not bool(
+                        torch.isfinite(img).all()):
+                    raise AssertionError(f"{name}: launches {dict(lbn)} or a "
+                                         "non-finite image")
+                main_launch.setdefault(name, 1)
+            x512(f"guided {label}", name, fn, tilted, fields["estimator"],
+                 (n_pix if primary else pg.N_VOXELS) * 4)
+
+    phase("rows 7 and 6 with quads: mis on each shard of a 2x2 mesh at "
+          "1024x768x4 against the unsharded kernel")
+    coords = [(i, j) for i in range(2) for j in range(2)]
+    cfg4 = cfg_of(EXT_CASES["mis"], 4, 34, sphere_table="off")
+    for label, name, fn, want in (
+            ("row 7 mis cornell_tilted_light", "megakernel_mis_ext",
+             lambda m: megakernel.render_megakernel_sharded(
+                 tilted, cam, cfg4, m, 34),
+             lambda: megakernel.render_megakernel(tilted, cam, cfg4, 34)),
+            ("row 6 mis cornell_tilted_light", "megakernel_guided_mis_ext",
+             lambda m: megakernel.render_megakernel_guided_sharded(
+                 tilted, cam, cfg4, m, 34, g_tl, GUIDE_BETA, GUIDE_K),
+             lambda: megakernel.render_megakernel_guided(
+                 tilted, cam, cfg4, 34, g_tl, GUIDE_BETA, GUIDE_K))):
+        lbn.clear()
+        parts = {c: fn(Mesh.single((2, 2), c)) for c in coords}
+        n_sh = lbn[name]
+        img = torch.cat([parts[(i, 0)][0] + parts[(i, 1)][0]
+                         for i in range(2)]).reshape(height, width, 3)
+        tr = sum(v[1] for v in parts.values())
+        w_img, w_tr = want()
+        err_ = float((img - w_img).abs().max())
+        log(f"[smoke] {label} 2x2 shards: {n_sh} launches of {name}, traces "
+            f"{tr.tolist()} (unsharded {w_tr.tolist()}), max |sum - "
+            f"unsharded| {err_:.3e}")
+        if not (n_sh == 4 and torch.equal(tr, w_tr) and torch.allclose(
+                img, w_img, rtol=SHARD_RTOL, atol=SHARD_ATOL)):
+            raise AssertionError(f"{label}: the shards' sum differs")
+
+    def entry(name, source, replaces):
+        r = par[name]
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": "small_pathtracer_tpu/ops/" + replaces,
+                "launches": main_launch[name], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None}
+
+    out = []
+    for label, fields in EXT_CASES.items():
+        what = "quads and GLOS" if label in GLOS_CASES else "quads"
+        cfg = cfg_of(fields, 4, 0)
+        out.append(entry(megakernel.kernel_name(tilted, cfg),
+                         "megakernel_ext.cu",
+                         f"megakernel.py:1203 ({what}, {label}, call :2670)"))
+        out.append(entry(megakernel.kernel_name(tilted, cfg, "_budgets"),
+                         "megakernel_ext_budgets.cu",
+                         f"megakernel.py:2783 ({what}, {label})"))
+    for label in ("cosine", "mis"):
+        cfg = cfg_of(EXT_CASES[label], 4, 0)
+        for primary, site in ((0, "2972"), (1, "3111")):
+            out.append(entry(megakernel.guided_kernel_name(tilted, cfg,
+                                                           primary),
+                             "megakernel_ext_guided.cu",
+                             f"megakernel.py:{site} (quads, {label})"))
     return out
 
 
@@ -4072,6 +4535,7 @@ def main() -> int:
     deep_phase()
     mat_entries, mat_shard = mat_phases(card, cli_main, MAT_GROWN)
     est_entries = est_phases(card, cli_main)
+    ext_entries = ext_phases(card, cli_main)
     est_mat_entries, est_shard = mat_phases(card, cli_main, MAT_EST)
     geo_entries, geo_shard = geom_est_phases(card, cli_main)
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
@@ -4125,6 +4589,7 @@ def main() -> int:
           for name, source, replaces, launch, r in shard),
         *mat_entries,
         *est_entries,
+        *ext_entries,
         *est_mat_entries,
         *geo_entries,
     ]}))

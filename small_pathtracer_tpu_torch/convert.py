@@ -13,7 +13,7 @@ import torch
 from .camera.pinhole import CameraParams
 from .device import resolve
 from .scene.types import (
-    GLOS, LightSampler, Rects, Scene, Spheres, num_spheres,
+    LightSampler, Quads, Rects, Scene, Spheres, num_spheres,
 )
 
 
@@ -28,12 +28,8 @@ def _count(block, name) -> int:
 
 def scene_from_jax(scene, device="cuda") -> Scene:
     """The port's Scene from a JAX ``Scene``; raises for anything outside
-    this slice (quads, a sphere light, a light list, GLOS materials)."""
+    this slice (a sphere light, a light list)."""
     device = resolve(device)
-    if _count(scene.quads, "corner"):
-        raise NotImplementedError(
-            "quads are not ported yet (ROADMAP.md queue 1, item 11)"
-        )
     if getattr(scene, "lights", None) is not None:
         raise NotImplementedError(
             "light lists are not ported yet (ROADMAP.md queue 1, item 12)"
@@ -43,13 +39,8 @@ def scene_from_jax(scene, device="cuda") -> Scene:
         raise NotImplementedError(
             "sphere lights are not ported yet (ROADMAP.md queue 1, item 12)"
         )
-    if any(np.any(np.asarray(b.refl) == GLOS)
-           for b in (scene.rects, scene.spheres)):
-        raise NotImplementedError(
-            "GLOS materials are not ported yet (ROADMAP.md queue 1, item 11)"
-        )
     f32, i64 = torch.float32, torch.int64
-    r, s = scene.rects, scene.spheres
+    r, q, s = scene.rects, scene.quads, scene.spheres
     rects = Rects(
         axis=_leaf(r, "axis", i64, device),
         k=_leaf(r, "k", f32, device),
@@ -59,6 +50,12 @@ def scene_from_jax(scene, device="cuda") -> Scene:
         emission=_leaf(r, "emission", f32, device),
         refl=_leaf(r, "refl", i64, device),
         gloss=_leaf(r, "gloss", f32, device),
+    )
+    quads = Quads(
+        *(_leaf(q, f, f32, device).reshape(-1, 3)
+          for f in ("corner", "edge_u", "edge_v", "albedo", "emission")),
+        refl=_leaf(q, "refl", i64, device),
+        gloss=_leaf(q, "gloss", f32, device),
     )
     spheres = Spheres(
         center=_leaf(s, "center", f32, device).reshape(-1, 3),
@@ -74,7 +71,7 @@ def scene_from_jax(scene, device="cuda") -> Scene:
         edge_v=_leaf(light, "edge_v", f32, device),
         light_obj_id=int(np.asarray(light.light_obj_id)),
     )
-    return Scene(rects=rects, spheres=spheres, light=ls)
+    return Scene(rects=rects, quads=quads, spheres=spheres, light=ls)
 
 
 def camera_from_jax(cam, device="cuda") -> CameraParams:

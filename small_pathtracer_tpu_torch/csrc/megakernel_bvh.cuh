@@ -82,7 +82,8 @@ struct ScanCounts {
 
 // The sphere table of the table kernels: the rows [cx, cy, cz, r] in id
 // order (normals, gradients), the material code of every object (rects,
-// then spheres), and the tree: `rows` (n rows of two float4: [cx, cy, cz,
+// quads, then spheres) and, in the kernels that take GLOS objects, every
+// object's Phong exponent, and the tree: `rows` (n rows of two float4: [cx, cy, cz,
 // r] and [r2_up, r_up, index bits, 0]) and `nodes` (four float4 a node),
 // one device buffer; `root` its root link.
 struct SphereTab {
@@ -93,12 +94,15 @@ struct SphereTab {
   const float4* nodes;
   int root;
   ScanCounts* cnt;
+  const float* gloss;     // (K,) Phong exponents: the GLOS kernels only
+  const QuadTab* quads;   // the quads: the kernels that take them only
 };
 
-__device__ __forceinline__ SphereTab sphere_tab(const float4* sph, int n,
-                                                const int* refl,
-                                                const float4* bvh, int root) {
-  return SphereTab{sph, n, refl, bvh, bvh + 2 * n, root, nullptr};
+__device__ __forceinline__ SphereTab sphere_tab(
+    const float4* sph, int n, const int* refl, const float4* bvh, int root,
+    const float* gloss = nullptr, const QuadTab* quads = nullptr) {
+  return SphereTab{sph, n, refl, bvh, bvh + 2 * n, root, nullptr, gloss,
+                   quads};
 }
 
 // The table for scan kScan: a linear table's rows (its root leaf, the
@@ -317,30 +321,49 @@ __device__ __forceinline__ bool sphere_scan(const SphereTab& tab, int n_rects,
   }
 }
 
-// Nearest hit over the rects (nearest), then the sphere rows: the smallest
-// (t, id), the in-order strict-< scan's winner.
-template <int kScan>
+// The first sphere's id: after the rects, and the quads where the kernel
+// takes them.
+template <bool kQuads>
+__device__ __forceinline__ int sphere_base(const Params& p,
+                                           const SphereTab& tab) {
+  if constexpr (kQuads) {
+    return p.n_rects + tab.quads->n;
+  } else {
+    return p.n_rects;
+  }
+}
+
+// Nearest hit over the rects (nearest), the quads (kQuads), then the
+// sphere rows: the smallest (t, id), the in-order strict-< scan's winner.
+template <int kScan, bool kQuads = false>
 __device__ __forceinline__ float nearest_tab(const Params& p,
                                              const SphereTab& tab, V3 o,
                                              V3 d, int* id) {
   const RayPrep rp = prep(d);
   float t_best = nearest(p, o, d, rp, id);
-  sphere_scan<false, kScan>(tab, p.n_rects, o, d, rp, &t_best, id);
+  if constexpr (kQuads) nearest_quads(p, *tab.quads, o, d, &t_best, id);
+  sphere_scan<false, kScan>(tab, sphere_base<kQuads>(p, tab), o, d, rp,
+                            &t_best, id);
   return t_best;
 }
 
-// probe_light with the spheres: they come after the light in the scan, so
-// one blocks it iff its t < t_light. Stops at the first occluder.
-template <int kScan>
+// probe_light (probe_light_quads with kQuads) with the spheres: they come
+// after the light in the scan, so one blocks it iff its t < t_light. Stops
+// at the first occluder.
+template <int kScan, bool kQuads = false>
 __device__ __forceinline__ bool probe_light_tab(const Params& p,
                                                 const SphereTab& tab, V3 o,
                                                 V3 d, float* t_light) {
   const RayPrep rp = prep(d);
-  if (!probe_light(p, o, d, rp, t_light)) return false;
+  if constexpr (kQuads) {
+    if (!probe_light_quads(p, *tab.quads, o, d, rp, t_light)) return false;
+  } else {
+    if (!probe_light(p, o, d, rp, t_light)) return false;
+  }
   float t_lim = __int_as_float(__float_as_int(*t_light) - 1);
   int unused = 0;
-  return !sphere_scan<true, kScan>(tab, p.n_rects, o, d, rp, &t_lim,
-                                   &unused);
+  return !sphere_scan<true, kScan>(tab, sphere_base<kQuads>(p, tab), o, d,
+                                   rp, &t_lim, &unused);
 }
 
 // ---- Host: the tree ----

@@ -1,9 +1,11 @@
 // Device functions shared by the forward megakernels (megakernel.cu) and
 // the adjoints (megakernel_vjp.cuh, megakernel_geom.cu): the scene
-// parameters, the murmur3 counter RNG, the polynomial sincos, the rect and
-// sphere tests, the rect scans (nearest, probe_light), the primary-ray
-// spawn, the lanes' pixel and sample ranges, and the adjoints' fixed-order
-// `reduce_partials`. The sphere table's scans are in megakernel_bvh.cuh.
+// parameters, the murmur3 counter RNG, the polynomial sincos, the rect,
+// quad and sphere tests, the rect scans (nearest, probe_light), the quad
+// scans of the kernels that take quads (nearest_quads, probe_light_quads),
+// the primary-ray spawn, the lanes' pixel and sample ranges, and the
+// adjoints' fixed-order `reduce_partials`. The sphere table's scans are in
+// megakernel_bvh.cuh.
 //
 // The rect scans run over the rects grouped by axis (`AxisRect`, laid out
 // by fill_params): one loop a group, each an
@@ -22,11 +24,13 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxRects = 32;
+constexpr int kMaxQuads = 8;
 constexpr int kMaxSpheres = 4096;  // the sphere table's rows at most
 constexpr int kBlock = 128;
 constexpr float kMissT = 1e20f;
@@ -45,6 +49,28 @@ struct Rect {
   float k;
   float alb[3];
   float emi[3];
+};
+
+// A quad (a parallelogram, ids after the rects): its corner, edges, the
+// unnormalized normal n = edge_u x edge_v, the Gram entries uu, vv, uv and
+// 1 / (uu vv - uv^2), and the unit normal, each computed in float64 and
+// rounded once (geometry/intersect.quad_consts, QUAD_COLS floats).
+struct Quad {
+  float c[3], eu[3], ev[3], nq[3];
+  float uu, vv, uv, inv_gdet;
+  float ng[3];
+};
+constexpr int kQuadCols = 19;  // geometry/intersect.QUAD_COLS
+static_assert(sizeof(Quad) == kQuadCols * sizeof(float), "a row a quad");
+
+// The quads of the kernels that take them (megakernel_ext*.cu), a kernel
+// parameter of their own beside Params (fill_quads), so the other kernels'
+// parameters stay as they were: ids n_rects .. n_rects + n - 1; light, the
+// light's quad index (-1: the light is a rect).
+struct QuadTab {
+  Quad q[kMaxQuads];
+  int n;
+  int light;
 };
 
 // A rect in the scan order: its plane and bounds on its group's axis, and
@@ -341,6 +367,75 @@ __device__ __forceinline__ bool probe_light(const Params& p, V3 o, V3 d,
   return probe_light(p, o, d, prep(d), t_light);
 }
 
+// geometry/intersect.intersect_quads for one quad: its distance *t_out
+// (the plane's), and whether the ray hits it.
+__device__ __forceinline__ bool quad_hit(const Quad& q, V3 o, V3 d,
+                                         float* t_out) {
+  const float denom = d.x * q.nq[0] + d.y * q.nq[1] + d.z * q.nq[2];
+  const bool ok = denom != 0.0f;
+  const float num = (q.c[0] - o.x) * q.nq[0] + (q.c[1] - o.y) * q.nq[1] +
+                    (q.c[2] - o.z) * q.nq[2];
+  const float t = num / (ok ? denom : 1.0f);
+  const float px = (o.x + t * d.x) - q.c[0];
+  const float py = (o.y + t * d.y) - q.c[1];
+  const float pz = (o.z + t * d.z) - q.c[2];
+  const float pu = px * q.eu[0] + py * q.eu[1] + pz * q.eu[2];
+  const float pv = px * q.ev[0] + py * q.ev[1] + pz * q.ev[2];
+  const float a = (pu * q.vv - pv * q.uv) * q.inv_gdet;
+  const float b = (pv * q.uu - pu * q.uv) * q.inv_gdet;
+  *t_out = t;
+  return ok & (a >= 0.0f) & (a <= 1.0f) & (b >= 0.0f) & (b <= 1.0f) &
+         (t > kSelfHitEps);
+}
+
+// The quads merged into (*t_best, *best) after the rects: their ids are
+// larger, so a quad wins only at a strictly smaller t (the in-order scan).
+__device__ __forceinline__ void nearest_quads(const Params& p,
+                                              const QuadTab& qt, V3 o, V3 d,
+                                              float* t_best, int* best) {
+  for (int q = 0; q < qt.n; ++q) {
+    float t;
+    if (quad_hit(qt.q[q], o, d, &t) & (t < *t_best)) {
+      *t_best = t;
+      *best = p.n_rects + q;
+    }
+  }
+}
+
+// probe_light over the rects and the quads, the light a rect or a quad:
+// the light's t_l, then the occluders, each rect or quad with a smaller id
+// at t <= t_l (t < t_up), each with a larger id at t < t_l. With a quad
+// light every rect precedes it (fill_params leaves its groups unsplit).
+__device__ __forceinline__ bool probe_light_quads(const Params& p,
+                                                  const QuadTab& qt, V3 o,
+                                                  V3 d, const RayPrep& rp,
+                                                  float* t_light) {
+  float t_l;
+  if (qt.light >= 0) {
+    if (!quad_hit(qt.q[qt.light], o, d, &t_l)) t_l = kMissT;
+  } else {
+    t_l = p.light_axis == 0   ? light_t<0>(p, o, d, rp)
+          : p.light_axis == 1 ? light_t<1>(p, o, d, rp)
+                              : light_t<2>(p, o, d, rp);
+  }
+  *t_light = t_l;
+  if (!(t_l < kMissT)) return false;
+  const float t_up = __int_as_float(__float_as_int(t_l) + 1);
+  if (blocked_axis<0>(p, o, d, rp, t_l, t_up) ||
+      blocked_axis<1>(p, o, d, rp, t_l, t_up) ||
+      blocked_axis<2>(p, o, d, rp, t_l, t_up)) {
+    return false;
+  }
+  for (int q = 0; q < qt.n; ++q) {
+    if (q == qt.light) continue;
+    float t;
+    if (quad_hit(qt.q[q], o, d, &t) & (t < (q < qt.light ? t_up : t_l))) {
+      return false;
+    }
+  }
+  return true;
+}
+
 // Hit distance of sphere s = [cx, cy, cz, r], or kMissT
 // (geometry/intersect.intersect_spheres: the recentered quadratic, the near
 // root when it clears eps, else the far one), in two parts: `sphere_pre`
@@ -441,17 +536,19 @@ __device__ __forceinline__ LaneRange lane_range_budgets(
 // light_f ([corner 3, edge_u 3, edge_v 3, unit normal 3, area]) and cam_f
 // ([origin 3, lower_left 3, horizontal 3, vertical 3]), all host memory.
 // The lanes cover the shard's pixels [pix0, pix0 + n_pix_loc) (unsharded:
-// 0 and width * height), g lanes a pixel. Materials stay zero. Returns
-// false on an argument the kernels do not take.
+// 0 and width * height), g lanes a pixel. Materials stay zero. n_quads:
+// the quads the caller fills (fill_quads), so the light may be one of
+// them. Returns false on an argument the kernels do not take.
 inline bool fill_params(Params* p, const float* rect_geom,
                         const int* rect_axis, int n_rects,
                         const float* light_f, int light_id,
                         const float* cam_f, unsigned seed, int width,
                         int height, int spp, int g, int per, unsigned s0,
                         int pix0, int n_pix_loc, int rr_start_depth,
-                        int max_bounces) {
-  if (n_rects < 1 || n_rects > kMaxRects || light_id < 0 ||
-      light_id >= n_rects || width < 1 || height < 1 || g < 1 || per < 0 ||
+                        int max_bounces, int n_quads = 0) {
+  if (n_rects < 1 || n_rects > kMaxRects || n_quads < 0 ||
+      n_quads > kMaxQuads || light_id < 0 || light_id >= n_rects + n_quads ||
+      width < 1 || height < 1 || g < 1 || per < 0 ||
       pix0 < 0 || n_pix_loc < 1 ||
       static_cast<long long>(pix0) + n_pix_loc >
           static_cast<long long>(width) * height) {
@@ -467,7 +564,7 @@ inline bool fill_params(Params* p, const float* rect_geom,
   }
   p->n_rects = n_rects;
   p->light_id = light_id;
-  p->light_axis = p->rects[light_id].axis;
+  p->light_axis = light_id < n_rects ? p->rects[light_id].axis : -1;
   // The scan order: the ids grouped by axis, each group in id order and
   // split at its first id >= the light's (the light's own row in its
   // group).
@@ -517,6 +614,19 @@ inline bool fill_params(Params* p, const float* rect_geom,
   p->rr_start_depth = rr_start_depth;
   p->max_bounces = max_bounces;
   return true;
+}
+
+// Host: the quads of the kernels that take them from quad_f (n_quads rows
+// of QUAD_COLS floats, host memory), once fill_params has checked n_quads
+// and the light's id against them.
+inline QuadTab fill_quads(const Params& p, const float* quad_f, int n_quads) {
+  QuadTab qt{};
+  for (int q = 0; q < n_quads; ++q) {
+    std::memcpy(&qt.q[q], quad_f + kQuadCols * q, sizeof(Quad));
+  }
+  qt.n = n_quads;
+  qt.light = p.light_id < p.n_rects ? -1 : p.light_id - p.n_rects;
+  return qt;
 }
 
 inline int grid_of(const Params& p) { return (p.n_lanes + kBlock - 1) / kBlock; }

@@ -7,7 +7,8 @@
 // from its tape instead of tracing them again); `tab_body`, row 2's kernel
 // body (and its counting instance), and `mat_body`, row 8's on rect
 // scenes; `mis_pickup`, the weight of a BSDF-sampled pickup of the light
-// under mis; the SPEC/REFR scatter; path guiding's device functions (the voxel
+// under mis; the SPEC/REFR scatter; the GLOS lobe; path guiding's device
+// functions (the voxel
 // lookup, the octahedral decode, the real power, the defensive mixture);
 // and the host helpers the entry points share.
 //
@@ -20,7 +21,8 @@
 
 namespace {
 
-constexpr int kDiff = 0, kSpec = 1;
+constexpr int kDiff = 0, kSpec = 1, kGlos = 3;
+constexpr float kInv2Pi = 0.159154943091895335768883763372514362f;
 // integrator/wavefront._refr_scatter: air 1, glass 1.5, Schlick's R0.
 constexpr float kNntInto = 1.0f / 1.5f, kNntOut = 1.5f;
 constexpr float kR0 = 0.04f, kOneMinusR0 = 0.96f;
@@ -38,8 +40,20 @@ constexpr float kR0 = 0.04f, kOneMinusR0 = 0.96f;
 constexpr int kNee = 0, kCosine = 1, kTextbook = 2, kUniform = 3,
               kUniformCorrected = 4, kMixture = 5, kMis = 6;
 constexpr int kGlibc = 8;
+// Scene flags an estimator code of the _ext kernels (megakernel_ext*.cu)
+// carries beside it: kWithQuads, the quads scanned after the rects (with
+// the sphere table's kernels only), and kWithGlos, the GLOS lobe (cosine,
+// nee_textbook and mis only). Without them every branch of theirs
+// compiles away, so the other instances are as before.
+constexpr int kWithQuads = 16, kWithGlos = 32;
 
 __host__ __device__ constexpr int est_base(int est) { return est & 7; }
+__host__ __device__ constexpr bool with_quads(int est) {
+  return (est & kWithQuads) != 0;
+}
+__host__ __device__ constexpr bool with_glos(int est) {
+  return (est & kWithGlos) != 0;
+}
 
 // NEE as continuation (nee, mixture): a successful probe becomes the
 // bounce, and the NEE fold applies.
@@ -66,6 +80,23 @@ __host__ __device__ constexpr bool uniform_sample(int est) {
   X(kMis)                \
   X(kNee | kGlibc)       \
   X(kMixture | kGlibc)
+
+// The estimator codes of the _ext kernels (megakernel_ext*.cu), as X(code),
+// and each code's instance: the quads, and the GLOS lobe where the
+// estimator has glossy semantics (integrator/wavefront.GLOS_ESTIMATORS).
+#define SPT_EXT_CODES(X) \
+  X(kNee)                \
+  X(kCosine)             \
+  X(kTextbook)           \
+  SPT_EST_CODES(X)
+
+__host__ __device__ constexpr bool glos_estimator(int est) {
+  return est == kCosine || est == kTextbook || est == kMis;
+}
+
+__host__ __device__ constexpr int ext_code(int est) {
+  return est | kWithQuads | (glos_estimator(est) ? kWithGlos : 0);
+}
 
 // float32(1 / RAND_MAX) for glibc's RAND_MAX = 2^31 - 1: it rounds to 2^-31.
 constexpr float kInvRandMax = 4.656612873077393e-10f;
@@ -183,6 +214,11 @@ __device__ __forceinline__ float pow_pos(float x, float p) {
   return ok ? q * __int_as_float((n_i + 127) << 23) : 0.0f;
 }
 
+// integrator/sampling._pow_safe: max(x, 0)^n.
+__device__ __forceinline__ float pow_safe(float x, float n) {
+  return x > 0.0f ? pow_pos(x, n) : 0.0f;
+}
+
 // The mixture's constants (ops/megakernel._guide_consts): the lobe
 // probability, its power k, (k + 1) / (2 pi), 1 / (k + 1), and k as an
 // integer in [1, 64] (else 0).
@@ -275,6 +311,7 @@ struct Bounce {
   int axis;      // the winner's rect axis, -1 for a sphere
   int refl;
   bool diffuse;
+  bool glos;     // a GLOS hit (kWithGlos): it samples the light too
   V3 x, ng, n;   // hit point, geometric normal, the normal against d
   V3 alb, emi;
   bool survive;    // Russian roulette
@@ -310,17 +347,19 @@ struct Queries {
 // the estimator kEst (and the guide on a diffuse hit; pix is the lane's
 // pixel, for row 5's lobes) for bounce `depth` of sample pid
 // (`bounce_scatter`). `bounce` runs both. With kTaped, the nearest hit and
-// the probe's result come from *taped instead of being traced.
-template <class Mats, int kTab, bool kTaped = false>
+// the probe's result come from *taped instead of being traced. kQuads: the
+// quads are scanned after the rects (the table kernels only).
+template <class Mats, int kTab, bool kTaped = false, bool kQuads = false>
 __device__ __forceinline__ void bounce_hit(const Params& p, const SphereTab& tab,
                                            const Mats& mats, V3 o, V3 d,
                                            Bounce* b,
                                            const Queries* taped = nullptr) {
+  static_assert(!kQuads || kTab != kTabNone, "quads need a table kernel");
   if constexpr (kTaped) {
     b->id = taped->id;
     b->t = taped->t;
   } else if constexpr (kTab) {
-    b->t = nearest_tab<kTab>(p, tab, o, d, &b->id);
+    b->t = nearest_tab<kTab, kQuads>(p, tab, o, d, &b->id);
   } else {
     b->t = nearest(p, o, d, &b->id);
   }
@@ -356,7 +395,7 @@ __device__ __forceinline__ V3 nee_probe(const Params& p, const SphereTab& tab,
     b.success = taped->success;
     t_l = taped->t_safe;
   } else if constexpr (kTab) {
-    b.success = probe_light_tab<kTab>(p, tab, b.x, d_l, &t_l);
+    b.success = probe_light_tab<kTab, with_quads(kEst)>(p, tab, b.x, d_l, &t_l);
   } else {
     b.success = probe_light(p, b.x, d_l, &t_l);
   }
@@ -400,14 +439,34 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   if constexpr (kTab) {
     b.refl = tab.refl[b.id];
     if (axis < 0) {
-      const float4 c = sphere_row<kTab>(tab, b.id - p.n_rects);
-      ng = norm(sub(b.x, v3(c.x, c.y, c.z)));
+      int row = b.id - p.n_rects;
+      bool quad = false;
+      if constexpr (with_quads(kEst)) {
+        // A quad's unit normal, or a sphere's row after the quads.
+        quad = row < tab.quads->n;
+        if (quad) {
+          ng = ld3(tab.quads->q[row].ng);
+        } else {
+          row -= tab.quads->n;
+        }
+      }
+      if (!quad) {
+        const float4 c = sphere_row<kTab>(tab, row);
+        ng = norm(sub(b.x, v3(c.x, c.y, c.z)));
+      }
     }
   }
   b.ng = ng;
   const V3 n = dot(ng, d) < 0.0f ? ng : neg(ng);
   b.n = n;
   b.diffuse = b.refl == kDiff;
+  b.glos = false;
+  float gl = 0.0f;  // the GLOS hit's Phong exponent
+  if constexpr (with_glos(kEst)) {
+    static_assert(kTab != kTabNone, "GLOS needs a table kernel");
+    b.glos = b.refl == kGlos;
+    if (b.glos) gl = tab.gloss[b.id];
+  }
 
   const uint32_t ctr = static_cast<uint32_t>(depth) * kDrawsPerBounce;
   const float u_rr = uniform(p.seed, pid, ctr + kRR);
@@ -426,7 +485,9 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
   b.ok_g = true;
   b.alpha = b.beta = b.wz = b.coin = 0.0f;
   b.lp = v3(0.0f, 0.0f, 0.0f);
-  if (b.diffuse) {
+  // A diffuse or GLOS hit: the hemisphere sample, the NEE probe of the
+  // estimator, and (GLOS) the lobe, which then replaces the continuation.
+  if (b.diffuse || b.glos) {
     // Cosine-weighted (or the uniform estimators' uniform) hemisphere
     // sample around n.
     const float u1 = uniform(p.seed, pid, ctr + kScatterU);
@@ -449,9 +510,29 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
     const V3 fv = cross(n, fu);
     const V3 cos_dir =
         norm(add(add(mul(fu, b.alpha), mul(fv, b.beta)), mul(n, b.wz)));
+    // GLOS (integrator/wavefront._glos_scatter): the modified-Phong lobe
+    // around gm, the mirror of d about n, from the same u1 and u2: cos =
+    // u2^(1/(n+1)) (pow_pos), in gm's frame; weight (n+2)/(n+1) max(cos,
+    // 0) against n.
+    V3 gm = v3(0.0f, 0.0f, 0.0f), g_dir = v3(0.0f, 0.0f, 0.0f);
+    float g_w = 0.0f;
+    if constexpr (with_glos(kEst)) {
+      if (b.glos) {
+        gm = reflect(d, n);
+        const V3 ga = fabsf(gm.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f)
+                                         : v3(1.0f, 0.0f, 0.0f);
+        const V3 gu = norm(cross(ga, gm));
+        const V3 gv = cross(gm, gu);
+        const float wz = pow_pos(u2, 1.0f / (gl + 1.0f));
+        const float sin_t = sqrtf(fmaxf(1.0f - wz * wz, 0.0f));
+        g_dir = norm(add(add(mul(gu, cr1 * sin_t), mul(gv, sr1 * sin_t)),
+                         mul(gm, wz)));
+        g_w = ((gl + 2.0f) / (gl + 1.0f)) * fmaxf(dot(g_dir, n), 0.0f);
+      }
+    }
 
     V3 d_l = v3(0.0f, 0.0f, 0.0f);  // mis: the light sample's direction
-    if constexpr (kEst == kCosine || est_base(kEst) == kUniform) {
+    if constexpr (est_base(kEst) == kCosine || est_base(kEst) == kUniform) {
       b.new_dir = cos_dir;
       b.w = 1.0f;
     } else if constexpr (est_base(kEst) == kUniformCorrected) {
@@ -482,6 +563,25 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
         // direct term).
         b.new_dir = cos_dir;
         b.w = 1.0f;
+        if constexpr (with_glos(kEst)) {
+          if (b.glos) {
+            // The direct term's weight: the light's |A cos_l| / t^2 times
+            // the lobe's BRDF over albedo and max(cos, 0).
+            const float w_geo =
+                fabsf(p.area * dot(d_l, lf.ln)) / (b.t_safe * b.t_safe);
+            b.w_nee = (w_geo * ((gl + 2.0f) * kInv2Pi *
+                                pow_safe(dot(d_l, gm), gl))) *
+                      fmaxf(dot(d_l, n), 0.0f);
+          }
+        }
+      }
+    }
+    if constexpr (with_glos(kEst)) {
+      if (b.glos) {
+        // A lobe sample below the surface is absorbed.
+        b.new_dir = g_dir;
+        b.w = g_w;
+        b.survive = b.survive && !(g_w <= 0.0f);
       }
     }
     bool guided = false;  // mis: the vertex took the mixture
@@ -518,11 +618,23 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
           p_bsdf = guide.g.beta * p_lobe + (1.0f - guide.g.beta) * p_bsdf;
         }
       }
+      if constexpr (with_glos(kEst)) {
+        // GLOS: the lobe's pdf (n+1)/(2 pi) max(d . gm, 0)^n.
+        if (b.glos) {
+          p_bsdf = (gl + 1.0f) * kInv2Pi * pow_safe(dot(d_l, gm), gl);
+        }
+      }
       const float cos_l = fabsf(dot(d_l, lf.ln));
       const float p_light =
           (b.t_safe * b.t_safe) / (p.area * fmaxf(cos_l, 1e-6f));
       b.w_nee = b.w_nee * (p_light / (p_light + p_bsdf));
       b.pdf_cont = guided ? pdf_mix : fmaxf(dot(b.new_dir, n), 0.0f) * kInvPi;
+      if constexpr (with_glos(kEst)) {
+        if (b.glos) {
+          b.pdf_cont =
+              (gl + 1.0f) * kInv2Pi * pow_safe(dot(b.new_dir, gm), gl);
+        }
+      }
     }
   } else if (b.refl == kSpec) {
     b.new_dir = reflect(d, ng);
@@ -585,15 +697,15 @@ __device__ __forceinline__ void render_lane(const Params& p,
   while (alive) {
     depth += 1;
     Bounce b;
-    bounce_hit<Mats, kTab>(p, tab, mats, o, d, &b);
+    bounce_hit<Mats, kTab, false, with_quads(kEst)>(p, tab, mats, o, d, &b);
     // Emission pickup: throughput * emission (nee_textbook adds it with
     // the direct term below, or drops it when the light was just probed;
     // mis adds it with the direct term, a pickup of the light weighted by
     // the balance heuristic against the light sampler's density there).
     V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
-    if constexpr (kEst == kTextbook) {
+    if constexpr (est_base(kEst) == kTextbook) {
       if (suppress && b.hit && b.id == p.light_id) pick = v3(0.0f, 0.0f, 0.0f);
-    } else if constexpr (kEst == kMis) {
+    } else if constexpr (est_base(kEst) == kMis) {
       float w_b;
       if (mis_pickup(p, lf, d, b, mis_pdf, &w_b)) pick = mul(pick, w_b);
     } else {
@@ -620,7 +732,7 @@ __device__ __forceinline__ void render_lane(const Params& p,
     } else if constexpr (est_base(kEst) == kMixture) {
       n_probe += (alive_next && b.diffuse && b.take) ? 1u : 0u;
     } else if constexpr (direct_term(kEst)) {
-      n_probe += b.diffuse ? 1u : 0u;  // before RR
+      n_probe += (b.diffuse || b.glos) ? 1u : 0u;  // before RR
     }
     alive_next = alive_next && depth < p.max_bounces;
     if constexpr (Guide::kKind != NoGuide::kKind) {
@@ -638,12 +750,12 @@ __device__ __forceinline__ void render_lane(const Params& p,
         alive_next = false;
       }
     }
-    if constexpr (kEst == kTextbook) {
+    if constexpr (est_base(kEst) == kTextbook) {
       L = add(L, add(pick, direct));
-      suppress = alive_next && b.diffuse;
-    } else if constexpr (kEst == kMis) {
+      suppress = alive_next && (b.diffuse || b.glos);
+    } else if constexpr (est_base(kEst) == kMis) {
       L = add(L, add(pick, direct));
-      mis_pdf = b.diffuse ? b.pdf_cont : 0.0f;
+      mis_pdf = (b.diffuse || b.glos) ? b.pdf_cont : 0.0f;
     }
 
     if (alive_next) {
@@ -658,7 +770,7 @@ __device__ __forceinline__ void render_lane(const Params& p,
         d = spawn_dir(p, lr.px, lr.py, pid);
         T = v3(1.0f, 1.0f, 1.0f);
         depth = 0;
-        if constexpr (kEst == kMis) mis_pdf = 0.0f;
+        if constexpr (est_base(kEst) == kMis) mis_pdf = 0.0f;
       } else {
         alive = false;
       }
@@ -695,9 +807,10 @@ __device__ __forceinline__ void render_lane(const Params& p,
 }
 
 // Row 2 (megakernel.cu) with estimator kEst and scan kScan (its counting
-// instance: kScanCount, traces of 5), and the image-only launch of the
-// geometry adjoint (megakernel_geom.cu): the sphere rows, the tree (bvh,
-// root) and the material tables in device memory.
+// instance: kScanCount, traces of 5), its _ext instances (megakernel_ext.cu,
+// with the (K,) Phong exponents gloss and the quads), and the image-only
+// launch of the geometry adjoint (megakernel_geom.cu): the sphere rows,
+// the tree (bvh, root) and the material tables in device memory.
 template <int kEst, int kScan>
 __device__ __forceinline__ void tab_body(const Params& p,
                                          const float4* __restrict__ sph,
@@ -708,11 +821,14 @@ __device__ __forceinline__ void tab_body(const Params& p,
                                          const float* __restrict__ emi,
                                          const int* __restrict__ refl,
                                          float* __restrict__ out_l,
-                                         unsigned long long* __restrict__ traces) {
+                                         unsigned long long* __restrict__ traces,
+                                         const float* __restrict__ gloss = nullptr,
+                                         const QuadTab* quads = nullptr) {
   const TableMaterials mats{alb, emi};
   const V3 a = mats.albedo(p.light_id);
   render_lane<TableMaterials, kScan, kEst>(
-      p, lane_range(p), mats, sphere_tab(sph, n_sph, refl, bvh, root),
+      p, lane_range(p), mats,
+      sphere_tab(sph, n_sph, refl, bvh, root, gloss, quads),
       nee_cont(kEst) && fmaxf(a.x, fmaxf(a.y, a.z)) <= 0.0f, out_l, traces);
 }
 

@@ -64,6 +64,52 @@ def sample_power_cosine(mu: torch.Tensor, u1: torch.Tensor,
     return vm.norm(d)
 
 
+# 1 / (2 pi), the Phong lobe's normalization (a float32 constant on both
+# sides: csrc/megakernel_lane.cuh kInv2Pi).
+INV_2PI = 1.0 / (2.0 * math.pi)
+
+
+def sample_phong(mirror: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
+                 n_exp: torch.Tensor) -> torch.Tensor:
+    """The modified-Phong lobe around the unit ``mirror`` (the GLOS
+    extension): cos(alpha) = u2^(1/(n+1)), phi = 2 pi u1 in mirror's
+    frame, the exact sampler of the pdf (n+1)/(2 pi) cos^n(alpha). n_exp
+    (N,) per lane; 1/(n+1) is a float32 divide and the power ``vm.pow_pos``,
+    as the kernels compute them. A sample may fall below the surface
+    (``phong_weight`` is 0 there)."""
+    return sample_power_cosine(mirror, u1, u2, 1.0 / (n_exp + 1.0))
+
+
+def _pow_safe(base: torch.Tensor, n_exp: torch.Tensor) -> torch.Tensor:
+    """max(base, 0)^n through ``vm.pow_pos`` (0 where base <= 0)."""
+    pos = base > 0.0
+    return torch.where(pos, vm.pow_pos(torch.where(pos, base, 1.0), n_exp),
+                       0.0)
+
+
+def phong_pdf(d: torch.Tensor, mirror: torch.Tensor,
+              n_exp: torch.Tensor) -> torch.Tensor:
+    """Solid-angle density of sample_phong at unit d:
+    (n+1)/(2 pi) max(d . mirror, 0)^n."""
+    return (n_exp + 1.0) * INV_2PI * _pow_safe(vm.dot(d, mirror), n_exp)
+
+
+def phong_brdf_over_albedo(d: torch.Tensor, mirror: torch.Tensor,
+                           n_exp: torch.Tensor) -> torch.Tensor:
+    """The modified-Phong BRDF over the albedo at unit d:
+    (n+2)/(2 pi) max(d . mirror, 0)^n."""
+    return (n_exp + 2.0) * INV_2PI * _pow_safe(vm.dot(d, mirror), n_exp)
+
+
+def phong_weight(d: torch.Tensor, nl: torch.Tensor,
+                 n_exp: torch.Tensor) -> torch.Tensor:
+    """Path weight f cos / (pdf albedo) of a sample_phong direction d:
+    (n+2)/(n+1) max(d . nl, 0), the cos^n factors cancelled; 0 below the
+    surface (the lane is absorbed)."""
+    return ((n_exp + 2.0) / (n_exp + 1.0)) * torch.clamp(vm.dot(d, nl),
+                                                         min=0.0)
+
+
 def light_area_normal(light: LightSampler):
     """Area and unit normal of the NEE parallelogram (1296 and (0, -1, 0)
     for the Cornell light)."""
@@ -121,11 +167,17 @@ def sample_light_point_glibc(light: LightSampler, u1: torch.Tensor,
     )
 
 
+def light_pdf_inv(light: LightSampler, d_hat: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+    """The inverse solid-angle density of the light sample toward unit
+    d_hat at distance t: |area * (d_hat . n_light)| / t^2."""
+    area, n_light = light_area_normal(light)
+    return torch.abs(area * vm.dot(d_hat, n_light)) / (t * t)
+
+
 def nee_weight(light: LightSampler, d_hat: torch.Tensor, nl: torch.Tensor,
                t: torch.Tensor) -> torch.Tensor:
     """The reference's NEE path weight PDF_inverse * BRDF:
     |area * (d_hat . n_light)| / t^2 * |d_hat . nl| / pi."""
-    area, n_light = light_area_normal(light)
-    pdf_inv = torch.abs(area * vm.dot(d_hat, n_light)) / (t * t)
     brdf = torch.abs(vm.dot(d_hat, nl)) * (1.0 / math.pi)
-    return pdf_inv * brdf
+    return light_pdf_inv(light, d_hat, t) * brdf

@@ -41,6 +41,15 @@ rect light, and the plain version of the CUDA kernels
   (air 1, glass 1.5) reflects or refracts by a coin with P = .25 + .5 Re
   (Schlick), total internal reflection taking the mirror ray. Neither
   fires an NEE probe or is guided.
+- GLOS (the modified-Phong extension, ``cosine``, ``nee_textbook`` and
+  ``mis`` only: ``check_glos_estimator``) continues along the Phong lobe
+  of exponent n around the mirror of d about the oriented normal, drawn
+  from the cosine sample's uniforms, with weight (n+2)/(n+1) max(cos, 0);
+  a sample below the surface ends the path. It is a light-sampling vertex
+  like a diffuse one: its direct term swaps the diffuse |cos|/pi for the
+  lobe's BRDF (n+2)/(2 pi) max(d_l . mirror, 0)^n times max(cos, 0), and
+  under ``mis`` both balance weights take the lobe's pdf (n+1)/(2 pi)
+  max(d . mirror, 0)^n as p_bsdf. Not guided (``check_guided`` refuses).
 - Contribution = sum over bounces of throughput * emission.
 - Escaped rays shade the stale object 0 at x = (0, 0, 0) and keep going.
 - Lane regeneration: lane i is bound to one pixel and walks its samples
@@ -65,7 +74,9 @@ from ..camera.pinhole import CameraParams, primary_rays_cfg
 from ..config import RenderConfig
 from ..core import film, rng, vecmath as vm
 from ..geometry.intersect import shade_info, trace
-from ..scene.types import DIFF, GLOS, REFR, SPEC, Scene, object_arrays
+from ..scene.types import (
+    DIFF, GLOS, REFR, SPEC, Scene, has_glos, object_arrays,
+)
 from . import sampling
 
 
@@ -217,6 +228,38 @@ def _refr_scatter(sh, d_in, u_coin):
     return torch.where(pick_refl[:, None], refl_dir, tdir), w
 
 
+class Glossy(NamedTuple):
+    """The GLOS lobe at each lane's vertex (``_glos_scatter``)."""
+
+    is_glos: torch.Tensor  # (N,) the hit is GLOS
+    mirror: torch.Tensor   # (N, 3) the lobe's axis
+    d: torch.Tensor        # (N, 3) the lobe sample
+    w: torch.Tensor        # (N,) its path weight, 0 below the surface
+
+    def nee_weight(self, light, sh, d_l, t_safe, w_d):
+        """The direct term's weight on GLOS lanes, |A cos_l| / t^2 times
+        the lobe's BRDF over albedo times max(d_l . n, 0), w_d elsewhere."""
+        w_g = (sampling.light_pdf_inv(light, d_l, t_safe)
+               * sampling.phong_brdf_over_albedo(d_l, self.mirror, sh.gloss)
+               ) * torch.clamp(vm.dot(d_l, sh.n), min=0.0)
+        return torch.where(self.is_glos, w_g, w_d)
+
+    def pdf(self, d, sh, pdf):
+        """p_bsdf toward unit d (N, 3): the lobe's pdf on GLOS lanes, pdf
+        elsewhere."""
+        return torch.where(self.is_glos,
+                           sampling.phong_pdf(d, self.mirror, sh.gloss), pdf)
+
+
+def _glos_scatter(sh, d_in, u1, u2) -> Glossy:
+    """The modified-Phong lobe around the mirror of d_in about the oriented
+    normal, from the cosine sample's uniforms."""
+    mirror = vm.reflect(d_in, sh.n)
+    d = sampling.sample_phong(mirror, u1, u2, sh.gloss)
+    return Glossy(sh.refl == GLOS, mirror, d,
+                  sampling.phong_weight(d, sh.n, sh.gloss))
+
+
 class BounceOut(NamedTuple):
     emit: torch.Tensor        # (N, 3) pickup (+ direct term), 0 on dead lanes
     x: torch.Tensor           # (N, 3) next origin
@@ -230,10 +273,12 @@ class BounceOut(NamedTuple):
 
 def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
                  depth, path_id, spec_refr: bool = False, no_emit=None,
-                 guide: Guide | None = None, mis_pdf=None) -> BounceOut:
+                 guide: Guide | None = None, mis_pdf=None,
+                 glos: bool = False) -> BounceOut:
     """One radiance()-body step over the wavefront. ``depth`` is this
     frame's post-increment depth (>= 1). ``spec_refr``: the scene holds
-    SPEC or REFR objects (without them the material select is skipped).
+    SPEC or REFR objects (without them the material select is skipped);
+    ``glos``: the scene holds GLOS objects.
     ``no_emit`` (N,) bool: nee_textbook lanes whose previous probe already
     counted the light. ``guide``: continue diffuse vertices through the
     guided mixture (``cosine``, ``nee_textbook`` and ``mis`` only).
@@ -280,6 +325,9 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
     is_diff = sh.refl == DIFF
 
     u1, u2 = u[rng.P_SCATTER_U], u[rng.P_SCATTER_V]
+    # The vertices that sample the light: diffuse, and GLOS ones.
+    gl = _glos_scatter(sh, d, u1, u2) if glos else None
+    nee_v = (is_diff | gl.is_glos) if glos else is_diff
     mix = None
     if guide is not None:
         mu, use = guide.lobes(sh.x, depth)
@@ -309,23 +357,23 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
         new_dir = torch.where(sel[:, None], d_l, new_dir)
         w = torch.where(sel, w_d, w)
         probe_lanes = alive_out & is_diff & take
-    elif est == "nee_textbook":
-        d_l, success, w_d = _probe_light(scene, sh.x, sh.n, u)
-    elif est == "mis":
+    elif est in ("nee_textbook", "mis"):
         d_l, success, t_safe, w_d = _light_probe(scene, sh.x, sh.n, u)
+        if glos:
+            w_d = gl.nee_weight(light, sh, d_l, t_safe, w_d)
+    if est == "mis":
         p_light = _p_light(light, d_l, t_safe)
         p_bsdf = torch.clamp(vm.dot(d_l, sh.n), min=0.0) * (1.0 / math.pi)
         if mix is not None:
             p_bsdf = mix.pdf_at(d_l, mu, guide.k, p_bsdf)
+        if glos:
+            p_bsdf = gl.pdf(d_l, sh, p_bsdf)
         w_d = w_d * (p_light / (p_light + p_bsdf))
-        pdf_cont = mix.pdf_mix if mix is not None else (
-            torch.clamp(vm.dot(new_dir, sh.n), min=0.0) * (1.0 / math.pi))
-        mis_pdf_next = torch.where(alive_out & is_diff, pdf_cont, 0.0)
     if est in ("nee_textbook", "mis"):
         e_light = object_arrays(scene)[1][light_id]
-        gate = (alive & is_diff & success).to(T.dtype)
+        gate = (alive & nee_v & success).to(T.dtype)
         emit = emit + (gate * w_d)[:, None] * T * sh.albedo * e_light
-        probe_lanes = alive & is_diff
+        probe_lanes = alive & nee_v
     if spec_refr:
         spec_dir, spec_w = _spec_scatter(sh, d)
         refr_dir, refr_w = _refr_scatter(sh, d, u[rng.P_REFR_COIN])
@@ -333,6 +381,18 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
         new_dir = torch.where(is_spec[:, None], spec_dir, torch.where(
             is_refr[:, None], refr_dir, new_dir))
         w = torch.where(is_spec, spec_w, torch.where(is_refr, refr_w, w))
+    if glos:
+        new_dir = torch.where(gl.is_glos[:, None], gl.d, new_dir)
+        w = torch.where(gl.is_glos, gl.w, w)
+        # A lobe sample below the surface is absorbed.
+        alive_out = alive_out & ~(gl.is_glos & (gl.w <= 0.0))
+    if est == "mis":
+        # The continuation's p_bsdf, which the next pickup weighs against.
+        pdf_cont = mix.pdf_mix if mix is not None else (
+            torch.clamp(vm.dot(new_dir, sh.n), min=0.0) * (1.0 / math.pi))
+        if glos:
+            pdf_cont = gl.pdf(new_dir, sh, pdf_cont)
+        mis_pdf_next = torch.where(alive_out & nee_v, pdf_cont, 0.0)
     T_out = T * f * w[:, None]
     traces_inc = torch.stack([
         alive.sum(dtype=torch.int64),
@@ -340,7 +400,7 @@ def _bounce_core(scene: Scene, cfg: RenderConfig, seed, o, d, T, alive,
     ])
     return BounceOut(emit=emit, x=sh.x, new_dir=new_dir, T=T_out,
                      alive=alive_out, traces_inc=traces_inc,
-                     no_emit_next=alive_out & is_diff,
+                     no_emit_next=alive_out & nee_v,
                      mis_pdf_next=mis_pdf_next)
 
 
@@ -352,15 +412,27 @@ def _spawn(cam: CameraParams, cfg: RenderConfig, seed, px, py, pid_base,
     return o, d, path_id
 
 
-def check_materials(scene: Scene) -> bool:
-    """Raises for GLOS objects (not ported yet); returns whether the scene
-    holds SPEC or REFR objects."""
+def has_spec_refr(scene: Scene) -> bool:
+    """Whether the scene holds SPEC or REFR objects."""
     refl = object_arrays(scene)[2]
-    if bool((refl == GLOS).any()):
-        raise NotImplementedError(
-            "GLOS materials are not ported yet (ROADMAP.md queue 1, item 11)"
-        )
     return bool(((refl == SPEC) | (refl == REFR)).any())
+
+
+# The estimators with glossy semantics (the JAX package's).
+GLOS_ESTIMATORS = ("cosine", "nee_textbook", "mis")
+
+
+def check_glos_estimator(scene: Scene, cfg: RenderConfig) -> None:
+    """The JAX package's refusal of a GLOS scene under an estimator
+    without glossy semantics (ValueError): the NEE-continuation pair
+    (``nee``, ``mixture``) hard-codes the diffuse cos/pi BRDF in its
+    weight, and the ``uniform`` pair the reference's weights."""
+    if cfg.estimator not in GLOS_ESTIMATORS and has_glos(scene):
+        raise ValueError(
+            f"estimator {cfg.estimator!r} is a reference-parity estimator "
+            f"with no glossy (GLOS) semantics; use one of "
+            f"{GLOS_ESTIMATORS} for scenes with glossy primitives"
+        )
 
 
 def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
@@ -371,7 +443,9 @@ def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
     ``guide``: the guided mixture at diffuse vertices (rows 4 and 5).
 
     Returns (per-lane radiance sum (N, 3), traces (2,) int64)."""
-    spec_refr = check_materials(scene)
+    check_glos_estimator(scene, cfg)
+    spec_refr = has_spec_refr(scene)
+    glos = has_glos(scene)
     n = pix.shape[0]
     dev = pix.device
     px = pix % cfg.width
@@ -391,7 +465,7 @@ def path_trace_regen(scene: Scene, cfg: RenderConfig, seed,
     while bool(alive.any()):
         depth1 = depth + 1
         out = _bounce_core(scene, cfg, seed, o, d, T, alive, depth1, pid,
-                           spec_refr, no_emit, guide, mis_pdf)
+                           spec_refr, no_emit, guide, mis_pdf, glos)
         # Per-path max_bounces truncation.
         alive_after = out.alive & (depth1 < cfg.max_bounces)
         died = alive & ~alive_after

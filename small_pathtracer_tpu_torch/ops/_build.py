@@ -275,6 +275,48 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,  # traces: (2,) u64 device
         p,  # cudaStream_t
     ]
+    # csrc/megakernel_ext*.cu: rows 1-7 on scenes with quads or GLOS
+    # objects (every estimator code; GLOS with 1, 2 and 6 only).
+    ext_scene = [
+        *scene,
+        i,  # n_rects
+        p,  # quad_f: (Q, 19) f32 host, geometry/intersect.quad_consts
+        i,  # n_quads
+    ]
+    gloss = p  # (R + Q + S,) f32 device, the Phong exponents
+    lib.spt_megakernel_ext.restype = ctypes.c_int
+    lib.spt_megakernel_ext.argtypes = [
+        *est,
+        *ext_scene,
+        *launch,
+        *spheres,
+        gloss,
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_ext_budgets.restype = ctypes.c_int
+    lib.spt_megakernel_ext_budgets.argtypes = [
+        *est,
+        *ext_scene,
+        *budget_launch,
+        *spheres,
+        gloss,
+        *live,
+        p,  # out_l: (n_pix, 3) f32 device, zeroed
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
+    lib.spt_megakernel_ext_guided.restype = ctypes.c_int
+    lib.spt_megakernel_ext_guided.argtypes = [
+        *guide,
+        *ext_scene,
+        *launch,
+        *spheres,
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
+        p,  # traces: (2,) u64 device
+        p,  # cudaStream_t
+    ]
     # Row 9: spt_megakernel_vjp takes estimators 0 nee, 1 cosine and 2
     # nee_textbook (csrc/megakernel_grad.cu), spt_megakernel_vjp_est the
     # others (csrc/megakernel_grad_est.cu: the codes of `est` above).

@@ -31,6 +31,12 @@ port's counterpart of the JAX package's ``render_pallas`` /
   ``cosine``, ``nee_textbook`` and ``mis`` estimators (``mis`` counted as
   ``megakernel_guided_mis``, ``megakernel_guided_primary_mis`` and their
   ``_tab`` twins).
+- Scenes with quads or GLOS objects go to ``megakernel_<est>_ext``
+  (``csrc/megakernel_ext.cu``): row 2's table kernel with the quads
+  scanned after the rects and the GLOS lobe (``cosine``, ``nee_textbook``
+  and ``mis`` only), and its budget (row 3, ``_ext_budgets``) and guided
+  (rows 4 and 5, quads only: the guide refuses GLOS; ``megakernel_guided
+  [_primary][_mis]_ext``) twins. The existing instances compile as before.
 - ``render_megakernel_sharded`` (row 7, the JAX ``render_pallas_sharded``)
   and ``render_megakernel_guided_sharded`` (row 6,
   ``render_pallas_guided_sharded``) launch the same kernels on one rank's
@@ -67,16 +73,21 @@ from ..config import SPHERE_TABLE_AUTO_MIN, RenderConfig
 from ..core import vecmath as vm
 from ..device import resolve
 from ..experiment.path_guiding import voxel_id
-from ..geometry.intersect import intersect_rects, shade_info, trace
+from ..geometry.intersect import (
+    QUAD_COLS, intersect_rects, quad_consts, shade_info, trace,
+)
 from ..integrator import sampling
 from ..integrator.wavefront import (
-    Guide, check_materials, lane_groups, path_trace_regen,
+    Guide, check_glos_estimator, lane_groups, path_trace_regen,
 )
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import (
     ShardLayout, reduce_lanes, shard_layout, shard_lanes,
 )
-from ..scene.types import Scene, num_spheres, object_arrays
+from ..scene.types import (
+    GLOS, REFR, SPEC, Scene, gloss_arrays, num_quads, num_spheres,
+    object_arrays, object_refl,
+)
 from . import _build
 
 # Launches of each CUDA kernel in this process, by kernel name: the wrapper
@@ -115,12 +126,27 @@ def est_code(cfg: RenderConfig) -> int:
 def kernel_name(scene: Scene, cfg: RenderConfig, suffix: str = "") -> str:
     """The name under which a row 1 or 2 launch (``suffix`` "_budgets": row
     3) of cfg's estimator on ``scene`` counts in LAUNCHES: e.g.
-    megakernel_mis, megakernel_mis_tab, megakernel_mixture_glibc_budgets."""
-    tab = "_tab" if uses_sphere_table(scene) else ""
-    return _EST_KERNEL[est_code(cfg)] + tab + suffix
+    megakernel_mis, megakernel_mis_tab, megakernel_mixture_glibc_budgets,
+    megakernel_cosine_ext (a scene with quads or GLOS objects)."""
+    return _EST_KERNEL[est_code(cfg)] + kernel_family(scene) + suffix
+
+
+def kernel_family(scene: Scene) -> str:
+    """The kernels that render ``scene`` on the card, as their names'
+    suffix: "_ext" for a scene with quads or GLOS objects, "_tab" (the
+    sphere table) for one with spheres or SPEC/REFR objects, "" (row 1's
+    baked kernels) else. One host copy of the material codes."""
+    if num_quads(scene):
+        return "_ext"
+    codes = set(object_refl(scene).tolist())
+    if GLOS in codes:
+        return "_ext"
+    return "_tab" if num_spheres(scene) or codes & {SPEC, REFR} else ""
+
 
 TARGET_LANES = 1 << 18
 MAX_RECTS = 32
+MAX_QUADS = 8  # kMaxQuads in csrc/megakernel_common.cuh
 MAX_SPHERES = 4096  # kMaxSpheres in csrc/megakernel_common.cuh
 BVH_ERROR = -(2 ** 31)  # kBvhError in csrc/megakernel_bvh.cuh
 
@@ -181,6 +207,7 @@ class KernelGeometry(NamedTuple):
 
     rect_geom: np.ndarray  # (R, 5) [k, lo0, lo1, hi0, hi1]
     rect_axis: np.ndarray  # (R,) int32
+    quad_f: np.ndarray     # (Q, QUAD_COLS) geometry.intersect.quad_consts
     light_f: np.ndarray    # (13,) [corner, edge_u, edge_v, unit normal, area]
     light_id: int
     cam_f: np.ndarray      # (12,) [origin, lower_left, horizontal, vertical]
@@ -196,12 +223,15 @@ def pack_geometry(scene: Scene, cam: CameraParams) -> KernelGeometry:
     """Pack the scene's rects, light and the camera for the kernels (one
     host copy; a training loop packs once and reuses the result). Raises
     for a scene the kernels do not take."""
-    check_materials(scene)
     rects = scene.rects
-    R = rects.k.shape[0]
+    R, Q = rects.k.shape[0], num_quads(scene)
     if R > MAX_RECTS:
         raise NotImplementedError(
             f"the kernel takes at most {MAX_RECTS} rects, got {R}"
+        )
+    if Q > MAX_QUADS:
+        raise NotImplementedError(
+            f"the kernel takes at most {MAX_QUADS} quads, got {Q}"
         )
     light = scene.light.to("cpu")
     area, n_light = sampling.light_area_normal(light)
@@ -216,6 +246,8 @@ def pack_geometry(scene: Scene, cam: CameraParams) -> KernelGeometry:
         rect_geom=_host_f32([rects.k[:, None], rects.lo, rects.hi]),
         rect_axis=np.ascontiguousarray(rects.axis.cpu().numpy(),
                                        dtype=np.int32),
+        quad_f=np.ascontiguousarray(quad_consts(scene.quads).cpu().numpy(),
+                                    dtype=np.float32).reshape(Q, QUAD_COLS),
         light_f=light_f,
         light_id=int(light.light_obj_id),
         cam_f=cam_f,
@@ -247,10 +279,11 @@ def _budget_args(geom: KernelGeometry, cfg: RenderConfig, seed) -> tuple:
 
 
 def uses_sphere_table(scene: Scene) -> bool:
-    """Whether the card renders ``scene`` with megakernel_nee_tab: it holds
-    spheres or SPEC/REFR objects (raises for GLOS objects)."""
-    spec_refr = check_materials(scene)
-    return num_spheres(scene) > 0 or spec_refr
+    """Whether the card renders ``scene`` with a table kernel
+    (megakernel_<est>_tab or, with quads or GLOS objects, _ext): it holds
+    spheres, SPEC/REFR objects, quads or GLOS objects."""
+    return kernel_family(scene) != ""
+
 
 
 def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
@@ -275,9 +308,12 @@ def render_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
 def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                   lay: ShardLayout, device):
     """Launches row 2 of cfg.estimator (a scene with spheres or SPEC/REFR
-    objects) or row 1 on the lanes ``lay``. Returns ((n_pix_loc, 3) radiance sums, traces (2,)
+    objects; its _ext instance with quads or GLOS objects) or row 1 on the
+    lanes ``lay``. Returns ((n_pix_loc, 3) radiance sums, traces (2,)
     int64 [extend, probe])."""
-    tab = uses_sphere_table(scene)
+    family = kernel_family(scene)
+    if family == "_ext":
+        check_glos_estimator(scene, cfg)
     geom = pack_geometry(scene, cam)
     lib = _build.build_kernels().lib
     code = est_code(cfg)
@@ -287,7 +323,14 @@ def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if tab:
+        if family == "_ext":
+            sa = sphere_args(lib, scene, device)
+            err = lib.spt_megakernel_ext(
+                code, cfg.mixture_q, *ext_scene_args(geom),
+                *launch_args(geom, cfg, seed, lay), *sa.ext_args(),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        elif family:
             sa = sphere_args(lib, scene, device)
             est = (code, 0) if own else (code, cfg.mixture_q)
             err = (lib.spt_megakernel_tab if own
@@ -306,7 +349,7 @@ def _launch_render(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                 len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
                 fold, out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    count(kernel_name(scene, cfg), err)
+    count(_EST_KERNEL[code] + family, err)
     return reduce_lanes(out_l, lay), traces
 
 
@@ -327,10 +370,17 @@ def _baked_materials(scene: Scene, geom: KernelGeometry):
     return alb, emi, int(float(alb[geom.light_id].max()) == 0.0)
 
 
+def ext_scene_args(geom: KernelGeometry) -> tuple:
+    """The scene arguments of the _ext entry points: the rects, their
+    count, the quads' constants and their count."""
+    return (geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+            len(geom.rect_axis), geom.quad_f.ctypes.data, len(geom.quad_f))
+
+
 def sphere_tables(scene: Scene, device):
     """The sphere-table kernel's device inputs: sphere rows (S, 4) float32
     [cx, cy, cz, r], and albedo (K, 3), emission (K, 3) float32 and refl
-    (K,) int32 in global object order (rects, then spheres)."""
+    (K,) int32 in global object order (rects, quads, then spheres)."""
     sp = scene.spheres
     sph = torch.cat([sp.center, sp.radius[:, None]], dim=1)
     alb, emi, refl = object_arrays(scene)
@@ -380,6 +430,7 @@ class SphereArgs(NamedTuple):
     alb: torch.Tensor
     emi: torch.Tensor
     refl: torch.Tensor
+    gloss: torch.Tensor  # (K,) float32, the Phong exponents
 
     def args(self) -> tuple:
         """The entry points' sphere arguments: sph, n_spheres, bvh, root,
@@ -388,13 +439,19 @@ class SphereArgs(NamedTuple):
                 self.root, self.alb.data_ptr(), self.emi.data_ptr(),
                 self.refl.data_ptr())
 
+    def ext_args(self) -> tuple:
+        """The _ext entry points' sphere arguments: ``args`` and gloss."""
+        return (*self.args(), self.gloss.data_ptr())
+
 
 def sphere_args(lib, scene: Scene, device) -> SphereArgs:
     """``scene``'s sphere table and its tree for the table kernels."""
     _check_spheres(scene)
     sph, alb, emi, refl = sphere_tables(scene, device)
     bvh, root = sphere_bvh(lib, sph, device)
-    return SphereArgs(sph, bvh, root, alb, emi, refl)
+    gloss = gloss_arrays(scene).to(device=device,
+                                   dtype=torch.float32).contiguous()
+    return SphereArgs(sph, bvh, root, alb, emi, refl, gloss)
 
 
 def render_megakernel_counted(scene: Scene, cam: CameraParams,
@@ -447,7 +504,9 @@ def sphere_queries(scene: Scene, cam: CameraParams, o: torch.Tensor,
     scene's device (the camera is packed, not read): the query kernel
     ``sphere_queries`` on a CUDA device, ``sphere_queries_plain`` on the
     CPU. Returns (t (N,), id (N,) int32, success (N,) bool, t_light
-    (N,))."""
+    (N,)). Scenes with quads are refused (ValueError)."""
+    if num_quads(scene):
+        raise ValueError("sphere_queries scans rects and spheres only")
     device = scene.device
     if device.type == "cpu":
         return sphere_queries_plain(scene, o, d)
@@ -529,14 +588,18 @@ class _BudgetScene(NamedTuple):
     geom: KernelGeometry
     spheres: SphereArgs | None
     baked: tuple | None  # (albedo, emission, fold)
+    suffix: str  # kernel_family
 
 
 def _pack_budgets(scene: Scene, cam: CameraParams, device) -> _BudgetScene:
     lib = _build.build_kernels().lib
     geom = pack_geometry(scene, cam)
-    if uses_sphere_table(scene):
-        return _BudgetScene(lib, geom, sphere_args(lib, scene, device), None)
-    return _BudgetScene(lib, geom, None, _baked_materials(scene, geom))
+    suffix = kernel_family(scene)
+    if suffix:
+        return _BudgetScene(lib, geom, sphere_args(lib, scene, device), None,
+                            suffix)
+    return _BudgetScene(lib, geom, None, _baked_materials(scene, geom),
+                        suffix)
 
 
 def _launch_budgets(pk: _BudgetScene, cfg: RenderConfig, seed,
@@ -558,7 +621,13 @@ def _launch_budgets(pk: _BudgetScene, cfg: RenderConfig, seed,
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if pk.spheres is not None:
+        if pk.suffix == "_ext":
+            err = pk.lib.spt_megakernel_ext_budgets(
+                code, cfg.mixture_q, *ext_scene_args(geom), *head,
+                *pk.spheres.ext_args(), *lanes, out_l.data_ptr(),
+                traces.data_ptr(), stream,
+            )
+        elif pk.spheres is not None:
             err = pk.lib.spt_megakernel_tab_budgets(
                 code, cfg.mixture_q, geom.rect_geom.ctypes.data,
                 geom.rect_axis.ctypes.data, len(geom.rect_axis), *head,
@@ -573,8 +642,7 @@ def _launch_budgets(pk: _BudgetScene, cfg: RenderConfig, seed,
                 emi.ctypes.data, len(geom.rect_axis), *head, fold, *lanes,
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    count(_EST_KERNEL[code] + ("_tab" if pk.spheres is not None else "")
-          + "_budgets", err)
+    count(_EST_KERNEL[code] + pk.suffix + "_budgets", err)
     return out_l, traces
 
 
@@ -596,6 +664,7 @@ def render_megakernel_budgets(scene: Scene, cam: CameraParams,
     ((n_pix, 3) float32 radiance sum over each span, traces (2,) int64
     [extend, probe])."""
     device = _resolve(scene, device)
+    check_glos_estimator(scene, cfg)
     if device.type == "cpu":
         return render_megakernel_budgets_plain(scene, cam, cfg, seed,
                                                s_start, s_stop, device)
@@ -619,6 +688,7 @@ def budget_waves(scene: Scene, cam: CameraParams, cfg: RenderConfig):
     non-empty span, in order; ``live_pixels``). The scene must not change
     between waves. On the CPU a wave is the plain version."""
     device = scene.device
+    check_glos_estimator(scene, cfg)
     if device.type == "cpu":
         return lambda seed, s_start, s_stop, live: (
             render_megakernel_budgets_plain(scene, cam, cfg, seed, s_start,
@@ -708,17 +778,26 @@ def dequantize_guide(guide, device=None):
 GUIDED_ESTIMATORS = ("cosine", "nee_textbook", "mis")
 
 
-def check_guided(scene: Scene, cfg: RenderConfig) -> None:
+def check_guided(scene: Scene, cfg: RenderConfig,
+                 family: str | None = None) -> None:
     """The JAX guided entries' refusals, on every device: an estimator
-    other than cosine, nee_textbook or mis (ValueError), and a scene the
-    JAX package would render through its sphere table (ValueError): spheres
-    with sphere_table on, cluster or cluster_scratch, or auto with
-    SPHERE_TABLE_AUTO_MIN spheres or more."""
+    other than cosine, nee_textbook or mis (ValueError), GLOS objects
+    (ValueError: the mixture reweights against the cosine pdf), and a scene
+    the JAX package would render through its sphere table (ValueError):
+    spheres with sphere_table on, cluster or cluster_scratch, or auto with
+    SPHERE_TABLE_AUTO_MIN spheres or more. ``family``: the scene's
+    ``kernel_family`` where the caller has it."""
     if cfg.estimator not in GUIDED_ESTIMATORS:
         raise ValueError(
             "the guided megakernel composes with the cosine-continuation "
             "estimators ('cosine', 'nee_textbook', 'mis') only; got "
             f"estimator={cfg.estimator!r}")
+    if family is None:
+        family = kernel_family(scene)
+    if family == "_ext" and bool((object_refl(scene) == GLOS).any()):
+        raise ValueError(
+            "guided rendering does not compose with GLOS primitives "
+            "(the guide mixture reweights against the cosine pdf)")
     S = num_spheres(scene)
     mode = cfg.sphere_table
     if S and (mode in ("on", "cluster", "cluster_scratch")
@@ -854,7 +933,8 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     """Launches row 4 (primary 0: ``table`` is the (V,) voxel table) or row
     5 (primary 1: ``table`` is the (n_pix,) pixel lobes) on the lanes
     ``lay``. Returns ((n_pix_loc, 3) radiance sums, traces (2,) int64)."""
-    tab = uses_sphere_table(scene)
+    family = kernel_family(scene)
+    check_guided(scene, cfg, family)
     geom = pack_geometry(scene, cam)
     table = table.to(device=device, dtype=torch.int32).contiguous()
     head = (EST_CODE[cfg.estimator], primary, table.data_ptr(),
@@ -865,7 +945,14 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if tab:
+        if family == "_ext":
+            sa = sphere_args(lib, scene, device)
+            err = lib.spt_megakernel_ext_guided(
+                *head, *ext_scene_args(geom),
+                *launch_args(geom, cfg, seed, lay), *sa.args(),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        elif family:
             sa = sphere_args(lib, scene, device)
             err = lib.spt_megakernel_guided_tab(
                 *head, geom.rect_geom.ctypes.data,
@@ -881,18 +968,22 @@ def _launch_guided(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
                 len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
                 out_l.data_ptr(), traces.data_ptr(), stream,
             )
-    count(guided_kernel_name(scene, cfg, primary), err)
+    count(_guided_name(cfg, primary, family), err)
     return reduce_lanes(out_l, lay), traces
 
 
 def guided_kernel_name(scene: Scene, cfg: RenderConfig,
                        primary: int = 0) -> str:
     """The name under which a launch of row 4 (row 5 with ``primary``)
-    counts in LAUNCHES: megakernel_guided[_primary][_mis][_tab], ``_mis``
-    for the mis instances (cosine and nee_textbook count together)."""
+    counts in LAUNCHES: megakernel_guided[_primary][_mis][_tab|_ext],
+    ``_mis`` for the mis instances (cosine and nee_textbook count
+    together), ``_ext`` on scenes with quads."""
+    return _guided_name(cfg, primary, kernel_family(scene))
+
+
+def _guided_name(cfg: RenderConfig, primary: int, family: str) -> str:
     return ("megakernel_guided" + ("_primary" if primary else "")
-            + ("_mis" if cfg.estimator == "mis" else "")
-            + ("_tab" if uses_sphere_table(scene) else ""))
+            + ("_mis" if cfg.estimator == "mis" else "") + family)
 
 
 # ---------------------------------------------------------------------------

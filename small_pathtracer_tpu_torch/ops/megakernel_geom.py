@@ -56,10 +56,10 @@ from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
 from ..core import vecmath as vm
 from ..integrator.sampling import light_area_normal
-from ..integrator.wavefront import check_materials, path_trace_regen
+from ..integrator.wavefront import path_trace_regen
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
-from ..scene.types import DIFF, SPEC, Scene, num_spheres
+from ..scene.types import DIFF, SPEC, Scene, has_glos, num_quads, num_spheres
 from . import _build
 from .megakernel import (
     EST_CODE, KernelGeometry, _image, _resolve, count, est_code,
@@ -87,14 +87,20 @@ _ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
 # Scope and layout.
 
 def check_geom(scene: Scene, cfg: RenderConfig) -> None:
-    """The refusals of the geometry adjoint, on every device: GLOS (item
-    11), and the JAX kernel's own ValueErrors (no spheres, no unrolled
-    object, a light that is not an unrolled rect). Every estimator and
+    """The refusals of the geometry adjoint, on every device: quads and GLOS
+    (NotImplementedError: item 11's geometry half), and the JAX kernel's
+    own ValueErrors (no spheres, no unrolled object, a light that is not
+    an unrolled rect). Every estimator and
     light_sample_mode passes (``mis`` and ``nee_textbook`` ignore
     'glibc_overflow', as the JAX package's config.py says). Light lists
     and sphere lights never reach here: the port's Scene holds neither
     (``convert.scene_from_jax`` refuses them, item 12)."""
-    check_materials(scene)
+    for what, found in (("quads", num_quads(scene) > 0),
+                        ("GLOS materials", has_glos(scene))):
+        if found:
+            raise NotImplementedError(
+                f"the geometry adjoint does not take {what} yet (ROADMAP.md "
+                "queue 1, item 11, its geometry half: rows 11 and 12)")
     if num_spheres(scene) == 0:
         raise ValueError("no spheres to differentiate; use the material "
                          "adjoint kernel (ops/megakernel_grad.py)")

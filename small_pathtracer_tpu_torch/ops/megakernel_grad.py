@@ -29,7 +29,7 @@ the spheres, so K = R + S (17 for ``cornell_box``, 7 + 2 for
 (``ops.megakernel.est_code``): light_sample_mode 'glibc_overflow' changes
 ``nee`` and ``mixture`` only (``nee_glibc``, ``mixture_glibc``); the other
 estimators ignore it, as ``config.py`` and the jnp wavefront do, so ``mis``
-with it trains as ``mis``. GLOS objects and more than
+with it trains as ``mis``. Quads, GLOS objects and more than
 ``MAX_GRAD_SPHERES`` spheres are refused on every device
 (``check_trainable``). On a CUDA device
 each wrapper launches its kernel or raises. On the CPU it runs the plain
@@ -45,10 +45,13 @@ import torch
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
-from ..integrator.wavefront import check_materials, path_trace_regen
+from ..integrator.wavefront import path_trace_regen
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
-from ..scene.types import LightSampler, Rects, Scene, Spheres, num_spheres
+from ..scene.types import (
+    LightSampler, Quads, Rects, Scene, Spheres, has_glos, num_quads,
+    num_spheres,
+)
 from . import _build
 from .megakernel import (
     _EST_KERNEL, _OWN_CODES, KernelGeometry, SphereArgs, _image, _resolve,
@@ -74,10 +77,16 @@ def _est_name(cfg: RenderConfig) -> str:
 
 def check_trainable(scene: Scene) -> None:
     """Raises NotImplementedError for a scene outside rows 8 and 9, on
-    every device, so the CPU never trains what the card refuses: GLOS
-    objects (item 11; no forward kernel renders them) and more spheres than
-    the adjoint's shared-memory rows hold (ROADMAP.md queue 2, row 9)."""
-    check_materials(scene)
+    every device, so the CPU never trains what the card refuses: quads and
+    GLOS objects (rows 1-7 render them; rows 8-10 take them with item 11's
+    material half) and more spheres than the adjoint's shared-memory rows
+    hold (ROADMAP.md queue 2, row 9)."""
+    for what, found in (("quads", num_quads(scene) > 0),
+                        ("GLOS materials", has_glos(scene))):
+        if found:
+            raise NotImplementedError(
+                f"material training does not take {what} yet (ROADMAP.md "
+                "queue 1, item 11, its material half: rows 8-10)")
     S = num_spheres(scene)
     if S > MAX_GRAD_SPHERES:
         raise NotImplementedError(
@@ -133,6 +142,7 @@ def material_grads_to_scene(scene: Scene, galb, gemi) -> Scene:
     light = scene.light
     zero = Scene(
         rects=Rects(*(torch.zeros_like(t) for t in scene.rects)),
+        quads=Quads(*(torch.zeros_like(t) for t in scene.quads)),
         spheres=Spheres(*(torch.zeros_like(t) for t in scene.spheres)),
         light=LightSampler(torch.zeros_like(light.corner),
                            torch.zeros_like(light.edge_u),

@@ -10,7 +10,11 @@
   ``sphere_grid_256`` and ``sphere_grid_1024`` are the larger rungs);
 - ``cornell_alcove`` and ``cornell_alcove_baffled``: the hard-transport
   scenes path guiding exists for, a room lit only through a slot in its
-  ceiling from a light in an alcove above it (24 and 25 rects)."""
+  ceiling from a light in an alcove above it (24 and 25 rects);
+- ``cornell_tilted_light``: the Cornell box with its light replaced by a
+  quad pitched 15 degrees about x (16 rects, the light quad id 16);
+- ``cornell_glossy``: the Cornell walls and light with a GLOS
+  (modified-Phong, exponent 60) sphere beside a diffuse one."""
 
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .types import DIFF, REFR, SPEC, LightSampler, Scene, make_scene
+from .types import DIFF, GLOS, REFR, SPEC, LightSampler, Scene, make_scene
 
 AX_X, AX_Y, AX_Z = 0, 1, 2
 
@@ -182,6 +186,35 @@ def cornell_alcove_baffled(device="cuda") -> Scene:
                                     (0.0, 0.0, 33.0), 14), device=device)
 
 
+def cornell_tilted_light(device="cuda") -> Scene:
+    """The Cornell box with its light (rect 6) replaced by a quad hung
+    below the ceiling, pitched 15 degrees about x: corner (32, 78, 63),
+    edge_u (36, 0, 0), edge_v (0, 36 sin 15, 36 cos 15). The NEE sampler
+    is the quad itself. Ids: 16 rects (0-15), the light quad 16."""
+    device = resolve(device)
+    walls = [r for i, r in enumerate(_cornell_walls()) if i != 6]
+    corner = (32.0, 78.0, 63.0)
+    edge_u = (36.0, 0.0, 0.0)
+    tilt = math.radians(15.0)
+    edge_v = (0.0, 36.0 * math.sin(tilt), 36.0 * math.cos(tilt))
+    quads = [(corner, edge_u, edge_v, _ZERO, (12.0, 12.0, 12.0), DIFF)]
+    return make_scene(walls + _cornell_boxes(_ONE),
+                      _light(corner, edge_u, edge_v, 16), device=device,
+                      quads=quads)
+
+
+def cornell_glossy(device="cuda") -> Scene:
+    """The Cornell walls and light with a GLOS sphere (exponent 60) beside
+    a diffuse one; it renders under cosine, nee_textbook and mis."""
+    device = resolve(device)
+    spheres = [
+        ((27.0, 16.5, 47.0), 16.5, (0.999, 0.999, 0.999), _ZERO, GLOS, 60.0),
+        ((73.0, 16.5, 78.0), 16.5, _WHITE75, _ZERO, DIFF),
+    ]
+    return make_scene(_cornell_walls(), _cornell_light_sampler(), spheres,
+                      device)
+
+
 def sphere_grid(n: int = 64, seed: int = 0, device="cuda") -> Scene:
     """The Cornell walls and light with n radius-4 spheres on a grid. The
     albedos and the 15% SPEC choice are drawn from
@@ -219,13 +252,15 @@ PRESETS = {
     "sphere_grid_1024": functools.partial(sphere_grid, 1024),
     "cornell_alcove": cornell_alcove,
     "cornell_alcove_baffled": cornell_alcove_baffled,
+    "cornell_tilted_light": cornell_tilted_light,
+    "cornell_glossy": cornell_glossy,
 }
 
 # Presets of the JAX package that later slices port (ROADMAP.md queue 1,
-# items 11 and 12).
+# item 12: light lists and sphere lights).
 NOT_PORTED = (
     "cornell_spheres_roundlight", "smallpt_original_true",
-    "cornell_tilted_light", "cornell_twolights", "cornell_glossy", "veach_mis",
+    "cornell_twolights", "veach_mis",
 )
 
 
@@ -237,7 +272,7 @@ def get_scene(name: str, device="cuda") -> Scene:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"scene preset {name!r} is not ported yet "
-            "(ROADMAP.md queue 1, items 11-12)"
+            "(ROADMAP.md queue 1, item 12)"
         )
     raise ValueError(
         f"unknown scene preset {name!r}; available: {sorted(PRESETS)}"

@@ -1,10 +1,10 @@
 """Scene representation: struct-of-arrays NamedTuples of tensors.
 
-Global object ids run over the rects first, then the spheres (the JAX
-package's order, with its quads in between: this port has none yet), so the
-Cornell light stays rect 6. This slice of the port holds axis-aligned rects,
-spheres and one parallelogram light; quads, sphere lights and light lists
-come with ROADMAP.md queue 1, items 11 and 12.
+Global object ids run over the rects first, then the quads, then the
+spheres (the JAX package's order), so the Cornell light stays rect 6. This
+slice of the port holds axis-aligned rects, general parallelograms (quads),
+spheres and one parallelogram light, which may be a rect or a quad; sphere
+lights and light lists come with ROADMAP.md queue 1, item 12.
 """
 
 from __future__ import annotations
@@ -45,6 +45,24 @@ class Rects(NamedTuple):
         return Rects(*(t.to(device) for t in self))
 
 
+class Quads(NamedTuple):
+    """General (possibly tilted) parallelograms, two-sided: point = corner
+    + a*edge_u + b*edge_v, a, b in [0, 1]. corner, edge_u, edge_v, albedo,
+    emission: (Q, 3); refl: (Q,) int64 material code; gloss: (Q,) Phong
+    exponent."""
+
+    corner: torch.Tensor
+    edge_u: torch.Tensor
+    edge_v: torch.Tensor
+    albedo: torch.Tensor
+    emission: torch.Tensor
+    refl: torch.Tensor
+    gloss: torch.Tensor
+
+    def to(self, device) -> "Quads":
+        return Quads(*(t.to(device) for t in self))
+
+
 class Spheres(NamedTuple):
     """Spheres. center: (S, 3); radius: (S,); albedo, emission: (S, 3);
     refl: (S,) int64 material code; gloss: (S,) Phong exponent."""
@@ -77,7 +95,11 @@ class LightSampler(NamedTuple):
 
 
 class Scene(NamedTuple):
+    """Global object ids: rects (0..R-1), quads (R..R+Q-1), spheres
+    (R+Q..R+Q+S-1)."""
+
     rects: Rects
+    quads: Quads
     spheres: Spheres
     light: LightSampler
 
@@ -86,15 +108,17 @@ class Scene(NamedTuple):
         return self.rects.k.device
 
     def to(self, device) -> "Scene":
-        return Scene(self.rects.to(device), self.spheres.to(device),
-                     self.light.to(device))
+        return Scene(self.rects.to(device), self.quads.to(device),
+                     self.spheres.to(device), self.light.to(device))
 
 
 def make_scene(rects: list[tuple], light: LightSampler,
-               spheres: list[tuple] = (), device="cuda") -> Scene:
+               spheres: list[tuple] = (), device="cuda",
+               quads: list[tuple] = ()) -> Scene:
     """Build a Scene from lists of rects
-    (axis, k, (lo0, lo1), (hi0, hi1), albedo3, emission3, refl[, gloss])
-    and spheres (center3, radius, albedo3, emission3, refl[, gloss]) on
+    (axis, k, (lo0, lo1), (hi0, hi1), albedo3, emission3, refl[, gloss]),
+    spheres (center3, radius, albedo3, emission3, refl[, gloss]) and quads
+    (corner3, edge_u3, edge_v3, albedo3, emission3, refl[, gloss]) on
     ``device``, the card by default (RuntimeError without CUDA)."""
     device = resolve(device)
     if not rects:
@@ -117,6 +141,12 @@ def make_scene(rects: list[tuple], light: LightSampler,
         refl=torch.tensor([x[6] for x in rects], dtype=i64),
         gloss=gloss(rects, 7),
     )
+    q = Quads(
+        *(torch.tensor([x[i] for x in quads], dtype=f32).reshape(-1, 3)
+          for i in range(5)),
+        refl=torch.tensor([x[5] for x in quads], dtype=i64),
+        gloss=gloss(quads, 6),
+    )
     s = Spheres(
         center=torch.tensor([x[0] for x in spheres],
                             dtype=f32).reshape(-1, 3),
@@ -128,20 +158,40 @@ def make_scene(rects: list[tuple], light: LightSampler,
         refl=torch.tensor([x[4] for x in spheres], dtype=i64),
         gloss=gloss(spheres, 5),
     )
-    return Scene(rects=r, spheres=s, light=light).to(device)
+    return Scene(rects=r, quads=q, spheres=s, light=light).to(device)
 
 
 def num_spheres(scene: Scene) -> int:
     return scene.spheres.radius.shape[0]
 
 
+def num_quads(scene: Scene) -> int:
+    return scene.quads.corner.shape[0]
+
+
 def object_arrays(scene: Scene):
     """Per-object (albedo, emission, refl) in global-id order: (K, 3),
-    (K, 3), (K,) with K = R + S."""
-    r, s = scene.rects, scene.spheres
-    return (torch.cat([r.albedo, s.albedo]),
-            torch.cat([r.emission, s.emission]),
-            torch.cat([r.refl, s.refl]))
+    (K, 3), (K,) with K = R + Q + S."""
+    r, q, s = scene.rects, scene.quads, scene.spheres
+    return (torch.cat([r.albedo, q.albedo, s.albedo]),
+            torch.cat([r.emission, q.emission, s.emission]),
+            torch.cat([r.refl, q.refl, s.refl]))
+
+
+def gloss_arrays(scene: Scene) -> torch.Tensor:
+    """Per-object Phong exponent (K,) in global-id order (0 where the
+    object is not GLOS)."""
+    return torch.cat([scene.rects.gloss, scene.quads.gloss,
+                      scene.spheres.gloss])
+
+
+def object_refl(scene: Scene) -> torch.Tensor:
+    """Per-object material codes (K,) in global-id order."""
+    return torch.cat([scene.rects.refl, scene.quads.refl, scene.spheres.refl])
+
+
+def has_glos(scene: Scene) -> bool:
+    return bool((object_refl(scene) == GLOS).any())
 
 
 def insert_rect(scene: Scene, pos: int, src: int, albedo=None,
@@ -150,7 +200,24 @@ def insert_rect(scene: Scene, pos: int, src: int, albedo=None,
     albedo or emission replaced where given; the light's id follows. The
     copy ties with ``src`` on every ray, which the rect scans break by the
     smaller id."""
+    return _insert_copy(scene, "rects", 0, pos, src, albedo, emission)
+
+
+def insert_quad(scene: Scene, pos: int, src: int, albedo=None,
+                emission=None) -> Scene:
+    """insert_rect for quads: a copy of quad ``src`` at quad index ``pos``
+    (object id R + pos)."""
+    return _insert_copy(scene, "quads", scene.rects.k.shape[0], pos, src,
+                        albedo, emission)
+
+
+def _insert_copy(scene: Scene, block: str, base: int, pos: int, src: int,
+                 albedo, emission) -> Scene:
+    """A copy of row ``src`` of ``block`` (whose first object id is
+    ``base``) inserted at row ``pos``, albedo or emission replaced where
+    given; the light's id follows."""
     new = {"albedo": albedo, "emission": emission}
+    rows = getattr(scene, block)
 
     def field(name, t):
         row = t[src:src + 1].clone()
@@ -158,7 +225,7 @@ def insert_rect(scene: Scene, pos: int, src: int, albedo=None,
             row[0] = torch.tensor(new[name], dtype=row.dtype)
         return torch.cat([t[:pos], row, t[pos:]])
 
-    rects = Rects(*(field(n, t) for n, t in zip(Rects._fields, scene.rects)))
+    rows = type(rows)(*(field(n, t) for n, t in zip(rows._fields, rows)))
     lid = scene.light.light_obj_id
-    return scene._replace(rects=rects, light=scene.light._replace(
-        light_obj_id=lid + (pos <= lid)))
+    return scene._replace(**{block: rows}, light=scene.light._replace(
+        light_obj_id=lid + (base + pos <= lid)))

@@ -14,7 +14,9 @@ of PERF.md §6):
 
 - the forwards (rows 1-8): the image and traces at 1024x768x4 seed 3 and
   the traces at 1024x768x512 seed 0, and a launch's CUDA-event time at x512
-  (three launches after one warm-up); row 2 on ``sphere_grid`` with 2, 9,
+  (three launches after one warm-up; it holds the wrapper's host work
+  between launches), for rows 1 and 2 also the kernel's own device time
+  from torch.profiler; row 2 on ``sphere_grid`` with 2, 9,
   16, 32, 64, 256 and 1024 spheres (``sphere_grid_N`` that is no preset:
   the preset's grid cut to N) and its ``cosine`` / ``nee_textbook`` twins on
   ``smallpt_original``;
@@ -435,6 +437,8 @@ def worker(root: str, out: str, cases: list[str]) -> None:
             fn = call(case, cfg512, 0)
             _, tr512 = fn()
             res[case] = {"out": [img4, tr4, tr512], "ms": event_ms(fn, 3)}
+            if kind == "unguided":
+                res[case]["device_ms"] = device_ms(fn, 3, case.split()[0])
         res[case]["out"] = [t.cpu() for t in res[case]["out"]]
     torch.save(res, out)
 

@@ -2,6 +2,7 @@
 
     python3 tools/sass_counts.py [ROOT ...] [--kernels NAME,NAME] [--dump DIR]
     python3 tools/sass_counts.py OTHER THIS --same "OLD=NEW[;OLD=NEW ...]"
+    python3 tools/sass_counts.py OTHER THIS --same all
 
 Builds the kernel library of each checkout ROOT (default: this one) in a
 process of its own, each into its own build/kernels, then reads the
@@ -20,8 +21,9 @@ OLD of the first root with kernel NEW of the second (a kernel that became
 an instance of a template with another argument has another name): their
 registers, stack frames and SASS, instruction by instruction with each
 constant-bank address (the kernel's parameters) masked, and prints whether
-they are the same but for parameter offsets. Needs nvcc and cuobjdump (the
-CUDA toolkit), not a card.
+they are the same but for parameter offsets; ``--same all`` compares every
+kernel the two libraries share by name, and lists the kernels only one of
+them has. Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -180,11 +182,19 @@ def report(label: str, lib: Path, kernels: tuple, dump: Path | None) -> None:
 
 
 _CBANK = re.compile(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]")
+_CONST0 = re.compile(r"CONSTANT\[0\]:\d+")
 
 
 def same(libs: list[Path], pairs: list[str]) -> None:
     """--same: each OLD=NEW pair's resources and SASS, parameters masked."""
     (f0, r0), (f1, r1) = ((functions(lib), resources(lib)) for lib in libs)
+    if pairs == ["all"]:
+        pairs = [f"{k}={k}" for k in sorted(set(f0) & set(f1))]
+        for side, only in (("first", set(f0) - set(f1)),
+                           ("second", set(f1) - set(f0))):
+            print(f"[same] only in the {side}: "
+                  + (", ".join(sorted(only)) or "none"))
+    n_same = 0
     for pair in pairs:
         old, new = pair.split("=")
         if old not in f0 or new not in f1:
@@ -199,9 +209,15 @@ def same(libs: list[Path], pairs: list[str]) -> None:
         raw = sum(x != y for (_, x), (_, y) in zip(f0[old], f1[new]))
         verdict = ("the same but for parameter offsets" if diff == 0
                    else f"{diff} instructions differ")
+        # The parameter space's size (CONSTANT[0]) follows the offsets.
+        res = [_CONST0.sub("CONSTANT[0]:P", r.get(k, "?"))
+               for r, k in ((r0, old), (r1, new))]
+        n_same += diff == 0 and res[0] == res[1]
         print(f"[same] {old} = {new}: {len(a)} / {len(b)} instructions, "
               f"{raw} differ as printed, {verdict}; resources "
               f"{r0.get(old, '?')} / {r1.get(new, '?')}")
+    print(f"[same] {n_same} of {len(pairs)} pairs the same but for "
+          "parameter offsets, with equal registers, stack and shared memory")
 
 
 def main() -> int:
