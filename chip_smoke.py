@@ -92,7 +92,18 @@ the render at 256x192x4, row 9's against autograd (256x192x4 on the box,
 main path ``cli fit --estimator mis --train emission --lr 1`` at
 1024x768x512 (5 steps, the loss must fall, 5 + 5 launches) and a 1-step
 fit of each other instance, and their x512 times;
-the 4-rank main path takes one ``mis`` step over the mesh too. Then the
+the 4-rank main path takes one ``mis`` step over the mesh too. Then
+material training with quads and GLOS (``mat_ext_phases``): row 8's
+``_mat_ext`` instances bit for bit against the forward ``_ext`` kernel
+(and with perturbed tables against the plain version), row 9's
+``megakernel_vjp[_<est>]_ext`` against autograd at 128x96x4 on
+``cornell_tilted_light``, ``cornell_glossy`` and the tree scene, on
+200-bounce paths, row 10 with ``mis`` on each shard, the main path ``cli
+fit --scene cornell_glossy --estimator mis --train emission --lr 1`` at
+1024x768x512 (5 steps, the loss must fall, 5 + 5 launches), an albedo fit
+of that scene, ``fit_megakernel`` on the tilted light (its quad light's
+row moves toward the truth), a 1-step fit of each other code, and each
+instance's x512 time. Then the
 geometry adjoint with the other estimators (``geom_est_phases``: the
 eight codes of GEOM_EST_CASES): each instance's image-only launch bit for
 bit against its plain version and ``megakernel_<est>_tab``, its adjoint
@@ -537,28 +548,35 @@ VJP_ENTRY_BYTES, GEOM_ENTRY_BYTES = 48, 64
 
 def vjp_bound(traces, n_samples: int, n_pix: int, k: int,
               algorithm: bool = False, n_spheres: int = 0,
-              est: str = "nee", diffuse_only: bool = True):
+              est: str = "nee", diffuse_only: bool = True, n_quads: int = 0,
+              extra_fp: float = 0.0):
     """megakernel_vjp. The function's bound: every bounce of every sample
     traced once, unfolded (the forward's extend count: a folded bounce is
     an extend too), and one gradient update a bounce. nee: each bounce a
     query, the shading and a probe; the other estimators: the forward's
     operations (``forward_ops``: for mis with FP_MIS) and the updates. The
     queries are the linear scan's (n_spheres of the k objects are
-    spheres). Bytes: the cotangent image and the tables in, the gradients
-    out. With ``algorithm`` this kernel's bound: also its tape, an entry a
+    spheres, n_quads quads). extra_fp is added as it is (the GLOS lobe's
+    work). Bytes: the cotangent image and the tables in (with quads, their
+    rows and every object's code and Phong exponent), the gradients out.
+    With ``algorithm`` this kernel's bound: also its tape, an entry a
     bounce written once and read once (the segment replays of paths longer
     than the tape, about 1e-5 of the paths, left out)."""
     extend = traces[0]
+    n_rects = k - n_spheres - n_quads
     if est == "nee":
-        q = query_ops(k - n_spheres, n_spheres)
+        q = query_ops(n_rects, n_spheres, n_quads)
         fp = extend * (q + FP_SHADE + FP_PROBE + FP_GRAD) + n_samples * FP_SPAWN
         it = extend * INT_BOUNCE + n_samples * INT_SPAWN
     else:
-        fp, it = forward_ops(traces, n_samples, k - n_spheres, n_spheres,
-                             est, diffuse_only)
+        fp, it = forward_ops(traces, n_samples, n_rects, n_spheres,
+                             est, diffuse_only, n_quads=n_quads)
         fp += extend * FP_GRAD
+    fp += extra_fp
     n_bytes = n_pix * 12 + 4 * k * 3 * 4 + (
         k * 4 + n_spheres * 16 if n_spheres else 0)
+    if n_quads:
+        n_bytes += n_quads * 19 * 4 + k * 4 + (0 if n_spheres else k * 4)
     if algorithm:
         n_bytes += 2 * extend * VJP_ENTRY_BYTES
     return bound(fp, it, n_bytes)
@@ -2036,6 +2054,28 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict,
 
 
 
+def cotangent_image(height: int, width: int, seed: int) -> torch.Tensor:
+    """A seeded standard-normal (height, width, 3) cotangent on the card."""
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (height, width, 3)).astype(np.float32)).to("cuda")
+
+
+def held_tables(label, kt, pt, light) -> float:
+    """A table of the kernel within VJP_TOL of autograd's largest entry,
+    and so are its rows other than the light's (nee_textbook's and mis's
+    light albedo row is knife-edge 1/t^2 noise that dominates its scale).
+    Returns |kernel - plain| / the largest entry."""
+    ratio = 0.0
+    keep = torch.arange(kt.shape[0], device=kt.device) != light
+    for k_, p_ in ((kt, pt), (kt[keep], pt[keep])):
+        err = float((k_ - p_).abs().max())
+        scale = float(p_.abs().max())
+        if not err <= VJP_TOL * scale:
+            raise AssertionError(f"{label}: {err} > {VJP_TOL} x {scale}")
+        ratio = max(ratio, err / scale)
+    return ratio
+
+
 def mat_phases(card: str, cli_main, spec: MatSpec) -> tuple[list, dict]:
     """Rows 8, 9 and 10 of one slice (``spec``): row 8's instances bit for
     bit against their plain version and the render (``spec.size8``: on
@@ -2077,24 +2117,7 @@ def mat_phases(card: str, cli_main, spec: MatSpec) -> tuple[list, dict]:
         return vjp_bound(tr, n_samples, n_pix, R + S, False, S, est,
                          not megakernel.uses_sphere_table(sc))
 
-    def g_of(height, width, seed):
-        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
-            (height, width, 3)).astype(np.float32)).to("cuda")
-
-    def held(label, kt, pt, light):
-        """A table of the kernel within VJP_TOL of autograd's largest entry,
-        and so are its rows other than the light's (nee_textbook's and
-        mis's light albedo row is knife-edge 1/t^2 noise that dominates its
-        scale). Returns |kernel - plain| / the largest entry."""
-        ratio = 0.0
-        keep = torch.arange(kt.shape[0], device=kt.device) != light
-        for k_, p_ in ((kt, pt), (kt[keep], pt[keep])):
-            err = float((k_ - p_).abs().max())
-            scale = float(p_.abs().max())
-            if not err <= VJP_TOL * scale:
-                raise AssertionError(f"{label}: {err} > {VJP_TOL} x {scale}")
-            ratio = max(ratio, err / scale)
-        return ratio
+    g_of, held = cotangent_image, held_tables
 
     par = {}  # name -> its reported parity run (linear or rect instance)
     phase(f"{spec.title}: row 8 against its plain version and the render, "
@@ -2831,7 +2854,8 @@ def kernel_parity(label, name, kernel_fn, plain_fn, bound_fn,
     bit-identical, the plain version's equal bit for bit, two launches
     counted under name. bound_fn(traces) gives the bound; with glos,
     bound_fn(traces, GLOS vertices of one more plain run). Returns the
-    numbers of the run's ``kernels`` entry."""
+    numbers of the run's ``kernels`` entry and the GLOS vertices
+    (``n_glos``, 0 without glos)."""
     from small_pathtracer_tpu_torch.ops import megakernel
 
     lbn = megakernel.LAUNCHES
@@ -2858,7 +2882,8 @@ def kernel_parity(label, name, kernel_fn, plain_fn, bound_fn,
     if not (torch.equal(k_tr, p_tr) and err_ == 0.0):
         raise AssertionError(f"{label}: kernel and plain version differ")
     return {"err": err_, "ms": med["kernel"] * 1e3,
-            "plain_ms": med["plain"] * 1e3, "bound": b}
+            "plain_ms": med["plain"] * 1e3, "bound": b,
+            "n_glos": n_glos if glos else 0}
 
 
 def est_argv(fields: dict) -> list[str]:
@@ -3318,7 +3343,40 @@ def glos_vertices(run_plain) -> int:
     return n[0]
 
 
-def ext_phases(card: str, cli_main) -> list:
+def ext_scenes() -> dict:
+    """The scenes of the quad and GLOS phases: cornell_tilted_light
+    (linear scan), cornell_glossy, and the tilted light with sphere_grid's
+    spheres (the tree), plain (``tree``) and with its sphere 0 GLOS
+    EXT_TREE_GLOSS (``tree_g``, for the GLOS estimators)."""
+    from small_pathtracer_tpu_torch import get_scene
+    from small_pathtracer_tpu_torch.scene.types import GLOS
+
+    tilted, glossy = (get_scene(n) for n in ("cornell_tilted_light",
+                                            "cornell_glossy"))
+    grid = get_scene("sphere_grid").spheres
+    refl = grid.refl.clone()
+    refl[0] = GLOS
+    return {"cornell_tilted_light": tilted, "cornell_glossy": glossy,
+            "tree": tilted._replace(spheres=grid),
+            "tree_g": tilted._replace(spheres=grid._replace(
+                refl=refl,
+                gloss=torch.where(refl == GLOS, EXT_TREE_GLOSS, 0.0)))}
+
+
+def ext_cases():
+    """(label, RenderConfig fields, scene name) of every _ext instance's
+    parity runs: each code of EXT_CASES on cornell_tilted_light and on the
+    tree scene (tree_g for the GLOS estimators), the GLOS estimators on
+    cornell_glossy too."""
+    for label, fields in EXT_CASES.items():
+        glos = label in GLOS_CASES
+        yield label, fields, "cornell_tilted_light"
+        if glos:
+            yield label, fields, "cornell_glossy"
+        yield label, fields, "tree_g" if glos else "tree"
+
+
+def ext_phases(card: str, cli_main) -> tuple[list, dict, dict]:
     """ROADMAP item 11's forward half: rows 1-7 with general quads and GLOS
     materials (the _ext instances of csrc/megakernel_ext*.cu). Each
     instance bit for bit against its plain version (kernel, plain, kernel)
@@ -3334,26 +3392,23 @@ def ext_phases(card: str, cli_main) -> list:
     other case on the presets, ``--adaptive-tol 0 --adaptive-wave 256`` of
     each (the uniform render's traces) and ``--guided``; rows 7 and 6 with
     mis on each shard of a 2x2 mesh at x4 against the unsharded kernel; and
-    each instance's x512 event time and bound. Returns the ``kernels``
-    entries."""
-    from small_pathtracer_tpu_torch import RenderConfig, get_scene, make_camera
+    each instance's x512 event time and bound (on cornell_glossy with the
+    GLOS lobe of the x4 parity run's GLOS vertices times 128, an
+    estimate). Returns (the ``kernels`` entries, the rows 1 and 2 parity
+    runs {(kernel name, scene name): numbers}, and the GLOS vertices of
+    cornell_glossy's x4 parity run {label: count})."""
+    from small_pathtracer_tpu_torch import RenderConfig, make_camera
     from small_pathtracer_tpu_torch.experiment import path_guiding as pg
     from small_pathtracer_tpu_torch.ops import megakernel
     from small_pathtracer_tpu_torch.parallel.mesh import Mesh
-    from small_pathtracer_tpu_torch.scene.types import GLOS
 
     lbn = megakernel.LAUNCHES
     width, height = 1024, 768
     n_pix = width * height
     cam = make_camera(aspect=width / height)
-    tilted, glossy = (get_scene(n) for n in ("cornell_tilted_light",
-                                            "cornell_glossy"))
-    grid = get_scene("sphere_grid").spheres
-    refl = grid.refl.clone()
-    refl[0] = GLOS
-    tree = tilted._replace(spheres=grid)
-    tree_g = tilted._replace(spheres=grid._replace(
-        refl=refl, gloss=torch.where(refl == GLOS, EXT_TREE_GLOSS, 0.0)))
+    scenes = ext_scenes()
+    tilted, glossy = scenes["cornell_tilted_light"], scenes["cornell_glossy"]
+    tree, tree_g = scenes["tree"], scenes["tree_g"]
     base = ["render", "--width", "1024", "--height", "768", "--spp", "512"]
 
     def cfg_of(fields, spp, seed, **kw):
@@ -3370,24 +3425,26 @@ def ext_phases(card: str, cli_main) -> list:
 
     parity = kernel_parity
     par = {}  # kernel name -> its reported parity run (the tilted light's)
+    runs12 = {}  # (kernel name, scene name) -> its parity run
+    glos_x4 = {}  # label -> GLOS vertices of cornell_glossy's parity run
     phase("rows 1 and 2 with quads and GLOS (_ext) against their plain "
           "version 1024x768x4: cornell_tilted_light, cornell_glossy "
           "(linear), the tilted light with sphere_grid's spheres (tree)")
-    for label, fields in EXT_CASES.items():
-        glos = label in GLOS_CASES
-        for nm, sc in (("cornell_tilted_light", tilted),
-                       *((("cornell_glossy", glossy),) if glos else ()),
-                       ("tree", tree_g if glos else tree)):
-            cfg = cfg_of(fields, 4, 31, max_bounces=PARITY_BOUNCES)
-            name = megakernel.kernel_name(sc, cfg)
-            r = parity(
-                f"{label} {nm} 1024x768x4 seed 31", name,
-                lambda: megakernel.render_megakernel(sc, cam, cfg, 31),
-                lambda: megakernel.render_megakernel_plain(sc, cam, cfg, 31),
-                lambda tr, n_g=0: f_bound(sc, tr, n_pix * 4, n_pix,
-                                        fields["estimator"], n_glos=n_g),
-                glos and nm == "cornell_glossy")
-            par.setdefault(name, r)
+    for label, fields, nm in ext_cases():
+        sc = scenes[nm]
+        cfg = cfg_of(fields, 4, 31, max_bounces=PARITY_BOUNCES)
+        name = megakernel.kernel_name(sc, cfg)
+        r = parity(
+            f"{label} {nm} 1024x768x4 seed 31", name,
+            lambda: megakernel.render_megakernel(sc, cam, cfg, 31),
+            lambda: megakernel.render_megakernel_plain(sc, cam, cfg, 31),
+            lambda tr, n_g=0: f_bound(sc, tr, n_pix * 4, n_pix,
+                                    fields["estimator"], n_glos=n_g),
+            nm == "cornell_glossy")
+        par.setdefault(name, r)
+        runs12[(name, nm)] = r
+        if nm == "cornell_glossy":
+            glos_x4[label] = r["n_glos"]
 
     phase("row 3 with quads and GLOS (_ext_budgets) against its plain "
           "version, 1024x768 ragged spans: cornell_tilted_light (linear), "
@@ -3453,10 +3510,13 @@ def ext_phases(card: str, cli_main) -> list:
     def x512(label, name, fn, sc, est, extra_bytes=0):
         tr = fn()[1].tolist()
         ms = event_ms(fn, 3)
-        b = f_bound(sc, tr, n_pix * 512, n_pix, est, extra_bytes)
+        n_g = 128 * glos_x4.get(est, 0) if sc is glossy else 0
+        b = f_bound(sc, tr, n_pix * 512, n_pix, est, extra_bytes, n_g)
+        lobe = (f"the GLOS lobe at {n_g} vertices: the x4 parity run's "
+                "count x 128, estimated" if n_g else "no GLOS lobe counted")
         log(f"[smoke] {label} 1024x768x512 seed 0: {name} {ms:.3f} ms a "
             f"launch (CUDA events), traces {tr}; bound {b[0]:.3f} ms "
-            f"({b[1]}, the GLOS lobe left out) on {card}")
+            f"({b[1]}, {lobe}) on {card}")
         return ms, tr
 
     phase("main paths: cli render --scene cornell_tilted_light, --scene "
@@ -3614,6 +3674,389 @@ def ext_phases(card: str, cli_main) -> list:
                                                            primary),
                              "megakernel_ext_guided.cu",
                              f"megakernel.py:{site} (quads, {label})"))
+    return out, runs12, glos_x4
+
+
+# Rows 8, 9 and 10 with quads and GLOS (mat_ext_phases). Row 9 is held at
+# MAT_EXT_SIZE9 x4 (autograd through the plain version keeps every
+# bounce's temporaries); the main path is ``cli fit --scene cornell_glossy
+# --estimator mis --train emission --lr MIS_FIT_LR``, then an albedo fit of
+# the same scene (ALBEDO_FIT_STEPS at ALBEDO_FIT_LR: mis's light-albedo
+# row is knife-edge 1/t^2 noise, so an albedo step diverges at every rate,
+# MAT_EST's comment; the path must run and count its launches),
+# ``fit_megakernel`` on cornell_tilted_light with nee at TILT_FIT_LR
+# against a target rendered at the fit's seed with the light quad's
+# emission x1.5 (so the loss is a quadratic in that row: on the CPU at
+# 32x24x16 lr 3 moved it 12 -> 15.5 in 5 steps, lr 1 to 13.5), and a
+# 1-step ``cli fit --train emission`` of each other code on the tilted
+# light.
+MAT_EXT_SIZE9 = (128, 96)
+ALBEDO_FIT_STEPS, ALBEDO_FIT_LR = 2, "0.01"
+TILT_FIT_LR = 2.0
+
+
+def mat_ext_phases(card: str, cli_main, runs12: dict,
+                   glos_x4: dict) -> list:
+    """ROADMAP item 11's material half: rows 8, 9 and 10 with general quads
+    and GLOS materials. Row 8 on an _ext scene is the _ext forward kernel
+    launched with the runtime tables (megakernel_<est>_mat_ext): each
+    instance with the scene's own tables bit for bit against the forward
+    _ext kernel (image and traces) on the inputs of ext_phases' parity runs
+    (``runs12``: the forward there is bit for bit its plain version on the
+    same inputs, so the entry's plain_ms and bound are that run's), and
+    mis on cornell_glossy with perturbed tables against its plain version.
+    Row 9 (megakernel_vjp[_<est>]_ext, csrc/megakernel_grad_ext.cu): each
+    instance against autograd through its plain version (one plain run a
+    case) and against itself at MAT_EXT_SIZE9 x4, paths stopped at
+    PARITY_BOUNCES: every code on cornell_tilted_light and on the tree
+    scene, the GLOS codes on cornell_glossy; mis on cornell_glossy and
+    cosine on the tilted light on DEEP_BOUNCES-bounce paths. Row 10: mis on
+    cornell_glossy on each coordinate of a 2x2 mesh, the shards' sums
+    against the unsharded kernels. Then the main paths at 1024x768x512
+    (launches counted: MAT_EXT_SIZE9's comment) and each instance's x512
+    event time and bound (the GLOS lobe on cornell_glossy from ext_phases'
+    x4 GLOS vertices ``glos_x4`` times 128, an estimate). Returns the
+    ``kernels`` entries."""
+    from small_pathtracer_tpu_torch import RenderConfig, make_camera
+    from small_pathtracer_tpu_torch.ops import megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_grad as mg
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+
+    lbn = megakernel.LAUNCHES
+    scenes = ext_scenes()
+    tilted, glossy = scenes["cornell_tilted_light"], scenes["cornell_glossy"]
+    width, height = 1024, 768
+    n_pix = width * height
+    cam = make_camera(aspect=width / height)
+
+    def cfg_of(fields, w, h, spp, seed, **kw):
+        return RenderConfig(width=w, height=h, spp=spp, seed=seed, **fields,
+                            **kw)
+
+    def sizes(sc):
+        return (sc.rects.k.shape[0], sc.quads.corner.shape[0],
+                sc.spheres.radius.shape[0])
+
+    def glos_fp(est, n_glos):
+        return n_glos * (FP_GLOS + (FP_GLOS_NEE if est != "cosine" else 0)
+                         + (FP_GLOS_MIS if est == "mis" else 0))
+
+    def f_bound(sc, tr, n_samples, n_lanes, est, n_glos=0):
+        R, Q, S = sizes(sc)
+        return forward_bound(tr, n_samples, n_lanes, R, S, 0, est, False,
+                             n_quads=Q, extra_fp=glos_fp(est, n_glos))
+
+    def v_bound(sc, tr, n_samples, n_pix_, est, n_glos=0):
+        R, Q, S = sizes(sc)
+        return vjp_bound(tr, n_samples, n_pix_, R + Q + S, False, S, est,
+                         False, Q, glos_fp(est, n_glos))
+
+    par8, par9 = {}, {}  # kernel name -> its reported run (tilted light's)
+    phase("row 8 with quads and GLOS (_mat_ext): each instance with the "
+          "scene's tables bit for bit against the forward _ext kernel, "
+          "1024x768x4 seed 31 (ext_phases' parity inputs); mis on "
+          "cornell_glossy with perturbed tables against its plain version "
+          "256x192x4")
+    for label, fields, nm in ext_cases():
+        sc = scenes[nm]
+        cfg = cfg_of(fields, width, height, 4, 31, max_bounces=PARITY_BOUNCES)
+        alb, emi = mg.pack_materials(sc)
+        name = mg.mat_kernel_name(sc, cfg)
+        fwd = megakernel.kernel_name(sc, cfg)
+        before = lbn[name]
+        outs, med = in_turns(
+            {"mat": lambda: mg.render_megakernel_mat(sc, cam, cfg, alb, emi,
+                                                     31),
+             "fwd": lambda: megakernel.render_megakernel(sc, cam, cfg, 31)},
+            ("mat", "fwd", "mat", "mat"))
+        if lbn[name] != before + 3:
+            raise AssertionError(f"row 8 {label} {nm}: {name} did not count "
+                                 "3 launches")
+        (m1, t1), (m2, t2), _ = outs["mat"]
+        f_img, f_tr = outs["fwd"][0]
+        same = all(torch.equal(a, b_) for a, b_ in (
+            (m1, m2), (t1, t2), (m1, f_img), (t1, f_tr)))
+        log(f"[smoke] row 8 {label} {nm} 1024x768x4: {name} "
+            f"{med['mat'] * 1e3:.3f} ms, {fwd} {med['fwd'] * 1e3:.3f} ms, "
+            f"traces {t1.tolist()}; == the forward bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"row 8 {label} {nm}: {name} and {fwd} "
+                                 "differ")
+        r = runs12[(fwd, nm)]
+        par8.setdefault(name, {"err": r["err"], "ms": med["mat"] * 1e3,
+                               "plain_ms": r["plain_ms"],
+                               "bound": r["bound"]})
+    cfg = cfg_of(EXT_CASES["mis"], 256, 192, 4, 35,
+                 max_bounces=PARITY_BOUNCES)
+    cam_p = make_camera(aspect=256 / 192)
+    alb, emi = mg.pack_materials(glossy)
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    light = int(glossy.light.light_obj_id)
+    alb = (alb * (0.8 + 0.2 * torch.rand(alb.shape, generator=gen,
+                                         device="cuda"))).contiguous()
+    alb[light] = 0.0  # the light stays black (its underside probes)
+    emi = emi.clone()
+    emi[light] *= 1.25
+    (k_img, k_tr), k_s = timed(lambda: mg.render_megakernel_mat(
+        glossy, cam_p, cfg, alb, emi, 35))
+    (p_img, p_tr), p_s = timed(lambda: mg.render_megakernel_mat_plain(
+        glossy, cam_p, cfg, alb, emi, 35))
+    log(f"[smoke] row 8 mis cornell_glossy 256x192x4, perturbed tables: "
+        f"kernel {k_s * 1e3:.3f} ms, plain {p_s * 1e3:.3f} ms, traces "
+        f"{k_tr.tolist()} / {p_tr.tolist()}, max |diff| "
+        f"{float((k_img - p_img).abs().max()):.3e}")
+    if not (torch.equal(k_img, p_img) and torch.equal(k_tr, p_tr)):
+        raise AssertionError("row 8 mis cornell_glossy, perturbed tables: "
+                             "kernel and plain version differ")
+
+    w9, h9 = MAT_EXT_SIZE9
+    cam_v = make_camera(aspect=w9 / h9)
+    g9 = cotangent_image(h9, w9, 5)
+    phase(f"row 9 with quads and GLOS (_ext) against autograd through its "
+          f"plain version and against itself, {w9}x{h9}x4 seed 17, "
+          "cornell_tilted_light and the tree scene (every code), "
+          "cornell_glossy (the GLOS codes)")
+    for label, fields, nm in ext_cases():
+        sc = scenes[nm]
+        cfg = cfg_of(fields, w9, h9, 4, 17, max_bounces=PARITY_BOUNCES)
+        alb, emi = mg.pack_materials(sc)
+        name = mg.vjp_kernel_name(sc, cfg)
+        before = lbn[name]
+        torch.cuda.reset_peak_memory_stats()
+        outs, med = in_turns(
+            {"kernel": lambda: mg.render_megakernel_vjp(sc, cam_v, cfg, alb,
+                                                        emi, 17, g9),
+             "plain": lambda: mg.render_megakernel_vjp_plain(
+                 sc, cam_v, cfg, alb, emi, 17, g9)},
+            ("kernel", "plain", "kernel", "kernel"))
+        peak = torch.cuda.max_memory_allocated()
+        if lbn[name] != before + 3:
+            raise AssertionError(f"row 9 {label} {nm}: {name} did not count "
+                                 "3 launches")
+        (ka, ke), (ka2, ke2), _ = outs["kernel"]
+        if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
+            raise AssertionError(f"row 9 {label} {nm}: kernel runs differ")
+        pa, pe = outs["plain"][0]
+        lid = int(sc.light.light_obj_id)
+        r_a = held_tables(f"row 9 {label} {nm} d/d albedo", ka, pa, lid)
+        r_e = held_tables(f"row 9 {label} {nm} d/d emission", ke, pe, lid)
+        tr = megakernel.render_megakernel(sc, cam_v, cfg, 17)[1].tolist()
+        n_g = (glos_vertices(lambda: megakernel.render_megakernel_plain(
+            sc, cam_v, cfg, 17)) if label in GLOS_CASES and nm != "tree"
+            else 0)
+        b = v_bound(sc, tr, w9 * h9 * 4, w9 * h9, cfg.estimator, n_g)
+        err = max(float((ka - pa).abs().max()), float((ke - pe).abs().max()))
+        log(f"[smoke] row 9 {label} {nm} {w9}x{h9}x4: {name} "
+            f"{med['kernel'] * 1e3:.3f} ms, plain {med['plain'] * 1e3:.3f} ms"
+            f" (peak memory {peak / 2**30:.2f} GiB); d/d albedo within "
+            f"{r_a:.3e}, d/d emission within {r_e:.3e} of the largest entry "
+            f"(limit {VJP_TOL:g}, also without the light's row {lid}); two "
+            f"runs bit-identical; traces {tr}, GLOS vertices {n_g}, bound "
+            f"{b[0]:.3f} ms ({b[1]})")
+        par9.setdefault(name, {"err": err, "ms": med["kernel"] * 1e3,
+                               "plain_ms": med["plain"] * 1e3, "bound": b})
+
+    phase(f"row 9 with quads and GLOS on deep paths: mis on cornell_glossy "
+          f"and cosine on cornell_tilted_light, rr_start_depth = max_bounces "
+          f"= {DEEP_BOUNCES}, every albedo {DEEP_ALBEDO} but the light's "
+          "(black), 64x48x4")
+    cam_d = make_camera(aspect=64 / 48)
+    g_d = cotangent_image(48, 64, 5)
+    for nm, label in (("cornell_glossy", "mis"),
+                      ("cornell_tilted_light", "cosine")):
+        sc = scenes[nm]
+        lid = int(sc.light.light_obj_id)
+        alb, emi = mg.pack_materials(sc)
+        alb = torch.full_like(alb, DEEP_ALBEDO)
+        alb[lid] = 0.0
+        cfg = cfg_of(EXT_CASES[label], 64, 48, 4, 3,
+                     rr_start_depth=DEEP_BOUNCES, max_bounces=DEEP_BOUNCES)
+        ka, ke = mg.render_megakernel_vjp(sc, cam_d, cfg, alb, emi, 3, g_d)
+        ka2, ke2 = mg.render_megakernel_vjp(sc, cam_d, cfg, alb, emi, 3, g_d)
+        pa, pe = mg.render_megakernel_vjp_plain(sc, cam_d, cfg, alb, emi, 3,
+                                                g_d)
+        if not (torch.equal(ka, ka2) and torch.equal(ke, ke2)):
+            raise AssertionError(f"deep row 9 {label} {nm}: kernel runs "
+                                 "differ")
+        r_a = held_tables(f"deep row 9 {label} {nm} d/d albedo", ka, pa, lid)
+        r_e = held_tables(f"deep row 9 {label} {nm} d/d emission", ke, pe,
+                          lid)
+        tr = mg.render_megakernel_mat(sc, cam_d, cfg, alb, emi, 3)[1].tolist()
+        log(f"[smoke] deep row 9 {label} {nm}: traces {tr} "
+            f"({tr[0] / (64 * 48 * 4):.1f} bounces a sample); d/d albedo "
+            f"within {r_a:.3e}, d/d emission within {r_e:.3e} of autograd's "
+            "largest entry; runs bit-identical")
+
+    phase(f"row 10 with GLOS: mis on cornell_glossy on each shard of a 2x2 "
+          f"mesh {w9}x{h9}x4, the shards' sums against the unsharded "
+          "kernels")
+    cfg = cfg_of(EXT_CASES["mis"], w9, h9, 4, 18)
+    alb, emi = mg.pack_materials(glossy)
+    g_rows = cotangent_image(h9, w9, 6).reshape(-1, 3)
+    n_loc = w9 * h9 // 2
+    lbn.clear()
+    img_rows, tr_sum, ga_sum, ge_sum = [0, 0], 0, 0, 0
+    for c in [(i, j) for i in range(2) for j in range(2)]:
+        m = Mesh.single((2, 2), c)
+        part, tr = mg.render_megakernel_mat_shard(glossy, cam_v, cfg, m, alb,
+                                                  emi, 18)
+        ga, ge = mg.render_megakernel_vjp_shard(
+            glossy, cam_v, cfg, m, alb, emi, 18,
+            g_rows[c[0] * n_loc:(c[0] + 1) * n_loc])
+        img_rows[c[0]] = img_rows[c[0]] + part
+        tr_sum, ga_sum, ge_sum = tr_sum + tr, ga_sum + ga, ge_sum + ge
+    counts = dict(lbn)
+    w_img, w_tr = mg.render_megakernel_mat(glossy, cam_v, cfg, alb, emi, 18)
+    wa, we = mg.render_megakernel_vjp(glossy, cam_v, cfg, alb, emi, 18,
+                                      g_rows.reshape(h9, w9, 3))
+    img = torch.cat(img_rows).reshape(h9, w9, 3)
+    d_img = float((img - w_img).abs().max())
+    d_sum = max(float((ga_sum - wa).abs().max()) / float(wa.abs().max()),
+                float((ge_sum - we).abs().max()) / float(we.abs().max()))
+    log(f"[smoke] row 10 mis cornell_glossy 2x2 shards: launches {counts}; "
+        f"traces summed {tr_sum.tolist()} (unsharded {w_tr.tolist()}), max "
+        f"|image sum - unsharded| {d_img:.3e}, adjoint partials summed "
+        f"within {d_sum:.3e} of the unsharded kernel's largest entry")
+    if not (counts == {"megakernel_mis_mat_ext": 4,
+                       "megakernel_vjp_mis_ext": 4}
+            and torch.equal(tr_sum, w_tr)
+            and torch.allclose(img, w_img, rtol=SHARD_RTOL, atol=SHARD_ATOL)
+            and d_sum <= SHARD_RTOL):
+        raise AssertionError("row 10 with GLOS: the shards' sums differ "
+                             "from the unsharded kernels")
+
+    main_launch = {}
+    base = ["fit", "--width", "1024", "--height", "768", "--spp", "512"]
+
+    def cli_fit(label, nm, fields, train, steps, lr, main=False):
+        sc = scenes[nm]
+        cfg = cfg_of(fields, width, height, 512, 0)
+        argv = [*base, "--scene", nm, *est_argv(fields), "--steps",
+                str(steps), "--train", train, "--lr", lr]
+        out, err_io = io.StringIO(), io.StringIO()
+        lbn.clear()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(
+                err_io):
+            rc = cli_main(argv)
+        counts = dict(lbn)
+        text = err_io.getvalue()
+        for line in text.strip().splitlines():
+            log(f"[smoke] cli fit {label}: {line}")
+        if rc != 0:
+            raise AssertionError(f"cli fit {label} returned {rc}")
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        losses = [float(x) for x in re.findall(r"loss (\S+)", text)]
+        m_name, v_name = mg.mat_kernel_name(sc, cfg), mg.vjp_kernel_name(
+            sc, cfg)
+        log(f"[smoke] {'main path ' if main else ''}cli fit {label}: "
+            f"launches {counts}; losses {losses}; light emission "
+            f"{res['light_emission']} on {card}")
+        want = {m_name: steps, v_name: steps,
+                megakernel.kernel_name(sc, cfg): 1}
+        if counts != want:
+            raise AssertionError(f"cli fit {label} launched {counts}, "
+                                 f"expected {want}")
+        if not (len(losses) == steps and np.isfinite(losses[0])):
+            raise AssertionError(f"cli fit {label}: losses {losses}")
+        if main and not (np.all(np.isfinite(losses))
+                         and losses[-1] < losses[0]):
+            raise AssertionError(f"the main path's loss did not fall: "
+                                 f"{losses}")
+        main_launch.setdefault(m_name, steps)
+        main_launch.setdefault(v_name, steps)
+
+    phase(f"main path: cli {' '.join(base)} --scene cornell_glossy "
+          f"--estimator mis --train emission --lr {MIS_FIT_LR} --steps 5")
+    cli_fit("cornell_glossy mis emission", "cornell_glossy",
+            EXT_CASES["mis"], "emission", 5, MIS_FIT_LR, main=True)
+    phase(f"path: cli fit --scene cornell_glossy --estimator mis --train "
+          f"albedo --lr {ALBEDO_FIT_LR}, {ALBEDO_FIT_STEPS} steps")
+    cli_fit("cornell_glossy mis albedo", "cornell_glossy", EXT_CASES["mis"],
+            "albedo", ALBEDO_FIT_STEPS, ALBEDO_FIT_LR)
+
+    phase(f"path: fit_megakernel on cornell_tilted_light nee 1024x768x512, "
+          f"5 steps at lr {TILT_FIT_LR}, the target with the light quad's "
+          "emission x1.5 at the fit's seed")
+    cfg = cfg_of(EXT_CASES["nee"], width, height, 512, 0)
+    lid = int(tilted.light.light_obj_id)
+    q = lid - tilted.rects.k.shape[0]
+    q_emi = tilted.quads.emission.clone()
+    q_emi[q] *= 1.5
+    bright = tilted._replace(quads=tilted.quads._replace(emission=q_emi))
+    target = megakernel.render_megakernel(bright, cam, cfg, 0)[0] / cfg.spp
+    e0 = float(mg.pack_materials(tilted)[1][lid].mean())
+    lbn.clear()
+    fitted, losses = mg.fit_megakernel(tilted, cam, cfg, target, steps=5,
+                                       lr=TILT_FIT_LR,
+                                       train_fields=("emission",), seed=0)
+    counts = dict(lbn)
+    e1 = float(mg.pack_materials(fitted)[1][lid].mean())
+    log(f"[smoke] fit_megakernel cornell_tilted_light nee: launches "
+        f"{counts}; losses {losses}; the light's emission row (object {lid},"
+        f" a quad) {e0:.4f} -> {e1:.4f}, truth {1.5 * e0:.4f}")
+    if counts != {"megakernel_nee_mat_ext": 5, "megakernel_vjp_ext": 5}:
+        raise AssertionError(f"fit_megakernel on the tilted light launched "
+                             f"{counts}")
+    if not (losses[-1] < losses[0] and abs(e1 - 1.5 * e0) < 0.5 * e0):
+        raise AssertionError("the tilted light's fit did not move its "
+                             f"light toward the truth: {losses}, {e1}")
+    main_launch.setdefault("megakernel_nee_mat_ext", 5)
+    main_launch.setdefault("megakernel_vjp_ext", 5)
+
+    phase("paths: a 1-step cli fit --train emission of each other code on "
+          "cornell_tilted_light 1024x768x512")
+    for label, fields in EXT_CASES.items():
+        if label in ("nee", "mis"):
+            continue
+        cli_fit(f"cornell_tilted_light {label}", "cornell_tilted_light",
+                fields, "emission", 1, "1")
+
+    phase("rows 8 and 9 with quads and GLOS at 1024x768x512 seed 0: CUDA-"
+          "event times of each instance on cornell_tilted_light, the GLOS "
+          "codes on cornell_glossy too (1 launch each)")
+    g = torch.full((height, width, 3), 1e-7, device="cuda")
+    for label, fields, nm in ext_cases():
+        if nm.startswith("tree"):
+            continue
+        sc = scenes[nm]
+        cfg = cfg_of(fields, width, height, 512, 0)
+        alb, emi = mg.pack_materials(sc)
+        geom = megakernel.pack_geometry(sc, cam)
+        tr = mg.render_megakernel_mat(sc, cam, cfg, alb, emi, 0,
+                                      geometry=geom)[1].tolist()
+        ms_m = event_ms(lambda: mg.render_megakernel_mat(
+            sc, cam, cfg, alb, emi, 0, geometry=geom), 1)
+        ms_v = event_ms(lambda: mg.render_megakernel_vjp(
+            sc, cam, cfg, alb, emi, 0, g, geometry=geom), 1)
+        n_g = 128 * glos_x4[label] if nm == "cornell_glossy" else 0
+        b_m = f_bound(sc, tr, n_pix * 512, n_pix, cfg.estimator, n_g)
+        b_v = v_bound(sc, tr, n_pix * 512, n_pix, cfg.estimator, n_g)
+        lobe = (f"; GLOS lobe at {n_g} vertices, the x4 count x 128, "
+                "estimated" if n_g else "")
+        log(f"[smoke] {nm} {label} 1024x768x512 seed 0, traces {tr}: "
+            f"{mg.mat_kernel_name(sc, cfg)} {ms_m:.3f} ms (bound "
+            f"{b_m[0]:.3f} ms, {b_m[1]}), {mg.vjp_kernel_name(sc, cfg)} "
+            f"{ms_v:.3f} ms (bound {b_v[0]:.3f} ms, {b_v[1]}) a launch "
+            f"(CUDA events){lobe} on {card}")
+
+    out = []
+    for label, fields in EXT_CASES.items():
+        what = "quads and GLOS" if label in GLOS_CASES else "quads"
+        cfg = cfg_of(fields, 4, 4, 1, 0)
+        for name, src, site, r in (
+                (mg.mat_kernel_name(tilted, cfg), "megakernel_ext.cu", 980,
+                 par8),
+                (mg.vjp_kernel_name(tilted, cfg), "megakernel_grad_ext.cu",
+                 1049, par9)):
+            r = r[name]
+            out.append({
+                "name": name, "route": "cuda", "source": CSRC + src,
+                "replaces": "small_pathtracer_tpu/ops/"
+                            f"megakernel_grad.py:{site} ({what}, {label})",
+                "launches": main_launch[name], "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None})
     return out
 
 
@@ -3644,7 +4087,8 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[smoke] ptxas: {line.strip()}")
     adjoints = ptxas_report(built.build_output,
-                            ("megakernel_vjp", "megakernel_geom"))
+                            ("megakernel_vjp", "megakernel_vjp_ext",
+                             "megakernel_geom"))
     for name, (regs, stack, st, ld) in adjoints.items():
         log(f"[smoke] ptxas {name}: {regs} registers, {stack} bytes stack "
             f"frame (local memory: the tape and checkpoints), spill stores "
@@ -4535,8 +4979,9 @@ def main() -> int:
     deep_phase()
     mat_entries, mat_shard = mat_phases(card, cli_main, MAT_GROWN)
     est_entries = est_phases(card, cli_main)
-    ext_entries = ext_phases(card, cli_main)
+    ext_entries, ext_runs, glos_x4 = ext_phases(card, cli_main)
     est_mat_entries, est_shard = mat_phases(card, cli_main, MAT_EST)
+    mat_ext_entries = mat_ext_phases(card, cli_main, ext_runs, glos_x4)
     geo_entries, geo_shard = geom_est_phases(card, cli_main)
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
                          {**mat_shard, **est_shard}, geo_shard)
@@ -4591,6 +5036,7 @@ def main() -> int:
         *est_entries,
         *ext_entries,
         *est_mat_entries,
+        *mat_ext_entries,
         *geo_entries,
     ]}))
     log(card)

@@ -60,7 +60,7 @@ from ..parallel.launcher import init_distributed
 from ..parallel.mesh import make_mesh
 from ..parallel.sharded import render_sharded
 from ..ops.megakernel_grad import (
-    FIELDS, check_trainable, fit_megakernel,
+    FIELDS, check_trainable, fit_megakernel, pack_materials,
 )
 from ..scene.presets import PRESETS, get_scene
 from ..utils.adaptive import adaptive_render
@@ -377,6 +377,7 @@ def _cmd_fit_geom(args, fields: tuple[str, ...], mesh=None,
     scene, cam, cfg = _build(args, device)
     lead = mesh is None or mesh.rank == 0
     si = args.fd_sphere if args.fd_sphere >= 0 else None
+    megakernel_geom.check_ported(scene)
     n_sph = scene.spheres.radius.shape[0]
     if n_sph == 0:
         raise SystemExit("scene has no spheres to fit")
@@ -415,7 +416,10 @@ def cmd_fit(args) -> int:
     center or radius, sphere fitting through the geometry adjoint
     (``_cmd_fit_geom``). Without ``--target`` the material fit's target is
     the scene rendered with its rects' emission x1.5 at seed + 1, as the
-    JAX CLI builds it; the printed ``light_emission`` is the light rect's."""
+    JAX CLI builds it (a quad light, as ``cornell_tilted_light``'s, keeps
+    its emission there: drive that fit with ``--target``); the printed
+    ``light_emission`` is the light's row of the fitted emission table, a
+    rect's or a quad's."""
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
     fields = tuple(args.train.split(","))
@@ -435,7 +439,7 @@ def cmd_fit(args) -> int:
             f"optimizer={args.optimizer}, fields={fields})"
         )
     scene, cam, cfg = _build(args)
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     if args.target:
         target = _read_target(args.target, cfg, scene.device)
     else:
@@ -451,7 +455,7 @@ def cmd_fit(args) -> int:
     light = scene.light.light_obj_id
     out["light_emission"] = [
         v if math.isfinite(v) else None
-        for v in fitted.rects.emission[light].tolist()
+        for v in pack_materials(fitted)[1][light].tolist()
     ]
     print(json.dumps(out, allow_nan=False))
     return 0

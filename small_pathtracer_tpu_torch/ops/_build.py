@@ -324,7 +324,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         *scene,
         i,  # n_rects
         *launch,
-        p, p,  # albedo, emission: (K, 3) f32 device, K = R + S
+        p, p,  # albedo, emission: (K, 3) f32 device, K = R + Q + S
         p,  # g_img: (n_pix_loc, 3) f32 device
         p,  # partials: f32 device scratch
         ctypes.c_longlong,  # its length in floats
@@ -338,6 +338,25 @@ def _bind(lib: ctypes.CDLL) -> None:
     for entry in (lib.spt_megakernel_vjp, lib.spt_megakernel_vjp_est):
         entry.restype = ctypes.c_int
         entry.argtypes = vjp
+    # Row 9 on scenes with quads or GLOS objects (csrc/megakernel_grad_ext.cu:
+    # every code of `est`; GLOS with 1, 2 and 6 only): the quads after the
+    # rects as the _ext forwards take them, no `tab` (always the sphere
+    # table), and the Phong exponents last.
+    lib.spt_megakernel_vjp_ext.restype = ctypes.c_int
+    lib.spt_megakernel_vjp_ext.argtypes = [
+        *ext_scene,
+        *launch,
+        p, p,  # albedo, emission: (K, 3) f32 device, K = R + Q + S
+        p,  # g_img: (n_pix_loc, 3) f32 device
+        p,  # partials: f32 device scratch
+        ctypes.c_longlong,  # its length in floats
+        p,  # out: (2, K, 3) f32 device
+        *est,
+        *spheres[:4],  # sph, n_spheres, bvh, root
+        p,  # refl: (K,) i32 device
+        gloss,
+        p,  # cudaStream_t
+    ]
     lib.spt_megakernel_geom.restype = ctypes.c_int
     lib.spt_megakernel_geom.argtypes = [
         *scene,

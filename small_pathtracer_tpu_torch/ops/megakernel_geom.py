@@ -86,21 +86,28 @@ _ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
 # ---------------------------------------------------------------------------
 # Scope and layout.
 
-def check_geom(scene: Scene, cfg: RenderConfig) -> None:
-    """The refusals of the geometry adjoint, on every device: quads and GLOS
-    (NotImplementedError: item 11's geometry half), and the JAX kernel's
-    own ValueErrors (no spheres, no unrolled object, a light that is not
-    an unrolled rect). Every estimator and
-    light_sample_mode passes (``mis`` and ``nee_textbook`` ignore
-    'glibc_overflow', as the JAX package's config.py says). Light lists
-    and sphere lights never reach here: the port's Scene holds neither
-    (``convert.scene_from_jax`` refuses them, item 12)."""
+def check_ported(scene: Scene) -> None:
+    """The geometry adjoint's refusal of quads and GLOS objects
+    (NotImplementedError: item 11's geometry half), which ``cli fit
+    --train center,...`` also makes before it counts the spheres."""
     for what, found in (("quads", num_quads(scene) > 0),
                         ("GLOS materials", has_glos(scene))):
         if found:
             raise NotImplementedError(
                 f"the geometry adjoint does not take {what} yet (ROADMAP.md "
                 "queue 1, item 11, its geometry half: rows 11 and 12)")
+
+
+def check_geom(scene: Scene, cfg: RenderConfig) -> None:
+    """The refusals of the geometry adjoint, on every device: quads and GLOS
+    (``check_ported``: item 11's geometry half), and the JAX kernel's
+    own ValueErrors (no spheres, no unrolled object, a light that is not
+    an unrolled rect). Every estimator and
+    light_sample_mode passes (``mis`` and ``nee_textbook`` ignore
+    'glibc_overflow', as the JAX package's config.py says). Light lists
+    and sphere lights never reach here: the port's Scene holds neither
+    (``convert.scene_from_jax`` refuses them, item 12)."""
+    check_ported(scene)
     if num_spheres(scene) == 0:
         raise ValueError("no spheres to differentiate; use the material "
                          "adjoint kernel (ops/megakernel_grad.py)")

@@ -1,21 +1,25 @@
 """Material training on the kernels: the port's counterpart of the JAX
 package's ``ops/megakernel_grad.py`` for all seven estimators and both
-light-sample modes, rects and spheres with DIFF, SPEC and REFR materials,
-and one rect light.
+light-sample modes, rects, general quads and spheres with DIFF, SPEC, REFR
+and GLOS materials, and one parallelogram light (a rect or a quad).
 
 - ``render_megakernel_mat``: the forward with runtime (K, 3) albedo and
   emission tables, the counterpart of ``render_pallas_mat``: on rect-only
   DIFF scenes ``megakernel_<est>_mat`` (``csrc/megakernel.cu`` for nee,
   cosine and nee_textbook, ``csrc/megakernel_est.cu`` for the others), on
   scenes with spheres or SPEC/REFR objects row 2's table kernel of the
-  estimator with the runtime tables (counted as ``megakernel_<est>_mat_tab``:
-  ``mat_kernel_name``). Equal tables give the image and trace counts of
-  ``ops.megakernel.render_megakernel`` bit for bit.
+  estimator with the runtime tables (``megakernel_<est>_mat_tab``), on
+  scenes with quads or GLOS objects its _ext kernel
+  (``csrc/megakernel_ext.cu``, ``megakernel_<est>_mat_ext``), each counted
+  under ``mat_kernel_name``. Equal tables give the image and trace counts
+  of ``ops.megakernel.render_megakernel`` bit for bit.
 - ``render_megakernel_vjp``: the material adjoint, one trace a sample and
   a sweep of its bounces back from a per-lane tape
   (``csrc/megakernel_vjp.cuh``: ``megakernel_vjp``, its estimator and scan
   instances in ``csrc/megakernel_grad.cu`` and ``megakernel_grad_est.cu``,
-  named by ``vjp_kernel_name``), the counterpart of ``render_pallas_vjp``.
+  and ``megakernel_vjp_ext`` in ``csrc/megakernel_grad_ext.cu`` for quads
+  and GLOS objects, named by ``vjp_kernel_name``), the counterpart of
+  ``render_pallas_vjp``.
 - ``RenderMaterials``: the two as one ``torch.autograd.Function``.
 - ``loss_and_material_grads`` and ``fit_megakernel``: SGD on the tables, the
   counterparts of ``loss_and_material_grads`` and ``fit_pallas``.
@@ -23,14 +27,16 @@ and one rect light.
   an (sp, dp) mesh, each rank running both kernels on its shard's lanes
   (``render_megakernel_mat_shard``, ``render_megakernel_vjp_shard``).
 
-The tables are in global object order (``pack_materials``): the rects, then
-the spheres, so K = R + S (17 for ``cornell_box``, 7 + 2 for
-``smallpt_original``). The kernels are named by the estimator code
+The tables are in global object order (``pack_materials``): the rects, the
+quads, then the spheres, so K = R + Q + S (17 for ``cornell_box``, 7 + 2
+for ``smallpt_original``, 16 + 1 for ``cornell_tilted_light``, whose light
+is object 16, its quad). The kernels are named by the estimator code
 (``ops.megakernel.est_code``): light_sample_mode 'glibc_overflow' changes
 ``nee`` and ``mixture`` only (``nee_glibc``, ``mixture_glibc``); the other
 estimators ignore it, as ``config.py`` and the jnp wavefront do, so ``mis``
-with it trains as ``mis``. Quads, GLOS objects and more than
-``MAX_GRAD_SPHERES`` spheres are refused on every device
+with it trains as ``mis``. GLOS objects train under ``cosine``,
+``nee_textbook`` and ``mis`` only (the JAX kernel's ValueError), and more
+than ``MAX_GRAD_OBJECTS`` objects are refused, on every device
 (``check_trainable``). On a CUDA device
 each wrapper launches its kernel or raises. On the CPU it runs the plain
 version: the eager forward (``render_megakernel_plain``) with the tables
@@ -45,7 +51,7 @@ import torch
 
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
-from ..integrator.wavefront import path_trace_regen
+from ..integrator.wavefront import GLOS_ESTIMATORS, path_trace_regen
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
 from ..scene.types import (
@@ -55,16 +61,17 @@ from ..scene.types import (
 from . import _build
 from .megakernel import (
     _EST_KERNEL, _OWN_CODES, KernelGeometry, SphereArgs, _image, _resolve,
-    count, est_code, full_layout, launch_args, pack_geometry, plain_lanes,
-    shard_of, sphere_args, sphere_tables, uses_sphere_table,
+    count, est_code, ext_scene_args, full_layout, kernel_family, launch_args,
+    pack_geometry, plain_lanes, shard_of, sphere_args, sphere_tables,
 )
 
 # Threads a block of the adjoint kernel (kBlock in csrc/megakernel_common.cuh):
 # it sizes the per-block partial sums.
 KERNEL_BLOCK = 128
 # The adjoint keeps a row of 6·K gradient slots a warp in shared memory,
-# which caps the sphere count (kMaxGradSpheres in csrc/megakernel_vjp.cuh).
-MAX_GRAD_SPHERES = 1024
+# which caps the object count K = R + Q + S (kMaxGradObjects in
+# csrc/megakernel_vjp.cuh: 32 rects and 1024 spheres).
+MAX_GRAD_OBJECTS = 1056
 FIELDS = ("albedo", "emission")
 
 
@@ -75,49 +82,51 @@ def _est_name(cfg: RenderConfig) -> str:
     return _EST_KERNEL[est_code(cfg)].removeprefix("megakernel_")
 
 
-def check_trainable(scene: Scene) -> None:
-    """Raises NotImplementedError for a scene outside rows 8 and 9, on
-    every device, so the CPU never trains what the card refuses: quads and
-    GLOS objects (rows 1-7 render them; rows 8-10 take them with item 11's
-    material half) and more spheres than the adjoint's shared-memory rows
-    hold (ROADMAP.md queue 2, row 9)."""
-    for what, found in (("quads", num_quads(scene) > 0),
-                        ("GLOS materials", has_glos(scene))):
-        if found:
-            raise NotImplementedError(
-                f"material training does not take {what} yet (ROADMAP.md "
-                "queue 1, item 11, its material half: rows 8-10)")
-    S = num_spheres(scene)
-    if S > MAX_GRAD_SPHERES:
+def check_trainable(scene: Scene, cfg: RenderConfig) -> None:
+    """Raises for a scene outside rows 8 and 9, on every device and before
+    any launch, so the CPU never trains what the card refuses: more objects
+    than the adjoint's shared-memory rows hold (NotImplementedError,
+    ROADMAP.md queue 2, row 9) and GLOS objects under an estimator without
+    glossy semantics (the JAX kernel's ValueError). Light lists and sphere
+    lights never reach here: the port's Scene holds neither
+    (``convert.scene_from_jax`` refuses them, item 12)."""
+    K = _n_objects(scene)
+    if K > MAX_GRAD_OBJECTS:
         raise NotImplementedError(
-            f"material training takes at most {MAX_GRAD_SPHERES} spheres "
+            f"material training takes at most {MAX_GRAD_OBJECTS} objects "
             "(the adjoint kernel's per-warp gradient rows fill a block's "
-            f"shared memory; ROADMAP.md queue 2, row 9), got {S}")
+            f"shared memory; ROADMAP.md queue 2, row 9), got {K}")
+    if cfg.estimator not in GLOS_ESTIMATORS and has_glos(scene):
+        raise ValueError(
+            f"estimator {cfg.estimator!r} has no glossy (GLOS) semantics; "
+            "use cosine / nee_textbook / mis (same rule as the forward "
+            "kernel, ops/megakernel.build_kernel)")
 
 
 def mat_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
     """The name under which row 8 counts its launches on ``scene``: the
     rect kernel megakernel_<est>_mat (``_est_name``: e.g. nee, textbook,
-    mis, nee_glibc), or row 2's table kernel of the estimator launched with
-    the runtime tables (``_tab``)."""
-    tab = "_tab" if uses_sphere_table(scene) else ""
-    return f"megakernel_{_est_name(cfg)}_mat{tab}"
+    mis, nee_glibc), or the table kernel of the estimator launched with the
+    runtime tables, row 2's (``_tab``) or, with quads or GLOS objects, its
+    _ext instance (``_ext``): ``megakernel.kernel_family``."""
+    return f"megakernel_{_est_name(cfg)}_mat{kernel_family(scene)}"
 
 
 def vjp_kernel_name(scene: Scene, cfg: RenderConfig) -> str:
     """The name under which row 9 counts its launches on ``scene``:
     megakernel_vjp (``nee``) or megakernel_vjp_<est> (``_est_name``: e.g.
     cosine, textbook, mis, nee_glibc), with ``_tab`` for the sphere-table
-    instances (linear and tree counted together)."""
+    instances and ``_ext`` for those with quads and GLOS
+    (``megakernel.kernel_family``; linear and tree counted together)."""
     name = _est_name(cfg)
     est = "" if name == "nee" else "_" + name
-    tab = "_tab" if uses_sphere_table(scene) else ""
-    return f"megakernel_vjp{est}{tab}"
+    return f"megakernel_vjp{est}{kernel_family(scene)}"
 
 
 def pack_materials(scene: Scene):
     """The scene's materials as (K, 3) float32 tables in global object order
-    (rects, then spheres: ``sphere_tables``), copies on its device."""
+    (rects, quads, then spheres: ``sphere_tables``), copies on its
+    device."""
     _, alb, emi, _ = sphere_tables(scene, scene.device)
     return alb.clone(), emi.clone()
 
@@ -125,14 +134,18 @@ def pack_materials(scene: Scene):
 def unpack_materials(scene: Scene, alb, emi) -> Scene:
     """Inverse of pack_materials: the tables put back into the scene (the
     tensors themselves, so gradients flow to them)."""
-    R, S = scene.rects.k.shape[0], num_spheres(scene)
+    R, Q = scene.rects.k.shape[0], num_quads(scene)
+    K = _n_objects(scene)
     for t in (alb, emi):
-        if tuple(t.shape) != (R + S, 3):
-            raise ValueError(f"expected a ({R + S}, 3) table, got "
+        if tuple(t.shape) != (K, 3):
+            raise ValueError(f"expected a ({K}, 3) table, got "
                              f"{tuple(t.shape)}")
     return scene._replace(
         rects=scene.rects._replace(albedo=alb[:R], emission=emi[:R]),
-        spheres=scene.spheres._replace(albedo=alb[R:], emission=emi[R:]),
+        quads=scene.quads._replace(albedo=alb[R:R + Q],
+                                   emission=emi[R:R + Q]),
+        spheres=scene.spheres._replace(albedo=alb[R + Q:],
+                                       emission=emi[R + Q:]),
     )
 
 
@@ -164,7 +177,8 @@ def _tables(albedo, emission, k: int, device):
 
 
 def _n_objects(scene: Scene) -> int:
-    return scene.rects.k.shape[0] + num_spheres(scene)
+    """K = R + Q + S."""
+    return scene.rects.k.shape[0] + num_quads(scene) + num_spheres(scene)
 
 
 def _table_args(lib, scene: Scene, alb, emi, device) -> SphereArgs:
@@ -199,7 +213,7 @@ def render_megakernel_mat(scene: Scene, cam: CameraParams,
     (``pack_geometry(scene, cam)``) saves the host copy of the rects per
     call; the tables never leave the device. Returns ((h, w, 3) radiance sum
     over the span, traces (2,) int64 [extend, probe])."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_plain(scene, cam, cfg, albedo, emission,
@@ -221,10 +235,18 @@ def _launch_mat(scene, cam, cfg, albedo, emission, seed, lay: ShardLayout,
     traces = torch.zeros(2, dtype=torch.int64, device=device)
     code = est_code(cfg)
     own = code in _OWN_CODES
+    family = kernel_family(scene)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if uses_sphere_table(scene):
+        if family:
             sa = _table_args(lib, scene, alb, emi, device)
+        if family == "_ext":
+            err = lib.spt_megakernel_ext(
+                code, cfg.mixture_q, *ext_scene_args(geom),
+                *launch_args(geom, cfg, seed, lay), *sa.ext_args(),
+                out_l.data_ptr(), traces.data_ptr(), stream,
+            )
+        elif family:
             est = (code, 0) if own else (code, cfg.mixture_q)
             err = (lib.spt_megakernel_tab if own
                    else lib.spt_megakernel_est_tab)(
@@ -258,14 +280,14 @@ def render_megakernel_vjp_plain(scene: Scene, cam: CameraParams,
                       g.reshape(-1, 3), full_layout(cfg), device)
 
 
-def plain_chunk(n_spheres: int, device) -> int:
+def plain_chunk(n_objects: int, device) -> int:
     """Lanes of one autograd chunk of the adjoints' plain versions: the
-    eager loop keeps every bounce's (N, S) intersection temporaries for the
-    backward, so bound the lanes by the sphere count on the card; the CPU
-    runs one chunk."""
+    eager loop keeps every bounce's (N, S) and (N, Q) intersection
+    temporaries for the backward, so bound the lanes by the count of
+    spheres and quads on the card; the CPU runs one chunk."""
     if device.type == "cpu":
         return 1 << 62
-    return max(4096, (1 << 21) // (16 + n_spheres))
+    return max(4096, (1 << 21) // (16 + n_objects))
 
 
 def _vjp_plain(scene, cam, cfg, albedo, emission, seed, g_rows,
@@ -280,7 +302,7 @@ def _vjp_plain(scene, cam, cfg, albedo, emission, seed, g_rows,
     g_lane = g_rows.detach().to(device=device, dtype=torch.float32
                                 ).index_select(0, pix - lay.pix0)
     grads = [torch.zeros_like(t) for t in leaves]
-    chunk = plain_chunk(num_spheres(sc), device)
+    chunk = plain_chunk(num_spheres(sc) + num_quads(sc), device)
     for a in range(0, pix.shape[0], chunk):
         z = slice(a, a + chunk)
         with torch.enable_grad():
@@ -301,7 +323,7 @@ def render_megakernel_vjp(scene: Scene, cam: CameraParams,
     is render_megakernel_mat's radiance sum over spp: (d/d albedo,
     d/d emission), each (K, 3), pathwise. The CUDA kernel on a CUDA device,
     the plain version on the CPU."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_plain(scene, cam, cfg, albedo, emission,
@@ -330,23 +352,30 @@ def _launch_vjp(scene, cam, cfg, albedo, emission, seed, g_rows,
                            device=device)
     out = torch.empty((2, K, 3), dtype=torch.float32, device=device)
     lib = _build.build_kernels().lib
-    tab = uses_sphere_table(scene)
+    family = kernel_family(scene)
     code = est_code(cfg)
+    grads = (alb.data_ptr(), emi.data_ptr(), g.data_ptr(),
+             partials.data_ptr(), partials.numel(), out.data_ptr(), code,
+             cfg.mixture_q)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if tab:
+        if family:
             sa = _table_args(lib, scene, alb, emi, device)
             spheres = (*sa.args()[:4], sa.refl.data_ptr())
         else:
             spheres = (None, 0, None, 0, None)
-        err = (lib.spt_megakernel_vjp if code in _OWN_CODES
-               else lib.spt_megakernel_vjp_est)(
-            geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
-            len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
-            alb.data_ptr(), emi.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), partials.numel(), out.data_ptr(),
-            code, cfg.mixture_q, int(tab), *spheres, stream,
-        )
+        if family == "_ext":
+            err = lib.spt_megakernel_vjp_ext(
+                *ext_scene_args(geom), *launch_args(geom, cfg, seed, lay),
+                *grads, *spheres, sa.gloss.data_ptr(), stream,
+            )
+        else:
+            err = (lib.spt_megakernel_vjp if code in _OWN_CODES
+                   else lib.spt_megakernel_vjp_est)(
+                geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data,
+                len(geom.rect_axis), *launch_args(geom, cfg, seed, lay),
+                *grads, int(family != ""), *spheres, stream,
+            )
     count(vjp_kernel_name(scene, cfg), err)
     return out[0], out[1]
 
@@ -402,7 +431,7 @@ def fit_megakernel(scene: Scene, cam: CameraParams, cfg: RenderConfig,
     ``seed``. The geometry is packed once; the tables stay on the device.
 
     Returns (optimized scene, list of per-step losses)."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     if checkpoint or checkpoint_every:
         raise NotImplementedError(
             "fit checkpoints are not ported yet (ROADMAP.md queue 1, item "
@@ -452,7 +481,7 @@ def render_megakernel_mat_shard(scene: Scene, cam: CameraParams,
     spp: its pixel block's radiance sums over its dp sample range, before
     any collective (row 8 on the shard's lanes on a CUDA device). Returns
     ((n_pix_loc, 3) partial sums, traces (2,) int64 of the shard)."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_mat_shard_plain(scene, cam, cfg, mesh,
@@ -481,7 +510,7 @@ def render_megakernel_vjp_shard(scene: Scene, cam: CameraParams,
     sum(g_rows · I_loc) over its shard's lanes, where g_rows (n_pix_loc, 3)
     holds the cotangents of its pixel block only (row 9 on a CUDA
     device). Returns (galb, gemi) partials, each (K, 3)."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     if device.type == "cpu":
         return render_megakernel_vjp_shard_plain(scene, cam, cfg, mesh,
@@ -508,7 +537,7 @@ def material_train_step_sharded(scene: Scene, cam: CameraParams,
 
     Returns step(albedo, emission, seed) -> (loss (), galb (K, 3),
     gemi (K, 3)), the same on every rank."""
-    check_trainable(scene)
+    check_trainable(scene, cfg)
     device = _resolve(scene, device)
     lay = shard_of(cfg, mesh, what="spp")
     n_pix, spp = cfg.width * cfg.height, cfg.spp

@@ -14,8 +14,8 @@ JAX package (ROADMAP item 11, forward half: rows 1-7).
 - (d) ``cornell_tilted_light`` (a quad light) under ``nee`` and ``mis``
   against ``render_pallas(interpret=True)`` at 16x16x2.
 - (e) The refusals: estimators without glossy semantics, guided rendering
-  with GLOS, rows 8-12 with quads or GLOS (item 11's material and geometry
-  halves), ``veach_mis`` (item 12).
+  with GLOS, rows 11-12 with quads or GLOS (item 11's geometry half; rows
+  8-10 take both, tests/test_torch_grad_ext.py), ``veach_mis`` (item 12).
 
 Six JAX programs, each made once in the module fixture (three
 ``render_regen`` of the glossy box, one of ``cornell_glossy``, two
@@ -357,9 +357,10 @@ def _with_glos(scene):
 
 @pytest.mark.parametrize("what", ["quads", "glos"])
 def test_training_refuses_quads_and_glos(what):
-    """Rows 8-10 refuse quads and GLOS objects naming item 11's material
-    half, rows 11-12 its geometry half, on every entry point and before
-    any launch; cli fit too."""
+    """Rows 11-12 (the geometry adjoint) refuse quads and GLOS objects
+    naming item 11's geometry half, on every entry point and before any
+    launch, and so does cli fit --train center,radius on the preset; rows
+    8-10 (material training) take them since item 11's material half."""
     scene = (spt.get_scene("cornell_tilted_light", device="cpu")
              if what == "quads"
              else _with_glos(spt.get_scene("cornell_spheres", device="cpu")))
@@ -367,18 +368,14 @@ def test_training_refuses_quads_and_glos(what):
     cfg = spt.RenderConfig(width=4, height=3, spp=1, estimator="mis")
     alb, emi = mgr.pack_materials(scene)
     target = torch.zeros(3, 4, 3)
-    mat = "item 11, its material half"
-    for call in (
-            lambda: mgr.check_trainable(scene),
-            lambda: mgr.render_megakernel_mat(scene, cam, cfg, alb, emi, 0),
-            lambda: mgr.render_megakernel_vjp(scene, cam, cfg, alb, emi, 0,
-                                              target),
-            lambda: mgr.fit_megakernel(scene, cam, cfg, target, steps=1),
-            lambda: mgr.material_train_step_sharded(
-                scene, cam, cfg, Mesh.single((1, 1)), target)):
-        with pytest.raises(NotImplementedError, match=mat):
-            call()
+    mgr.check_trainable(scene, cfg)
+    img, _ = mgr.render_megakernel_mat(scene, cam, cfg, alb, emi, 0)
+    galb, gemi = mgr.render_megakernel_vjp(scene, cam, cfg, alb, emi, 0,
+                                           target + 1.0)
+    assert img.shape == (3, 4, 3) and galb.shape == gemi.shape == alb.shape
+    assert bool(torch.isfinite(galb).all() and torch.isfinite(gemi).all())
     geo = "item 11, its geometry half"
+    before = mk.LAUNCHES.copy()
     for call in (
             lambda: mg.check_geom(scene, cfg),
             lambda: mg.geom_run(scene, cam, cfg, 0),
@@ -388,13 +385,8 @@ def test_training_refuses_quads_and_glos(what):
                                                Mesh.single((1, 1)), target)):
         with pytest.raises(NotImplementedError, match=geo):
             call()
-    preset = "cornell_tilted_light" if what == "quads" else "cornell_glossy"
-    before = mk.LAUNCHES.copy()
-    with pytest.raises(NotImplementedError, match=mat):
-        cli_main(["fit", "--device", "cpu", "--scene", preset, "--estimator",
-                  "mis", "--width", "4", "--height", "3", "--spp", "1",
-                  "--steps", "1"])
-    if what == "glos":
+    for preset in (("cornell_tilted_light",) if what == "quads"
+                   else ("cornell_glossy", "cornell_tilted_light")):
         with pytest.raises(NotImplementedError, match=geo):
             cli_main(["fit", "--device", "cpu", "--scene", preset,
                       "--estimator", "mis", "--width", "4", "--height", "3",

@@ -290,14 +290,20 @@ def test_cli_fit_sphere_scene_cpu(capsys):
 
 
 def test_training_refuses_more_spheres_than_the_adjoint_holds():
-    """Row 9's cap (its per-warp gradient rows in shared memory), on every
-    device: sphere_grid_1024 is at the cap, one more sphere is refused."""
+    """Row 9's cap (its per-warp gradient rows in shared memory, 6·K slots
+    for K = rects + quads + spheres), on every device: sphere_grid_1024
+    with spheres added up to the cap trains, one more sphere is
+    refused."""
     sc = spt.get_scene("sphere_grid_1024", device="cpu")
-    assert sc.spheres.radius.shape[0] == mg.MAX_GRAD_SPHERES
-    mg.check_trainable(sc)
     sp = sc.spheres
-    more = sc._replace(spheres=type(sp)(*(torch.cat([t, t[:1]]) for t in sp)))
+    n_more = mg.MAX_GRAD_OBJECTS - sc.rects.k.shape[0] - sp.radius.shape[0]
+    assert 0 < n_more < sp.radius.shape[0]
+    sc = sc._replace(spheres=type(sp)(*(torch.cat([t, t[:n_more]])
+                                        for t in sp)))
     cam = spt.make_camera(device="cpu")
     cfg = spt.RenderConfig(width=4, height=4, spp=1)
+    mg.check_trainable(sc, cfg)
+    sp = sc.spheres
+    more = sc._replace(spheres=type(sp)(*(torch.cat([t, t[:1]]) for t in sp)))
     with pytest.raises(NotImplementedError, match="queue 2, row 9"):
         mg.fit_megakernel(more, cam, cfg, torch.zeros(4, 4, 3), steps=1)
