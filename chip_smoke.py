@@ -114,8 +114,19 @@ glass), ``mis`` on 200-bounce paths and on each coordinate of a 2x2 mesh
 ``cli fit --train center,radius --estimator mis`` at 1024x768x512 (5
 steps, the loss must fall, 1 + 2 launches a step), a 1-step fit of each
 other instance at 256x192x64, and each instance's x512 event time; the
-4-rank main path takes one ``mis`` geometry step over the mesh. The
-adjoint kernels'
+4-rank main path takes one ``mis`` geometry step over the mesh. Then the
+geometry adjoint with general quads and GLOS rects and quads
+(``geom_ext_phases``: ``megakernel_geom[_<est>]_ext`` of
+``csrc/megakernel_geom_ext.cu``, every code), on scenes built through the
+API (no preset reaches it): each instance's image-only launch and its
+adjoint's pass A bit for bit against ``megakernel_<est>_ext``, its adjoint
+against autograd row by row at 128x96x4 (the tree at 96x72x4), ``mis`` on
+200-bounce paths and on each coordinate of a 2x2 mesh, the main path
+``fit_geom`` of the tilted light with ``cornell_spheres``' spheres at
+1024x768x512 (5 steps, the loss must fall, 1 + 2 launches a step), x512
+event times, a 1-step fit of each other instance. Every plain version runs
+once, for its result; kernels that compute the same function on the same
+inputs are held against one plain result. The adjoint kernels'
 registers, stack frames (their tapes) and spills are logged from ptxas,
 their times against the function's bound and their algorithm's. Each path
 runs with its kernels' launch counts set to 0 just before it and read just
@@ -230,7 +241,7 @@ GUIDE_BETA, GUIDE_K, GUIDE_MEAN_TOL = 0.6, 8.0, 0.02
 # mis) the lobe's BRDF in the direct term 48 (|A cos_l| / t^2 8, a dot 5,
 # pow_pos 31, 4 more) and, for mis, the lobe's two pdfs 80. The kernels do
 # not count GLOS vertices: the parity runs count them on the plain version
-# (glos_vertices), so the x4 bounds carry the lobe and the logged x512
+# (counting_glos), so the x4 bounds carry the lobe and the logged x512
 # bounds leave it out (still lower bounds).
 FP_QUAD = 49
 FP_GLOS, FP_GLOS_NEE, FP_GLOS_MIS = 112, 48, 80
@@ -602,7 +613,8 @@ FP_VJP = 100
 
 def geom_bound(counts, n_samples: int, n_pix: int, n_rects: int,
                n_spheres: int, n_blocks: int, algorithm: bool = False,
-               est: str = "nee", diffuse_only: bool = True):
+               est: str = "nee", diffuse_only: bool = True, n_quads: int = 0,
+               extra_fp: float = 0.0):
     """megakernel_geom from its own counters [extend, probe, replayed, VJP,
     paths longer than the tape]. The function's bound: the gradient needs
     pass A's bounces (a query with the least shading each), pass A's probes
@@ -616,21 +628,26 @@ def geom_bound(counts, n_samples: int, n_pix: int, n_rects: int,
     replays (a query and the least shading each, their probes left out),
     each VJP bounce's shading (its queries come from the tape), and the
     tape: an entry written a traced or replayed bounce and read a VJP
-    bounce."""
+    bounce. Quads (n_quads) add their tests to every query and their rows
+    and every object's Phong exponent to the bytes; extra_fp is added as it
+    is (the GLOS lobe's work)."""
     extend, probe, replay, vjp = counts[:4]
-    q = query_ops(n_rects, n_spheres)
+    q = query_ops(n_rects, n_spheres, n_quads)
     if est == "nee":
         fp = (extend * (q + FP_SHADE_MIN) + probe * (FP_PROBE + FP_NEE)
               + vjp * FP_VJP + n_samples * FP_SPAWN)
         it = extend * (INT_DRAW + INT_WORD) + n_samples * INT_SPAWN
     else:
         fp, it = forward_ops((extend, probe), n_samples, n_rects, n_spheres,
-                             est, diffuse_only)
+                             est, diffuse_only, n_quads=n_quads)
         fp += vjp * FP_VJP
-    k = n_rects + n_spheres
+    fp += extra_fp
+    k = n_rects + n_quads + n_spheres
     slots = 6 * k + 4 * n_spheres
     n_bytes = (n_pix * 24 + k * 28 + n_spheres * 16
                + 2 * n_blocks * slots * 4)
+    if n_quads:
+        n_bytes += n_quads * 19 * 4 + k * 4
     if algorithm:
         fp += replay * (q + FP_SHADE_MIN) + vjp * FP_SHADE_MIN
         it += (replay + vjp) * (INT_DRAW + INT_WORD)
@@ -694,8 +711,10 @@ def geom_phases(card: str, cli_main) -> dict:
     from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
 
     def parity(name, width, height, seed, g_seeds, long_paths=False):
-        """Image-only parity, then the adjoint under the cotangent of each
-        of g_seeds; returns the first cotangent's numbers. With
+        """Image-only parity against megakernel_nee_tab, then the adjoint
+        under the cotangent of each of g_seeds against autograd through the
+        plain version, whose run also gives the plain image (one plain run
+        a cotangent); returns the first cotangent's numbers. With
         ``long_paths`` some path must have outrun the tape, so the segment
         replays ran."""
         sc = get_scene(name)
@@ -705,14 +724,12 @@ def geom_phases(card: str, cli_main) -> dict:
         t_img, t_tr = megakernel.render_megakernel(sc, cam, cfg, seed)
         outs, med = in_turns(
             {"kernel": lambda: mgeo.geom_run(sc, cam, cfg, seed,
-                                             with_counts=True),
-             "plain": lambda: mgeo.geom_run_plain(sc, cam, cfg, seed)},
-            ("plain", "kernel", "kernel", "plain"))
-        for img_i, *_, c_i in outs["kernel"] + outs["plain"]:
+                                             with_counts=True)},
+            ("kernel", "kernel"))
+        for img_i, *_, c_i in outs["kernel"]:
             if not (torch.equal(img_i, t_img) and torch.equal(c_i[:2], t_tr)):
-                raise AssertionError(f"{name}: the image-only launch or its "
-                                     "plain version differs from "
-                                     "megakernel_nee_tab")
+                raise AssertionError(f"{name}: the image-only launch differs "
+                                     "from megakernel_nee_tab")
         return [adjoint(sc, cam, cfg, name, seed, g_seed, t_img, t_tr,
                         med, long_paths) for g_seed in g_seeds][0]
 
@@ -745,9 +762,12 @@ def geom_phases(card: str, cli_main) -> dict:
             raise AssertionError(f"{name}: no path outran the tape, so the "
                                  "segment replays did not run")
         torch.cuda.reset_peak_memory_stats()
-        (_, p_sph, p_alb, p_emi, _), p_s = timed(
+        (p_img, p_sph, p_alb, p_emi, p_tr), p_s = timed(
             lambda: mgeo.geom_run_plain(sc, cam, cfg, seed, g))
         peak = torch.cuda.max_memory_allocated()
+        if not (torch.equal(p_img, t_img) and torch.equal(p_tr, t_tr)):
+            raise AssertionError(f"{name}: the plain version's image differs "
+                                 "from megakernel_nee_tab's")
         err_, bad = 0.0, []
         tol_mat, tol_sph = GEOM_TOL[name]
         for label, kt, pt, tol in (("albedo", k_alb, p_alb, tol_mat),
@@ -775,8 +795,8 @@ def geom_phases(card: str, cli_main) -> dict:
                            -(-n_pix * groups // mgeo.KERNEL_BLOCK), True)
         ms = float(np.median(secs)) * 1e3
         log(f"[smoke] geom {name} {width}x{height}x4 seed {seed}: image-only "
-            f"{med['kernel'] * 1e3:.3f} ms (plain {med['plain'] * 1e3:.3f} "
-            f"ms) == megakernel_nee_tab, traces {t_tr.tolist()}; adjoint "
+            f"{med['kernel'] * 1e3:.3f} ms == megakernel_nee_tab and the "
+            f"plain version, traces {t_tr.tolist()}; adjoint "
             f"{ms:.3f} ms, counts {counts.tolist()} [extend, probe, "
             f"replayed, VJP, paths longer than the tape], three runs "
             f"bit-identical; plain adjoint {p_s:.3f} s, peak memory "
@@ -1492,7 +1512,7 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict,
 
     def per_shard(label, name, kernel_fn, plain_fn, exact=True):
         """Each coordinate's launch against its plain version, in turns
-        (plain, kernel, kernel, plain): bit for bit when ``exact``; the
+        (kernel, plain, kernel): bit for bit when ``exact``; the
         kernel runs of a coordinate bit-identical. Returns ({coord: kernel
         output}, largest |kernel - plain|, summed medians (kernel s, plain
         s))."""
@@ -1502,7 +1522,7 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict,
             before = launched[name]
             outs, med = in_turns({"kernel": lambda: kernel_fn(m),
                                   "plain": lambda: plain_fn(m)},
-                                 ("plain", "kernel", "kernel", "plain"))
+                                 ("kernel", "plain", "kernel"))
             if launched[name] != before + 2:
                 raise AssertionError(f"{label} {c}: {name} did not count 2 "
                                      "launches")
@@ -1630,7 +1650,7 @@ def shard_phases(card: str, cli_main, guide_alcove, mat_shard: dict,
                 box, cam, cfg, m, alb, emi, 3, g_c),
              "plain": lambda: mg.render_megakernel_vjp_shard_plain(
                  box, cam, cfg, m, alb, emi, 3, g_c)},
-            ("plain", "kernel", "kernel", "plain"))
+            ("kernel", "plain", "kernel"))
         vk_s += med["kernel"]
         vp_s += med["plain"]
         for kt, pt in zip(outs["kernel"][0], outs["plain"][0]):
@@ -2511,10 +2531,50 @@ GEOM_SHARD_BOUNCES = 8
 # Mirrors and glass weigh and turn paths by the geometry, so there the
 # rows are held as every other row.
 GEOM_ZERO = 1e-6
+# The same on a scene with mirrors (and no glass or GLOS object): a SPEC
+# bounce's pullback (its reflect and the hit point through t, a distance
+# of ~100) carries the rounding of the cosine weight's cotangent into the
+# sphere rows, so they are held to GEOM_ZERO_SPEC of the albedo table's
+# largest entry (measured on an H100, uniform_corrected on the tilted light
+# with sphere_grid's spheres at 96x72x4: |kernel - plain| 2.4e-4 against
+# an albedo table of 5.3; PERF.md §6).
+GEOM_ZERO_SPEC = 2e-4
 # The 4-rank step of row 12 with mis (``mesh_rank``): label, scene, fields,
 # (width, height, spp).
 MESH_GEOM_STEPS = (("row12_mis", "cornell_spheres", {"estimator": "mis"},
                     (512, 384, 64)),)
+
+
+def held_geom(label, got, want, tols, zero=0.0):
+    """A geometry adjoint's tables (sphere rows, albedo, emission) row by
+    row against autograd through its plain version, each row within tols
+    of its own largest entry (with ``zero`` above 0 the sphere rows, exactly
+    0, within ``zero`` times the albedo table's largest entry); returns the
+    largest |kernel - plain|."""
+    err, bad = 0.0, []
+    for name, kt, pt, tol in zip(("sphere rows", "albedo", "emission"),
+                                 got, want, tols):
+        e = float((kt - pt).abs().max())
+        err = max(err, e)
+        if name == "sphere rows" and zero:
+            floor = zero * float(want[1].abs().max())
+            msg = (f"largest |kernel| {float(kt.abs().max()):.3e}, "
+                   f"|plain| {float(pt.abs().max()):.3e} (exactly 0; "
+                   f"limit {floor:.3e})")
+            if not max(float(kt.abs().max()),
+                       float(pt.abs().max())) <= floor:
+                bad.append(f"{name} not 0")
+        else:
+            ratio, row, scale = worst_row(kt, pt)
+            msg = (f"worst row {row}: ratio {ratio:.3e} to its largest "
+                   f"entry {scale:.3e} (limit {tol:g})")
+            if not ratio <= tol:
+                bad.append(f"{name} row {row} off by {ratio:.3e}")
+        log(f"[smoke] {label} d/d {name}: max |kernel - plain| {e:.3e}; "
+            + msg)
+    if bad:
+        raise AssertionError(f"{label}: " + "; ".join(bad))
+    return err
 
 
 def displaced(sc):
@@ -2549,34 +2609,6 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
     def g_of(height, width, seed):
         return torch.from_numpy(np.random.default_rng(seed).standard_normal(
             (height, width, 3)).astype(np.float32)).to("cuda")
-
-    def held(label, got, want, tols, zero_rows=False):
-        """Each table (sphere rows, albedo, emission) row by row against
-        autograd; returns the largest |kernel - plain|."""
-        err, bad = 0.0, []
-        for name, kt, pt, tol in zip(("sphere rows", "albedo", "emission"),
-                                     got, want, tols):
-            e = float((kt - pt).abs().max())
-            err = max(err, e)
-            if name == "sphere rows" and zero_rows:
-                floor = GEOM_ZERO * float(want[1].abs().max())
-                msg = (f"largest |kernel| {float(kt.abs().max()):.3e}, "
-                       f"|plain| {float(pt.abs().max()):.3e} (exactly 0; "
-                       f"limit {floor:.3e})")
-                if not max(float(kt.abs().max()),
-                           float(pt.abs().max())) <= floor:
-                    bad.append(f"{name} not 0")
-            else:
-                ratio, row, scale = worst_row(kt, pt)
-                msg = (f"worst row {row}: ratio {ratio:.3e} to its largest "
-                       f"entry {scale:.3e} (limit {tol:g})")
-                if not ratio <= tol:
-                    bad.append(f"{name} row {row} off by {ratio:.3e}")
-            log(f"[smoke] {label} d/d {name}: max |kernel - plain| {e:.3e}; "
-                + msg)
-        if bad:
-            raise AssertionError(f"{label}: " + "; ".join(bad))
-        return err
 
     par, cam_cache = {}, {}
 
@@ -2631,10 +2663,10 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
                                  "path outran the tape")
         tols = (GEOM_TOL[nm][1], GEOM_TOL[nm][0], GEOM_TOL[nm][0])
         spec = has_spec_refr(sc)  # SPEC or REFR objects
-        err = held(f"{name} {nm}", (k_sph, k_alb, k_emi),
+        err = held_geom(f"{name} {nm}", (k_sph, k_alb, k_emi),
                    (p_sph, p_alb, p_emi), tols,
-                   zero_rows=not spec and fields["estimator"] in (
-                       "cosine", "uniform", "uniform_corrected"))
+                   zero=GEOM_ZERO if not spec and fields["estimator"] in (
+                       "cosine", "uniform", "uniform_corrected") else 0.0)
         n_pix = width * height
         b = geom_bound(counts.tolist(), n_pix * 4, n_pix,
                        sc.rects.k.shape[0], sc.spheres.radius.shape[0],
@@ -2683,7 +2715,7 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
                              "the tape")
     _, p_sph, p_alb, p_emi, _ = mgeo.geom_run_plain(dark, dcam, cfg, 3, g)
     tol_mat, tol_sph = GEOM_TOL["cornell_spheres"]
-    held("deep paths, megakernel_geom_mis", (k_sph, k_alb, k_emi),
+    held_geom("deep paths, megakernel_geom_mis", (k_sph, k_alb, k_emi),
          (p_sph, p_alb, p_emi), (tol_sph, tol_mat, tol_mat))
 
     phase(f"row 12 with mis per shard on cornell_spheres {width}x{height}x4, "
@@ -2714,7 +2746,7 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
                 and torch.equal(out_i[4][:2], out_p[4])):
             raise AssertionError(f"row 12 mis {c}: the shard's image or "
                                  "traces differ from its plain version")
-        shard["err"] = max(shard["err"], held(
+        shard["err"] = max(shard["err"], held_geom(
             f"row 12 {name} shard {c}", out_k[1:4], out_p[1:4],
             (tol_sph, tol_mat, tol_mat)))
         shard["ms"] += (s_i + s_k) * 1e3
@@ -2848,20 +2880,368 @@ def geom_est_phases(card: str, cli_main) -> tuple[list, dict]:
     return out, {"megakernel_geom_mis": shard}
 
 
+# ROADMAP item 11's geometry half (geom_ext_phases): rows 11 and 12 with
+# general quads and GLOS rects and quads, megakernel_geom_ext
+# (csrc/megakernel_geom_ext.cu). No preset reaches it (the JAX geometry
+# kernel needs a table sphere and refuses GLOS spheres), so the scenes are
+# built through the API, as tests/test_torch_geom_ext.py builds them: Q,
+# cornell_tilted_light's rects and light quad (object 16) with
+# cornell_spheres' two spheres; G, Q with its floor GLOS GEOM_EXT_GLOSS[0]
+# and a GLOS quad plate (GEOM_EXT_PLATE, exponent GEOM_EXT_GLOSS[1],
+# object 17); the tree scenes, Q with sphere_grid's 64 spheres (its floor
+# GLOS for the GLOS codes). Every code runs on Q and the tree at
+# GEOM_EXT_SIZE and GEOM_EXT_TREE_SIZE x4, the GLOS codes on G too; mis on
+# 200-bounce paths of G and per shard; the main path is ``fit_geom`` of Q
+# with nee at 1024x768x512 (5 steps at GEOM_EXT_FIT_LR, the CLI's default;
+# the loss must fall).
+GEOM_EXT_PLATE = ((8.0, 40.0, 100.0), (22.0, 0.0, -10.0), (0.0, 22.0, 6.0),
+                  (0.8, 0.75, 0.7))
+GEOM_EXT_GLOSS = (40.0, 60.0)
+GEOM_EXT_SIZE, GEOM_EXT_TREE_SIZE = (128, 96), (96, 72)
+GEOM_EXT_CASES = {"nee": {"estimator": "nee"}, **GEOM_EST_CASES}
+GEOM_EXT_FIT_LR = 1.0
+
+
+def geom_ext_scenes() -> dict:
+    """The scenes of geom_ext_phases: Q, G, tree and tree_g."""
+    from small_pathtracer_tpu_torch import get_scene
+    from small_pathtracer_tpu_torch.scene.types import GLOS, Quads
+
+    q = get_scene("cornell_tilted_light")._replace(
+        spheres=get_scene("cornell_spheres").spheres)
+    r = q.rects
+    floor = int(((r.axis == 1) & (r.k == 0.0)).nonzero()[0, 0])
+    refl, gloss = r.refl.clone(), r.gloss.clone()
+    refl[floor], gloss[floor] = GLOS, GEOM_EXT_GLOSS[0]
+    glossy = r._replace(refl=refl, gloss=gloss)
+
+    def rows(*v):
+        return torch.tensor(v, dtype=torch.float32, device=r.k.device)
+
+    corner, edge_u, edge_v, albedo = GEOM_EXT_PLATE
+    plate = Quads(rows(corner), rows(edge_u), rows(edge_v), rows(albedo),
+                  rows((0.0, 0.0, 0.0)),
+                  torch.tensor([GLOS], dtype=q.quads.refl.dtype,
+                               device=r.k.device),
+                  rows(GEOM_EXT_GLOSS[1]))
+    quads = Quads(*(torch.cat([a, b]) for a, b in zip(q.quads, plate)))
+    grid = get_scene("sphere_grid").spheres
+    return {"Q": q, "G": q._replace(rects=glossy, quads=quads),
+            "tree": q._replace(spheres=grid),
+            "tree_g": q._replace(rects=glossy, spheres=grid)}
+
+
+def geom_ext_phases(card: str) -> list:
+    """Rows 11 and 12 with quads and GLOS (megakernel_geom_ext): each
+    instance, linear and tree, image-only launch and adjoint against the
+    forward megakernel_<est>_ext bit for bit (image, [extend, probe]) and
+    against autograd through the plain version row by row (materials
+    within 1e-4 of a row's largest entry, sphere rows 1e-5; one plain run a
+    case, which also gives the plain image); mis on 200-bounce paths of G
+    and on each coordinate of a 2x2 mesh against the unsharded adjoint; the
+    main path ``fit_geom`` of Q at 1024x768x512 with the launch counts
+    cleared before and read after; x512 event times of nee on Q and mis on
+    G; a 1-step fit of each other instance. Returns the ``kernels``
+    entries."""
+    from small_pathtracer_tpu_torch import RenderConfig, make_camera
+    from small_pathtracer_tpu_torch.integrator.wavefront import has_spec_refr
+    from small_pathtracer_tpu_torch.ops import _build, megakernel
+    from small_pathtracer_tpu_torch.ops import megakernel_geom as mgeo
+    from small_pathtracer_tpu_torch.parallel.mesh import Mesh
+    from small_pathtracer_tpu_torch.scene.types import (
+        REFR, has_glos, num_quads, object_refl,
+    )
+
+    lbn = megakernel.LAUNCHES
+    scenes = geom_ext_scenes()
+    tol_mat, tol_sph = GEOM_TOL["cornell_spheres"]
+    cams = {}
+
+    def camera(width, height):
+        if (width, height) not in cams:
+            cams[(width, height)] = make_camera(aspect=width / height)
+        return cams[(width, height)]
+
+    def cfg_of(fields, width, height, spp, seed, **kw):
+        return RenderConfig(width=width, height=height, spp=spp, seed=seed,
+                            **fields, **kw)
+
+    def bound_of(sc, counts, cfg, n_glos=0, algorithm=False):
+        est = cfg.estimator
+        n_pix = cfg.width * cfg.height
+        g_fp = FP_GLOS + (FP_GLOS_NEE if est in mgeo.DIRECT else 0) + (
+            FP_GLOS_MIS if est == "mis" else 0)
+        return geom_bound(
+            counts, n_pix * cfg.spp, n_pix, sc.rects.k.shape[0],
+            sc.spheres.radius.shape[0],
+            -(-n_pix * megakernel.full_layout(cfg).g // mgeo.KERNEL_BLOCK),
+            algorithm, est, not (has_spec_refr(sc) or has_glos(sc)),
+            num_quads(sc), n_glos * g_fp)
+
+    par, n_long = {}, 0
+    w, h = GEOM_EXT_SIZE
+    tw, th = GEOM_EXT_TREE_SIZE
+    phase(f"rows 11 and 12 with quads and GLOS (_ext): each instance against "
+          f"megakernel_<est>_ext and autograd through its plain version, Q "
+          f"(and G for the GLOS codes) {w}x{h}x4, the tree scenes {tw}x{th}x4")
+    for label, fields in GEOM_EXT_CASES.items():
+        glos = fields["estimator"] in GLOS_CASES
+        runs = ([("G", w, h)] if glos else []) + [
+            ("Q", w, h), ("tree_g" if glos else "tree", tw, th)]
+        for nm, width, height in runs:
+            sc = scenes[nm]
+            cam = camera(width, height)
+            cfg = cfg_of(fields, width, height, 4, 3,
+                         max_bounces=PARITY_BOUNCES)
+            name = mgeo.geom_kernel_name(cfg, sc)
+            fwd = megakernel.kernel_name(sc, cfg)
+            t_img, t_tr = megakernel.render_megakernel(sc, cam, cfg, 3)
+            g = cotangent_image(height, width, 3)
+            before = lbn[name]
+            (img_i, _, _, _, c_i), img_s = timed(
+                lambda: mgeo.geom_run(sc, cam, cfg, 3, with_counts=True))
+            outs, secs = [], []
+            for _ in range(2):
+                out, sec = timed(lambda: mgeo.geom_run(sc, cam, cfg, 3, g,
+                                                       with_counts=True))
+                outs.append(out)
+                secs.append(sec)
+            if lbn[name] != before + 3:
+                raise AssertionError(f"{label} {nm}: {name} did not count 3 "
+                                     "launches")
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError(f"{label} {nm}: adjoint runs differ")
+            k_img, k_sph, k_alb, k_emi, counts = outs[0]
+            torch.cuda.reset_peak_memory_stats()
+            with counting_glos(has_glos(sc)) as n_glos:
+                (p_img, p_sph, p_alb, p_emi, p_tr), p_s = timed(
+                    lambda: mgeo.geom_run_plain(sc, cam, cfg, 3, g))
+            peak = torch.cuda.max_memory_allocated()
+            if not (torch.equal(img_i, t_img) and torch.equal(k_img, t_img)
+                    and torch.equal(p_img, t_img)
+                    and torch.equal(c_i[:2], t_tr)
+                    and torch.equal(p_tr, t_tr)
+                    and torch.equal(counts[:2], t_tr)
+                    and int(counts[3]) == int(t_tr[0])):
+                raise AssertionError(f"{label} {nm}: the image-only launch, "
+                                     "the adjoint's pass A or the plain "
+                                     f"version differs from {fwd}")
+            n_long += int(counts[4])
+            # Sphere rows whose exact value is 0: the weights of cosine
+            # and the uniform pair do not depend on the geometry where no
+            # object refracts (REFR's Fresnel weights) or is GLOS (the
+            # lobe's weight); a mirror turns a path, not its weight, and
+            # amplifies the rounding (GEOM_ZERO_SPEC).
+            zero = 0.0
+            if not (bool((object_refl(sc) == REFR).any()) or has_glos(sc)) \
+                    and fields["estimator"] in ("cosine", "uniform",
+                                                "uniform_corrected"):
+                zero = GEOM_ZERO_SPEC if has_spec_refr(sc) else GEOM_ZERO
+            err = held_geom(f"{name} {nm}", (k_sph, k_alb, k_emi),
+                            (p_sph, p_alb, p_emi), (tol_sph, tol_mat, tol_mat),
+                            zero)
+            b = bound_of(sc, counts.tolist(), cfg, n_glos[0])
+            ms = float(np.median(secs)) * 1e3
+            log(f"[smoke] {name} {nm} {width}x{height}x4 seed 3: image-only "
+                f"{img_s * 1e3:.3f} ms == {fwd} and the plain version, "
+                f"traces {t_tr.tolist()}; adjoint {ms:.3f} ms, counts "
+                f"{counts.tolist()}, two runs bit-identical; plain adjoint "
+                f"{p_s:.3f} s, peak {peak / 2**30:.2f} GiB; GLOS vertices "
+                f"{n_glos[0]}; bound {b[0]:.3f} ms ({b[1]})")
+            if nm in ("Q", "G") and name not in par:
+                par[name] = {"err": err, "ms": ms, "plain_ms": p_s * 1e3,
+                             "bound": b, "label": label,
+                             "scene": "G" if glos else "Q"}
+    if not n_long > 0:
+        raise AssertionError("no path outran the tape in the _ext parity "
+                             "runs")
+
+    k_seg, k_ckpt = tape_sizes()
+    dw, dh = DEEP_SIZE
+    phase(f"cosine and mis geometry adjoints with quads and GLOS on "
+          f"{DEEP_BOUNCES}-bounce paths, G {dw}x{dh}x4, every albedo "
+          f"{DEEP_ALBEDO} but the light's (black)")
+    g_sc = scenes["G"]
+    t_sph, t_alb, t_emi = mgeo.pack_tables(g_sc)
+    dark_alb = torch.full_like(t_alb, DEEP_ALBEDO)
+    dark_alb[g_sc.light.light_obj_id] = 0.0
+    dark = mgeo.scene_with_tables(g_sc, t_sph, dark_alb, t_emi)
+    dcam = camera(dw, dh)
+    g = cotangent_image(dh, dw, 5)
+    for label in ("cosine", "mis"):
+        cfg = cfg_of(GEOM_EXT_CASES[label], dw, dh, 4, 3,
+                     rr_start_depth=DEEP_BOUNCES, max_bounces=DEEP_BOUNCES)
+        name = mgeo.geom_kernel_name(cfg, dark)
+        runs = [mgeo.geom_run(dark, dcam, cfg, 3, g, with_counts=True)
+                for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"deep paths, {name}: adjoint runs differ")
+        img, k_sph, k_alb, k_emi, counts = runs[0]
+        p_img, p_sph, p_alb, p_emi, p_tr = mgeo.geom_run_plain(dark, dcam,
+                                                               cfg, 3, g)
+        log(f"[smoke] deep paths, {name} counts {counts.tolist()} [extend, "
+            f"probe, replayed, VJP, paths longer than the tape]; (kCkpt + "
+            f"2)·kSeg = {(k_ckpt + 2) * k_seg}")
+        if not (torch.equal(img, p_img) and torch.equal(counts[:2], p_tr)
+                and int(counts[4]) > 0 and int(counts[3]) == int(p_tr[0])):
+            raise AssertionError(f"deep paths, {name}: the image or counters "
+                                 "differ from the plain version's, or no "
+                                 "path outran the tape")
+        # mis's sphere rows are logged only: its NEE weight |A cos_l| / t^2
+        # is unbounded where the ceiling meets the light quad (which
+        # pierces it), so on 200-bounce paths some derivatives reach 1e14
+        # and float32 rounding sets their last digits (PERF.md §6).
+        held_geom(f"deep paths, {name}", (k_sph, k_alb, k_emi),
+                  (p_sph, p_alb, p_emi),
+                  (tol_sph if label == "cosine" else float("inf"), tol_mat,
+                   tol_mat))
+
+    phase(f"row 12 with quads and GLOS: mis per shard on G {w}x{h}x4, "
+          f"max_bounces {GEOM_SHARD_BOUNCES} (mesh {SHARD_MESH}, one "
+          "process), the shards' sums against the unsharded adjoint")
+    cam = camera(w, h)
+    cfg = cfg_of(EST_CASES["mis"], w, h, 4, 3,
+                 max_bounces=GEOM_SHARD_BOUNCES)
+    name = mgeo.geom_kernel_name(cfg, g_sc)
+    g = cotangent_image(h, w, 3)
+    n_pix = w * h
+    tot_img, tot_grads = torch.zeros(n_pix, 3, device="cuda"), None
+    for c in ((i, j) for i in range(SHARD_MESH[0])
+              for j in range(SHARD_MESH[1])):
+        m = Mesh.single(SHARD_MESH, c)
+        lay = megakernel.shard_of(cfg, m, what="spp")
+        g_c = g.reshape(n_pix, 3)[lay.pix0:lay.pix0 + lay.n_pix_loc]
+        before = lbn[name]
+        out_i = mgeo.geom_run_shard(g_sc, cam, cfg, m, 3)
+        out_k = mgeo.geom_run_shard(g_sc, cam, cfg, m, 3, g_c)
+        out_p = mgeo.geom_run_shard_plain(g_sc, cam, cfg, m, 3, g_c)
+        if lbn[name] != before + 2:
+            raise AssertionError(f"row 12 mis _ext {c}: {name} did not count "
+                                 "2 launches")
+        if not (torch.equal(out_i[0], out_p[0])
+                and torch.equal(out_k[0], out_p[0])
+                and torch.equal(out_i[4][:2], out_p[4])):
+            raise AssertionError(f"row 12 mis _ext {c}: the shard's image or "
+                                 "traces differ from its plain version")
+        held_geom(f"row 12 {name} shard {c}", out_k[1:4], out_p[1:4],
+                  (tol_sph, tol_mat, tol_mat))
+        tot_img[lay.pix0:lay.pix0 + lay.n_pix_loc] += out_k[0]
+        tot_grads = (list(out_k[1:4]) if tot_grads is None
+                     else [a + b for a, b in zip(tot_grads, out_k[1:4])])
+    whole = mgeo.geom_run(g_sc, cam, cfg, 3, g)
+    d_img = float((tot_img.reshape(h, w, 3) - whole[0]).abs().max())
+    d_g = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(tot_grads, whole[1:4]))
+    log(f"[smoke] row 12 {name} per shard: images and traces equal the plain "
+        f"version's, adjoint partials held row by row; the shards' sums: "
+        f"image within {d_img:.3e} (limits rtol {SHARD_RTOL:g}, atol "
+        f"{SHARD_ATOL:g}), gradients within {d_g:.3e} of the unsharded "
+        f"adjoint's largest entries (limit {STEP_TOL:g})")
+    if not (torch.allclose(tot_img.reshape(h, w, 3), whole[0],
+                           rtol=SHARD_RTOL, atol=SHARD_ATOL)
+            and d_g <= STEP_TOL):
+        raise AssertionError("row 12 mis _ext: the shards' sums differ from "
+                             "the unsharded adjoint")
+
+    phase("main path: fit_geom of Q (the tilted light with cornell_spheres' "
+          "spheres), nee, 1024x768x512, 5 steps")
+    q_sc = scenes["Q"]
+    cam = camera(1024, 768)
+    cfg = RenderConfig(width=1024, height=768, spp=512, seed=0)
+    name = mgeo.geom_kernel_name(cfg, q_sc)
+    lbn.clear()
+    target = mgeo.geom_run(q_sc, cam, cfg, 1)[0] / cfg.spp
+    log_io = io.StringIO()
+    _, losses = mgeo.fit_geom(displaced(q_sc), cam, cfg, target, steps=5,
+                              lr=GEOM_EXT_FIT_LR, seed=0, log=log_io)
+    launches, others = lbn[name], {k: v for k, v in lbn.items() if k != name}
+    for line in log_io.getvalue().strip().splitlines():
+        log("[smoke] fit_geom Q: " + line)
+    steps = [float(x) for x in re.findall(r"seconds (\S+)", log_io.getvalue())]
+    if launches != 1 + 2 * 5 or others:
+        raise AssertionError(f"fit_geom launched {name} {launches} times "
+                             f"(not 1 + 2 a step) and {others}")
+    if not (len(losses) == 5 and min(losses) < losses[0]
+            and losses[-1] == min(losses)):
+        raise AssertionError(f"the fit of Q did not descend: {losses}")
+    if _build.build_kernels().build_seconds != 0.0:
+        raise AssertionError("moving the spheres rebuilt the library")
+    step_s = float(np.median(steps))
+    log(f"[smoke] fit_geom Q: {launches} launches of {name} (the target's "
+        f"image, then an image and an adjoint a step); loss {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"{step_s:.4f} s a step (median of 5) on {card}")
+    par[name]["launches"] = launches
+
+    phase("x512 CUDA events of megakernel_geom_ext (nee, Q) and "
+          "megakernel_geom_mis_ext (mis, G); a 1-step fit_geom of each other "
+          "_ext instance at 256x192x64")
+    n_pix = 1024 * 768
+    g512 = torch.full((768, 1024, 3), 1e-7, device="cuda")
+    for label, nm in (("nee", "Q"), ("mis", "G")):
+        sc = scenes[nm]
+        geometry = megakernel.pack_geometry(sc, cam)
+        cfg = cfg_of(GEOM_EXT_CASES[label], 1024, 768, 512, 0)
+        name = mgeo.geom_kernel_name(cfg, sc)
+        counts = mgeo.geom_run(sc, cam, cfg, 0, g512, geometry=geometry,
+                               with_counts=True)[4].tolist()
+        img_ms = event_ms(lambda: mgeo.geom_run(sc, cam, cfg, 0,
+                                                geometry=geometry), 2)
+        fwd_ms = event_ms(lambda: megakernel.render_megakernel(sc, cam, cfg,
+                                                               0), 2)
+        adj_ms = event_ms(lambda: mgeo.geom_run(sc, cam, cfg, 0, g512,
+                                                geometry=geometry), 2)
+        b512, b_alg = (bound_of(sc, counts, cfg, 0, alg)
+                       for alg in (False, True))
+        log(f"[smoke] {name} {nm} 1024x768x512 seed 0: image-only "
+            f"{img_ms:.3f} ms ({megakernel.kernel_name(sc, cfg)} {fwd_ms:.3f}"
+            f" ms), adjoint {adj_ms:.3f} ms a launch, counts {counts} "
+            f"[extend, probe, replayed, VJP, paths longer than the tape]; "
+            f"bound {b512[0]:.3f} ms ({b512[1]}; the taped algorithm's "
+            f"{b_alg[0]:.3f} ms, {b_alg[1]}; without the GLOS lobe) on {card}")
+    for name, r in par.items():
+        if "launches" in r:
+            continue
+        sc = scenes[r["scene"]]
+        cfg = cfg_of(GEOM_EXT_CASES[r["label"]], 256, 192, 64, 0)
+        cam = camera(256, 192)
+        target = torch.zeros(192, 256, 3, device="cuda")
+        lbn.clear()
+        mgeo.fit_geom(sc, cam, cfg, target, steps=1, lr=GEOM_EXT_FIT_LR,
+                      seed=0)
+        got = dict(lbn)
+        if got != {name: 2}:
+            raise AssertionError(f"fit_geom {r['label']}: launches {got} (not "
+                                 f"an image and an adjoint of {name})")
+        r["launches"] = got[name]
+    log(f"[smoke] a 1-step fit_geom of each other _ext instance: 2 launches "
+        f"each (the image and the adjoint) of "
+        f"{[n for n in par if n != 'megakernel_geom_ext']}")
+
+    return [{"name": name, "route": "cuda",
+             "source": CSRC + "megakernel_geom_ext.cu",
+             "replaces": "small_pathtracer_tpu/ops/megakernel_geom.py:1488 "
+                         f"(quads and GLOS, estimator {r['label']})",
+             "launches": r["launches"], "max_abs_err": r["err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+             "library_ms": None} for name, r in par.items()]
+
+
 def kernel_parity(label, name, kernel_fn, plain_fn, bound_fn,
                   glos: bool = False) -> dict:
     """kernel, plain, kernel at one launch's shape: the kernel runs
     bit-identical, the plain version's equal bit for bit, two launches
     counted under name. bound_fn(traces) gives the bound; with glos,
-    bound_fn(traces, GLOS vertices of one more plain run). Returns the
-    numbers of the run's ``kernels`` entry and the GLOS vertices
-    (``n_glos``, 0 without glos)."""
+    bound_fn(traces, GLOS vertices of the plain run, counted as it runs).
+    Returns the numbers of the run's ``kernels`` entry and the GLOS
+    vertices (``n_glos``, 0 without glos)."""
     from small_pathtracer_tpu_torch.ops import megakernel
 
     lbn = megakernel.LAUNCHES
     before = lbn[name]
-    outs, med = in_turns({"kernel": kernel_fn, "plain": plain_fn},
-                         ("kernel", "plain", "kernel"))
+    with counting_glos(glos) as n_g:
+        outs, med = in_turns({"kernel": kernel_fn, "plain": plain_fn},
+                             ("kernel", "plain", "kernel"))
     if lbn[name] != before + 2:
         raise AssertionError(f"{label}: {name} did not count 2 launches")
     (k_img, k_tr), (k2_img, k2_tr) = outs["kernel"]
@@ -2870,7 +3250,7 @@ def kernel_parity(label, name, kernel_fn, plain_fn, bound_fn,
         raise AssertionError(f"{label}: kernel runs differ")
     err_ = float((k_img - p_img).abs().max())
     if glos:
-        n_glos = glos_vertices(plain_fn)
+        n_glos = n_g[0]
         b = bound_fn(k_tr.tolist(), n_glos)
         extra = f"; GLOS vertices {n_glos}"
     else:
@@ -3317,10 +3697,13 @@ GLOS_CASES = ("cosine", "nee_textbook", "mis")
 EXT_TREE_GLOSS = 20.0
 
 
-def glos_vertices(run_plain) -> int:
-    """The GLOS vertices (live lanes whose hit is GLOS) of a run of the
-    plain version, counted by a spy around wavefront._bounce_core that
-    shades each bounce's rays once more."""
+@contextlib.contextmanager
+def counting_glos(on: bool = True):
+    """Counts the GLOS vertices (live lanes whose hit is GLOS) of the plain
+    version's runs inside the block into the one entry of the list it
+    yields, by a spy around wavefront._bounce_core that shades each
+    bounce's rays once more (without autograd); with ``on`` false it
+    counts nothing."""
     from small_pathtracer_tpu_torch.geometry.intersect import (
         shade_info, trace,
     )
@@ -3331,16 +3714,17 @@ def glos_vertices(run_plain) -> int:
     orig = wf._bounce_core
 
     def spy(scene, cfg, seed, o, d, T, alive, *args, **kw):
-        sh = shade_info(scene, o, d, trace(scene, o, d))
-        n[0] += int((alive & (sh.refl == GLOS)).sum())
+        with torch.no_grad():
+            sh = shade_info(scene, o, d, trace(scene, o, d))
+            n[0] += int((alive & (sh.refl == GLOS)).sum())
         return orig(scene, cfg, seed, o, d, T, alive, *args, **kw)
 
-    wf._bounce_core = spy
+    if on:
+        wf._bounce_core = spy
     try:
-        run_plain()
+        yield n
     finally:
         wf._bounce_core = orig
-    return n[0]
 
 
 def ext_scenes() -> dict:
@@ -3823,12 +4207,13 @@ def mat_ext_phases(card: str, cli_main, runs12: dict,
         name = mg.vjp_kernel_name(sc, cfg)
         before = lbn[name]
         torch.cuda.reset_peak_memory_stats()
-        outs, med = in_turns(
-            {"kernel": lambda: mg.render_megakernel_vjp(sc, cam_v, cfg, alb,
-                                                        emi, 17, g9),
-             "plain": lambda: mg.render_megakernel_vjp_plain(
-                 sc, cam_v, cfg, alb, emi, 17, g9)},
-            ("kernel", "plain", "kernel", "kernel"))
+        with counting_glos(label in GLOS_CASES and nm != "tree") as n_glos:
+            outs, med = in_turns(
+                {"kernel": lambda: mg.render_megakernel_vjp(
+                    sc, cam_v, cfg, alb, emi, 17, g9),
+                 "plain": lambda: mg.render_megakernel_vjp_plain(
+                     sc, cam_v, cfg, alb, emi, 17, g9)},
+                ("kernel", "plain", "kernel", "kernel"))
         peak = torch.cuda.max_memory_allocated()
         if lbn[name] != before + 3:
             raise AssertionError(f"row 9 {label} {nm}: {name} did not count "
@@ -3841,9 +4226,7 @@ def mat_ext_phases(card: str, cli_main, runs12: dict,
         r_a = held_tables(f"row 9 {label} {nm} d/d albedo", ka, pa, lid)
         r_e = held_tables(f"row 9 {label} {nm} d/d emission", ke, pe, lid)
         tr = megakernel.render_megakernel(sc, cam_v, cfg, 17)[1].tolist()
-        n_g = (glos_vertices(lambda: megakernel.render_megakernel_plain(
-            sc, cam_v, cfg, 17)) if label in GLOS_CASES and nm != "tree"
-            else 0)
+        n_g = n_glos[0]
         b = v_bound(sc, tr, w9 * h9 * 4, w9 * h9, cfg.estimator, n_g)
         err = max(float((ka - pa).abs().max()), float((ke - pe).abs().max()))
         log(f"[smoke] row 9 {label} {nm} {w9}x{h9}x4: {name} "
@@ -4088,7 +4471,7 @@ def main() -> int:
             log(f"[smoke] ptxas: {line.strip()}")
     adjoints = ptxas_report(built.build_output,
                             ("megakernel_vjp", "megakernel_vjp_ext",
-                             "megakernel_geom"))
+                             "megakernel_geom", "megakernel_geom_ext"))
     for name, (regs, stack, st, ld) in adjoints.items():
         log(f"[smoke] ptxas {name}: {regs} registers, {stack} bytes stack "
             f"frame (local memory: the tape and checkpoints), spill stores "
@@ -4112,8 +4495,9 @@ def main() -> int:
         f"{gap:.3f} levels; kernel == plain, traces {tr.tolist()}: ok")
 
     # Phase 4: the baked kernel against its plain version, full width.
-    # Times are medians of three wrapper calls (host clock, synchronized),
-    # taken in turns.
+    # The kernel's time is the median of two wrapper calls (host clock,
+    # synchronized) around the plain version's one run: the plain version
+    # runs once, for its result (its time is no yardstick).
     phase("parity 1024x768x4, kernel against plain version")
     cfg_p = RenderConfig(width=1024, height=768, spp=4, seed=3)
     cam_p = make_camera(aspect=1024 / 768)
@@ -4123,7 +4507,7 @@ def main() -> int:
         {"kernel": lambda: megakernel.render_megakernel(scene, cam_p, cfg_p, 3),
          "plain": lambda: megakernel.render_megakernel_plain(
              scene, cam_p, cfg_p, 3)},
-        ("plain", "kernel", "kernel", "plain", "plain", "kernel"))
+        ("kernel", "plain", "kernel"))
     for which, runs in outs.items():
         for img_i, tr_i in runs[1:]:
             if not (torch.equal(img_i, runs[0][0])
@@ -4146,23 +4530,23 @@ def main() -> int:
     nee_bound = forward_bound(traces_p, n_samp_p, n_pix_p, k_rects)
 
     # Phase (a): the runtime-material forward with the scene's own tables
-    # must equal the baked kernel and the plain version bit for bit.
+    # must equal the baked kernel and the plain version bit for bit. It
+    # computes phase 4's function on phase 4's inputs, so it is held
+    # against phase 4's plain result (its plain_ms is that run's).
     phase("runtime-material forward 1024x768x4 against the baked kernel "
           "and the plain version")
     alb, emi = mg.pack_materials(scene)
     outs, med = in_turns(
         {"kernel": lambda: mg.render_megakernel_mat(scene, cam_p, cfg_p, alb,
-                                                    emi, 3),
-         "plain": lambda: mg.render_megakernel_mat_plain(
-             scene, cam_p, cfg_p, alb, emi, 3)},
-        ("kernel", "plain", "plain", "kernel", "kernel", "plain"))
-    for which, runs in outs.items():
-        for img_i, tr_i in runs:
-            if not (torch.equal(img_i, k_img) and torch.equal(tr_i, k_tr)):
-                raise AssertionError(
-                    f"runtime-material {which} differs from the baked kernel")
-    mat_err = float((outs["kernel"][0][0] - outs["plain"][0][0]).abs().max())
-    mat_s, mat_plain_s = med["kernel"], med["plain"]
+                                                    emi, 3)},
+        ("kernel", "kernel"))
+    for img_i, tr_i in outs["kernel"]:
+        if not (torch.equal(img_i, k_img) and torch.equal(tr_i, k_tr)
+                and torch.equal(img_i, p_img) and torch.equal(tr_i, p_tr)):
+            raise AssertionError("the runtime-material kernel differs from "
+                                 "the baked kernel or the plain version")
+    mat_err = float((outs["kernel"][0][0] - p_img).abs().max())
+    mat_s, mat_plain_s = med["kernel"], p_s
     mat_bound = forward_bound(traces_p, n_samp_p, n_pix_p, k_rects)
     log(f"[smoke] runtime-material forward 1024x768x4: kernel "
         f"{mat_s * 1e3:.3f} ms, plain {mat_plain_s * 1e3:.3f} ms; image and "
@@ -4179,7 +4563,7 @@ def main() -> int:
                                                     emi, 3, g_img),
          "plain": lambda: mg.render_megakernel_vjp_plain(
              scene, cam_p, cfg_p, alb, emi, 3, g_img)},
-        ("kernel", "plain", "plain", "kernel", "kernel", "plain"))
+        ("kernel", "plain", "kernel"))
     peak = torch.cuda.max_memory_allocated()
     ka, ke = outs["kernel"][0]
     for ka_i, ke_i in outs["kernel"][1:]:
@@ -4202,7 +4586,7 @@ def main() -> int:
     vjp_b_alg = vjp_bound(traces_p, n_samp_p, n_pix_p, k_rects, True)
     log(f"[smoke] adjoint 1024x768x4: kernel {vjp_s * 1e3:.3f} ms, plain "
         f"{vjp_plain_s * 1e3:.3f} ms, peak memory {peak / 2**30:.2f} GiB; "
-        f"three kernel runs bit-identical; bound {vjp_b[0]:.3f} ms "
+        f"two kernel runs bit-identical; bound {vjp_b[0]:.3f} ms "
         f"({vjp_b[1]}; this algorithm's {vjp_b_alg[0]:.3f} ms, "
         f"{vjp_b_alg[1]})")
 
@@ -4312,8 +4696,7 @@ def main() -> int:
     # against its plain version, bit for bit, in turns as in phase 4; and
     # its counting instance, for the tree's bound beside the linear scan's.
     def tab_parity(name, width, height, spp, seed,
-                   order=("plain", "kernel", "kernel", "plain", "plain",
-                          "kernel")):
+                   order=("kernel", "plain", "kernel")):
         sc = get_scene(name)
         cam = make_camera(aspect=width / height)
         cfg = RenderConfig(width=width, height=height, spp=spp, seed=seed)
@@ -4372,9 +4755,7 @@ def main() -> int:
     tab = {"sphere_grid": tab_parity("sphere_grid", 1024, 768, 4, 4)}
     phase("sphere-table kernel against its plain version, sphere_grid_256 "
           "1024x768x4")
-    tab["sphere_grid_256"] = tab_parity(
-        "sphere_grid_256", 1024, 768, 4, 4,
-        ("plain", "kernel", "kernel", "plain"))
+    tab["sphere_grid_256"] = tab_parity("sphere_grid_256", 1024, 768, 4, 4)
     phase("sphere-table kernel against its plain version, smallpt_original "
           "1024x768x4 (SPEC + REFR)")
     tab["smallpt_original"] = tab_parity("smallpt_original", 1024, 768, 4, 5)
@@ -4469,7 +4850,7 @@ def main() -> int:
     def budgets_parity(name, spp, start_hi, len_hi, seed):
         """A budget kernel against its plain version on ragged spans where
         most pixels are empty (the kernel launches the live ones only), bit
-        for bit, in turns (plain, kernel, kernel, plain)."""
+        for bit, in turns (kernel, plain, kernel)."""
         sc = get_scene(name)
         cfg = RenderConfig(width=1024, height=768, spp=spp, seed=seed)
         n_pix = cfg.width * cfg.height
@@ -4484,14 +4865,14 @@ def main() -> int:
                 sc, cam_f, cfg, seed, s_start, s_stop),
              "plain": lambda: megakernel.render_megakernel_budgets_plain(
                  sc, cam_f, cfg, seed, s_start, s_stop)},
-            ("plain", "kernel", "kernel", "plain"))
+            ("kernel", "plain", "kernel"))
         if megakernel.LAUNCHES[counter] != before + 2:
             raise AssertionError(f"{name}: the budgets wrapper did not "
                                  f"count 2 launches of {counter}")
-        for which, runs in outs.items():
-            if not (torch.equal(runs[1][0], runs[0][0])
-                    and torch.equal(runs[1][1], runs[0][1])):
-                raise AssertionError(f"{name}: {which} runs differ")
+        k_runs = outs["kernel"]
+        if not (torch.equal(k_runs[1][0], k_runs[0][0])
+                and torch.equal(k_runs[1][1], k_runs[0][1])):
+            raise AssertionError(f"{name}: kernel runs differ")
         (k_l, k_tr), (p_l, p_tr) = outs["kernel"][0], outs["plain"][0]
         err_ = float((k_l - p_l).abs().max())
         n_samples = int((s_stop - s_start).sum())
@@ -4983,6 +5364,7 @@ def main() -> int:
     est_mat_entries, est_shard = mat_phases(card, cli_main, MAT_EST)
     mat_ext_entries = mat_ext_phases(card, cli_main, ext_runs, glos_x4)
     geo_entries, geo_shard = geom_est_phases(card, cli_main)
+    geo_ext_entries = geom_ext_phases(card)
     shard = shard_phases(card, cli_main, guides["cornell_alcove_baffled"],
                          {**mat_shard, **est_shard}, geo_shard)
 
@@ -5038,6 +5420,7 @@ def main() -> int:
         *est_mat_entries,
         *mat_ext_entries,
         *geo_entries,
+        *geo_ext_entries,
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -377,10 +377,10 @@ def _cmd_fit_geom(args, fields: tuple[str, ...], mesh=None,
     scene, cam, cfg = _build(args, device)
     lead = mesh is None or mesh.rank == 0
     si = args.fd_sphere if args.fd_sphere >= 0 else None
-    megakernel_geom.check_ported(scene)
     n_sph = scene.spheres.radius.shape[0]
     if n_sph == 0:
         raise SystemExit("scene has no spheres to fit")
+    megakernel_geom.check_geom(scene, cfg)
     if si is not None and si >= n_sph:
         raise SystemExit(f"--fd-sphere {si} out of range ({n_sph})")
     megakernel_geom.check_fit(fields, si)

@@ -13,7 +13,7 @@ import torch
 from .camera.pinhole import CameraParams
 from .device import resolve
 from .scene.types import (
-    LightSampler, Quads, Rects, Scene, Spheres, num_spheres,
+    LightSampler, Quads, Rects, Scene, Spheres, num_quads, num_spheres,
 )
 
 
@@ -114,16 +114,16 @@ def guide_from_jax(mu, use, device="cuda"):
 def geom_grads_from_jax(scene: Scene, gtab, galb, gemi, device=None):
     """The port's geometry-adjoint tables from the JAX package's
     ``geom_vjp`` outputs: gtab (S * TAB_STRIDE,) holds per sphere row the
-    slots [cx, cy, cz, r, albedo rgb, emission rgb], galb and gemi (R * 3,)
-    the rects'. Returns (g_sph (S, 4), g_alb (K, 3), g_emi (K, 3)) in
-    global object order (rects, then spheres) on ``device`` (the port
-    ``scene``'s by default), as ``ops.megakernel_geom.geom_run`` returns
-    them."""
+    slots [cx, cy, cz, r, albedo rgb, emission rgb], galb and gemi
+    ((R + Q) * 3,) the rects' and the quads'. Returns (g_sph (S, 4), g_alb
+    (K, 3), g_emi (K, 3)) in global object order (rects, quads, then
+    spheres) on ``device`` (the port ``scene``'s by default), as
+    ``ops.megakernel_geom.geom_run`` returns them."""
     device = resolve(scene.device if device is None else device)
-    R, S = _count(scene.rects, "k"), num_spheres(scene)
+    U, S = _count(scene.rects, "k") + num_quads(scene), num_spheres(scene)
     gt = np.asarray(gtab, np.float32).reshape(S, -1)
-    ga = np.asarray(galb, np.float32).reshape(R, 3)
-    ge = np.asarray(gemi, np.float32).reshape(R, 3)
+    ga = np.asarray(galb, np.float32).reshape(U, 3)
+    ge = np.asarray(gemi, np.float32).reshape(U, 3)
     return tuple(torch.as_tensor(np.ascontiguousarray(t), device=device)
                  for t in (gt[:, 0:4], np.concatenate([ga, gt[:, 4:7]]),
                            np.concatenate([ge, gt[:, 7:10]])))

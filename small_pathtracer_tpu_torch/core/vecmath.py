@@ -117,14 +117,42 @@ _MIN_NORMAL = 2.0 ** -126
 
 
 def pow_pos(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """x ** p for float32 x >= 0 and a float32 scalar tensor p > 0, as
-    exp2(p * log2(x)) from float32 +, -, *, / and bit operations only, in
-    the order ``pow_pos`` in csrc/megakernel_lane.cuh computes them, so
-    the kernels and this plain version give the same bits on any device
-    (a library pow may round differently in each). For the lobe sample's
-    u ** (1 / 9) it is within 2 ulp of the float64 power (1.72 ulp at most
-    on 1e6 uniforms, tests/test_torch_guiding.py); 0 where x or the result
-    is below the smallest normal float (2^-126)."""
+    """x ** p for float32 x >= 0 and a float32 tensor p > 0 (a scalar, or
+    one exponent a lane), as exp2(p * log2(x)) from float32 +, -, *, / and
+    bit operations only, in the order ``pow_pos`` in
+    csrc/megakernel_lane.cuh computes them, so the kernels and this plain
+    version give the same bits on any device (a library pow may round
+    differently in each). For the lobe sample's u ** (1 / 9) it is within
+    2 ulp of the float64 power (1.72 ulp at most on 1e6 uniforms,
+    tests/test_torch_guiding.py); 0 where x or the result is below the
+    smallest normal float (2^-126). Differentiable in x (the bit
+    operations are not): d/dx = p y / x where y > 0, else 0, the geometry
+    adjoint's (csrc/megakernel_geom.cuh ``pow_safe_vjp``); p is a
+    constant."""
+    if x.requires_grad:
+        return _PowPos.apply(x, torch.as_tensor(p, dtype=x.dtype,
+                                                device=x.device))
+    return _pow_pos(x, p)
+
+
+class _PowPos(torch.autograd.Function):
+    """pow_pos with its derivative in x."""
+
+    @staticmethod
+    def forward(ctx, x, p):
+        y = _pow_pos(x, p)
+        ctx.save_for_backward(x, p, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, p, y = ctx.saved_tensors
+        pos = y > 0.0
+        return torch.where(pos, g * (p * y / torch.where(pos, x, 1.0)),
+                           0.0), None
+
+
+def _pow_pos(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     f32, i32 = torch.float32, torch.int32
     ok = x >= _MIN_NORMAL
     bits = torch.where(ok, x, 1.0).contiguous().view(i32)

@@ -6,7 +6,12 @@
 // light_sample_mode='glibc_overflow') and spt_megakernel_geom_direct
 // (megakernel_geom_direct.cu: the direct-term estimators nee_textbook and
 // mis). Axis-aligned rects (unrolled) and spheres (the runtime table) with
-// DIFF, SPEC and REFR materials and one parallelogram light.
+// DIFF, SPEC and REFR materials and one parallelogram light. The adjoint's
+// body is megakernel_geom_body.cuh, which megakernel_geom_ext.cu's
+// instances include too: general quads (the light may be one) and GLOS
+// rects and quads, through the `if constexpr` branches of the code's
+// scene flags below (the quad winner's plane, the quad light's plane in
+// `nee_vjp_ext`, the Phong lobe in `lobe_vjp`).
 //
 // Replaces the Pallas TPU kernel of small_pathtracer_tpu/ops/megakernel_geom.py:
 // `build_geom_grad_kernel` (:133), as `_build_geom_run` builds it for
@@ -201,6 +206,136 @@ __device__ __forceinline__ V3 nee_vjp(const Params& p, const Bounce& b,
   return g_n;
 }
 
+// nee_vjp on the _ext instances' scenes (kEst with kWithQuads): the light
+// object may be a quad (the probe's distance to its plane through its
+// unit normal), and at a GLOS bounce (kWithGlos) the weight's BRDF is the
+// lobe's, (gl + 2) / (2π) max(dl·gm, 0)^gl max(dl·n, 0) in place of
+// |dl·n| / π, and mis's p_b its pdf (gl + 1) / (2π) max(dl·gm, 0)^gl.
+// Adds the cotangents of x to *g_x and, at a GLOS bounce, of the lobe's
+// axis gm to *g_gm (null elsewhere); returns that of n.
+// ops/megakernel_geom.py `_nee_vjp`. A function apart from nee_vjp, so
+// that the instances without quads keep their code.
+template <bool kBalance, int kEst>
+__device__ __forceinline__ V3 nee_vjp_ext(const Params& p,
+                                          const SphereTab& tab,
+                                          const Bounce& b, float sig,
+                                          V3 lam_dl, V3* g_x, V3* g_gm) {
+  const V3 ln = ld3(p.ln);
+  const V3 vl = sub(b.lp, b.x);
+  const float rs_l = rsqrt_ieee(dot(vl, vl));
+  const V3 dl = mul(vl, rs_l);
+  // The light object's plane: its unit normal e and 1 / (dl·e). The
+  // probe's distance tl is the one the probe found (t_safe): the plane's
+  // distance from x but for rounding, and finite where the probe runs in
+  // the light's plane (a bounce on a quad light whose sampler is the quad,
+  // which the plain version's plane distance leaves at 0 / 0).
+  const QuadTab& qt = *tab.quads;
+  V3 e;
+  if (qt.light >= 0) {
+    e = ld3(qt.q[qt.light].ng);
+  } else {
+    const int a_l = p.rects[p.light_id].axis;
+    e = v3(a_l == 0 ? 1.0f : 0.0f, a_l == 1 ? 1.0f : 0.0f,
+           a_l == 2 ? 1.0f : 0.0f);
+  }
+  const float den = dot(dl, e);
+  const float inv_l = 1.0f / (den != 0.0f ? den : 1.0f);
+  const float tl = b.t_safe;
+  const float a1 = p.area * dot(dl, ln);
+  const float q = fabsf(a1) / (tl * tl);
+  const float cs = dot(dl, b.n);
+  float bb = fabsf(cs) * kInvPi;
+  const bool glos = with_glos(kEst) && b.glos;
+  float pw = 0.0f, dpw = 0.0f, br = 0.0f, mc = 0.0f;
+  if (glos) {
+    const float cg = dot(dl, b.gm);
+    pw = pow_safe(cg, b.gl);
+    dpw = pw > 0.0f ? b.gl * pw / cg : 0.0f;
+    br = (b.gl + 2.0f) * kInv2Pi * pw;
+    mc = fmaxf(cs, 0.0f);
+    bb = br * mc;
+  }
+  float gcs_b = 0.0f, gtl_b = 0.0f, gcl_b = 0.0f, g_pw = 0.0f;
+  if constexpr (kBalance) {
+    const float cl = dot(dl, ln);
+    const float cm = fmaxf(fabsf(cl), kCosMin);
+    const float p_l = (tl * tl) / (p.area * cm);
+    const float p_b =
+        glos ? (b.gl + 1.0f) * kInv2Pi * pw : fmaxf(cs, 0.0f) * kInvPi;
+    const float den = p_l + p_b;
+    const float g_bal = sig * (q * bb);
+    sig = sig * (p_l / den);
+    const float g_pl = g_bal * p_b / (den * den);
+    const float g_pb = -g_bal * p_l / (den * den);
+    gtl_b = g_pl * 2.0f * tl / (p.area * cm);
+    gcl_b = fabsf(cl) >= kCosMin ? -g_pl * p_l / cm * sgnf(cl) : 0.0f;
+    if (glos) {
+      g_pw = g_pb * (b.gl + 1.0f) * kInv2Pi;
+    } else {
+      gcs_b = cs >= 0.0f ? g_pb * kInvPi : 0.0f;
+    }
+  }
+  const float gq = sig * bb;
+  const float gb = sig * q;
+  float gcs = gb * kInvPi * sgnf(cs) + gcs_b;
+  float g_cg = 0.0f;
+  if (glos) {
+    gcs = cs >= 0.0f ? gb * br : 0.0f;
+    g_cg = (gb * mc * (b.gl + 2.0f) * kInv2Pi + g_pw) * dpw;
+    *g_gm = add(*g_gm, mul(dl, g_cg));
+  }
+  const float ga1 = gq / (tl * tl) * sgnf(a1);
+  const float gtl = -2.0f * gq * q / tl + gtl_b;
+  V3 gdl = add(add(lam_dl, mul(ln, ga1 * p.area + gcl_b)), mul(b.n, gcs));
+  if (glos) gdl = add(gdl, mul(b.gm, g_cg));
+  const V3 g_n = mul(dl, gcs);
+  *g_x = sub(*g_x, mul(e, gtl * inv_l));
+  gdl = sub(gdl, mul(e, gtl * tl * inv_l));
+  *g_x = sub(*g_x, norm_vjp(dl, rs_l, gdl));
+  return g_n;
+}
+
+// A GLOS bounce's continuation d' = norm(gu·g_alpha + gv·g_beta +
+// gm·g_wz), w = (gl + 2) / (gl + 1) max(d'·n, 0) (mis: pdf_cont = (gl + 1)
+// / (2π) max(d'·gm, 0)^gl) in the frame of gm = d mirrored about n (its
+// axis pick and the draws fixed), pulled back under (lam_d, sig_w, mis's
+// lam_mp): adds the cotangent of gm to *g_gm, returns that of n.
+// ops/megakernel_geom.py `_lobe_vjp`.
+template <int kEst>
+__device__ __forceinline__ V3 lobe_vjp(const Bounce& b, V3 lam_d, float sig_w,
+                                       float lam_mp, V3* g_gm) {
+  const V3 gm = b.gm;
+  const V3 a = fabsf(gm.x) > 0.1f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  const V3 cr = cross(a, gm);
+  const float rs_u = rsqrt_ieee(dot(cr, cr));
+  const V3 gu = mul(cr, rs_u);
+  const V3 gv = cross(gm, gu);
+  const V3 sv = add(add(mul(gu, b.g_alpha), mul(gv, b.g_beta)),
+                    mul(gm, b.g_wz));
+  const float rs_s = rsqrt_ieee(dot(sv, sv));
+  const V3 g_dir = mul(sv, rs_s);
+  const float g_cn =
+      dot(g_dir, b.n) >= 0.0f ? sig_w * ((b.gl + 2.0f) / (b.gl + 1.0f)) : 0.0f;
+  V3 lam_s = add(lam_d, mul(b.n, g_cn));
+  const V3 g_n = mul(g_dir, g_cn);
+  if constexpr (est_base(kEst) == kMis) {
+    const float cg = dot(g_dir, gm);
+    const float pw = pow_safe(cg, b.gl);
+    const float g_c =
+        pw > 0.0f ? lam_mp * (b.gl + 1.0f) * kInv2Pi * (b.gl * pw / cg) : 0.0f;
+    lam_s = add(lam_s, mul(gm, g_c));
+    *g_gm = add(*g_gm, mul(g_dir, g_c));
+  }
+  const V3 gsv = norm_vjp(g_dir, rs_s, lam_s);
+  V3 ggu = mul(gsv, b.g_alpha);
+  const V3 ggv = mul(gsv, b.g_beta);
+  *g_gm = add(*g_gm, add(mul(gsv, b.g_wz), cross(gu, ggv)));
+  ggu = add(ggu, cross(ggv, gm));
+  const V3 gcr = norm_vjp(gu, rs_u, ggu);
+  *g_gm = add(*g_gm, cross(gcr, a));
+  return g_n;
+}
+
 // The pullback of the bounce's continuous map (o, d, c, r, mp) -> (x, d',
 // w, w_tb, w_pick, pdf_cont) of estimator kEst, every discrete choice fixed
 // by the primal b, under (lam_x, lam_d, sig_w) and ec: ops/megakernel_geom.py
@@ -216,7 +351,11 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
   if (nee_cont(kEst) && b.diffuse && b.success) {
     // d' = dl = norm(lp − x), w = |A·(dl·ln)| / tl² · |dl·n| / π (mixture:
     // b.success only where its coin took NEE).
-    g_n = nee_vjp<false>(p, b, sig_w, lam_d, &g_x);
+    if constexpr (with_quads(kEst)) {
+      g_n = nee_vjp_ext<false, kEst>(p, tab, b, sig_w, lam_d, &g_x, nullptr);
+    } else {
+      g_n = nee_vjp<false>(p, b, sig_w, lam_d, &g_x);
+    }
   } else if (b.diffuse) {
     // d' = the hemisphere sample in the frame of n, w = 1 (uniform_corrected:
     // 2 max(d'·n, 0); mis: also pdf_cont = max(d'·n, 0) / π).
@@ -227,14 +366,15 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
     const V3 fv = cross(b.n, fu);
     const V3 sv = add(add(mul(fu, b.alpha), mul(fv, b.beta)), mul(b.n, b.wz));
     const float rs_s = rsqrt_ieee(dot(sv, sv));
-    constexpr bool kCosOut = kEst == kUniformCorrected || kEst == kMis;
+    constexpr bool kCosOut =
+        est_base(kEst) == kUniformCorrected || est_base(kEst) == kMis;
     V3 lam_s = lam_d, gn_cd = zero;
     if constexpr (kCosOut) {
       // The cotangent of d'·n.
       const V3 dn = mul(sv, rs_s);
       float g_cd = 0.0f;
       if (dot(dn, b.n) >= 0.0f) {
-        g_cd = kEst == kMis ? ec.lam_mp * kInvPi : 2.0f * sig_w;
+        g_cd = est_base(kEst) == kMis ? ec.lam_mp * kInvPi : 2.0f * sig_w;
       }
       lam_s = add(lam_d, mul(b.n, g_cd));
       gn_cd = mul(dn, g_cd);
@@ -250,9 +390,29 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
     if constexpr (direct_term(kEst)) {
       // The direct term's weight where the probe reached the light.
       if (b.success) {
-        g_n = add(g_n, nee_vjp<kEst == kMis>(p, b, ec.sig_tb, zero, &g_x));
+        if constexpr (with_quads(kEst)) {
+          g_n = add(g_n, nee_vjp_ext<est_base(kEst) == kMis, kEst>(
+                             p, tab, b, ec.sig_tb, zero, &g_x, nullptr));
+        } else {
+          g_n = add(g_n, nee_vjp<kEst == kMis>(p, b, ec.sig_tb, zero, &g_x));
+        }
       }
     }
+  } else if (with_glos(kEst) && b.glos) {
+    // GLOS: the lobe's continuation and (nee_textbook, mis) the direct
+    // term, both through gm = d mirrored about n (a GLOS winner is a rect
+    // or a quad: GLOS spheres are refused).
+    V3 g_gm = zero;
+    g_n = lobe_vjp<kEst>(b, lam_d, sig_w, ec.lam_mp, &g_gm);
+    if constexpr (direct_term(kEst)) {
+      if (b.success) {
+        g_n = add(g_n, nee_vjp_ext<est_base(kEst) == kMis, kEst>(
+                           p, tab, b, ec.sig_tb, zero, &g_x, &g_gm));
+      }
+    }
+    V3 gn_r;
+    reflect_vjp(d, b.n, g_gm, &g_d, &gn_r);
+    g_n = add(g_n, gn_r);
   } else if (b.refl == kSpec) {
     reflect_vjp(d, b.ng, lam_d, &g_d, &g_ng);
   } else {
@@ -318,8 +478,14 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
   g_ng = add(g_ng, mul(g_n, sign));
   Pullback out{zero, g_d, zero, 0.0f, 0.0f};
   float4 c4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (b.axis < 0) {
-    c4 = sphere_row<kScan>(tab, b.id - p.n_rects);
+  bool quad = false;  // a quad winner (kWithQuads; its axis is -1 too)
+  if constexpr (with_quads(kEst)) {
+    quad = b.axis < 0 && b.id - p.n_rects < tab.quads->n;
+  }
+  if (b.axis < 0 && !quad) {
+    int row = b.id - p.n_rects;
+    if constexpr (with_quads(kEst)) row -= tab.quads->n;
+    c4 = sphere_row<kScan>(tab, row);
     const V3 v = sub(b.x, v3(c4.x, c4.y, c4.z));
     const V3 gv = norm_vjp(b.ng, rsqrt_ieee(dot(v, v)), g_ng);
     g_x = add(g_x, gv);
@@ -331,9 +497,9 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
   out.g_o = g_x;
   out.g_d = add(out.g_d, mul(g_x, b.t));
   float g_t = dot(g_x, d);
-  if constexpr (kEst == kMis) {
+  if constexpr (est_base(kEst) == kMis) {
     // The pickup's weight mp / (mp + p_h), p_h = t² / (A max(|d·ln|,
-    // 1e-6)), on a BSDF-sampled hit of the light (a rect).
+    // 1e-6)), on a BSDF-sampled hit of the light (a rect or a quad).
     if (ec.pick) {
       const V3 ln = ld3(p.ln);
       const float cos_h = dot(d, ln);
@@ -356,6 +522,16 @@ __device__ __forceinline__ Pullback bounce_vjp(const Params& p,
     add_comp(&out.g_o, a, -(g_t * inv));
     add_comp(&out.g_d, a, -(g_t * b.t * inv));
     return out;
+  }
+  if constexpr (with_quads(kEst)) {
+    if (quad) {
+      // t = ((c − o)·ng) / (d·ng), ng the quad's unit normal.
+      const float dn = dot(d, b.ng);
+      const float inv = 1.0f / (dn != 0.0f ? dn : 1.0f);
+      out.g_o = sub(out.g_o, mul(b.ng, g_t * inv));
+      out.g_d = sub(out.g_d, mul(b.ng, g_t * b.t * inv));
+      return out;
+    }
   }
   // t = b ∓ sqrt((r − |m|)(r + |m|)), m = b·d − op, op = c − o, b = op·d
   // (sphere_t's expressions; the root recomputed).
@@ -433,8 +609,20 @@ struct __align__(16) MisEntry {
   float t, t_l, mis_pdf;
 };
 
-// The producer's state, its tape entry and their conversions, by estimator.
-template <int kEst>
+// Whether bounce b probed the light: a diffuse bounce, or (kGlos) a GLOS
+// one.
+template <bool kGlos>
+__device__ __forceinline__ bool probed(const Bounce& b) {
+  if constexpr (kGlos) {
+    return b.diffuse || b.glos;
+  } else {
+    return b.diffuse;
+  }
+}
+
+// The producer's state, its tape entry and their conversions, by estimator
+// (its est_base) and whether its scenes hold GLOS objects.
+template <int kEst, bool kGlos>
 struct GeomTape {
   using State = PathState;
   using Entry = GeomEntry;
@@ -448,8 +636,8 @@ struct GeomTape {
   }
 };
 
-template <>
-struct GeomTape<kTextbook> {
+template <bool kGlos>
+struct GeomTape<kTextbook, kGlos> {
   using State = TbState;
   using Entry = TbEntry;
   __device__ static Entry entry(const State& st, const Bounce& b) {
@@ -464,14 +652,14 @@ struct GeomTape<kTextbook> {
     return Queries{e.id, e.t, ok, ok ? e.t_l : 1.0f};
   }
   // A path that goes on was alive after this bounce, so the next pickup is
-  // suppressed exactly when this bounce was diffuse.
+  // suppressed exactly when this bounce probed the light (diffuse or GLOS).
   __device__ static State next(const Bounce& b, V3 T, V3 A) {
-    return State{b.x, b.new_dir, T, A, b.diffuse};
+    return State{b.x, b.new_dir, T, A, probed<kGlos>(b)};
   }
 };
 
-template <>
-struct GeomTape<kMis> {
+template <bool kGlos>
+struct GeomTape<kMis, kGlos> {
   using State = MisState;
   using Entry = MisEntry;
   __device__ static Entry entry(const State& st, const Bounce& b) {
@@ -485,9 +673,10 @@ struct GeomTape<kMis> {
     const bool ok = e.t_l > 0.0f;
     return Queries{e.id, e.t, ok, ok ? e.t_l : 1.0f};
   }
-  // The carry of the next bounce: this diffuse bounce's continuation pdf.
+  // The carry of the next bounce: this diffuse (or GLOS) bounce's
+  // continuation pdf.
   __device__ static State next(const Bounce& b, V3 T, V3 A) {
-    return State{b.x, b.new_dir, T, A, b.diffuse ? b.pdf_cont : 0.0f};
+    return State{b.x, b.new_dir, T, A, probed<kGlos>(b) ? b.pdf_cont : 0.0f};
   }
 };
 
@@ -515,229 +704,9 @@ __global__ void __launch_bounds__(kBlock)
                     const float* __restrict__ g_img,
                     float* __restrict__ partials, float* __restrict__ out_l,
                     unsigned long long* __restrict__ counts) {
-  // Dynamic shared memory: a linear table's rows (its root leaf, two float4
-  // a row: staged_tab's copy, placed ahead of the slots, with one barrier
-  // for both), then a row of gradient slots a warp.
-  extern __shared__ float4 smem4[];
-  SphereTab tab = sphere_tab(sph, n_sph, refl, bvh, root);
-  const int n_staged = kScan == kScanLinear ? 2 * ((-1 - root) >> 16) : 0;
-  for (int i = threadIdx.x; i < n_staged; i += kBlock) smem4[i] = tab.rows[i];
-  if constexpr (kScan == kScanLinear) tab.rows = smem4;
-  float* rows = reinterpret_cast<float*>(smem4 + n_staged);
-  const int k_obj = p.n_rects + n_sph;
-  const int n_slots = 6 * k_obj + 4 * n_sph;
-  for (int i = threadIdx.x; i < kWarps * n_slots; i += kBlock) rows[i] = 0.0f;
-  __syncthreads();
-  float* my_row = rows + (threadIdx.x >> 5) * n_slots;
-  const TableMaterials mats{alb, emi};
-  const LaneRange lr = lane_range(p);
-  const LightFrame lf = light_frame(p);
-  const V3 zero = v3(0.0f, 0.0f, 0.0f), one = v3(1.0f, 1.0f, 1.0f);
-  const V3 gc = lr.in_range ? ld3(g_img + 3 * lr.pix) : zero;
-  const V3 cam_o = ld3(p.cam_o);
-  constexpr bool kDirect = direct_term(kEst);
-  // nee_textbook and mis: the light's emission (their direct term), and the
-  // direct terms' light-emission terms of this lane.
-  V3 e_light = zero, g_le = zero;
-  if constexpr (kDirect) e_light = mats.emission(p.light_id);
-
-  using Tape = GeomTape<kEst>;
-  using State = typename Tape::State;
-  typename Tape::Entry tape[2][kSeg];
-  State ck[kCkpt];
-  TapeCtl c;
-  tape_start(&c, lr.s, lr.in_range && lr.s < lr.s_stop);
-  State st;  // the producer's state before its next bounce
-  const auto spawn = [&] {
-    st = State{cam_o, spawn_dir(p, lr.px, lr.py, lr.pid_base + c.s), one,
-               zero};
-  };
-  if (c.tracing) spawn();
-  V3 L = zero;  // the lane's radiance sum over its samples (the image)
-  V3 lam_o = zero, lam_d = zero;
-  float lam_mp = 0.0f;  // mis: dL/d of the carry's pdf_cont
-  uint32_t n_ext = 0, n_prb = 0, n_rep = 0, n_vjp = 0, n_long = 0;
-
-  while (__any_sync(kFull, tape_active(c))) {
-    Contrib ct;
-    ct.key = -1;
-    if (c.tracing) {  // pass A, or a segment replay
-      const int j = c.depth + 1;
-      const Bounce b = bounce<TableMaterials, kScan, kEst>(
-          p, tab, mats, lf, st.o, st.d, lr.pid_base + c.s, j, lr.pix,
-          NoGuide{});
-      tape[c.pbuf][tape_slot(j)] = Tape::entry(st, b);
-      // render_lane's pickup (and direct term), in its order.
-      V3 pick = v3(st.T.x * b.emi.x, st.T.y * b.emi.y, st.T.z * b.emi.z);
-      if constexpr (kEst == kTextbook) {
-        if (st.suppress && b.hit && b.id == p.light_id) pick = zero;
-      } else if constexpr (kEst == kMis) {
-        float w_b;
-        if (mis_pickup(p, lf, st.d, b, st.mis_pdf, &w_b)) pick = mul(pick, w_b);
-      }
-      if constexpr (kDirect) pick = add(pick, direct_of(b, st.T, e_light));
-      const State next = Tape::next(
-          b, mul(v3(st.T.x * b.f.x, st.T.y * b.f.y, st.T.z * b.f.z), b.w),
-          add(st.A, pick));
-      c.depth = j;
-      if (c.d_stop == 0) {  // pass A
-        tape_checkpoint(ck, j, st);
-        L = add(L, pick);
-        n_ext += 1;
-        if constexpr (est_base(kEst) == kNee) {
-          n_prb += (b.survive && b.diffuse) ? 1u : 0u;
-        } else if constexpr (est_base(kEst) == kMixture) {
-          n_prb += (b.survive && b.diffuse && b.take) ? 1u : 0u;
-        } else if constexpr (kDirect) {
-          n_prb += b.diffuse ? 1u : 0u;  // before RR
-        }
-        if (b.survive && j < p.max_bounces) {
-          st = next;
-        } else {
-          n_long += j > kSeg ? 1u : 0u;
-          tape_end_pass_a(&c, next.A);
-        }
-      } else {
-        n_rep += 1;
-        if (j == c.d_stop) {
-          tape_end_replay(&c);
-        } else {
-          st = next;
-        }
-      }
-    }
-    if (c.sweeping) {  // the VJP bounce j
-      const auto e = tape[c.sbuf][tape_slot(c.j)];
-      if (c.fresh) {
-        lam_o = zero;
-        lam_d = zero;
-        if constexpr (kEst == kMis) lam_mp = 0.0f;
-      }
-      const State se = Tape::state(e);
-      const Queries q = Tape::queries(e);
-      const V3 o = se.o, d = se.d, T = se.T;
-      const uint32_t pid = lr.pid_base + c.s_sw;
-      const Bounce b = bounce<TableMaterials, kScan, kEst, NoGuide, true>(
-          p, tab, mats, lf, o, d, pid, c.j, lr.pix, NoGuide{}, &q);
-      const V3 LA = c.LA_sw;
-      V3 pick = v3(T.x * b.emi.x, T.y * b.emi.y, T.z * b.emi.z);
-      // The pickup's weight (nee_textbook: 0 where it is suppressed; mis:
-      // its balance weight where the light is hit by a BSDF sample).
-      float emit_f = 1.0f;
-      EstCot ec{0.0f, 0.0f, 0.0f, 0.0f, false};
-      if constexpr (kEst == kTextbook) {
-        if (se.suppress && b.hit && b.id == p.light_id) {
-          pick = zero;
-          emit_f = 0.0f;
-        }
-      } else if constexpr (kEst == kMis) {
-        float w_b = 1.0f;
-        ec.pick = mis_pickup(p, lf, d, b, se.mis_pdf, &w_b);
-        if (ec.pick) {
-          pick = mul(pick, w_b);
-          emit_f = w_b;
-          ec.sig_pk = gc.x * T.x * b.emi.x + gc.y * T.y * b.emi.y +
-                      gc.z * T.z * b.emi.z;
-        }
-        ec.mp = se.mis_pdf;
-        ec.lam_mp = lam_mp;
-      }
-      float gate = 0.0f;  // the direct term's weight
-      if constexpr (kDirect) {
-        pick = add(pick, direct_of(b, T, e_light));
-        if (b.success) {
-          gate = b.w_nee;
-          ec.sig_tb = gc.x * T.x * b.alb.x * e_light.x +
-                      gc.y * T.y * b.alb.y * e_light.y +
-                      gc.z * T.z * b.alb.z * e_light.z;
-        }
-      }
-      const V3 A_new = add(se.A, pick);
-      n_vjp += 1;
-      const V3 fw = mul(b.f, b.w);
-      const V3 TS = v3(fw.x != 0.0f ? (LA.x - A_new.x) / fw.x : 0.0f,
-                       fw.y != 0.0f ? (LA.y - A_new.y) / fw.y : 0.0f,
-                       fw.z != 0.0f ? (LA.z - A_new.z) / fw.z : 0.0f);
-      const float f_scale = b.inv_p * b.w;
-      const float s_ta = gc.x * TS.x * b.alb.x + gc.y * TS.y * b.alb.y +
-                         gc.z * TS.z * b.alb.z;
-      const float s_am =
-          b.rr_scaled ? s_ta * b.w * (-(b.inv_p * b.inv_p)) : 0.0f;
-      const float p_max = fmaxf(b.alb.x, fmaxf(b.alb.y, b.alb.z));
-      const float eq_x = b.alb.x == p_max ? 1.0f : 0.0f;
-      const float eq_y = b.alb.y == p_max ? 1.0f : 0.0f;
-      const float eq_z = b.alb.z == p_max ? 1.0f : 0.0f;
-      const float n_eq = eq_x + eq_y + eq_z;
-      const float am = s_am / (n_eq > 0.0f ? n_eq : 1.0f);
-      const Pullback pb = bounce_vjp<kScan, kEst>(p, tab, b, o, d, lam_o,
-                                                  lam_d, s_ta * b.inv_p, ec);
-      ct.key = b.id;
-      ct.v[0] = gc.x * TS.x * f_scale + eq_x * am;
-      ct.v[1] = gc.y * TS.y * f_scale + eq_y * am;
-      ct.v[2] = gc.z * TS.z * f_scale + eq_z * am;
-      if constexpr (kEst == kTextbook || kEst == kMis) {
-        ct.v[3] = gc.x * T.x * emit_f;
-        ct.v[4] = gc.y * T.y * emit_f;
-        ct.v[5] = gc.z * T.z * emit_f;
-      } else {
-        ct.v[3] = gc.x * T.x;
-        ct.v[4] = gc.y * T.y;
-        ct.v[5] = gc.z * T.z;
-      }
-      if constexpr (kDirect) {
-        ct.v[0] += gc.x * gate * T.x * e_light.x;
-        ct.v[1] += gc.y * gate * T.y * e_light.y;
-        ct.v[2] += gc.z * gate * T.z * e_light.z;
-        g_le = add(g_le, v3(gc.x * gate * T.x * b.alb.x,
-                            gc.y * gate * T.y * b.alb.y,
-                            gc.z * gate * T.z * b.alb.z));
-      }
-      ct.v[6] = pb.g_c.x;
-      ct.v[7] = pb.g_c.y;
-      ct.v[8] = pb.g_c.z;
-      ct.v[9] = pb.g_r;
-      lam_o = pb.g_o;
-      lam_d = pb.g_d;
-      if constexpr (kEst == kMis) lam_mp = pb.g_mp;
-      tape_swept(&c);
-    }
-    const int job = tape_handover(&c, lr.s_stop);
-    if (job == 2 || (job == 1 && !tape_restore(&c, ck, &st))) spawn();
-    warp_accumulate(ct, my_row, p.n_rects, k_obj);
-  }
-  if constexpr (kDirect) {
-    float s3[3] = {g_le.x, g_le.y, g_le.z};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s3[i] += __shfl_xor_sync(kFull, s3[i], off);
-      }
-    }
-    if ((threadIdx.x & 31) == 0) {
-      for (int i = 0; i < 3; ++i) my_row[3 * k_obj + 3 * p.light_id + i] += s3[i];
-    }
-    __syncwarp();
-  }
-
-  if (lr.in_range) {
-    const int lane = blockIdx.x * kBlock + threadIdx.x;
-    out_l[3 * lane + 0] = L.x;
-    out_l[3 * lane + 1] = L.y;
-    out_l[3 * lane + 2] = L.z;
-  }
-  unsigned long long c5[5] = {n_ext, n_prb, n_rep, n_vjp, n_long};
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      c5[i] += __shfl_down_sync(kFull, c5[i], off);
-    }
-  }
-  if ((threadIdx.x & 31) == 0) {
-    for (int i = 0; i < 5; ++i) atomicAdd(&counts[i], c5[i]);
-  }
-  block_partials(rows, n_slots, partials);
+  constexpr const float* gloss = nullptr;
+  constexpr const QuadTab* quads = nullptr;
+#include "megakernel_geom_body.cuh"
 }
 
 // Every instance's type (spelled out: a decltype of one instance would make
@@ -764,6 +733,46 @@ GeomKernels geom_of_scan(bool tree) {
                             megakernel_geom<kScanTree, kEst>}
               : GeomKernels{megakernel_geom_image<kScanLinear, kEst>,
                             megakernel_geom<kScanLinear, kEst>};
+}
+
+// Launches kernels.image (bk == 0) or kernels.adjoint and reduce_partials
+// on `stream` for the Params p of a scene of n_objects objects, n_spheres
+// of them spheres (its tree if `tree`); `scene` are the kernels' arguments
+// after Params and before the outputs. Returns the first launch error.
+template <class Kernels, class... Scene>
+inline int launch_geom_kernels(const Kernels& kernels, const Params& p,
+                               bool tree, int n_objects, int n_spheres,
+                               int bk, const float* g_img, float* partials,
+                               long long n_partials, float* out, float* out_l,
+                               unsigned long long* counts, void* stream,
+                               Scene... scene) {
+  const int n_blocks = grid_of(p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if (!bk) {
+    kernels.image<<<n_blocks, kBlock, 0, st>>>(p, scene..., out_l, counts);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int n_slots = 6 * n_objects + 4 * n_spheres;
+  if (g_img == nullptr ||
+      n_partials < static_cast<long long>(n_blocks) * n_slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * kWarps * n_slots +
+                      (tree ? 0 : 2 * sizeof(float4) * n_spheres);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernels.adjoint,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernels.adjoint<<<n_blocks, kBlock, smem, st>>>(p, scene..., g_img,
+                                                  partials, out_l, counts);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials<<<n_slots, kReduceThreads, 0, st>>>(partials, n_blocks,
+                                                      n_slots, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The host entry points' body (their arguments, kernels_of the entry's
@@ -794,37 +803,11 @@ inline int launch_geom(GeomKernels (*kernels_of)(int est, bool tree), int est,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.mixture_q = mixture_q;
-  const int n_blocks = grid_of(p);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* sph4 = reinterpret_cast<const float4*>(sph);
-  const float4* bvh4 = reinterpret_cast<const float4*>(bvh);
-  cudaError_t err = cudaSuccess;
-  if (!bk) {
-    kernels.image<<<n_blocks, kBlock, 0, st>>>(
-        p, sph4, n_spheres, bvh4, root, alb, emi, refl, out_l, counts);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int n_slots = 6 * (n_rects + n_spheres) + 4 * n_spheres;
-  if (g_img == nullptr ||
-      n_partials < static_cast<long long>(n_blocks) * n_slots) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(float) * kWarps * n_slots +
-                      (tree ? 0 : 2 * sizeof(float4) * n_spheres);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernels.adjoint,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernels.adjoint<<<n_blocks, kBlock, smem, st>>>(
-      p, sph4, n_spheres, bvh4, root, alb, emi, refl, g_img, partials,
-      out_l, counts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<n_slots, kReduceThreads, 0, st>>>(partials, n_blocks,
-                                                      n_slots, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_geom_kernels(
+      kernels, p, tree, n_rects + n_spheres, n_spheres, bk, g_img, partials,
+      n_partials, out, out_l, counts, stream,
+      reinterpret_cast<const float4*>(sph), n_spheres,
+      reinterpret_cast<const float4*>(bvh), root, alb, emi, refl);
 }
 
 }  // namespace

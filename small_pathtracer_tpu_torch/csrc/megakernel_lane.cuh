@@ -302,7 +302,7 @@ __device__ __forceinline__ LightFrame light_frame(const Params& p) {
   return LightFrame{ld3(p.lc), ld3(p.leu), ld3(p.lev), ld3(p.ln)};
 }
 
-// One bounce: what render_lane and the geometry adjoint (megakernel_geom.cu)
+// One bounce: what render_lane and the geometry adjoint (megakernel_geom.cuh)
 // read of it. Fields a caller does not read cost it nothing (inlined).
 struct Bounce {
   int id;        // the winner
@@ -329,6 +329,12 @@ struct Bounce {
   float coin;             // REFR's coin
   bool take;              // mixture: its coin took NEE
   float pdf_cont;         // mis: the continuation's p_bsdf (diffuse)
+  // A GLOS hit (kWithGlos): its Phong exponent, the lobe's axis gm (d
+  // mirrored about n) and its sample gu·g_alpha + gv·g_beta + gm·g_wz in
+  // gm's frame (the geometry adjoint's pullback reads them).
+  float gl;
+  V3 gm;
+  float g_alpha, g_beta, g_wz;
 };
 
 // What a bounce's two queries found, as an earlier trace of the same
@@ -528,6 +534,11 @@ __device__ __forceinline__ void bounce_scatter(const Params& p,
         g_dir = norm(add(add(mul(gu, cr1 * sin_t), mul(gv, sr1 * sin_t)),
                          mul(gm, wz)));
         g_w = ((gl + 2.0f) / (gl + 1.0f)) * fmaxf(dot(g_dir, n), 0.0f);
+        b.gl = gl;
+        b.gm = gm;
+        b.g_alpha = cr1 * sin_t;
+        b.g_beta = sr1 * sin_t;
+        b.g_wz = wz;
       }
     }
 
@@ -652,7 +663,8 @@ __device__ __forceinline__ Bounce bounce(const Params& p, const SphereTab& tab,
                                          int pix, const Guide& guide,
                                          const Queries* taped = nullptr) {
   Bounce b;
-  bounce_hit<Mats, kTab, kTaped>(p, tab, mats, o, d, &b, taped);
+  bounce_hit<Mats, kTab, kTaped, with_quads(kEst)>(p, tab, mats, o, d, &b,
+                                                   taped);
   bounce_scatter<kTab, kEst, Guide, kTaped>(p, tab, lf, o, d, pid, depth, pix,
                                             guide, &b, taped);
   return b;

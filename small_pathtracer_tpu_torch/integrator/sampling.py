@@ -80,7 +80,7 @@ def sample_phong(mirror: torch.Tensor, u1: torch.Tensor, u2: torch.Tensor,
     return sample_power_cosine(mirror, u1, u2, 1.0 / (n_exp + 1.0))
 
 
-def _pow_safe(base: torch.Tensor, n_exp: torch.Tensor) -> torch.Tensor:
+def pow_safe(base: torch.Tensor, n_exp: torch.Tensor) -> torch.Tensor:
     """max(base, 0)^n through ``vm.pow_pos`` (0 where base <= 0)."""
     pos = base > 0.0
     return torch.where(pos, vm.pow_pos(torch.where(pos, base, 1.0), n_exp),
@@ -91,14 +91,14 @@ def phong_pdf(d: torch.Tensor, mirror: torch.Tensor,
               n_exp: torch.Tensor) -> torch.Tensor:
     """Solid-angle density of sample_phong at unit d:
     (n+1)/(2 pi) max(d . mirror, 0)^n."""
-    return (n_exp + 1.0) * INV_2PI * _pow_safe(vm.dot(d, mirror), n_exp)
+    return (n_exp + 1.0) * INV_2PI * pow_safe(vm.dot(d, mirror), n_exp)
 
 
 def phong_brdf_over_albedo(d: torch.Tensor, mirror: torch.Tensor,
                            n_exp: torch.Tensor) -> torch.Tensor:
     """The modified-Phong BRDF over the albedo at unit d:
     (n+2)/(2 pi) max(d . mirror, 0)^n."""
-    return (n_exp + 2.0) * INV_2PI * _pow_safe(vm.dot(d, mirror), n_exp)
+    return (n_exp + 2.0) * INV_2PI * pow_safe(vm.dot(d, mirror), n_exp)
 
 
 def phong_weight(d: torch.Tensor, nl: torch.Tensor,

@@ -381,6 +381,25 @@ def _bind(lib: ctypes.CDLL) -> None:
                   lib.spt_megakernel_geom_direct):
         entry.restype = ctypes.c_int
         entry.argtypes = [*est, *lib.spt_megakernel_geom.argtypes]
+    # Rows 11 and 12 on scenes with quads or GLOS objects
+    # (csrc/megakernel_geom_ext.cu: every code of `est`; GLOS with 1, 2 and
+    # 6 only): the quads after the rects, the Phong exponents after refl.
+    lib.spt_megakernel_geom_ext.restype = ctypes.c_int
+    lib.spt_megakernel_geom_ext.argtypes = [
+        *est,
+        *ext_scene,
+        *launch,
+        *spheres,
+        gloss,
+        i,  # bk: 0 the image-only launch, 1 the adjoint
+        p,  # g_img: (n_pix_loc, 3) f32 device, or null
+        p,  # partials: f32 device scratch
+        ctypes.c_longlong,  # its length in floats
+        p,  # out: 6 (R + Q + S) + 4 S f32 device
+        p,  # out_l: (n_pix_loc * g, 3) f32 device
+        p,  # counts: (5,) u64 device
+        p,  # cudaStream_t
+    ]
     lib.spt_sphere_queries.restype = ctypes.c_int
     lib.spt_sphere_queries.argtypes = [
         *scene,

@@ -2,14 +2,20 @@
 package's ``ops/megakernel_geom.py`` for every estimator (``nee``,
 ``cosine``, ``nee_textbook``, ``uniform``, ``uniform_corrected``,
 ``mixture``, ``mis``, and ``light_sample_mode='glibc_overflow'`` for
-``nee`` and ``mixture``), sphere-table scenes (rects unrolled, spheres in
-the runtime table), DIFF/SPEC/REFR and one rect light.
+``nee`` and ``mixture``), sphere-table scenes (rects and general quads
+unrolled, spheres in the runtime table), DIFF/SPEC/REFR, GLOS (modified
+Phong) rects and quads under ``cosine``, ``nee_textbook`` and ``mis``, and
+one light, a rect or a quad.
 
 - ``geom_run`` / ``geom_vjp``: one launch of the estimator's instance of
-  ``megakernel_geom`` (``csrc/megakernel_geom.cuh``; ``geom_kernel_name``
-  names it). The image-only launch (``g_img=None``) runs the TPU kernel's
-  pass A alone, which is row 2's loop body: the image, counts and time of
-  ``megakernel_<est>_tab``. The adjoint launch
+  ``megakernel_geom`` (``csrc/megakernel_geom.cuh``, its body
+  ``csrc/megakernel_geom_body.cuh``; ``geom_kernel_name`` names it), or on
+  a scene with quads or GLOS objects of ``megakernel_geom_ext``
+  (``csrc/megakernel_geom_ext.cu``, the routes of
+  ``megakernel.kernel_family``). The image-only launch (``g_img=None``)
+  runs the TPU kernel's pass A alone, which is row 2's loop body: the
+  image, counts and time of ``megakernel_<est>_tab`` (``_ext``). The
+  adjoint launch
   traces the same paths with the same bounce code, tapes each bounce's
   state in the lane's local memory and sweeps the bounces back once each,
   adding the pathwise interior cotangents of every sphere's (center,
@@ -26,15 +32,18 @@ the runtime table), DIFF/SPEC/REFR and one rect light.
   center, radius, mis's pdf carry) -> (x, d', w, the direct term's
   weight, the pickup's weight, the continuation's pdf) with every discrete
   choice fixed, and its pullback derived by hand in the formulas and
-  order of the kernel's ``bounce_vjp``. The TPU kernel gets the pullback
+  order of the kernel's ``bounce_vjp``: a rect, quad or sphere winner, a
+  rect or quad light, and at a GLOS vertex the Phong lobe, whose axis
+  (d mirrored about n) carries d's cotangent. The TPU kernel gets the pullback
   from ``jax.vjp`` inside the kernel; the card has no such thing, so this
   is the written derivation, held against ``torch.autograd`` by the
   tests.
 
 Gradient layout (the port's tables, not the JAX 16-slot ``gtab``): sphere
 rows (S, 4) ``[cx, cy, cz, r]`` as ``ops/megakernel.sphere_tables`` packs
-them, and albedo and emission (K, 3) in global object order (rects, then
-spheres). ``grads_to_scene`` turns them into a scene-shaped tuple.
+them, and albedo and emission (K, 3), K = R + Q + S, in global object order
+(rects, quads, then spheres). ``grads_to_scene`` turns them into a
+scene-shaped tuple.
 
 On a CUDA device each wrapper launches the kernel or raises; on the CPU it
 runs the plain version, ``geom_run_plain``: the eager regenerating forward
@@ -55,26 +64,31 @@ import torch
 from ..camera.pinhole import CameraParams
 from ..config import RenderConfig
 from ..core import vecmath as vm
-from ..integrator.sampling import light_area_normal
+from ..geometry.intersect import quad_consts
+from ..integrator.sampling import INV_2PI, pow_safe, light_area_normal
 from ..integrator.wavefront import path_trace_regen
 from ..parallel.mesh import Mesh
 from ..parallel.sharded import ShardLayout, reduce_lanes, shard_lanes
-from ..scene.types import DIFF, SPEC, Scene, has_glos, num_quads, num_spheres
+from ..scene.types import (
+    DIFF, GLOS, SPEC, Scene, num_quads, num_spheres, object_refl,
+)
 from . import _build
 from .megakernel import (
     EST_CODE, KernelGeometry, _image, _resolve, count, est_code,
-    full_layout, launch_args, pack_geometry, shard_of, sphere_args,
-    sphere_tables,
+    ext_scene_args, full_layout, kernel_family, launch_args, pack_geometry,
+    shard_of, sphere_args, sphere_tables,
 )
 from .megakernel_grad import (
     _est_name, material_grads_to_scene, plain_chunk, unpack_materials,
 )
 
 # Threads a block (kBlock in csrc/megakernel_common.cuh): sizes the
-# per-block partial sums. The kernel keeps one row of gradient slots a warp
-# in shared memory beside the sphere rows, which caps the sphere count.
+# per-block partial sums. The kernel keeps one row of 6 K + 4 S gradient
+# slots a warp in shared memory beside the sphere rows (K = R + Q + S
+# objects), which caps the sphere count: 32 rects, 8 quads and 1024 spheres
+# fill 167,680 bytes a block.
 KERNEL_BLOCK = 128
-MAX_GEOM_SPHERES = 1024  # kMaxGeomSpheres in csrc/megakernel_geom.cu
+MAX_GEOM_SPHERES = 1024  # kMaxGeomSpheres in csrc/megakernel_geom.cuh
 # The adjoint launch's counters: [extend, probe] of pass A, replayed
 # bounces, VJP bounces, paths longer than the tape.
 N_COUNTS = 5
@@ -86,36 +100,38 @@ _ITEM = "is not ported yet (ROADMAP.md queue 1, item {})"
 # ---------------------------------------------------------------------------
 # Scope and layout.
 
-def check_ported(scene: Scene) -> None:
-    """The geometry adjoint's refusal of quads and GLOS objects
-    (NotImplementedError: item 11's geometry half), which ``cli fit
-    --train center,...`` also makes before it counts the spheres."""
-    for what, found in (("quads", num_quads(scene) > 0),
-                        ("GLOS materials", has_glos(scene))):
-        if found:
-            raise NotImplementedError(
-                f"the geometry adjoint does not take {what} yet (ROADMAP.md "
-                "queue 1, item 11, its geometry half: rows 11 and 12)")
-
-
 def check_geom(scene: Scene, cfg: RenderConfig) -> None:
-    """The refusals of the geometry adjoint, on every device: quads and GLOS
-    (``check_ported``: item 11's geometry half), and the JAX kernel's
-    own ValueErrors (no spheres, no unrolled object, a light that is not
-    an unrolled rect). Every estimator and
-    light_sample_mode passes (``mis`` and ``nee_textbook`` ignore
-    'glibc_overflow', as the JAX package's config.py says). Light lists
-    and sphere lights never reach here: the port's Scene holds neither
-    (``convert.scene_from_jax`` refuses them, item 12)."""
-    check_ported(scene)
-    if num_spheres(scene) == 0:
+    """The refusals of the geometry adjoint, on every device, before any
+    launch: the JAX kernel's own ValueErrors, word for word and in its
+    order (``build_geom_grad_kernel``): a GLOS sphere, GLOS rects or quads
+    under an estimator without glossy semantics, no spheres, no unrolled
+    object, a light that is not an unrolled rect or quad. Every estimator
+    and light_sample_mode passes otherwise (``mis`` and ``nee_textbook``
+    ignore 'glibc_overflow', as the JAX package's config.py says). Light
+    lists and sphere lights never reach here: the port's Scene holds
+    neither (``convert.scene_from_jax`` refuses them, item 12)."""
+    R, Q, S = scene.rects.k.shape[0], num_quads(scene), num_spheres(scene)
+    refl = object_refl(scene)
+    if bool((refl[R + Q:] == GLOS).any()):
+        raise ValueError(
+            "the geometry adjoint kernel cannot place GLOS spheres in "
+            "the table (same constraint as the forward sphere-table "
+            "kernel); use the jnp adjoint (grad/adjoint.py)"
+        )
+    est = cfg.estimator
+    if bool((refl[:R + Q] == GLOS).any()) and est not in (
+            "cosine", "nee_textbook", "mis"):
+        raise ValueError(
+            f"estimator {est!r} has no glossy (GLOS) semantics; use "
+            "cosine, nee_textbook, or mis (integrator contract)"
+        )
+    if S == 0:
         raise ValueError("no spheres to differentiate; use the material "
                          "adjoint kernel (ops/megakernel_grad.py)")
-    R = scene.rects.k.shape[0]
-    if R == 0:
+    if R + Q == 0:
         raise ValueError("sphere-table mode needs at least one unrolled "
                          "rect/quad (C15 miss default)")
-    if int(scene.light.light_obj_id) >= R:
+    if int(scene.light.light_obj_id) >= R + Q:
         raise ValueError("the light must be an unrolled rect/quad")
 
 
@@ -150,7 +166,7 @@ def grads_to_scene(scene: Scene, g_sph, g_alb, g_emi) -> Scene:
 # ---------------------------------------------------------------------------
 # One bounce as a continuous map, and its pullback.
 
-RECT, SPHERE, MISS = 0, 1, 2
+RECT, SPHERE, MISS, QUAD = 0, 1, 2, 3
 INV_PI = 1.0 / math.pi
 NNT_INTO, NNT_OUT, R0 = 1.0 / 1.5, 1.5, 0.04
 # The estimators whose NEE probe, where it reaches the light, is the
@@ -169,13 +185,17 @@ class Bounce(NamedTuple):
     pick, REFR's ``into``, ``tir`` and reflect/refract pick follow from the
     primal. ``take``: mixture's coin took NEE (None: every lane). ``pick``:
     mis, the hit is the light's and the carry is above 0 (the pickup is
-    balance-weighted)."""
+    balance-weighted). ``pp``, ``pn``: a QUAD winner's plane, its corner
+    and unit normal (None: no quad winner). ``gl``: the Phong exponent of
+    a GLOS winner (``refl`` GLOS; None: no GLOS lane), whose lobe sample is
+    ``norm(gu * ga + gv * gb + gm * gz)`` in the frame of gm, the mirror
+    of d about n."""
 
-    kind: torch.Tensor     # RECT, SPHERE or MISS
+    kind: torch.Tensor     # RECT, SPHERE, MISS or QUAD
     axis: torch.Tensor     # the rect winner's axis (rect 0's on a miss)
     k: torch.Tensor        # the rect winner's plane offset
     near: torch.Tensor     # sphere winner: the near root
-    refl: torch.Tensor     # DIFF, SPEC or REFR
+    refl: torch.Tensor     # DIFF, SPEC, REFR or GLOS
     sign: torch.Tensor     # +-1.0
     alpha: torch.Tensor
     beta: torch.Tensor
@@ -185,23 +205,38 @@ class Bounce(NamedTuple):
     coin: torch.Tensor
     take: torch.Tensor | None = None
     pick: torch.Tensor | None = None
+    pp: torch.Tensor | None = None  # (N, 3)
+    pn: torch.Tensor | None = None  # (N, 3)
+    gl: torch.Tensor | None = None
+    ga: torch.Tensor | None = None
+    gb: torch.Tensor | None = None
+    gz: torch.Tensor | None = None
 
 
 class LightConsts(NamedTuple):
     """The NEE weight's light: the sampler's unit normal (3,) and area,
-    and the light rect's axis and plane offset (the probe's distance)."""
+    and the plane of the light object (the probe's distance): a rect's
+    axis and offset, or (axis -1) a quad's corner ``pc`` and unit normal
+    ``pn`` (3,)."""
 
     ln: torch.Tensor
     area: torch.Tensor
     axis: int
     k: torch.Tensor
+    pc: torch.Tensor | None = None
+    pn: torch.Tensor | None = None
 
 
 def light_consts(scene: Scene) -> LightConsts:
-    """The LightConsts of the scene's light sampler and light rect."""
+    """The LightConsts of the scene's light sampler and light object."""
     area, ln = light_area_normal(scene.light)
-    i = int(scene.light.light_obj_id)
-    return LightConsts(ln, area, int(scene.rects.axis[i]), scene.rects.k[i])
+    i, R = int(scene.light.light_obj_id), scene.rects.k.shape[0]
+    if i < R:
+        return LightConsts(ln, area, int(scene.rects.axis[i]),
+                           scene.rects.k[i])
+    q = quad_consts(scene.quads)[i - R]
+    return LightConsts(ln, area, -1, torch.zeros_like(area), q[0:3],
+                       q[16:19])
 
 
 def _onehot(axis, like):
@@ -223,20 +258,76 @@ def _p_light(light: LightConsts, d, t):
     return (t * t) / (light.area * cm)
 
 
+def _winner_plane(o, d, b: Bounce):
+    """A plane winner's distance along d from o, 1 / (d . e) and the plane's
+    unit normal e (N, 3): a rect's axis (t = (k - o[a]) / d[a]), or on
+    QUAD lanes the quad's (t = ((pp - o) . pn) / (d . pn))."""
+    e = _onehot(b.axis, o)
+    da = _col(d, b.axis)
+    inv = 1.0 / torch.where(da != 0.0, da, 1.0)
+    t = (b.k - _col(o, b.axis)) * inv
+    if b.pn is not None:
+        quad = (b.kind == QUAD)[:, None]
+        dq = vm.dot(d, b.pn)
+        inv_q = 1.0 / torch.where(dq != 0.0, dq, 1.0)
+        t = torch.where(quad[:, 0], vm.dot(b.pp - o, b.pn) * inv_q, t)
+        inv = torch.where(quad[:, 0], inv_q, inv)
+        e = torch.where(quad, b.pn, e)
+    return t, inv, e
+
+
+def _light_plane(light: LightConsts, x, dl):
+    """The probe's distance along unit dl from x to the light object's
+    plane, 1 / (dl . e) and the plane's unit normal e (N, 3)."""
+    if light.axis >= 0:
+        e = torch.zeros_like(x)
+        e[:, light.axis] = 1.0
+        dla = dl[:, light.axis]
+        inv = 1.0 / torch.where(dla != 0.0, dla, 1.0)
+        return (light.k - x[:, light.axis]) * inv, inv, e
+    e = light.pn.expand_as(x)
+    den = vm.dot(dl, e)
+    inv = 1.0 / torch.where(den != 0.0, den, 1.0)
+    return vm.dot(light.pc - x, e) * inv, inv, e
+
+
+def _lobe_frame(gm):
+    """The GLOS lobe's frame around gm (N, 3), its axis pick detached, as
+    the hemisphere sample's around n: (the pick's axis, cross(axis, gm),
+    1 / |cross|, gu, gv)."""
+    pick = (torch.abs(gm.detach()[:, 0]) > 0.1)[:, None]
+    e_y = torch.tensor([0.0, 1.0, 0.0], device=gm.device)
+    e_x = torch.tensor([1.0, 0.0, 0.0], device=gm.device)
+    ax = torch.where(pick, e_y, e_x).expand_as(gm)
+    cr = vm.cross(ax, gm)
+    cr2 = vm.dot(cr, cr)
+    rs_u = vm.rsqrt(torch.where(cr2 > 0.0, cr2, 1.0))
+    gu = cr * rs_u[:, None]
+    return ax, cr, rs_u, gu, vm.cross(gm, gu)
+
+
+def _pow_safe_d(c, gl):
+    """pow_safe(c, gl) = max(c, 0)^gl and its derivative in c, gl y / c
+    where y > 0 (vm.pow_pos's)."""
+    y = pow_safe(c, gl)
+    pos = y > 0.0
+    return y, torch.where(pos, gl * y / torch.where(pos, c, 1.0), 0.0)
+
+
 def diff_step(o, d, c, r, mp, b: Bounce, light: LightConsts,
               est: str = "nee"):
     """One bounce's continuous map for the estimator ``est``: (o, d, winner
     sphere center c (N, 3) and radius r (N,), mis's carry mp (N,), the
-    previous diffuse vertex's p_bsdf of d) -> (x (N, 3), d' (N, 3), w (N,)
-    the continuation's weight, w_tb (N,) the direct term's weight, w_pick
-    (N,) the pickup's weight, pdf_cont (N,) the p_bsdf of d' that the next
-    bounce's pickup weighs against), the outputs of the JAX kernel's
-    diff_step. Every discrete choice is fixed by ``b``; torch.autograd
-    differentiates it. The expressions are the eager forward's
-    (integrator/wavefront.py, geometry/intersect.py)."""
-    is_sph, is_rect = b.kind == SPHERE, b.kind == RECT
-    da = _col(d, b.axis)
-    t_rect = (b.k - _col(o, b.axis)) * (1.0 / torch.where(da != 0.0, da, 1.0))
+    previous diffuse or GLOS vertex's p_bsdf of d) -> (x (N, 3), d' (N, 3),
+    w (N,) the continuation's weight, w_tb (N,) the direct term's weight,
+    w_pick (N,) the pickup's weight, pdf_cont (N,) the p_bsdf of d' that
+    the next bounce's pickup weighs against), the outputs of the JAX
+    kernel's diff_step. Every discrete choice is fixed by ``b``;
+    torch.autograd differentiates it. The expressions are the eager
+    forward's (integrator/wavefront.py, geometry/intersect.py)."""
+    is_sph = b.kind == SPHERE
+    is_plane = (b.kind == RECT) | (b.kind == QUAD)
+    t_plane, _, e_plane = _winner_plane(o, d, b)
     op = c - o
     bq = vm.dot(op, d)
     m = bq[:, None] * d - op
@@ -246,9 +337,9 @@ def diff_step(o, d, c, r, mp, b: Bounce, light: LightConsts,
     det = (r - mlen) * (r + mlen)
     sdet = torch.sqrt(torch.where(det > 0.0, det, 1.0))
     t_sph = torch.where(b.near, bq - sdet, bq + sdet)
-    t = torch.where(is_sph, t_sph, torch.where(is_rect, t_rect, 0.0))
+    t = torch.where(is_sph, t_sph, torch.where(is_plane, t_plane, 0.0))
     x = torch.where((b.kind != MISS)[:, None], o + t[:, None] * d, 0.0)
-    ng = torch.where(is_sph[:, None], _safe_norm(x - c), _onehot(b.axis, x))
+    ng = torch.where(is_sph[:, None], _safe_norm(x - c), e_plane)
     n = ng * b.sign[:, None]
     # DIFF: the hemisphere sample in the frame of n (axis pick detached).
     pick = (torch.abs(n.detach()[:, 0]) > 0.1)[:, None]
@@ -258,16 +349,31 @@ def diff_step(o, d, c, r, mp, b: Bounce, light: LightConsts,
     fv = vm.cross(n, fu)
     cos_dir = _safe_norm(fu * b.alpha[:, None] + fv * b.beta[:, None]
                          + n * b.wz[:, None])
-    # DIFF: NEE toward the light sample, the probe's distance to the light
-    # rect's plane.
+    # DIFF and GLOS: NEE toward the light sample, the probe's distance to
+    # the light object's plane.
     dl = _safe_norm(b.lp - x)
-    dla = dl[:, light.axis]
-    tl = (light.k - x[:, light.axis]) * (
-        1.0 / torch.where(dla != 0.0, dla, 1.0))
-    tl = torch.where(b.success, tl, 1.0)
-    w_nee = (torch.abs(light.area * vm.dot(dl, light.ln)) / (tl * tl)) * (
-        torch.abs(vm.dot(dl, n)) * INV_PI)
+    tl = torch.where(b.success, _light_plane(light, x, dl)[0], 1.0)
+    w_geo = torch.abs(light.area * vm.dot(dl, light.ln)) / (tl * tl)
+    w_nee = w_geo * (torch.abs(vm.dot(dl, n)) * INV_PI)
     is_diff1 = b.refl == DIFF
+    nee_v = is_diff1
+    glos = b.gl is not None
+    if glos:
+        # GLOS: the Phong lobe around gm = d mirrored about n (the draws
+        # and the frame's pick detached); the direct term's weight with the
+        # lobe's BRDF over albedo.
+        is_glos = b.refl == GLOS
+        nee_v = is_diff1 | is_glos
+        gm = vm.reflect(d, n)
+        _, _, _, gu, gv = _lobe_frame(gm)
+        g_dir = _safe_norm(gu * b.ga[:, None] + gv * b.gb[:, None]
+                           + gm * b.gz[:, None])
+        g_w = ((b.gl + 2.0) / (b.gl + 1.0)) * torch.clamp(
+            vm.dot(g_dir, n), min=0.0)
+        pw_l = pow_safe(vm.dot(dl, gm), b.gl)
+        w_nee = torch.where(is_glos, (w_geo * (
+            (b.gl + 2.0) * INV_2PI * pw_l)) * torch.clamp(vm.dot(dl, n),
+                                                          min=0.0), w_nee)
     w_tb = torch.zeros_like(r)
     if est in NEE_CONT:
         sel = b.success if b.take is None else b.success & b.take
@@ -281,8 +387,11 @@ def diff_step(o, d, c, r, mp, b: Bounce, light: LightConsts,
         if est == "mis":
             p_l = _p_light(light, dl, tl)
             p_b = torch.clamp(vm.dot(dl, n), min=0.0) * INV_PI
+            if glos:
+                p_b = torch.where(is_glos, (b.gl + 1.0) * INV_2PI * pw_l,
+                                  p_b)
             w_nee = w_nee * (p_l / (p_l + p_b))
-        w_tb = torch.where(b.success & is_diff1, w_nee, 0.0)
+        w_tb = torch.where(b.success & nee_v, w_nee, 0.0)
     # SPEC: the mirror about the geometric normal.
     refl_dir = vm.reflect(d, ng)
     # REFR: Schlick's dielectric, decisions detached.
@@ -307,14 +416,20 @@ def diff_step(o, d, c, r, mp, b: Bounce, light: LightConsts,
                         torch.where(is_spec, refl_dir, dir_refr))
     w = torch.where(b.refl == DIFF, w_diff,
                     torch.where(b.refl == SPEC, 1.0, w_refr))
+    if glos:
+        d_new = torch.where(is_glos[:, None], g_dir, d_new)
+        w = torch.where(is_glos, g_w, w)
     w_pick, pdf_cont = torch.ones_like(r), torch.zeros_like(r)
     if est == "mis":
         # The pickup's balance weight at this hit, and the continuation's
-        # p_bsdf (the cosine sample's).
+        # p_bsdf (the cosine sample's; the lobe's at a GLOS vertex).
         den = torch.where(b.pick, mp + _p_light(light, d, t), 1.0)
         w_pick = torch.where(b.pick, mp / den, 1.0)
-        pdf_cont = torch.where(is_diff1, torch.clamp(
-            vm.dot(d_new, n), min=0.0) * INV_PI, 0.0)
+        pdf_cont = torch.clamp(vm.dot(d_new, n), min=0.0) * INV_PI
+        if glos:
+            pdf_cont = torch.where(is_glos, (b.gl + 1.0) * INV_2PI * pow_safe(
+                vm.dot(d_new, gm), b.gl), pdf_cont)
+        pdf_cont = torch.where(nee_v, pdf_cont, 0.0)
     return x, d_new, w, w_tb, w_pick, pdf_cont
 
 
@@ -332,28 +447,38 @@ def _norm_vjp(u, rs, g_u):
     return (g_u - u * vm.dot(u, g_u)[:, None]) * rs[:, None]
 
 
-def _nee_vjp(x, n, b: Bounce, light: LightConsts, sig, lam_dl, balance):
+def _nee_vjp(x, n, b: Bounce, light: LightConsts, sig, lam_dl, balance,
+             gm=None):
     """The NEE weight |A (dl . ln)| / tl^2 * |dl . n| / pi of a probe that
-    reached the light (``balance``: times mis's p_l / (p_l + p_b)) and its
-    direction dl = norm(lp - x), pulled back under the cotangents (sig,
-    lam_dl): (g_x, g_n); csrc/megakernel_geom.cuh ``nee_vjp``."""
+    reached the light (on GLOS lanes, with ``gm`` the lobe's axis: times
+    (gl + 2) / (2 pi) max(dl . gm, 0)^gl max(dl . n, 0) in place of
+    |dl . n| / pi; ``balance``: times mis's p_l / (p_l + p_b), p_b the
+    lobe's pdf on GLOS lanes) and its direction dl = norm(lp - x), pulled
+    back under the cotangents (sig, lam_dl): (g_x, g_n, g_gm);
+    csrc/megakernel_geom.cuh ``nee_vjp`` and ``nee_vjp_ext``."""
     vl = b.lp - x
     vl2 = vm.dot(vl, vl)
     rs_l = vm.rsqrt(torch.where(vl2 > 0.0, vl2, 1.0))
     dl = vl * rs_l[:, None]
-    dla = dl[:, light.axis]
-    inv_l = 1.0 / torch.where(dla != 0.0, dla, 1.0)
-    tl = (light.k - x[:, light.axis]) * inv_l
+    tl, inv_l, e_l = _light_plane(light, x, dl)
     cl = vm.dot(dl, light.ln)
     a1 = light.area * cl
     q = torch.abs(a1) / (tl * tl)
     cs = vm.dot(dl, n)
     bb = torch.abs(cs) * INV_PI
-    gcs_b = gtl_b = gcl_b = 0.0
+    if gm is not None:
+        is_g, gl = b.refl == GLOS, b.gl
+        pw, dpw = _pow_safe_d(vm.dot(dl, gm), gl)
+        br = (gl + 2.0) * INV_2PI * pw
+        mc = torch.clamp(cs, min=0.0)
+        bb = torch.where(is_g, br * mc, bb)
+    gcs_b = gtl_b = gcl_b = g_pw = 0.0
     if balance:
         cm = torch.clamp(torch.abs(cl), min=COS_MIN)
         p_l = (tl * tl) / (light.area * cm)
         p_b = torch.clamp(cs, min=0.0) * INV_PI
+        if gm is not None:
+            p_b = torch.where(is_g, (gl + 1.0) * INV_2PI * pw, p_b)
         den = p_l + p_b
         g_bal = sig * (q * bb)
         sig = sig * (p_l / den)
@@ -363,20 +488,62 @@ def _nee_vjp(x, n, b: Bounce, light: LightConsts, sig, lam_dl, balance):
         gcl_b = torch.where(torch.abs(cl) >= COS_MIN,
                             -g_pl * p_l / cm * torch.sign(cl), 0.0)
         gcs_b = torch.where(cs >= 0.0, g_pb * INV_PI, 0.0)
+        if gm is not None:
+            gcs_b = torch.where(is_g, 0.0, gcs_b)
+            g_pw = g_pb * (gl + 1.0) * INV_2PI
     gq = sig * bb
     gb = sig * q
     gcs = gb * INV_PI * torch.sign(cs) + gcs_b
+    g_gm = torch.zeros_like(x)
+    if gm is not None:
+        # The lobe's BRDF and max(dl . n, 0) in place of |dl . n| / pi.
+        gcs = torch.where(is_g, torch.where(cs >= 0.0, gb * br, 0.0), gcs)
+        g_cg = torch.where(is_g, (gb * mc * (gl + 2.0) * INV_2PI + g_pw)
+                           * dpw, 0.0)
+        g_gm = dl * g_cg[:, None]
     ga1 = gq / (tl * tl) * torch.sign(a1)
     gtl = -2.0 * gq * q / tl + gtl_b
     gdl = lam_dl + light.ln * (ga1 * light.area + gcl_b)[:, None] + n * gcs[
         :, None]
+    if gm is not None:
+        gdl = gdl + gm * g_cg[:, None]
     g_n = dl * gcs[:, None]
-    e_l = torch.zeros_like(x)
-    e_l[:, light.axis] = 1.0
     g_x = -e_l * (gtl * inv_l)[:, None]
     gdl = gdl - e_l * (gtl * tl * inv_l)[:, None]
     g_x = g_x - _norm_vjp(dl, rs_l, gdl)
-    return g_x, g_n
+    return g_x, g_n, g_gm
+
+
+def _lobe_vjp(d, n, b: Bounce, lam_d, sig_w, lam_mp, est):
+    """The GLOS continuation d' = norm(gu ga + gv gb + gm gz), w = (gl + 2)
+    / (gl + 1) max(d' . n, 0) (mis: pdf_cont = (gl + 1) / (2 pi)
+    max(d' . gm, 0)^gl) around gm = d mirrored about n, pulled back under
+    (lam_d, sig_w, lam_mp): (gm, the cotangents of gm and n)."""
+    gl = b.gl
+    gm = vm.reflect(d, n)
+    ax, _, rs_u, gu, gv = _lobe_frame(gm)
+    sv = gu * b.ga[:, None] + gv * b.gb[:, None] + gm * b.gz[:, None]
+    sv2 = vm.dot(sv, sv)
+    rs_s = vm.rsqrt(torch.where(sv2 > 0.0, sv2, 1.0))
+    g_dir = sv * rs_s[:, None]
+    g_cn = torch.where(vm.dot(g_dir, n) >= 0.0,
+                       sig_w * ((gl + 2.0) / (gl + 1.0)), 0.0)
+    lam_s = lam_d + n * g_cn[:, None]
+    g_n = g_dir * g_cn[:, None]
+    g_gm = torch.zeros_like(d)
+    if est == "mis":
+        g_c = lam_mp * (gl + 1.0) * INV_2PI * _pow_safe_d(
+            vm.dot(g_dir, gm), gl)[1]
+        lam_s = lam_s + gm * g_c[:, None]
+        g_gm = g_dir * g_c[:, None]
+    gsv = _norm_vjp(g_dir, rs_s, lam_s)
+    ggu = gsv * b.ga[:, None]
+    ggv = gsv * b.gb[:, None]
+    g_gm = g_gm + gsv * b.gz[:, None] + vm.cross(gu, ggv)
+    ggu = ggu + vm.cross(ggv, gm)
+    gcr = _norm_vjp(gu, rs_u, ggu)
+    g_gm = g_gm + vm.cross(gcr, ax)
+    return gm, g_gm, g_n
 
 
 def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
@@ -386,14 +553,13 @@ def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
     outputs: returns (g_o, g_d, g_c, g_r, g_mp), derived by hand, in the
     formulas and order of ``bounce_vjp`` in csrc/megakernel_geom.cuh (there
     per lane with branches; here every branch on every lane, then
-    selected). g_mp is mis's: the cotangent of the previous diffuse
-    vertex's pdf_cont."""
+    selected). g_mp is mis's: the cotangent of the previous diffuse or
+    GLOS vertex's pdf_cont."""
     z3 = torch.zeros_like(o)
-    is_sph, is_rect, hit = b.kind == SPHERE, b.kind == RECT, b.kind != MISS
+    is_sph, hit = b.kind == SPHERE, b.kind != MISS
+    is_plane = (b.kind == RECT) | (b.kind == QUAD)
     # Forward quantities.
-    da = _col(d, b.axis)
-    inv = 1.0 / torch.where(da != 0.0, da, 1.0)
-    t_rect = (b.k - _col(o, b.axis)) * inv
+    t_plane, inv, e_plane = _winner_plane(o, d, b)
     op = c - o
     bq = vm.dot(op, d)
     m = bq[:, None] * d - op
@@ -403,17 +569,17 @@ def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
     det = (r - mlen) * (r + mlen)
     sdet = torch.sqrt(torch.where(det > 0.0, det, 1.0))
     t = torch.where(is_sph, torch.where(b.near, bq - sdet, bq + sdet),
-                    torch.where(is_rect, t_rect, 0.0))
+                    torch.where(is_plane, t_plane, 0.0))
     x = torch.where(hit[:, None], o + d * t[:, None], 0.0)
     v = x - c
     v2 = vm.dot(v, v)
     rs_n = vm.rsqrt(torch.where(v2 > 0.0, v2, 1.0))
-    ng = torch.where(is_sph[:, None], v * rs_n[:, None], _onehot(b.axis, x))
+    ng = torch.where(is_sph[:, None], v * rs_n[:, None], e_plane)
     n = ng * b.sign[:, None]
 
     # Scatter: the cotangents of x, n, ng and d from (lam_d, sig_w).
     # DIFF, NEE as the continuation: d' = dl = norm(lp - x), w = w_nee.
-    gx_nee, gn_nee = _nee_vjp(x, n, b, light, sig_w, lam_d, False)
+    gx_nee, gn_nee, _ = _nee_vjp(x, n, b, light, sig_w, lam_d, False)
 
     # DIFF, the hemisphere sample: d' = its direction, w = 1
     # (uniform_corrected: 2 max(d' . n, 0); mis: pdf_cont = max(d' . n, 0)
@@ -505,7 +671,7 @@ def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
     gx_diff = torch.where(nee_m, gx_nee, z3)
     gn_diff = torch.where(nee_m, gn_nee, gn_cos)
     if est in DIRECT:
-        gx_tb, gn_tb = _nee_vjp(x, n, b, light, sig_tb, z3, est == "mis")
+        gx_tb, gn_tb, _ = _nee_vjp(x, n, b, light, sig_tb, z3, est == "mis")
         gx_diff = gx_diff + torch.where(succ, gx_tb, z3)
         gn_diff = gn_diff + torch.where(succ, gn_tb, z3)
     g_x = torch.where(is_diff, gx_diff, z3)
@@ -513,6 +679,23 @@ def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
                       torch.where(is_spec, z3, gn_refr))
     g_ng = torch.where(is_diff, z3, torch.where(is_spec, gng_spec, gng_refr))
     g_d = torch.where(is_diff, z3, torch.where(is_spec, gd_spec, gd_refr))
+    if b.gl is not None:
+        # GLOS: the lobe's continuation and (nee_textbook, mis) the direct
+        # term, both through gm = d mirrored about n.
+        is_g = (b.refl == GLOS)[:, None]
+        gm, g_gm, gn_g = _lobe_vjp(d, n, b, lam_d, sig_w, lam_mp, est)
+        gx_g = z3
+        if est in DIRECT:
+            gx_tb, gn_tb, ggm_tb = _nee_vjp(x, n, b, light, sig_tb, z3,
+                                            est == "mis", gm)
+            gx_g = torch.where(succ, gx_tb, z3)
+            gn_g = gn_g + torch.where(succ, gn_tb, z3)
+            g_gm = g_gm + torch.where(succ, ggm_tb, z3)
+        gd_g, gn_r = _reflect_vjp(d, n, g_gm)
+        g_x = torch.where(is_g, gx_g, g_x)
+        g_n = torch.where(is_g, gn_g + gn_r, g_n)
+        g_ng = torch.where(is_g, z3, g_ng)
+        g_d = torch.where(is_g, gd_g, g_d)
 
     # n = sign * ng; ng = norm(x - c) on a sphere winner.
     g_ng = g_ng + g_n * b.sign[:, None]
@@ -528,7 +711,7 @@ def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
     g_mp = torch.zeros_like(r)
     if est == "mis":
         # The pickup's weight mp / (mp + p_h), p_h = t^2 / (A max(|d . ln|,
-        # 1e-6)), on a BSDF-sampled hit of the light (a rect).
+        # 1e-6)), on a BSDF-sampled hit of the light (a rect or a quad).
         cos_h = vm.dot(d, light.ln)
         cm = torch.clamp(torch.abs(cos_h), min=COS_MIN)
         p_h = (t * t) / (light.area * cm)
@@ -539,11 +722,11 @@ def bounce_vjp(o, d, c, r, mp, b: Bounce, light: LightConsts, lam_x, lam_d,
         g_cm = torch.where(torch.abs(cos_h) >= COS_MIN,
                            -g_ph * p_h / cm * torch.sign(cos_h), 0.0)
         g_d = g_d + light.ln * g_cm[:, None]
-    # Rect winner: t = (k - o[a]) / d[a].
-    e_a = _onehot(b.axis, o)
-    rect_m = is_rect[:, None]
-    g_o = g_o - torch.where(rect_m, e_a * (g_t * inv)[:, None], z3)
-    g_d = g_d - torch.where(rect_m, e_a * (g_t * t * inv)[:, None], z3)
+    # Plane winner: t = (k - o[a]) / d[a] (rect), ((pp - o) . pn) / (d . pn)
+    # (quad).
+    plane_m = is_plane[:, None]
+    g_o = g_o - torch.where(plane_m, e_plane * (g_t * inv)[:, None], z3)
+    g_d = g_d - torch.where(plane_m, e_plane * (g_t * t * inv)[:, None], z3)
     # Sphere winner: t = b -+ sqrt((r - |m|)(r + |m|)), m = b d - op.
     g_sd = torch.where(b.near, -g_t, g_t)
     g_det = g_sd * 0.5 / sdet
@@ -636,14 +819,18 @@ def _plain(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed, g_rows,
 _DIRECT_CODES = (EST_CODE["nee_textbook"], EST_CODE["mis"])
 
 
-def geom_kernel_name(cfg: RenderConfig) -> str:
+def geom_kernel_name(cfg: RenderConfig, scene: Scene | None = None) -> str:
     """The name under which both launches of cfg's estimator count in
     LAUNCHES: megakernel_geom (``nee``) or megakernel_geom_<est>
     (``_est_name``: cosine, textbook, uniform, uniform_corrected, mixture,
     mis, nee_glibc, mixture_glibc; ``mis`` with glibc_overflow is
-    ``mis``); its linear and tree instances count together."""
+    ``mis``), with ``_ext`` on a ``scene`` with quads or GLOS objects
+    (``megakernel.kernel_family``); its linear and tree instances count
+    together."""
     name = _est_name(cfg)
-    return "megakernel_geom" + ("" if name == "nee" else "_" + name)
+    ext = "_ext" if scene is not None and kernel_family(scene) == "_ext" \
+        else ""
+    return "megakernel_geom" + ("" if name == "nee" else "_" + name) + ext
 
 
 def _check_spheres(scene: Scene) -> int:
@@ -661,14 +848,17 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
             g_rows, lay: ShardLayout, device,
             geometry: KernelGeometry | None):
     """One launch of cfg's instance of megakernel_geom
-    (``geom_kernel_name``) on the lanes ``lay``, the adjoint under the
-    (n_pix_loc, 3) cotangent rows g_rows, image-only for None: ((n_pix_loc,
-    3) radiance sums, g_sph, g_alb, g_emi, counts (5,))."""
+    (``geom_kernel_name``; on a scene with quads or GLOS objects its
+    ``_ext`` instance, ``spt_megakernel_geom_ext``) on the lanes ``lay``,
+    the adjoint under the (n_pix_loc, 3) cotangent rows g_rows, image-only
+    for None: ((n_pix_loc, 3) radiance sums, g_sph, g_alb, g_emi, counts
+    (5,))."""
     S = _check_spheres(scene)
     geom = pack_geometry(scene, cam) if geometry is None else geometry
-    R = len(geom.rect_axis)
+    R, Q = len(geom.rect_axis), len(geom.quad_f)
+    ext = kernel_family(scene) == "_ext"
     lib = _build.build_kernels().lib
-    K = R + S
+    K = R + Q + S
     n_slots = 6 * K + 4 * S
     out_l = torch.empty((lay.n_pix_loc * lay.g, 3), dtype=torch.float32,
                         device=device)
@@ -688,22 +878,28 @@ def _launch(scene: Scene, cam: CameraParams, cfg: RenderConfig, seed,
         partials = torch.empty(n_blocks * n_slots, dtype=torch.float32,
                                device=device)
     code = est_code(cfg)
-    if code == EST_CODE["nee"]:
-        entry, est = lib.spt_megakernel_geom, ()
-    else:
-        entry = (lib.spt_megakernel_geom_direct if code in _DIRECT_CODES
-                 else lib.spt_megakernel_geom_est)
-        est = (code, cfg.mixture_q)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         sa = sphere_args(lib, scene, device)
-        err = entry(
-            *est, geom.rect_geom.ctypes.data, geom.rect_axis.ctypes.data, R,
-            *launch_args(geom, cfg, seed, lay), *sa.args(), bk, g_ptr,
-            partials.data_ptr(), partials.numel(), out.data_ptr(),
-            out_l.data_ptr(), counts.data_ptr(), stream,
-        )
-    count(geom_kernel_name(cfg), err)
+        if ext:
+            entry = lib.spt_megakernel_geom_ext
+            args = (code, cfg.mixture_q, *ext_scene_args(geom),
+                    *launch_args(geom, cfg, seed, lay), *sa.ext_args())
+        else:
+            if code == EST_CODE["nee"]:
+                entry, est = lib.spt_megakernel_geom, ()
+            else:
+                entry = (lib.spt_megakernel_geom_direct
+                         if code in _DIRECT_CODES
+                         else lib.spt_megakernel_geom_est)
+                est = (code, cfg.mixture_q)
+            args = (*est, geom.rect_geom.ctypes.data,
+                    geom.rect_axis.ctypes.data, R,
+                    *launch_args(geom, cfg, seed, lay), *sa.args())
+        err = entry(*args, bk, g_ptr, partials.data_ptr(), partials.numel(),
+                    out.data_ptr(), out_l.data_ptr(), counts.data_ptr(),
+                    stream)
+    count(geom_kernel_name(cfg, scene), err)
     g_alb = out[:3 * K].reshape(K, 3)
     g_emi = out[3 * K:6 * K].reshape(K, 3)
     g_sph = out[6 * K:].reshape(S, 4)
@@ -914,7 +1110,7 @@ def fit_geom(scene: Scene, cam: CameraParams, cfg: RenderConfig, target,
     cap_geo, cap_mat = cap0_geo, cap0_mat
     losses: list[float] = []
     s, best_loss, best_s = scene, float("inf"), scene
-    R = scene.rects.k.shape[0]
+    R = scene.rects.k.shape[0] + num_quads(scene)  # the spheres' first row
 
     def msel(arr):
         if sphere_idx is None:

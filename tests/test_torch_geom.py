@@ -636,7 +636,7 @@ def _glos(scene):
         jget_scene("cornell_spheres_roundlight"), device="cpu"),
      NotImplementedError, "item 12"),
     (lambda s, c, f: mg.geom_run(_glos(s), c, f, 0),
-     NotImplementedError, "item 11"),
+     ValueError, "cannot place GLOS spheres in the table"),
     (lambda s, c, f: mg.loss_and_geom_grads(s, c, f, 0, torch.zeros(3, 4, 3),
                                             edge_sphere=0),
      NotImplementedError, "item 16"),

@@ -14,8 +14,9 @@ JAX package (ROADMAP item 11, forward half: rows 1-7).
 - (d) ``cornell_tilted_light`` (a quad light) under ``nee`` and ``mis``
   against ``render_pallas(interpret=True)`` at 16x16x2.
 - (e) The refusals: estimators without glossy semantics, guided rendering
-  with GLOS, rows 11-12 with quads or GLOS (item 11's geometry half; rows
-  8-10 take both, tests/test_torch_grad_ext.py), ``veach_mis`` (item 12).
+  with GLOS, ``veach_mis`` (item 12); rows 8-12 take quads and GLOS
+  (tests/test_torch_grad_ext.py, tests/test_torch_geom_ext.py), and
+  refuse GLOS spheres in the geometry adjoint as the JAX kernel does.
 
 Six JAX programs, each made once in the module fixture (three
 ``render_regen`` of the glossy box, one of ``cornell_glossy``, two
@@ -349,49 +350,64 @@ def test_guided_refuses_glos():
     assert mk.guided_kernel_name(tilted, cfg) == "megakernel_guided_mis_ext"
 
 
-def _with_glos(scene):
-    refl = scene.spheres.refl.clone()
-    refl[0] = GLOS
-    return scene._replace(spheres=scene.spheres._replace(refl=refl))
-
-
 @pytest.mark.parametrize("what", ["quads", "glos"])
 def test_training_refuses_quads_and_glos(what):
-    """Rows 11-12 (the geometry adjoint) refuse quads and GLOS objects
-    naming item 11's geometry half, on every entry point and before any
-    launch, and so does cli fit --train center,radius on the preset; rows
-    8-10 (material training) take them since item 11's material half."""
-    scene = (spt.get_scene("cornell_tilted_light", device="cpu")
-             if what == "quads"
-             else _with_glos(spt.get_scene("cornell_spheres", device="cpu")))
+    """Rows 11-12 (the geometry adjoint) take quads (the light may be one)
+    and GLOS rects and quads since item 11's geometry half, on every entry
+    point: the tilted light with cornell_spheres' two spheres ("quads"),
+    and with its floor GLOS 40 ("glos"). What they refuse is what the JAX
+    kernel refuses, before any launch: ``cli fit --train center,radius``
+    on cornell_tilted_light exits with "scene has no spheres to fit", on
+    cornell_glossy it raises the JAX kernel's GLOS-sphere ValueError. Rows
+    8-10 (material training) take both presets since item 11's material
+    half."""
+    scene = spt.get_scene("cornell_tilted_light", device="cpu")
     cam = spt.make_camera(aspect=4 / 3, device="cpu")
     cfg = spt.RenderConfig(width=4, height=3, spp=1, estimator="mis")
-    alb, emi = mgr.pack_materials(scene)
     target = torch.zeros(3, 4, 3)
-    mgr.check_trainable(scene, cfg)
-    img, _ = mgr.render_megakernel_mat(scene, cam, cfg, alb, emi, 0)
-    galb, gemi = mgr.render_megakernel_vjp(scene, cam, cfg, alb, emi, 0,
-                                           target + 1.0)
-    assert img.shape == (3, 4, 3) and galb.shape == gemi.shape == alb.shape
-    assert bool(torch.isfinite(galb).all() and torch.isfinite(gemi).all())
-    geo = "item 11, its geometry half"
     before = mk.LAUNCHES.copy()
-    for call in (
-            lambda: mg.check_geom(scene, cfg),
-            lambda: mg.geom_run(scene, cam, cfg, 0),
-            lambda: mg.loss_and_geom_grads(scene, cam, cfg, 0, target),
-            lambda: mg.fit_geom(scene, cam, cfg, target, steps=1),
-            lambda: mg.geom_train_step_sharded(scene, cam, cfg,
-                                               Mesh.single((1, 1)), target)):
-        with pytest.raises(NotImplementedError, match=geo):
-            call()
-    for preset in (("cornell_tilted_light",) if what == "quads"
-                   else ("cornell_glossy", "cornell_tilted_light")):
-        with pytest.raises(NotImplementedError, match=geo):
-            cli_main(["fit", "--device", "cpu", "--scene", preset,
-                      "--estimator", "mis", "--width", "4", "--height", "3",
-                      "--spp", "1", "--steps", "1", "--train",
-                      "center,radius"])
+    for preset in ("cornell_tilted_light", "cornell_glossy"):
+        sc = spt.get_scene(preset, device="cpu")
+        alb, emi = mgr.pack_materials(sc)
+        mgr.check_trainable(sc, cfg)
+        img, _ = mgr.render_megakernel_mat(sc, cam, cfg, alb, emi, 0)
+        galb, gemi = mgr.render_megakernel_vjp(sc, cam, cfg, alb, emi, 0,
+                                               target + 1.0)
+        assert img.shape == (3, 4, 3) and galb.shape == gemi.shape == (
+            alb.shape)
+        assert bool(torch.isfinite(galb).all() and torch.isfinite(gemi).all())
+    scene = scene._replace(
+        spheres=spt.get_scene("cornell_spheres", device="cpu").spheres)
+    if what == "glos":
+        refl, gloss = scene.rects.refl.clone(), scene.rects.gloss.clone()
+        floor = int(((scene.rects.axis == 1) & (scene.rects.k == 0.0))
+                    .nonzero()[0, 0])
+        refl[floor], gloss[floor] = GLOS, 40.0
+        scene = scene._replace(rects=scene.rects._replace(refl=refl,
+                                                          gloss=gloss))
+    assert mk.kernel_family(scene) == "_ext"
+    mg.check_geom(scene, cfg)
+    img, g_sph, g_alb, g_emi = mg.geom_run(scene, cam, cfg, 0, target + 1.0)
+    assert img.shape == (3, 4, 3) and g_sph.shape == (2, 4)
+    assert g_alb.shape == g_emi.shape == (19, 3)
+    loss, *grads = mg.loss_and_geom_grads(scene, cam, cfg, 0, target)
+    _, losses = mg.fit_geom(scene, cam, cfg, target, steps=1)
+    step = mg.geom_train_step_sharded(scene, cam, cfg, Mesh.single((1, 1)),
+                                      target)
+    s_loss, _, *s_grads = step(*mg.pack_tables(scene), 0)
+    assert np.isfinite(float(loss)) and losses == [float(loss)]
+    assert abs(float(s_loss) - float(loss)) <= 1e-6 * max(float(loss), 1e-30)
+    for a, b in zip(grads, s_grads):
+        assert bool(torch.isfinite(a).all()) and torch.allclose(
+            a, b, rtol=1e-5, atol=1e-7)
+    argv = ["fit", "--device", "cpu", "--estimator", "mis", "--width", "4",
+            "--height", "3", "--spp", "1", "--steps", "1", "--train",
+            "center,radius", "--scene"]
+    with pytest.raises(SystemExit, match="scene has no spheres to fit"):
+        cli_main([*argv, "cornell_tilted_light"])
+    with pytest.raises(ValueError, match="cannot place GLOS spheres in the "
+                                         "table"):
+        cli_main([*argv, "cornell_glossy"])
     assert mk.LAUNCHES == before
 
 
